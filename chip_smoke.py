@@ -1,0 +1,684 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases (any failure exits non-zero; nothing is caught):
+
+1. Build: compile the CUDA kernels under ``src/repro_torch/csrc`` with
+   ``nvcc`` for sm_90a (one process per source, in parallel) and print
+   the card's name and power limit.
+2. Kernels: hold each hand-written kernel against its plain PyTorch
+   version on the card, at the shapes the serving path gives it, in
+   float32 and bfloat16, with random lengths, garbage block-table
+   entries past each row's pages, a logit softcap and a ragged S; then
+   time the kernel, its plain version and one PyTorch library call
+   (``scaled_dot_product_attention``) as a yardstick.
+3. Serve at full width: internvl2-1b (24 layers, d_model 896, random
+   float32 weights from a seed) as the generative head ``vlm-head``
+   behind a shared encoder ``pix-enc``, three tasks (caption, ocr,
+   classify), eight requests through ``Deployment.serve()`` and the
+   generative ones again through ``Deployment.submit()``.  Tokens and
+   every step's logits, routes, cross-task batching, the drained page
+   pool and the kernel launch counts are checked.  Before it, the model's logits through
+   the kernels on the card are held against the plain versions on the
+   CPU, at smoke size and at full width with depth cut to 2 layers.
+4. Profile: one more serve() under ``torch.profiler`` — device busy
+   share and the kernels that take the device time.
+5. Print the kernels line (JSON), the card line, and last
+   ``{"ok": true, "device": {...}}``.
+
+It exits non-zero, printing no result, when no CUDA device is visible
+or when run outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+# published H100 SXM peaks (dense): HBM bytes/s and FLOP/s by input type;
+# bf16 counts at the tensor-core rate, float32 at the non-tensor rate
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# |got - want| <= atol + rtol * |want|, elementwise, as (atol, rtol)
+TOL = {"float32": (2e-4, 0.0),        # f32 math, another summation order
+       # both sides do f32 math on the same bf16 inputs and round the
+       # result to bf16: at most one bf16 ulp (2^-7 relative) apart; the
+       # 1e-3 floor stays below one key's share of a ~270-key softmax
+       "bfloat16": (1e-3, 2.0**-7)}
+
+# the serving path's shapes (internvl2-1b: H=14, K=2, D=64)
+H, K, D = 14, 2, 64
+PROMPT_MAX, MAX_NEW_MAX = 12, 32
+N_IMG = 256
+S_PREFILL = N_IMG + 11                                    # ragged, not a block multiple
+T_DENSE = -(-(N_IMG + PROMPT_MAX + MAX_NEW_MAX + 1) // 8) * 8
+ROWS, PAGE, N_MAX, N_PAGES = 4, 16, 32, 129
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# --------------------------------------------------------------------------
+# phase 1: build
+# --------------------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    log(f"[build] {len(reports)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {build.NVCC_FLAGS[1]})")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def time_ms(fn, iters=200, warmup=20) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _within(got, want, dtype: str) -> tuple[float, float]:
+    """(max |got - want|, max of |got - want| / (atol + rtol |want|));
+    the second is <= 1 where the two agree within ``TOL[dtype]``."""
+    import torch
+
+    atol, rtol = TOL[dtype]
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf"), float("inf")
+    diff = (g - w).abs()
+    return diff.max().item(), (diff / (atol + rtol * w.abs())).max().item()
+
+
+def _check(name, dtype, what, got, want) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    err, ratio = _within(got, want, dtype)
+    atol, rtol = TOL[dtype]
+    ok = ratio <= 1.0
+    log(f"[kernels] {name} {dtype} {what}: max_abs_err {err:.3e}, "
+        f"{ratio:.2f} of the tolerance (atol {atol:g}, rtol {rtol:g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name} {dtype} {what} disagrees with its plain version")
+    return err
+
+
+def phase_kernels(dev) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        isz = torch.tensor([], dtype=dt).element_size()
+
+        # -- flash attention: batch-1 prefill, ragged S, causal, GQA 7 --
+        S = S_PREFILL
+        q, k, v = rnd(1, S, H, D, dtype=dt), rnd(1, S, K, D, dtype=dt), \
+            rnd(1, S, K, D, dtype=dt)
+        err_f = _check("flash_attention", dname, f"S={S} causal",
+                       ops.flash_attention(q, k, v),
+                       ref.flash_attention_ref(q, k, v))
+        for kw in (dict(softcap=30.0), dict(window=100),
+                   dict(causal=False)):
+            _check("flash_attention", dname, f"S={S} {kw}",
+                   ops.flash_attention(q, k, v, **kw),
+                   ref.flash_attention_ref(q, k, v, **kw))
+        q2 = rnd(2, 61, H, D, dtype=dt)
+        k2, v2 = rnd(2, 61, K, D, dtype=dt), rnd(2, 61, K, D, dtype=dt)
+        _check("flash_attention", dname, "B=2 S=61",
+               ops.flash_attention(q2, k2, v2),
+               ref.flash_attention_ref(q2, k2, v2))
+        visible = S * (S + 1) / 2                          # causal keys seen
+        flash_bytes = 2 * q.numel() * isz + 2 * k.numel() * isz
+        flash_flops = 4 * D * H * visible
+
+        # -- decode attention: batch-1 dense cache, random lengths ------
+        T = T_DENSE
+        qd = rnd(1, H, D, dtype=dt)
+        kd, vd = rnd(1, T, K, D, dtype=dt), rnd(1, T, K, D, dtype=dt)
+        lens_d = torch.randint(1, T + 1, (1,), generator=g, device=dev,
+                               dtype=torch.int32)
+        err_d = _check("decode_attention", dname, f"T={T} len={lens_d.item()}",
+                       ops.decode_attention(qd, kd, vd, lens_d),
+                       ref.decode_attention_ref(qd, kd, vd, lens_d))
+        qb = rnd(ROWS, H, D, dtype=dt)
+        kb, vb = rnd(ROWS, T, K, D, dtype=dt), rnd(ROWS, T, K, D, dtype=dt)
+        lens_b = torch.tensor([T, 1, 137, 0], dtype=torch.int32, device=dev)
+        _check("decode_attention", dname, "B=4 lengths [T,1,137,0] softcap=30",
+               ops.decode_attention(qb, kb, vb, lens_b, softcap=30.0),
+               ref.decode_attention_ref(qb, kb, vb, lens_b, softcap=30.0))
+        n_keys = int(lens_d.clamp(max=T).sum())
+        dec_bytes = 2 * qd.numel() * isz + 2 * n_keys * K * D * isz + 4
+        dec_flops = 4 * D * H * n_keys
+
+        # -- paged decode: 4 rows over a 129-page pool ------------------
+        kp = rnd(N_PAGES, PAGE, K, D, dtype=dt)
+        vp = rnd(N_PAGES, PAGE, K, D, dtype=dt)
+        lens_p = torch.randint(1, 300, (ROWS,), generator=g, device=dev,
+                               dtype=torch.int32)
+        perm = torch.randperm(N_PAGES - 1, generator=g, device=dev) + 1
+        tables = perm[:ROWS * N_MAX].reshape(ROWS, N_MAX).to(torch.int32)
+        # entries past each row's pages are garbage, some out of range
+        junk = torch.randint(-50, N_PAGES + 50, (ROWS, N_MAX), generator=g,
+                             device=dev, dtype=torch.int32)
+        owned = torch.arange(N_MAX, device=dev)[None] * PAGE < lens_p[:, None]
+        tables = torch.where(owned, tables, junk).contiguous()
+        err_p = _check("paged_decode_attention", dname,
+                       f"lengths {lens_p.tolist()} garbage tails",
+                       ops.paged_decode_attention(qb, kp, vp, tables, lens_p),
+                       ref.paged_decode_attention_ref(qb, kp, vp, tables,
+                                                      lens_p))
+        _check("paged_decode_attention", dname, "softcap=30",
+               ops.paged_decode_attention(qb, kp, vp, tables, lens_p,
+                                          softcap=30.0),
+               ref.paged_decode_attention_ref(qb, kp, vp, tables, lens_p,
+                                              softcap=30.0))
+        live = int(lens_p.sum())
+        paged_bytes = (2 * qb.numel() * isz + 2 * live * K * D * isz
+                       + int(owned.sum()) * 4 + ROWS * 4)
+        paged_flops = 4 * D * H * live
+
+        if dt is not torch.float32:
+            continue
+        # timing at the path's dtype (float32) and shapes
+        qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
+        mask_d = (torch.arange(T, device=dev)[None] < lens_d[:, None])[
+            :, None, None, :]
+        specs = [
+            ("flash_attention", "csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:93", err_f,
+             lambda: ops.flash_attention(q, k, v),
+             lambda: ref.flash_attention_ref(q, k, v),
+             lambda: F.scaled_dot_product_attention(
+                 qh, kh_, vh, is_causal=True, enable_gqa=True),
+             flash_bytes, flash_flops),
+            ("decode_attention", "csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:70", err_d,
+             lambda: ops.decode_attention(qd, kd, vd, lens_d),
+             lambda: ref.decode_attention_ref(qd, kd, vd, lens_d),
+             lambda: F.scaled_dot_product_attention(
+                 qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+                 attn_mask=mask_d, enable_gqa=True),
+             dec_bytes, dec_flops),
+            ("paged_decode_attention", "csrc/decode_attention.cu",
+             "src/repro/kernels/paged_decode_attention.py:77", err_p,
+             lambda: ops.paged_decode_attention(qb, kp, vp, tables, lens_p),
+             lambda: ref.paged_decode_attention_ref(qb, kp, vp, tables,
+                                                    lens_p),
+             None, paged_bytes, paged_flops),
+        ]
+        for name, src, repl, err, fn, plain, lib, nbytes, flops in specs:
+            b_ms, b_by = bound(nbytes, flops, dname)
+            row = {"name": name, "route": "cuda",
+                   "source": f"src/repro_torch/{src}", "replaces": repl,
+                   "launches": None, "max_abs_err": err,
+                   "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": time_ms(lib) if lib is not None else None}
+            rows.append(row)
+            log(f"[kernels] {name} float32 timing: kernel {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']} ms, bound {b_ms:.5f} ms ({b_by}; "
+                f"{nbytes} B, {flops:.3e} FLOP)")
+        # the paged kernel has no one-call library equivalent; as a
+        # yardstick, SDPA over the rows' pages gathered beforehand
+        kg = kp[tables.long().clamp(0, N_PAGES - 1)].reshape(
+            ROWS, N_MAX * PAGE, K, D).transpose(1, 2)
+        vg = vp[tables.long().clamp(0, N_PAGES - 1)].reshape(
+            ROWS, N_MAX * PAGE, K, D).transpose(1, 2)
+        mask_p = (torch.arange(N_MAX * PAGE, device=dev)[None]
+                  < lens_p[:, None])[:, None, None, :]
+        log("[kernels] paged_decode_attention float32: SDPA over the "
+            "pre-gathered pages (gather not timed) "
+            f"{time_ms(lambda: F.scaled_dot_product_attention(qb[:, :, None], kg, vg, attn_mask=mask_p, enable_gqa=True)):.4f} ms")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3: serve at full width
+# --------------------------------------------------------------------------
+
+GB = 1024**3
+
+
+def _deployment(dev, cfg):
+    import torch
+
+    from repro_torch.core.cluster import ClusterSpec, DeviceSpec
+    from repro_torch.core.module import ModelSpec, ModuleSpec
+    from repro_torch.models.api import build_model
+    from repro_torch.s2m3 import Deployment
+
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = bundle.init(gen, torch.float32, dev)
+    d = cfg.d_model
+    w_enc = 0.1 * torch.randn(d, d, generator=gen, device=dev)
+    w_cls = 0.05 * torch.randn(d, 1000, generator=gen, device=dev)
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
+    enc = ModuleSpec("pix-enc", "encoder", "vision", d * d,
+                     bytes_per_param=4.0,
+                     flops_per_query=2.0 * cfg.n_image_tokens * d * d)
+    head = ModuleSpec("vlm-head", "head", "task", bundle.param_count(),
+                      bytes_per_param=4.0, generative=True,
+                      flops_per_query=2.0 * bundle.param_count(),
+                      kv_bytes_per_token=kv_bytes)
+    cls = ModuleSpec("cls-head", "head", "task", d * 1000,
+                     bytes_per_param=4.0, flops_per_query=2.0 * d * 1000)
+    builders = {
+        "pix-enc": lambda: (lambda p, x: torch.tanh(x @ p), w_enc),
+        "vlm-head": lambda: (bundle, params),
+        "cls-head": lambda: (lambda p, e: e["vision"].mean(-2) @ p, w_cls),
+    }
+    cluster = ClusterSpec(devices=[DeviceSpec(f"dev{i}", 40 * GB, 5e13)
+                                   for i in range(2)])
+    dep = (Deployment(cluster)
+           .add_model(ModelSpec("caption", "captioning", (enc,), head),
+                      builders)
+           .add_model(ModelSpec("ocr", "ocr", (enc,), head))
+           .add_model(ModelSpec("classify", "classification", (enc,), cls))
+           .plan("greedy"))
+    return dep, bundle, params
+
+
+def _workload(cfg, Request):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    tasks = ["caption", "ocr", "classify", "caption", "ocr", "caption",
+             "classify", "ocr"]
+    reqs = []
+    for rid, task in enumerate(tasks):
+        img = (0.1 * rng.standard_normal((cfg.n_image_tokens, cfg.d_model))
+               ).astype(np.float32)
+        if task == "classify":
+            reqs.append(Request(rid, task, "dev0", inputs={"vision": img}))
+            continue
+        n = int(rng.integers(4, PROMPT_MAX + 1))
+        prompt = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n))
+        reqs.append(Request(rid, task, "dev0", prompt=prompt,
+                            max_new_tokens=int(rng.integers(16, MAX_NEW_MAX + 1)),
+                            temperature=0.0, inputs={"vision": img},
+                            slo_deadline=60.0))
+    return reqs
+
+
+SERVE_KW = dict(decode_rows=ROWS, page_size=PAGE, max_seq_len=512,
+                decode_pages=N_PAGES)
+# serve() vs submit() and card vs CPU, on float32 logits: the same math
+# in another order (batched vs batch-1 GEMMs, paged vs dense attention)
+LOGIT_TOL = 2e-4
+
+
+@contextlib.contextmanager
+def record_logits(store: dict):
+    """Keep a copy of every logits row a token is chosen from, keyed by
+    rid (the seed of the request's sampling generator), on the decode
+    stream (serve) and the solo path (submit) alike."""
+    from repro_torch.serving import decode, sampler
+
+    select = sampler.select_token
+
+    def recording(logits, generator=None, **kw):
+        store.setdefault(generator.initial_seed(), []).append(
+            logits.detach().clone())
+        return select(logits, generator, **kw)
+
+    decode.select_token = sampler.select_token = recording
+    try:
+        yield
+    finally:
+        decode.select_token = sampler.select_token = select
+
+
+def _model_steps(bundle, params, batch, device):
+    """Prefill, then three steps each of paged and dense decode (one
+    live row and one dead row on the page pool); the logits, on the CPU."""
+    import torch
+
+    from repro_torch.serving.kvcache import insert_pages
+
+    cfg = bundle.cfg
+    S = batch["tokens"].shape[1]
+    L = cfg.n_image_tokens + S
+    ps = 16
+    n_pages = -(-(L + 3) // ps)
+    dense = bundle.init_cache(1, n_pages * ps, torch.float32, device)
+    logits, dense = bundle.prefill(
+        params, {k: v.to(device) for k, v in batch.items()}, dense)
+    outs = [logits.cpu()]
+    pages = list(range(n_pages, 0, -1))              # shuffled pool pages
+    pool = insert_pages(
+        bundle.init_paged_cache(n_pages + 1, ps, torch.float32, device),
+        dense, pages, L)
+    tables = torch.tensor([pages + [-7], [0] * (n_pages + 1)],
+                          dtype=torch.int32, device=device)
+    for i in range(3):
+        lens = torch.tensor([L + i, 0], dtype=torch.int32, device=device)
+        tok = torch.tensor([[i + 3], [0]], dtype=torch.int32, device=device)
+        logits, pool = bundle.paged_decode_step(params, tok, pool, tables,
+                                                lens)
+        outs.append(logits[:1].cpu())
+        logits, dense = bundle.decode_step(params, tok[:1], dense, lens[:1])
+        outs.append(logits.cpu())
+    return outs
+
+
+def phase_reference(dev):
+    """The same weights through the kernels on the card and through the
+    plain versions on the CPU (which the CPU tests hold to the JAX
+    package): prefill, paged and dense decode logits agree.  Once at
+    smoke size, once at internvl2-1b's full width with depth cut to 2
+    layers (all three kernels at the path's head geometry)."""
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models.api import build_model
+
+    for label, cfg in (
+            ("smoke", get_config("internvl2-1b", smoke=True)),
+            ("full width, 2 layers",
+             get_config("internvl2-1b").with_overrides(n_layers=2))):
+        b = build_model(cfg)
+        p_cpu = b.init(torch.Generator().manual_seed(SEED))
+        g = torch.Generator().manual_seed(SEED + 1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 7),
+                                         generator=g, dtype=torch.int32),
+                 "image_embeds": 0.1 * torch.randn(
+                     1, cfg.n_image_tokens, cfg.d_model, generator=g)}
+        want = _model_steps(b, p_cpu, batch, "cpu")
+        got = _model_steps(b, tree_map(lambda t: t.to(dev), p_cpu), batch,
+                           dev)
+        worst = max(_err(a, c) for a, c in zip(got, want))
+        ok = worst <= LOGIT_TOL
+        log(f"[reference] internvl2-1b {label}: card (kernels) vs CPU "
+            f"(plain versions), prefill + 3 paged + 3 dense decode steps: "
+            f"max |dlogit| {worst:.3e} (tol {LOGIT_TOL:g}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"internvl2-1b {label} on the card disagrees with the CPU")
+
+
+def phase_serve(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.s2m3 import Request
+
+    phase_reference(dev)
+    cfg = get_config("internvl2-1b")
+    t0 = time.perf_counter()
+    dep, bundle, _ = _deployment(dev, cfg)
+    dep.materialize()
+    torch.cuda.synchronize()
+    log(f"[serve] internvl2-1b full: {bundle.param_count():,} parameters "
+        f"({bundle.param_count() * 4 / 1e9:.2f} GB f32), {cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, H {cfg.n_heads}, K "
+        f"{cfg.n_kv_heads}; built in {time.perf_counter() - t0:.1f} s")
+    reqs = _workload(cfg, Request)
+    gen_reqs = [r for r in reqs if r.prompt is not None]
+    # warm-up (cuBLAS handles, allocator): one short solo request
+    warm = gen_reqs[0]
+    dep.submit(Request(99, warm.model, "dev0", prompt=warm.prompt,
+                       max_new_tokens=2, inputs=warm.inputs))
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts from 0, serve(), then submit() --------
+    # (every step's logits kept for the check below: one device copy each)
+    served_logits, solo_logits = {}, {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter()
+    with record_logits(served_logits):
+        results = dep.serve(reqs, **SERVE_KW)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t_serve
+    solo = {}
+    t_submit = time.perf_counter()
+    with record_logits(solo_logits):
+        for r in gen_reqs:
+            solo[r.rid] = dep.submit(r)
+    torch.cuda.synchronize()
+    t_submit = time.perf_counter() - t_submit
+    launches = dict(ops.LAUNCHES)
+
+    sched = dep.scheduler
+    stream = sched.decode["vlm-head"]
+    stats = sched.stats_dict()
+    log(f"[serve] serve(): {len(results)} requests in {t_serve:.3f} s; "
+        f"submit() x{len(gen_reqs)} in {t_submit:.3f} s")
+    log(f"[serve] vlm-head stats: {json.dumps(stats['vlm-head'])}")
+    log(f"[serve] pix-enc stats: {json.dumps(stats['pix-enc'])}")
+
+    # serve() == submit(): the tokens, and the logits of every step (the
+    # random-weight model may repeat one token, so tokens alone would
+    # not show a row that read another row's pages, length or position)
+    by_rid = {r.rid: r for r in results}
+    for r in gen_reqs:
+        a, b = np.asarray(by_rid[r.rid].output), np.asarray(solo[r.rid].output)
+        lg_a = torch.stack(served_logits[r.rid])
+        lg_b = torch.stack(solo_logits[r.rid])
+        top2 = lg_b.topk(2, dim=-1).values
+        gaps = top2[:, 0] - top2[:, 1]
+        if a.shape != b.shape or not np.array_equal(a, b):
+            diff = next((i for i in range(min(len(a), len(b)))
+                         if a[i] != b[i]), min(len(a), len(b)))
+            gap = gaps[min(diff, len(gaps) - 1)].item()
+            fail(f"rid {r.rid}: serve tokens {a.tolist()} != submit "
+                 f"{b.tolist()} (first at step {diff}, submit's top-2 "
+                 f"logit gap there {gap:.3e})")
+        dlogit = _err(lg_a, lg_b)
+        log(f"[serve] rid {r.rid} {r.model}: {len(a)} tokens, serve == "
+            f"submit: {a.tolist()}; max |dlogit| over {len(lg_a)} steps "
+            f"{dlogit:.3e} (tol {LOGIT_TOL:g}; |logit| up to "
+            f"{lg_b.abs().max().item():.3f}, top-2 gap "
+            f"{gaps.min().item():.3e}..{gaps.max().item():.3e})")
+        if dlogit > LOGIT_TOL:
+            fail(f"rid {r.rid}: serve logits differ from submit's by "
+                 f"{dlogit:.3e}")
+    for r in reqs:
+        if r.prompt is None:
+            out = by_rid[r.rid].output
+            if tuple(out.shape) != (1000,) or not bool(torch.isfinite(out).all()):
+                fail(f"classify rid {r.rid}: output {tuple(out.shape)}")
+            solo_out = dep.submit(r).output
+            err = _err(out, solo_out)
+            if err > LOGIT_TOL:
+                fail(f"classify rid {r.rid}: serve vs submit {err:.3e}")
+            log(f"[serve] rid {r.rid} classify: logits (1000,) finite, "
+                f"serve vs submit max err {err:.3e}")
+
+    # scheduler invariants
+    if sched.cross_task_decode_batches < 1:
+        fail("no decode batch spanned two tasks")
+    if stats["pix-enc"]["cross_task_batches"] < 1:
+        fail("no pix-enc batch spanned two tasks")
+    if stream.pool.n_live_pages != 1:
+        fail(f"page pool not drained: {stream.pool.n_live_pages} pages live")
+    sched.check_invariants()
+    sim = dep.simulate(reqs)
+    for r in results:
+        if r.devices != sim.routes[r.rid]:
+            fail(f"rid {r.rid}: route {r.devices} != simulated "
+                 f"{sim.routes[r.rid]}")
+    log(f"[serve] cross_task_decode_batches {sched.cross_task_decode_batches}, "
+        f"pix-enc cross-task batches {stats['pix-enc']['cross_task_batches']}, "
+        "pool drained to the dummy page, routes == simulate()")
+
+    # launch counts: every attention call went through a kernel
+    n_l = cfg.n_layers
+    submit_steps = sum(len(solo[r.rid].output) - 1 for r in gen_reqs)
+    want = {"paged_decode_attention": stream.decode_steps * n_l,
+            "flash_attention": (stream.prefills + len(gen_reqs)) * n_l,
+            "decode_attention": submit_steps * n_l}
+    log(f"[serve] kernel launches {launches}, expected {want}")
+    if launches != want:
+        fail(f"kernel launches {launches} != expected {want}")
+
+    # end-to-end numbers from the serve() trace
+    trace = dep.trace()
+    if trace.validate() != []:
+        fail(f"trace malformed: {trace.validate()[:3]}")
+    ttft, ticks = [], {}
+    for r in gen_reqs:
+        spans = trace.spans_for(r.rid)
+        root = trace.tree(r.rid)
+        pre = next(s for s in spans if s.phase == "prefill")
+        ttft.append(pre.t1 - root.t0)
+        for s in spans:
+            if s.phase == "decode_tick":
+                ticks[(s.t0, s.t1)] = s.t1 - s.t0
+    tick_ms = 1e3 * float(np.mean(list(ticks.values())))
+    decode_s = sum(ticks.values())
+    tok_s = stream.decode_tokens / decode_s
+    log(f"[serve] time to first token: mean {1e3 * np.mean(ttft):.1f} ms, "
+        f"p50 {1e3 * np.median(ttft):.1f} ms, max {1e3 * max(ttft):.1f} ms")
+    log(f"[serve] decode: {stream.decode_tokens} tokens over {len(ticks)} "
+        f"ticks, {tok_s:.1f} tokens/s, {tick_ms:.2f} ms per tick "
+        f"(mean rows {stream.decode_tokens / len(ticks):.2f})")
+    submit_tok_s = (submit_steps + len(gen_reqs)) / t_submit
+    log(f"[serve] submit() solo decode: {submit_tok_s:.1f} tokens/s")
+    return launches, dep, gen_reqs
+
+
+def phase_profile(dep, gen_reqs) -> None:
+    """Where a serve() run's time goes: the same generative requests
+    (8 new tokens each) under ``torch.profiler``; device busy share =
+    summed kernel time / wall time.  The profiler slows the host, so the
+    busy share read here is a lower bound for an unprofiled run."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = [dataclasses.replace(r, rid=100 + r.rid, max_new_tokens=8)
+            for r in gen_reqs]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dep.serve(reqs, **SERVE_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        log("[profile] the profiler saw no device kernels: device time "
+            "not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    ticks = dep.scheduler.decode["vlm-head"].decode_steps
+    log(f"[profile] serve() of {len(reqs)} requests x 8 tokens: wall "
+        f"{wall * 1e3:.1f} ms, {len(kern)} kernels, device busy "
+        f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%), {ticks} decode "
+        f"ticks, {len(kern) / max(ticks, 1):.0f} kernels per tick "
+        "(prefills included)")
+    by_name: dict[str, list[float]] = {}
+    for e in kern:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    for name, ts in top:
+        log(f"[profile]   {sum(ts) / 1e3:8.2f} ms  {len(ts):6d} x  "
+            f"{name[:90]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (sets the float32 matmul precision)
+
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    phase_build()
+    rows = phase_kernels(dev)
+    launches, dep, gen_reqs = phase_serve(dev)
+    phase_profile(dep, gen_reqs)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""Declarative weight specs.
+
+A layer declares its weights once as a tree of ``WSpec``; the same tree
+drives initialization (``init_tree``) and the parameter count.  The
+port keeps the JAX package's shapes and nesting, so a tree built here
+and one bridged from the reference (``common.bridge``) are
+interchangeable.  ``init_tree`` draws from a seeded ``torch.Generator``:
+its values do not match JAX's, only its shapes and scales do.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.common.pytree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class WSpec:
+    shape: tuple[int, ...]
+    axes: tuple[Any, ...]            # logical axis names (or None), len == ndim
+    init: str = "normal"             # normal | zeros | ones | embed | small
+    scale: float | None = None       # stddev override for "normal"
+    dtype: Any = None                # None -> param dtype at init time
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"WSpec shape {self.shape} vs axes {self.axes}")
+
+
+def _std(ws: WSpec) -> float:
+    if ws.scale is not None:
+        return ws.scale
+    if ws.init == "embed":
+        return 1.0
+    if ws.init == "small":
+        return 0.02
+    # fan-in normal
+    fan_in = int(np.prod(ws.shape[:-1])) or 1
+    return 1.0 / float(np.sqrt(fan_in))
+
+
+def _map_specs(fn, spec_tree):
+    return tree_map(lambda ws: fn(ws) if isinstance(ws, WSpec) else ws,
+                    spec_tree)
+
+
+def init_leaf(ws: WSpec, generator: torch.Generator, dtype,
+              device) -> torch.Tensor:
+    dt = ws.dtype or dtype
+    if ws.init == "zeros":
+        return torch.zeros(ws.shape, dtype=dt, device=device)
+    if ws.init == "ones":
+        return torch.ones(ws.shape, dtype=dt, device=device)
+    if generator is None:
+        raise ValueError(f"init_leaf: {ws.init!r} leaf needs a generator")
+    x = torch.randn(ws.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * _std(ws)).to(device=device, dtype=dt)
+
+
+def init_tree(spec_tree, generator: torch.Generator | None = None,
+              dtype=torch.float32, device="cpu"):
+    """Tensors of the spec tree's shapes on ``device``; normal leaves are
+    drawn in tree order from ``generator`` (whose own device is where
+    the draws happen), zeros/ones leaves need none."""
+    return _map_specs(lambda ws: init_leaf(ws, generator, dtype, device),
+                      spec_tree)
+
+
+def stack_specs(spec_tree, n: int):
+    """Prepend a stacked-layers dimension (logical axis "layers")."""
+    return _map_specs(
+        lambda ws: replace(ws, shape=(n, *ws.shape), axes=("layers", *ws.axes)),
+        spec_tree)
+
+
+def spec_param_count(spec_tree) -> int:
+    return sum(int(np.prod(ws.shape)) for ws in tree_leaves(spec_tree)
+               if isinstance(ws, WSpec))

@@ -1,0 +1,166 @@
+"""Public model API: build_model(cfg) -> ModelBundle.
+
+A ModelBundle packages weight specs with the step functions of one
+architecture: ``prefill`` (batch prefill into a dense cache),
+``decode_step`` (one token per row against the dense cache) and
+``paged_decode_step`` (one token per row against a global page pool).
+Caches are updated in place and returned for symmetry with the JAX
+package, whose functions return new caches.  ``loss_fn`` is None until
+the training slice of the port.
+
+The port computes in float32, the dtype the JAX package serves in
+(``build_model(..., compute_dtype=jnp.float32)``); ``cfg.compute_dtype``
+is not read.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.common.config import ArchConfig
+from repro_torch.common.pytree import tree_map
+from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply, head_specs
+from repro_torch.layers.initializers import WSpec, init_tree, spec_param_count, stack_specs
+from repro_torch.layers.norms import apply_norm, norm_specs
+from repro_torch.models.lm import make_stages
+
+
+def _is_ws(x):
+    return isinstance(x, WSpec)
+
+
+@dataclass
+class ModelBundle:
+    cfg: ArchConfig
+    specs: Any                       # weights WSpec tree
+    prefill: Callable                # (params, batch, cache) -> (logits_last, cache)
+    decode_step: Callable            # (params, tokens, cache, lengths) -> (logits, cache)
+    cache_specs: Callable            # (B, T, dtype) -> WSpec tree
+    paged_decode_step: Callable | None = None   # (params, tokens, cache,
+    #                                              block_tables, lengths)
+    paged_cache_specs: Callable | None = None   # (n_pages, page_size, dtype)
+    loss_fn: Callable | None = None             # the training slice
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device="cpu"):
+        return init_tree(self.specs, generator, dtype, device)
+
+    def param_count(self) -> int:
+        return spec_param_count(self.specs)
+
+    def init_cache(self, B: int, T: int, dtype=torch.float32, device="cpu"):
+        return init_tree(self.cache_specs(B, T, dtype), device=device)
+
+    def init_paged_cache(self, n_pages: int, page_size: int,
+                         dtype=torch.float32, device="cpu"):
+        if self.paged_cache_specs is None:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} has no paged-KV cache layout")
+        return init_tree(self.paged_cache_specs(n_pages, page_size, dtype),
+                         device=device)
+
+
+def _lm_specs(cfg, stages):
+    sp: dict[str, Any] = {
+        "embed": embed_specs(cfg.vocab_size, cfg.d_model),
+        "stages": {st.name: {"blocks": stack_specs(st.block_specs, st.n)}
+                   for st in stages},
+        "final_norm": norm_specs(cfg.d_model, cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        sp["head"] = head_specs(cfg.d_model, cfg.vocab_size)
+    if cfg.has_vision_stub:
+        sp["img_proj"] = {"w": WSpec((cfg.d_model, cfg.d_model), (None, "embed"))}
+    return sp
+
+
+def _embed_scale(cfg) -> float:
+    return math.sqrt(cfg.d_model) if cfg.embed_scale_by_dim else 1.0
+
+
+def _embed_inputs(cfg, params, batch):
+    """Token embedding, behind the projected image prefix for VLMs."""
+    h = embed_apply(params["embed"], batch["tokens"], scale=_embed_scale(cfg))
+    if cfg.has_vision_stub:
+        img = batch["image_embeds"].float() @ params["img_proj"]["w"].float()
+        h = torch.cat([img, h], dim=1)
+    return h
+
+
+def _logits(cfg, params, h):
+    tied = params["embed"]["table"] if cfg.tie_embeddings else None
+    return head_apply(params.get("head"), h, softcap=cfg.final_logit_softcap,
+                      tied_table=tied)
+
+
+def _run_backbone(stages, params, h, ctx, caches):
+    """Run every stage's layers in order; layer i reads the i-th slice of
+    the stacked weights and writes the i-th slice of the stage cache."""
+    for st in stages:
+        p_st = params["stages"][st.name]["blocks"]
+        cache_st = caches[st.name]
+        for i in range(st.n):
+            lp = tree_map(lambda t, i=i: t[i], p_st)
+            cl = tree_map(lambda t, i=i: t[i], cache_st)
+            h = st.block_fn(lp, h, cl, ctx)
+    return h
+
+
+def build_model(cfg: ArchConfig) -> ModelBundle:
+    stages = make_stages(cfg)
+    specs = _lm_specs(cfg, stages)
+
+    def prefill(params, batch, cache):
+        h = _embed_inputs(cfg, params, batch)
+        B, S = h.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device).expand(B, S)
+        lengths = batch.get("lengths")
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
+        ctx = {"mode": "prefill", "positions": positions, "lengths": lengths}
+        h = _run_backbone(stages, params, h, ctx, cache)
+        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        last = (lengths.long() - 1).clamp(0, S - 1)
+        h_last = h[torch.arange(B, device=h.device), last][:, None, :]
+        return _logits(cfg, params, h_last)[:, 0], cache
+
+    def _decode(params, tokens, cache, lengths, **extra):
+        h = embed_apply(params["embed"], tokens, scale=_embed_scale(cfg))
+        ctx = {"mode": "decode", "positions": lengths[:, None].to(torch.int32),
+               "lengths": lengths, **extra}
+        h = _run_backbone(stages, params, h, ctx, cache)
+        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        return _logits(cfg, params, h)[:, 0], cache
+
+    def decode_step(params, tokens, cache, lengths):
+        return _decode(params, tokens, cache, lengths)
+
+    # Every dense/vlm stage cache is {"k","v"} with (B, T, K, D) leaves:
+    # re-reading (B, T) as (n_pages, page_size) gives the global page
+    # pool the paged decode kernel and the block-table scatter consume.
+    def paged_decode_step(params, tokens, cache, block_tables, lengths):
+        return _decode(params, tokens, cache, lengths, cache_layout="paged",
+                       block_tables=block_tables)
+
+    def cache_specs(B, T, dtype=torch.float32):
+        out = {}
+        for st in stages:
+            per_layer = st.cache_specs(cfg, B, T, dtype)
+            out[st.name] = tree_map(
+                lambda ws, n=st.n: replace(ws, shape=(n, *ws.shape),
+                                           axes=("layers", *ws.axes)),
+                per_layer)
+        return out
+
+    def paged_cache_specs(n_pages, page_size, dtype=torch.float32):
+        return cache_specs(n_pages, page_size, dtype)
+
+    return ModelBundle(
+        cfg=cfg, specs=specs, prefill=prefill, decode_step=decode_step,
+        cache_specs=cache_specs, paged_decode_step=paged_decode_step,
+        paged_cache_specs=paged_cache_specs)

@@ -1,0 +1,410 @@
+"""Paged continuous-batching decode streams — the generative half of the
+serving scheduler.
+
+One ``DecodeStream`` per generative decoder module: it owns the module's
+page pool (``PagePool``), the fixed-width decode rows (``SlotPool``),
+and the paged KV cache the engine decodes against.  Requests arrive from
+``ServeScheduler`` after their encoder stages complete; each is admitted
+into a free row via a batch-1 prefill scattered into freshly allocated
+pages, then all live rows — across *tasks*, this is the S2M3 sharing
+argument applied to generative heads — decode together in one batched
+``paged_decode_attention`` launch per step.
+
+Admission reserves each sequence's worst-case page count up front
+(``n_prefix + len(prompt) + max_new_tokens``), so mid-stream ``extend``
+can never fail and no preemption is needed; the waiting queue is ordered
+by SLO deadline (earliest first), then arrival.  Dead rows point their
+block-table entries at a reserved dummy page (page 0), so the batched
+scatter never corrupts a live sequence.
+
+The paged pool and the per-request dense prefill cache are float32.
+The pool is updated in place — by ``insert_pages`` after each prefill
+and by the paged decode step — and never rebound from a copy.
+
+Lock discipline (enforced by ``repro.analysis.concurrency_lint``): all
+allocator calls and shared-state mutation happen under ``self._lock``;
+prefill/decode dispatch happens outside it.  A tick-level busy flag
+keeps concurrent ``tick()`` calls from interleaving device steps.
+"""
+
+from __future__ import annotations
+
+import heapq
+import threading
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.routing import Request
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer
+from repro_torch.serving.kvcache import PagePool, SlotPool, insert_pages
+from repro_torch.serving.sampler import rid_generator, select_token
+
+_DUMMY = "<dummy>"
+
+
+@dataclass
+class _GenSeq:
+    """One generative request's decode state."""
+
+    rid: int
+    request: Request
+    enc_outputs: dict[str, Any]
+    t_submit: float
+    tokens: list[int] = field(default_factory=list)
+    row: int = -1
+    length: int = 0                 # tokens currently in the paged cache
+    rng: Any = None                 # torch.Generator seeded from the rid
+    done: bool = False
+    timeline: list = field(default_factory=list)
+    parent: int | None = None       # root span of the owning request
+    wait_sid: int = -1              # admission-wait span
+    decode_sid: int = -1            # decode-residency span (tick parent)
+
+
+@dataclass
+class TickReport:
+    finished: list[_GenSeq]
+    prefills: int = 0
+    decode_batch: int = 0
+
+
+class DecodeStream:
+    """Continuous-batching decode state for one generative module."""
+
+    def __init__(self, engine, module: str, *, rows: int, n_pages: int,
+                 page_size: int, max_seq_len: int, now=None,
+                 tracer: Tracer | None = None,
+                 metrics: MetricsRegistry | None = None):
+        self.engine = engine
+        self.module = module
+        self.rt = engine.decoder_runtime(module)
+        self.page_size = page_size
+        self.max_seq_len = max_seq_len
+        self.n_max = -(-max_seq_len // page_size)
+        self._now = now or (lambda: 0.0)
+        # standalone streams get their own registry/tracer; under a
+        # ServeScheduler both are shared so stats and traces are unified
+        self.metrics = metrics or MetricsRegistry()
+        self.tracer = tracer or Tracer(clock=self._now)
+        self.pool = PagePool(n_pages, page_size, metrics=self.metrics,
+                             module=module)
+        self.rows = SlotPool(rows)
+        self.cache = engine.init_paged_cache(module, n_pages, page_size,
+                                             torch.float32)
+        self._lock = threading.RLock()
+        with self._lock:
+            # page 0 is the dummy target for dead rows' scatters
+            self.pool.alloc(_DUMMY, 1)
+        self.waiting: list = []           # heap: (deadline, t, n, seq)
+        self._n_submitted = 0
+        self.live: dict[int, _GenSeq] = {}
+        self.tables = np.zeros((rows, self.n_max), np.int32)
+        self.lengths = np.zeros((rows,), np.int32)
+        self._worst: dict[int, int] = {}  # rid -> reserved worst pages
+        self._reserved = 0
+        self._busy = False
+        # counters (read via the int properties / stats_dict)
+        self._c_steps = self.metrics.counter("decode.steps", module=module)
+        self._c_tokens = self.metrics.counter("decode.tokens", module=module)
+        self._c_prefills = self.metrics.counter("decode.prefills",
+                                                module=module)
+        self._c_xtask = self.metrics.counter("decode.cross_task_batches",
+                                             module=module)
+
+    # legacy counter attributes, now views over the metrics registry
+    @property
+    def decode_steps(self) -> int:
+        return int(self._c_steps.value)
+
+    @property
+    def decode_tokens(self) -> int:
+        return int(self._c_tokens.value)
+
+    @property
+    def prefills(self) -> int:
+        return int(self._c_prefills.value)
+
+    @property
+    def cross_task_decode_batches(self) -> int:
+        return int(self._c_xtask.value)
+
+    # -- sizing ---------------------------------------------------------
+    def _worst_tokens(self, request: Request) -> int:
+        return (self.rt.n_prefix + len(request.prompt)
+                + max(int(request.max_new_tokens), 1))
+
+    def validate(self, request: Request) -> None:
+        if request.prompt is None or len(request.prompt) == 0:
+            raise ValueError(
+                f"generative request {request.rid} has no prompt tokens")
+        worst = self._worst_tokens(request)
+        if worst > self.max_seq_len:
+            raise ValueError(
+                f"request {request.rid}: prefix+prompt+max_new_tokens="
+                f"{worst} exceeds max_seq_len={self.max_seq_len} of "
+                f"decoder {self.module!r}")
+        with self._lock:
+            need = self.pool.pages_for(worst)
+            usable = self.pool.n_pages - 1
+        if need > usable:
+            raise ValueError(
+                f"request {request.rid}: needs {need} pages, pool holds "
+                f"{usable} usable")
+
+    # -- admission ------------------------------------------------------
+    def depth(self) -> int:
+        with self._lock:
+            return len(self.waiting) + len(self.live)
+
+    def submit(self, rid: int, request: Request,
+               enc_outputs: dict[str, Any],
+               parent: int | None = None) -> None:
+        self.validate(request)
+        seq = _GenSeq(rid, request, enc_outputs, self._now(), parent=parent)
+        seq.wait_sid = self.tracer.begin(self.module, "admission", rid=rid,
+                                         parent=parent)
+        deadline = (request.slo_deadline if request.slo_deadline is not None
+                    else float("inf"))
+        with self._lock:
+            heapq.heappush(self.waiting,
+                           (deadline, seq.t_submit, self._n_submitted, seq))
+            self._n_submitted += 1
+
+    def _outstanding_pages(self) -> int:
+        """Reserved-but-not-yet-held pages across live sequences."""
+        held = self.pool.n_live_pages - 1          # minus the dummy page
+        return self._reserved - held
+
+    def _pop_admittable(self) -> _GenSeq | None:
+        """Admit the head of the waiting queue if a row and its
+        worst-case page reservation fit; head-of-line order keeps the
+        SLO-deadline priority honest.  Takes the (re-entrant) lock
+        itself so allocator calls are locked at every call site."""
+        with self._lock:
+            if not self.waiting:
+                return None
+            seq = self.waiting[0][3]
+            worst = self.pool.pages_for(self._worst_tokens(seq.request))
+            if self.pool.n_free - self._outstanding_pages() < worst:
+                return None
+            row = self.rows.alloc()
+            if row is None:
+                return None
+            heapq.heappop(self.waiting)
+            prefix_len = self.rt.n_prefix + len(seq.request.prompt)
+            pages = self.pool.alloc(seq.rid, prefix_len)
+            seq.row = row
+            seq.length = prefix_len
+            self._worst[seq.rid] = worst
+            self._reserved += worst
+            self.tables[row, :] = 0
+            self.tables[row, :len(pages)] = pages
+            self.lengths[row] = prefix_len
+            self.live[row] = seq
+            self.tracer.end(seq.wait_sid)
+            return seq
+
+    def _finish_locked(self, seq: _GenSeq) -> None:
+        with self._lock:
+            seq.done = True
+            self.pool.free(seq.rid)
+            self.rows.release(seq.row)
+            del self.live[seq.row]
+            self.tables[seq.row, :] = 0
+            self.lengths[seq.row] = 0
+            self._reserved -= self._worst.pop(seq.rid)
+
+    # -- execution ------------------------------------------------------
+    def _prefill(self, seq: _GenSeq) -> None:
+        """Batch-1 prefill into the sequence's pages + first token.
+        Device dispatch — runs outside the lock."""
+        req = seq.request
+        with self._lock:
+            pages = self.pool.block_table(seq.rid)
+        span = len(pages) * self.page_size
+        one = self.rt.bundle.init_cache(1, span, torch.float32,
+                                        self.rt.device)
+        t0 = self._now()
+        batch = self.engine.gen_batch(req.prompt, seq.enc_outputs)
+        logits, one = self.engine.apply_prefill(self.module, batch, one)
+        insert_pages(self.cache, one, pages, seq.length)
+        seq.rng = rid_generator(seq.rid, logits.device)
+        tok = int(select_token(logits[0], seq.rng,
+                               temperature=req.temperature))
+        seq.tokens.append(tok)
+        span = self.tracer.record(self.module, "prefill", t0, self._now(),
+                                  rid=seq.rid, parent=seq.parent,
+                                  prompt_tokens=len(req.prompt),
+                                  prefix_len=seq.length)
+        seq.timeline.append(span)
+        self._c_prefills.inc()
+
+    def _seq_done(self, seq: _GenSeq) -> bool:
+        req = seq.request
+        return (len(seq.tokens) >= max(int(req.max_new_tokens), 1)
+                or seq.tokens[-1] == req.eos_id)
+
+    def _admit_all(self) -> list[_GenSeq]:
+        finished = []
+        while True:
+            with self._lock:
+                seq = self._pop_admittable()
+            if seq is None:
+                break
+            try:
+                self._prefill(seq)
+            except Exception:
+                # a failed prefill must not strand the admitted row,
+                # its pages, or the worst-case reservation — the leak
+                # the model checker's pages/no-leak invariant flags
+                with self._lock:
+                    self._finish_locked(seq)
+                raise
+            if self._seq_done(seq):
+                with self._lock:
+                    self._finish_locked(seq)
+                finished.append(seq)
+            else:
+                # residency span: every decode tick of this sequence
+                # parents under it
+                seq.decode_sid = self.tracer.begin(
+                    self.module, "decode", rid=seq.rid, parent=seq.parent)
+        return finished
+
+    def _decode_once(self) -> tuple[list[_GenSeq], int]:
+        """One batched decode step over all live rows.  Batch formation
+        (incl. page extension) under the lock; dispatch outside it."""
+        with self._lock:
+            tokens = np.zeros((self.rows.max_slots, 1), np.int32)
+            live = sorted(self.live.items())
+            if not live:
+                return [], 0
+            for row, seq in live:
+                # the step inserts at position length: make sure the
+                # owning page exists (reservation guarantees success)
+                added = self.pool.extend(seq.rid, seq.length + 1)
+                if added:
+                    table = self.pool.block_table(seq.rid)
+                    self.tables[row, :len(table)] = table
+                tokens[row, 0] = seq.tokens[-1]
+            tables = self.tables.copy()
+            lengths = self.lengths.copy()
+            pages_live = self.pool.n_live_pages
+            self._c_steps.inc()
+            if len({seq.request.model for _, seq in live}) >= 2:
+                self._c_xtask.inc()
+        t0 = self._now()
+        logits, _ = self.engine.apply_paged_decode(
+            self.module, torch.from_numpy(tokens), self.cache,
+            torch.from_numpy(tables), torch.from_numpy(lengths))
+        picks: dict[int, int] = {}
+        for row, seq in live:
+            picks[row] = int(select_token(
+                logits[row], seq.rng, temperature=seq.request.temperature))
+        t1 = self._now()
+        for row, seq in live:
+            self.tracer.record(self.module, "decode_tick", t0, t1,
+                               rid=seq.rid, parent=seq.decode_sid,
+                               rows=len(live), pages_live=pages_live)
+        finished = []
+        with self._lock:
+            for row, seq in live:
+                seq.length += 1
+                self.lengths[row] = seq.length
+                self.pool.used_tokens[seq.rid] = seq.length
+                seq.tokens.append(picks[row])
+                self._c_tokens.inc()
+                if self._seq_done(seq):
+                    seq.timeline.append(
+                        self.tracer.end(seq.decode_sid, t1=self._now()))
+                    self._finish_locked(seq)
+                    finished.append(seq)
+        return finished, len(live)
+
+    def tick(self) -> TickReport:
+        """One scheduler service round: admit what fits, then one
+        batched decode step.  Returns the finished sequences."""
+        with self._lock:
+            if self._busy:
+                return TickReport([], 0, 0)
+            self._busy = True
+        try:
+            p0 = self.prefills
+            finished = self._admit_all()
+            prefills = self.prefills - p0
+            more, batch = self._decode_once()
+            return TickReport(finished + more, prefills, batch)
+        finally:
+            with self._lock:
+                self._busy = False
+
+    # -- introspection ---------------------------------------------------
+    def state_view(self):
+        """Snapshot this stream as a ``repro_torch.analysis.invariants``
+        ``StateView`` so the runtime-tagged invariant subset can be
+        evaluated against live serving state (see
+        ``ServeScheduler.check_invariants``)."""
+        from repro_torch.analysis.invariants import SeqView, StateView, WaitView
+        with self._lock:
+            free = set(self.pool._free)
+            owners: dict[int, object] = {}
+            multi: list[int] = []
+            for rid, pages in self.pool.tables.items():
+                for p in pages:
+                    if p in owners or p in free:
+                        multi.append(p)
+                    owners[p] = rid
+            live = tuple(
+                SeqView(
+                    rid=seq.rid,
+                    held_pages=len(self.pool.tables.get(seq.rid, ())),
+                    worst_pages=self._worst.get(seq.rid, 0),
+                    remaining_tokens=max(
+                        int(seq.request.max_new_tokens) - len(seq.tokens), 0),
+                    deadline=(seq.request.slo_deadline
+                              if seq.request.slo_deadline is not None
+                              else float("inf")),
+                    model=seq.request.model)
+                for _, seq in sorted(self.live.items()))
+            waiting = tuple(
+                WaitView(rid=seq.rid,
+                         worst_pages=self.pool.pages_for(
+                             self._worst_tokens(seq.request)),
+                         deadline=deadline, model=seq.request.model)
+                for deadline, _, _, seq in sorted(self.waiting))
+            return StateView(
+                pages_total=self.pool.n_pages,
+                pages_free=self.pool.n_free,
+                page_owners=owners,
+                page_multiowner=tuple(multi),
+                page_size=self.page_size,
+                rows_total=self.rows.max_slots,
+                rows_live=self.rows.n_live,
+                live=live,
+                waiting=waiting,
+                terminal=not self.live and not self.waiting,
+            )
+
+    # -- stats ----------------------------------------------------------
+    def stats_dict(self) -> dict[str, Any]:
+        with self._lock:
+            frag = self.pool.fragmentation()
+            return {
+                "decode_steps": self.decode_steps,
+                "decode_tokens": self.decode_tokens,
+                "prefills": self.prefills,
+                "cross_task_decode_batches": self.cross_task_decode_batches,
+                "decode_rows": self.rows.max_slots,
+                "live_rows": len(self.live),
+                "waiting": len(self.waiting),
+                "pages_total": frag["pages_total"],
+                "pages_live": frag["pages_live"],
+                "pages_peak": frag["pages_peak"],
+                "page_occupancy": round(
+                    frag["pages_live"] / frag["pages_total"], 4),
+                "internal_frag": frag["internal_frag"],
+            }

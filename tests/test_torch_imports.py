@@ -1,0 +1,137 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+no jax and nothing of ``repro``; the port runs on the card unless the
+caller asks for the CPU, and never drops to the CPU by itself."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not "
+        "None and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for m in mods:
+            root = m.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), \
+                f"{path.name}:{node.lineno} imports {m}"
+
+
+def _tiny_deployment():
+    from repro_torch.core.cluster import ClusterSpec, DeviceSpec
+    from repro_torch.core.module import ModelSpec, ModuleSpec
+    from repro_torch.s2m3 import Deployment
+
+    enc = ModuleSpec("enc", "encoder", "vision", 16, flops_per_query=1e3)
+    head = ModuleSpec("head", "head", "task", 16, flops_per_query=1e3)
+    w = torch.eye(4)
+    builders = {"enc": lambda: (lambda p, x: x @ p, w),
+                "head": lambda: (lambda p, e: e["vision"] @ p, w)}
+    return (Deployment(ClusterSpec(devices=[DeviceSpec("dev0", 1 << 30, 1e9)]))
+            .add_model(ModelSpec("m", "classification", (enc,), head),
+                       builders).plan("greedy"))
+
+
+def test_materialize_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _tiny_deployment().materialize()
+    from repro_torch.s2m3 import Request
+
+    dep = _tiny_deployment().materialize(device="cpu")
+    assert dep.engine.device_map == {"dev0": torch.device("cpu")}
+    x = np.ones((2, 4), np.float32)
+    out = dep.submit(Request(0, "m", "dev0", inputs={"vision": x}))
+    np.testing.assert_array_equal(out.output.numpy(), x)
+    assert out.devices == {"enc": "dev0", "head": "dev0"}
+
+
+def test_unported_verify_passes_raise():
+    dep = _tiny_deployment()
+    assert dep.verify() == []
+    for kw in ({"kernels": True}, {"model_check": True}):
+        with pytest.raises(NotImplementedError):
+            dep.verify(**kw)
+
+
+def test_kernel_wrappers_take_plain_version_for_cpu_tensors(monkeypatch):
+    """Without CUDA, a CPU tensor goes through the plain version and no
+    build is attempted (the build module is never asked for nvcc)."""
+    from repro_torch.kernels import build, ops, ref
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(build, "load", lambda name: pytest.fail("built"))
+    ops.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 14, 16, generator=g)
+    k = torch.randn(2, 20, 2, 16, generator=g)
+    lens = torch.tensor([20, 3], dtype=torch.int32)
+    torch.testing.assert_close(ops.decode_attention(q, k, k, lens),
+                               ref.decode_attention_ref(q, k, k, lens),
+                               rtol=0, atol=0)
+    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0}
+
+
+def test_build_names_libraries_by_source_hash():
+    from repro_torch.kernels import build
+
+    paths = {name: build.lib_path(name) for name in build.LIBRARIES}
+    assert len(set(paths.values())) == len(paths)
+    for name, p in paths.items():
+        assert p.parent == build.BUILD_DIR and p.name.startswith(name + "-")
+        assert (build.CSRC / build.LIBRARIES[name][0]).exists()
+
+
+def test_live_replan_backs_new_hosts_with_the_deployment_device():
+    from repro_torch.core.cluster import DeviceSpec
+    from repro_torch.s2m3 import Request
+
+    dep = _tiny_deployment().materialize(device="cpu")
+    report = dep.replan(dep.cluster.with_device(
+        DeviceSpec("dev1", 4 << 30, 1e11)))
+    assert dep.engine.device_map == {"dev0": torch.device("cpu"),
+                                     "dev1": torch.device("cpu")}
+    assert report.feasible
+    x = np.ones((1, 4), np.float32)
+    out = dep.submit(Request(1, "m", "dev0", inputs={"vision": x}))
+    assert set(out.devices) == {"enc", "head"}
+    np.testing.assert_array_equal(out.output.numpy(), x)
