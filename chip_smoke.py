@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -9,23 +9,40 @@ Phases (any failure exits non-zero; nothing is caught):
    ``nvcc`` for sm_90a (one process per source, in parallel) and print
    the card's name and power limit.
 2. Kernels: hold each hand-written kernel against its plain PyTorch
-   version on the card, at the shapes the serving path gives it, in
-   float32 and bfloat16, with random lengths, garbage block-table
-   entries past each row's pages, a logit softcap and a ragged S; then
-   time the kernel, its plain version and one PyTorch library call
-   (``scaled_dot_product_attention``) as a yardstick.
-3. Serve at full width: internvl2-1b (24 layers, d_model 896, random
+   version on the card, at the shapes the serving paths give it, in
+   float32 and bfloat16: the attention kernels at internvl2-1b's head
+   geometry (random lengths, garbage block-table entries past each
+   row's pages, a logit softcap, a ragged S) and at zamba2-7b's shared
+   attention (H = K = 32, D = 112), the Mamba2 SSD intra-chunk kernel
+   at zamba2-7b's prefill shape and the sLSTM kernel at xlstm-1.3b's
+   (fresh state, a random state, one decode step); then time each
+   kernel, its plain version and, where one PyTorch call computes the
+   same function (``scaled_dot_product_attention``), that call.
+3. Serve internvl2-1b at full width (24 layers, d_model 896, random
    float32 weights from a seed) as the generative head ``vlm-head``
    behind a shared encoder ``pix-enc``, three tasks (caption, ocr,
    classify), eight requests through ``Deployment.serve()`` and the
    generative ones again through ``Deployment.submit()``.  Tokens and
    every step's logits, routes, cross-task batching, the drained page
-   pool and the kernel launch counts are checked.  Before it, the model's logits through
-   the kernels on the card are held against the plain versions on the
-   CPU, at smoke size and at full width with depth cut to 2 layers.
+   pool and the kernel launch counts are checked.  Before it, the
+   model's logits through the kernels on the card are held against the
+   plain versions on the CPU, at smoke size and at full width with
+   depth cut to 2 layers.
 4. Profile: one more serve() under ``torch.profiler`` — device busy
    share and the kernels that take the device time.
-5. Print the kernels line (JSON), the card line, and last
+5. Recurrent families: xlstm-1.3b and zamba2-7b at their published
+   widths and depths, random float32 weights from a seed, each serving
+   three greedy requests (prompts of 126, 200 and 383 tokens, 16 new
+   tokens) through ``repro_torch.launch.serve.serve_arch`` and
+   ``Deployment.submit()``.  Checked: finite logits, decode == a fresh
+   prefill at the first decode step and across the 128-token chunk
+   boundary, exact kernel launch counts; and before it, the same
+   weights through the kernels on the card against the plain versions
+   on the CPU at full width with depth cut to one group / superblock.
+   Then a warm prefill of the longest prompt is timed, and three decode
+   steps run under ``torch.profiler`` (device busy share, kernels per
+   step, the kernels that take the device time).
+6. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is visible
@@ -62,6 +79,17 @@ N_IMG = 256
 S_PREFILL = N_IMG + 11                                    # ragged, not a block multiple
 T_DENSE = -(-(N_IMG + PROMPT_MAX + MAX_NEW_MAX + 1) // 8) * 8
 ROWS, PAGE, N_MAX, N_PAGES = 4, 16, 32, 129
+
+# the recurrent paths (phase 5): prompts of 126, 200 and 383 tokens, 16
+# new tokens each; zamba2-7b's shared attention (H = K = 32, D = 112)
+# and its SSD prefill of the longest prompt (B=1, 3 chunks of L=128 after
+# padding, H=112 heads of P=64, state N=64); xlstm-1.3b's sLSTM (d=2048,
+# H=4 heads of hd=512)
+REC_PROMPTS, REC_NEW = (126, 200, 383), 16
+S_REC = max(REC_PROMPTS)
+Z_HEADS, Z_D, T_REC = 32, 112, 400
+SSD_SHAPE = (1, 3, 128, 112, 64, 64)                     # B, nc, L, H, P, N
+SL_D, SL_H = 2048, 4
 
 
 def log(msg: str) -> None:
@@ -153,6 +181,24 @@ def _check(name, dtype, what, got, want) -> float:
     if not ok:
         fail(f"{name} {dtype} {what} disagrees with its plain version")
     return err
+
+
+def _row(name, src, repl, err, fn, plain, lib, nbytes, flops,
+         dname="float32", iters=200) -> dict:
+    """One entry of the kernels line: the kernel, its plain version and
+    (where there is one) the one-call library equivalent, timed on the
+    same inputs; ``launches`` is filled in from the main-path run."""
+    b_ms, b_by = bound(nbytes, flops, dname)
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/{src}", "replaces": repl,
+           "launches": None, "max_abs_err": err,
+           "ms": time_ms(fn, iters), "plain_ms": time_ms(plain, iters),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(lib, iters) if lib is not None else None}
+    log(f"[kernels] {name} {dname} timing: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {flops:.3e} FLOP)")
+    return row
 
 
 def phase_kernels(dev) -> list[dict]:
@@ -267,19 +313,7 @@ def phase_kernels(dev) -> list[dict]:
                                                     lens_p),
              None, paged_bytes, paged_flops),
         ]
-        for name, src, repl, err, fn, plain, lib, nbytes, flops in specs:
-            b_ms, b_by = bound(nbytes, flops, dname)
-            row = {"name": name, "route": "cuda",
-                   "source": f"src/repro_torch/{src}", "replaces": repl,
-                   "launches": None, "max_abs_err": err,
-                   "ms": time_ms(fn), "plain_ms": time_ms(plain),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": time_ms(lib) if lib is not None else None}
-            rows.append(row)
-            log(f"[kernels] {name} float32 timing: kernel {row['ms']:.4f} ms, "
-                f"plain {row['plain_ms']:.4f} ms, library "
-                f"{row['library_ms']} ms, bound {b_ms:.5f} ms ({b_by}; "
-                f"{nbytes} B, {flops:.3e} FLOP)")
+        rows += [_row(*spec) for spec in specs]
         # the paged kernel has no one-call library equivalent; as a
         # yardstick, SDPA over the rows' pages gathered beforehand
         kg = kp[tables.long().clamp(0, N_PAGES - 1)].reshape(
@@ -291,6 +325,138 @@ def phase_kernels(dev) -> list[dict]:
         log("[kernels] paged_decode_attention float32: SDPA over the "
             "pre-gathered pages (gather not timed) "
             f"{time_ms(lambda: F.scaled_dot_product_attention(qb[:, :, None], kg, vg, attn_mask=mask_p, enable_gqa=True)):.4f} ms")
+    return rows
+
+
+def _ssd_inputs(g, dt):
+    """SSD inputs at a Mamba2 layer's scales: silu-sized x, B, C;
+    dt = softplus(.); A_log spread over a few decades of decay."""
+    import torch
+
+    B, nc, L, Hs, P, N = SSD_SHAPE
+    dev = g.device
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = rnd(B, nc, L, Hs, P)
+    Bm, Cm = 0.5 * rnd(B, nc, L, N), 0.5 * rnd(B, nc, L, N)
+    dtt = torch.nn.functional.softplus(rnd(B, nc, L, Hs) - 1.0)
+    return (*(t.to(dt) for t in (x, Bm, Cm, dtt)), 0.5 * rnd(Hs))
+
+
+def phase_kernels_recurrent(dev) -> list[dict]:
+    """The recurrent paths' kernels against their plain versions: the
+    attention kernels at zamba2-7b's D = 112, the SSD intra-chunk kernel
+    and the sLSTM kernel.  The SSD and sLSTM kernels have no one-call
+    PyTorch equivalent (``library_ms`` null)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = []
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        isz = torch.tensor([], dtype=dt).element_size()
+
+        # -- attention at zamba2-7b's shared block: H = K = 32, D = 112 --
+        q, k, v = (rnd(1, S_REC, Z_HEADS, Z_D).to(dt) for _ in range(3))
+        err_f = _check("flash_attention", dname, f"D=112 S={S_REC} causal",
+                       ops.flash_attention(q, k, v),
+                       ref.flash_attention_ref(q, k, v))
+        qd = rnd(1, Z_HEADS, Z_D).to(dt)
+        kd, vd = (rnd(1, T_REC, Z_HEADS, Z_D).to(dt) for _ in range(2))
+        lens = torch.tensor([S_REC + REC_NEW], dtype=torch.int32, device=dev)
+        err_d = _check("decode_attention", dname,
+                       f"D=112 T={T_REC} len={lens.item()}",
+                       ops.decode_attention(qd, kd, vd, lens),
+                       ref.decode_attention_ref(qd, kd, vd, lens))
+
+        # -- SSD intra-chunk at zamba2-7b's prefill shape ----------------
+        ssd_args = _ssd_inputs(g, dt)
+        err_s = max(_check("ssd_intra_chunk", dname, f"{SSD_SHAPE} {what}",
+                           got, want)
+                    for what, got, want in zip(
+                        ("y_intra", "S_loc", "Lam"),
+                        ops.ssd_intra_chunk(*ssd_args),
+                        ref.ssd_intra_chunk_ref(*ssd_args)))
+
+        # -- sLSTM at xlstm-1.3b: fresh state, random state, decode -------
+        hd = SL_D // SL_H
+        pre = rnd(1, S_REC, 4, SL_D).to(dt)
+        R = 0.02 * rnd(4, SL_H, hd, hd)
+        state = (rnd(1, SL_D), 1.0 + rnd(1, SL_D).abs(), rnd(1, SL_D).tanh(),
+                 rnd(1, SL_D))
+        pre1 = pre[:, :1].contiguous()
+        errs = []
+        for what, p, st in ((f"S={S_REC} fresh state", pre, None),
+                            (f"S={S_REC} random state", pre, state),
+                            ("S=1 (decode) random state", pre1, state)):
+            (y, fin), (y_r, fin_r) = (ops.slstm_scan(p, R, state=st),
+                                      ref.slstm_scan_ref(p, R, st))
+            errs.append(_check("slstm_scan", dname, f"{what}: h", y, y_r))
+            for part, a, b in zip("cnhm", fin, fin_r):   # float32 state
+                _check("slstm_scan", "float32", f"{what}: final {part}", a, b)
+        if dt is not torch.float32:
+            continue
+
+        # timing at the path's dtype (float32) and shapes
+        visible = S_REC * (S_REC + 1) / 2
+        n_keys = int(lens.item())
+        mask = (torch.arange(T_REC, device=dev)[None] < lens[:, None])[
+            :, None, None, :]
+        qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
+        B_, nc, L, Hs, P, N = SSD_SHAPE
+        causal_pairs = L * (L + 1) / 2
+        ssd_bytes = (sum(t.numel() * t.element_size() for t in ssd_args)
+                     + 4 * (B_ * nc * L * Hs * P + B_ * nc * Hs * N * P
+                            + B_ * nc * Hs))
+        # C.B^T and M@x over the causal pairs, B^T@x over the whole chunk
+        ssd_flops = B_ * nc * Hs * (2 * causal_pairs * (N + P) + 2 * L * N * P)
+        sl_bytes = (pre.numel() + R.numel() + S_REC * SL_D + 8 * SL_D) * 4
+        sl_flops = 2 * 4 * SL_D * hd * S_REC
+        rows += [
+            _row("flash_attention_d112", "csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:93", err_f,
+                 lambda: ops.flash_attention(q, k, v),
+                 lambda: ref.flash_attention_ref(q, k, v),
+                 lambda: F.scaled_dot_product_attention(qh, kh_, vh,
+                                                        is_causal=True),
+                 4 * q.numel() * isz, 4 * Z_D * Z_HEADS * visible),
+            _row("decode_attention_d112", "csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention.py:70", err_d,
+                 lambda: ops.decode_attention(qd, kd, vd, lens),
+                 lambda: ref.decode_attention_ref(qd, kd, vd, lens),
+                 lambda: F.scaled_dot_product_attention(
+                     qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+                     attn_mask=mask),
+                 2 * qd.numel() * isz + 2 * n_keys * Z_HEADS * Z_D * isz + 4,
+                 4 * Z_D * Z_HEADS * n_keys),
+            _row("ssd_intra_chunk", "csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:51", err_s,
+                 lambda: ops.ssd_intra_chunk(*ssd_args),
+                 lambda: ref.ssd_intra_chunk_ref(*ssd_args), None,
+                 ssd_bytes, ssd_flops),
+            _row("slstm_scan", "csrc/slstm_scan.cu",
+                 "src/repro/kernels/slstm_scan.py:91", max(errs),
+                 lambda: ops.slstm_scan(pre, R),
+                 lambda: ref.slstm_scan_ref(pre, R), None,
+                 sl_bytes, sl_flops, iters=20),
+        ]
+        # the decode step's call (S=1, from a state): logged, not a row;
+        # its bound is R's 16 MiB read once
+        log("[kernels] slstm_scan float32 S=1 decode step (from a state): "
+            f"kernel {time_ms(lambda: ops.slstm_scan(pre1, R, state=state)):.4f}"
+            f" ms, plain "
+            f"{time_ms(lambda: ref.slstm_scan_ref(pre1, R, state)):.4f} ms, "
+            f"bound {bound(R.numel() * 4, 2 * 4 * SL_D * hd, dname)[0]:.5f} "
+            "ms (bytes)")
     return rows
 
 
@@ -441,7 +607,7 @@ def phase_reference(dev):
             ("full width, 2 layers",
              get_config("internvl2-1b").with_overrides(n_layers=2))):
         b = build_model(cfg)
-        p_cpu = b.init(torch.Generator().manual_seed(SEED))
+        p_cpu = b.init(torch.Generator().manual_seed(SEED), device="cpu")
         g = torch.Generator().manual_seed(SEED + 1)
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 7),
                                          generator=g, dtype=torch.int32),
@@ -571,9 +737,10 @@ def phase_serve(dev) -> dict:
     # launch counts: every attention call went through a kernel
     n_l = cfg.n_layers
     submit_steps = sum(len(solo[r.rid].output) - 1 for r in gen_reqs)
-    want = {"paged_decode_attention": stream.decode_steps * n_l,
-            "flash_attention": (stream.prefills + len(gen_reqs)) * n_l,
-            "decode_attention": submit_steps * n_l}
+    want = dict.fromkeys(ops.LAUNCHES, 0)    # no SSD / sLSTM launch here
+    want.update({"paged_decode_attention": stream.decode_steps * n_l,
+                 "flash_attention": (stream.prefills + len(gen_reqs)) * n_l,
+                 "decode_attention": submit_steps * n_l})
     log(f"[serve] kernel launches {launches}, expected {want}")
     if launches != want:
         fail(f"kernel launches {launches} != expected {want}")
@@ -644,6 +811,231 @@ def phase_profile(dep, gen_reqs) -> None:
             f"{name[:90]}")
 
 
+# --------------------------------------------------------------------------
+# phase 5: the recurrent families at full width
+# --------------------------------------------------------------------------
+
+# depth cut for the card-vs-CPU check: xlstm-1.3b one group (7 mLSTM + 1
+# sLSTM), zamba2-7b one superblock (6 Mamba2 + the shared attention
+# block) and one tail Mamba2 block
+REC_CUT = {"xlstm-1.3b": 8, "zamba2-7b": 7}
+# decode step vs a fresh prefill over the same tokens, full depth: the
+# recurrent step and the chunked prefill compute one function with
+# other groupings of the same sums (chunked vs per-step decay products,
+# mLSTM's two stabilisers); the reference's own smoke test holds the two
+# to 5e-4 (tests/test_models_smoke.py:104), and so does this phase
+DECODE_TOL = 5e-4
+
+
+def expected_launches(cfg, n_prefills: int, n_steps: int) -> dict:
+    """Kernel launches of n_prefills prefills and n_steps decode steps:
+    one sLSTM launch per sLSTM block per call (xLSTM); one SSD launch per
+    Mamba2 block per prefill and one attention launch per shared-block
+    call (zamba2)."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if cfg.family == "ssm":
+        n_slstm = cfg.n_layers // (cfg.mlstm_to_slstm + 1)
+        want["slstm_scan"] = n_slstm * (n_prefills + n_steps)
+    else:
+        n_attn = cfg.n_layers // cfg.n_mamba_per_super
+        want["ssd_intra_chunk"] = cfg.n_layers * n_prefills
+        want["flash_attention"] = n_attn * n_prefills
+        want["decode_attention"] = n_attn * n_steps
+    return want
+
+
+def _fresh_prefill(bundle, params, tokens, dev):
+    import torch
+
+    cache = bundle.init_cache(1, -(-(len(tokens) + 1) // 8) * 8,
+                              torch.float32, dev)
+    logits, _ = bundle.prefill(
+        params, {"tokens": torch.tensor([tokens], dtype=torch.int32,
+                                        device=dev)}, cache)
+    return logits[0]
+
+
+def phase_recurrent_reference(dev, arch):
+    """The same weights through the kernels on the card and through the
+    plain versions on the CPU (which the CPU tests hold to the JAX
+    package), at full width with depth cut: a 130-token prefill (one
+    full chunk and a ragged one) and 3 decode steps."""
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(arch).with_overrides(n_layers=REC_CUT[arch])
+    b = build_model(cfg)
+    p_cpu = b.init(torch.Generator().manual_seed(SEED), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 130),
+                         generator=torch.Generator().manual_seed(SEED + 1),
+                         dtype=torch.int32)
+    outs = {}
+    for device in ("cpu", dev):
+        p = p_cpu if device == "cpu" else tree_map(lambda t: t.to(dev), p_cpu)
+        cache = b.init_cache(1, 136, torch.float32, device)
+        logits, cache = b.prefill(p, {"tokens": toks.to(device)}, cache)
+        got = [logits.cpu()]
+        for i in range(3):
+            logits, cache = b.decode_step(
+                p, torch.tensor([[i + 5]], dtype=torch.int32, device=device),
+                cache, torch.tensor([130 + i], dtype=torch.int32,
+                                    device=device))
+            got.append(logits.cpu())
+        outs[str(device)] = got
+        del p, cache
+    worst = max(_err(a, c) for a, c in zip(outs["cpu"], outs[str(dev)]))
+    ok = worst <= LOGIT_TOL
+    log(f"[recurrent] {arch} full width, {cfg.n_layers} layers, "
+        f"{b.param_count():,} parameters: card (kernels) vs CPU (plain "
+        f"versions), prefill of 130 + 3 decode steps: max |dlogit| "
+        f"{worst:.3e} (tol {LOGIT_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{arch} depth-cut model on the card disagrees with the CPU")
+
+
+def _profile_decode(arch, bundle, params, cache, L0, dev, steps=3):
+    """Where a solo decode step's time goes: ``steps`` dense decode steps
+    from position L0 under ``torch.profiler``; device busy = summed
+    kernel time / wall time (a lower bound, as the profiler slows the
+    host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            bundle.decode_step(params, tok, cache, torch.tensor(
+                [L0 + i], dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        log(f"[recurrent] {arch}: the profiler saw no device kernels: "
+            "device time not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    log(f"[recurrent] {arch}: {steps} decode steps under the profiler: "
+        f"wall {1e3 * wall:.1f} ms, {len(kern) // steps} kernels per step, "
+        f"device busy {1e3 * busy:.1f} ms ({100 * busy / wall:.1f}%)")
+    by_name: dict[str, list[float]] = {}
+    for e in kern:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]:
+        log(f"[recurrent]   {sum(ts) / 1e3:8.2f} ms  {len(ts):6d} x  "
+            f"{name[:90]}")
+
+
+def phase_recurrent(dev) -> dict[str, dict]:
+    """Each recurrent family at its published widths and depth through
+    the port's serve entry point; returns each arch's main-path kernel
+    launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve_arch
+
+    counts = {}
+    for arch in ("xlstm-1.3b", "zamba2-7b"):
+        phase_recurrent_reference(dev, arch)
+        cfg = get_config(arch)
+        reqs = make_requests(cfg, len(REC_PROMPTS), REC_NEW,
+                             prompt_lens=REC_PROMPTS, seed=SEED)
+        logits: dict = {}
+        # ---- the main path: counts from 0, serve_arch -> submit() ------
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        with record_logits(logits):
+            run = serve_arch(cfg, reqs, device=dev)  # weights from seed 0
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        rt = next(iter(run.engine.decoders.values()))
+        bundle, params = rt.bundle, rt.params
+        n = bundle.param_count()
+        log(f"[recurrent] {arch}: {n:,} parameters ({n * 4 / 1e9:.2f} GB "
+            f"f32), {cfg.n_layers} layers, d_model {cfg.d_model}; served "
+            f"{len(reqs)} requests (prompts {list(REC_PROMPTS)}, "
+            f"{REC_NEW} new tokens) through serve_arch -> "
+            f"Deployment.submit() in {run.seconds:.3f} s")
+
+        steps = 0
+        for r, req in zip(run.results, reqs):
+            lg = torch.stack(logits[r.rid])
+            if len(r.output) != REC_NEW or len(lg) != REC_NEW:
+                fail(f"{arch} rid {r.rid}: {len(r.output)} tokens, "
+                     f"{len(lg)} logit rows")
+            if not bool(torch.isfinite(lg).all()):
+                fail(f"{arch} rid {r.rid}: non-finite logits")
+            steps += len(r.output) - 1
+            # decode == prefill: step k's logits against a fresh prefill
+            # of prompt + the first k tokens (its last token at position
+            # len(prompt) + k - 1); the 126-token prompt's steps 1-3 reach
+            # positions 126-128, across the 128-token chunk boundary
+            toks = [int(t) for t in r.output]
+            ks = (1, 2, 3) if len(req.prompt) == 126 else (1,)
+            worst = 0.0
+            for k in ks:
+                fresh = _fresh_prefill(bundle, params,
+                                       list(req.prompt) + toks[:k], dev)
+                worst = max(worst, _err(fresh, lg[k]))
+            top2 = lg.topk(2, dim=-1).values
+            gaps = top2[:, 0] - top2[:, 1]
+            ok = worst <= DECODE_TOL
+            log(f"[recurrent] {arch} rid {r.rid} prompt {len(req.prompt)}: "
+                f"tokens {toks}; decode step(s) {list(ks)} (positions "
+                f"{[len(req.prompt) + k - 1 for k in ks]}) vs fresh prefill "
+                f"max |dlogit| {worst:.3e} (tol {DECODE_TOL:g}) "
+                f"{'ok' if ok else 'MISMATCH'}; |logit| up to "
+                f"{lg.abs().max().item():.3f}, top-2 gap "
+                f"{gaps.min().item():.3e}..{gaps.max().item():.3e}")
+            if not ok:
+                fail(f"{arch} rid {r.rid}: decode disagrees with prefill")
+
+        want = expected_launches(cfg, len(reqs), steps)
+        log(f"[recurrent] {arch} kernel launches {launches}, expected {want}")
+        if launches != want:
+            fail(f"{arch}: kernel launches {launches} != expected {want}")
+        counts[arch] = launches
+
+        # prefill time of the longest prompt (warm), decode rate of the run
+        batch = {"tokens": torch.tensor([reqs[-1].prompt], dtype=torch.int32,
+                                        device=dev)}
+        cache = bundle.init_cache(1, S_REC + 8, torch.float32, dev)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bundle.prefill(params, batch, cache)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        _profile_decode(arch, bundle, params, cache, S_REC, dev)
+        decode_s = sum(s.t1 - s.t0 for r in run.results for s in r.timeline
+                       if s.phase == "decode")
+        log(f"[recurrent] {arch}: prefill of {S_REC} tokens "
+            f"{1e3 * min(times):.1f} ms (best of 3, warm; "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in times)}); solo decode "
+            f"{steps} steps in {decode_s:.3f} s, {steps / decode_s:.1f} "
+            f"tokens/s ({1e3 * decode_s / steps:.2f} ms per token); peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del run, rt, bundle, params, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -667,10 +1059,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(dev)
+    rec_rows = phase_kernels_recurrent(dev)
     launches, dep, gen_reqs = phase_serve(dev)
     phase_profile(dep, gen_reqs)
+    del dep, gen_reqs
+    rec = phase_recurrent(dev)
+    # launches: each row's count from its own path's main-path run
     for row in rows:
         row["launches"] = launches[row["name"]]
+    zamba, xlstm = rec["zamba2-7b"], rec["xlstm-1.3b"]
+    for row in rec_rows:
+        row["launches"] = {
+            "flash_attention_d112": zamba["flash_attention"],
+            "decode_attention_d112": zamba["decode_attention"],
+            "ssd_intra_chunk": zamba["ssd_intra_chunk"],
+            "slstm_scan": xlstm["slstm_scan"]}[row["name"]]
+    rows += rec_rows
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,0 +1,23 @@
+"""Where the port runs: the CUDA device unless the caller names another.
+
+``models/`` and ``serving/`` both resolve their default device here, so
+a model built with no device lands on the card or raises — it never
+drops to the CPU by itself.  The CPU tests pass ``"cpu"`` explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device the port runs on: CUDA unless the caller names another
+    (the CPU tests pass ``"cpu"``).  With no CUDA device and no explicit
+    choice this raises — the port never drops to the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port on the CPU")
+    return torch.device("cuda")

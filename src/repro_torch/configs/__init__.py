@@ -1,4 +1,5 @@
 """Architecture config registry: importing this package registers all
-archs the port serves (internvl2-1b, full and smoke)."""
+archs the port serves (full and smoke): internvl2-1b, xlstm-1.3b and
+zamba2-7b."""
 
-from repro_torch.configs import internvl2_1b  # noqa: F401
+from repro_torch.configs import internvl2_1b, xlstm_1_3b, zamba2_7b  # noqa: F401

@@ -6,8 +6,9 @@ This package is the paper's contribution:
   cluster.py   — device pool + link model (testbed or TPU sub-meshes)
   placement.py — greedy Algorithm 1, brute-force Upper, baselines (§V-B)
   routing.py   — per-request parallel routing + event simulator (§V)
-  zoo.py       — per-task request work multiplicities (the zoo's
-                 ModelSpecs come with the CLIP slice)
+  zoo.py       — the paper's zoo as ModelSpecs, per-task request work,
+                 assigned archs as ModelSpecs (``arch_model_spec``)
+  profiles.py  — the paper testbed's calibrated devices and speeds
 """
 
 from repro_torch.core.module import ModelSpec, ModuleSpec  # noqa: F401

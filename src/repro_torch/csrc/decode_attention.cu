@@ -201,7 +201,11 @@ paged_decode_fwd(const T* __restrict__ q, const T* __restrict__ kp,
       PagedAddr{tables + (int64_t)b * n_max, P, ps, K, kh, D});
 }
 
-constexpr int TILE_KEYS = 64;  // 2 keys per lane; ~35 KB shared at D=64
+// keys per staged tile: 64 (2 per lane, ~35 KB of shared memory at
+// D=64); 32 above D=64, where 64 keys of k and v (58 KB at D=112) would
+// pass the 48 KB static shared-memory limit
+template <int D>
+constexpr int tile_keys() { return D > 64 ? 32 : 64; }
 
 dim3 grid_for(int B, int H, int K) {
   const int G = H / K;
@@ -212,7 +216,7 @@ template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const int* lengths, void* o, int B, int H, int K,
                           int Tk, float softcap, cudaStream_t stream) {
-  decode_fwd<T, D, TILE_KEYS><<<grid_for(B, H, K), NW * 32, 0, stream>>>(
+  decode_fwd<T, D, tile_keys<D>()><<<grid_for(B, H, K), NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(o), H, K, Tk,
       1.f / sqrtf((float)D), softcap);
@@ -224,7 +228,7 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          const int* tables, const int* lengths, void* o,
                          int B, int H, int K, int P, int ps, int n_max,
                          float softcap, cudaStream_t stream) {
-  paged_decode_fwd<T, D, TILE_KEYS>
+  paged_decode_fwd<T, D, tile_keys<D>()>
       <<<grid_for(B, H, K), NW * 32, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
           static_cast<const T*>(vp), tables, lengths, static_cast<T*>(o), H,
@@ -232,11 +236,12 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-// head dims: internvl2-1b (64) and the smoke configs (16)
+// head dims: the smoke configs (16), internvl2-1b (64), zamba2-7b (112)
 #define DISPATCH_D(D_, FN, T_, ...)                        \
   switch (D_) {                                            \
     case 16: return FN<T_, 16>(__VA_ARGS__);               \
     case 64: return FN<T_, 64>(__VA_ARGS__);               \
+    case 112: return FN<T_, 112>(__VA_ARGS__);             \
     default: return cudaErrorInvalidValue;                 \
   }
 

@@ -8,8 +8,8 @@
 // every key masked gives 0.  Positions are the trivial arange on both
 // sides, as in the TPU kernel.
 //
-// What bounds it here: on the serving path this is batch-1 prefill of
-// ~270 tokens at H=14, K=2, D=64 in f32 — about 0.26 GFLOP and ~1 MB of
+// What bounds it here: on the internvl2-1b path this is batch-1 prefill
+// of ~270 tokens at H=14, K=2, D=64 in f32 — about 0.26 GFLOP and ~1 MB of
 // q/k/v/o.  The bytes take ~0.3 us at 3.35 TB/s and the FLOPs ~4 us at
 // the 67 TFLOP/s f32 (non-tensor-core) peak, so the bound is operations;
 // in practice launch latency and the few dozen blocks a 270-token
@@ -140,7 +140,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int Tk, int H, int K, int causal,
                    int window, float softcap, cudaStream_t stream) {
-  constexpr int BK = D == 16 ? 64 : 32;  // 24-32 KB of shared memory
+  constexpr int BK = D == 16 ? 64 : 32;  // 24-37 KB of shared memory
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = 1.f / sqrtf((float)D);
   flash_fwd<T, D, BK><<<grid, BQ, 0, stream>>>(
@@ -155,9 +155,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int Tk, int H, int K, int D, int causal,
                      int window, float softcap, cudaStream_t stream) {
   switch (D) {
-    // internvl2-1b (64) and the smoke configs (16)
+    // the smoke configs (16), internvl2-1b (64), zamba2-7b's shared
+    // attention block (112: qr and acc alone are 224 registers a thread,
+    // so this instance spills to local memory)
     case 16: return launch<T, 16>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }

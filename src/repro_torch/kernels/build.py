@@ -48,6 +48,16 @@ LIBRARIES = {
         "paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _I, _F, _P],
     }),
+    "ssd_scan": ("ssd_scan.cu", {
+        # x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H, P, N, dtype, stream
+        "ssd_intra_chunk_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _P],
+    }),
+    "slstm_scan": ("slstm_scan.cu", {
+        # pre, R, y, c, n, m, hbuf, h_out, B, S, d, H, hd, dtype, stream
+        "slstm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _P],
+    }),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Wrappers over the hand-written CUDA attention kernels.
+"""Wrappers over the hand-written CUDA kernels: attention, the Mamba2
+SSD intra-chunk kernel and the sLSTM recurrence.
 
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream or — only for tensors that lie on the CPU — takes
@@ -16,11 +17,16 @@ from repro_torch.kernels import ref
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "ssd_intra_chunk": 0,
+            "slstm_scan": 0}
 
-#: head dims the kernels are instantiated for: internvl2-1b's 64 and
-#: the smoke configs' 16
-HEAD_DIMS = (16, 64)
+#: head dims the attention kernels are instantiated for: the smoke
+#: configs' 16, internvl2-1b's 64 and zamba2-7b's 112
+HEAD_DIMS = (16, 64, 112)
+
+#: the SSD kernel's limit on the chunk length L, the head dim P and the
+#: state size N (its tiles and shared memory are sized for them)
+SSD_MAX_DIM = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,15 +50,19 @@ def _check(name, tensors):
         raise ValueError(f"{name}: unsupported device {dev}")
     dts = {t.dtype for t in tensors.values()}
     if len(dts) != 1 or next(iter(dts)) not in _DTYPES:
-        raise TypeError(f"{name}: q/k/v must share one dtype of "
+        raise TypeError(f"{name}: inputs must share one dtype of "
                         f"float32/bfloat16, got {sorted(map(str, dts))}")
     return dev
 
 
-def _cuda_ready(name, tensors, D):
+def _contiguous(name, tensors):
     for arg, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _cuda_ready(name, tensors, D):
+    _contiguous(name, tensors)
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
 
@@ -174,3 +184,125 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _raise_on("paged_decode_attention", err)
     LAUNCHES["paged_decode_attention"] += 1
     return o
+
+
+def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
+    """Mamba2 SSD, intra-chunk part.  x: (B,nc,L,H,P); Bm/Cm: (B,nc,L,N);
+    dt: (B,nc,L,H) post-softplus; A_log: (H,).  Returns float32 (y_intra
+    (B,nc,L,H,P), S_loc (B,nc,H,N,P), Lam (B,nc,H)): see
+    ``ref.ssd_intra_chunk_ref``."""
+    if x.ndim != 5 or Bm.ndim != 4 or Bm.shape != Cm.shape or dt.ndim != 4:
+        raise ValueError(f"ssd_intra_chunk: bad shapes x{tuple(x.shape)} "
+                         f"B{tuple(Bm.shape)} C{tuple(Cm.shape)} "
+                         f"dt{tuple(dt.shape)}")
+    B, nc, L, H, P = x.shape
+    N = Bm.shape[-1]
+    if Bm.shape[:3] != (B, nc, L) or dt.shape != (B, nc, L, H) or \
+            A_log.shape != (H,):
+        raise ValueError(f"ssd_intra_chunk: x{tuple(x.shape)} does not "
+                         f"match B/C{tuple(Bm.shape)} dt{tuple(dt.shape)} "
+                         f"A_log{tuple(A_log.shape)}")
+    dev = _check("ssd_intra_chunk", {"x": x, "Bm": Bm, "Cm": Cm, "dt": dt})
+    if A_log.device != dev:
+        raise ValueError(f"ssd_intra_chunk: A_log on {A_log.device}, "
+                         f"inputs on {dev}")
+    if dev.type == "cpu":
+        return ref.ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log)
+    _contiguous("ssd_intra_chunk", {"x": x, "Bm": Bm, "Cm": Cm, "dt": dt})
+    if max(L, P, N) > SSD_MAX_DIM:
+        raise ValueError(f"ssd_intra_chunk: L={L}, P={P}, N={N}; the kernel "
+                         f"takes each up to {SSD_MAX_DIM}")
+    from repro_torch.kernels.build import load
+
+    lib = load("ssd_scan")
+    a_log = A_log.float().contiguous()
+    y = torch.empty((B, nc, L, H, P), dtype=torch.float32, device=dev)
+    s_loc = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
+    lam = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
+    err = lib.ssd_intra_chunk_fwd(
+        x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+        a_log.data_ptr(), y.data_ptr(), s_loc.data_ptr(), lam.data_ptr(),
+        B * nc, L, H, P, N, _DTYPES[x.dtype], _stream(x))
+    _raise_on("ssd_intra_chunk", err)
+    LAUNCHES["ssd_intra_chunk"] += 1
+    return y, s_loc, lam
+
+
+def ssd_chunked(x, Bm, Cm, dt, A_log, *, chunk=128, initial_state=None):
+    """Chunked Mamba2 SSD (no D skip): the intra-chunk kernel, then the
+    inter-chunk recurrence over chunks and the inter-chunk output in
+    torch, as ``repro.kernels.ssd_scan.ssd_chunked`` does around its
+    Pallas call.  x: (B,S,H,P); Bm/Cm: (B,S,N); dt: (B,S,H); the chunk
+    is L = min(chunk, S) and must divide S (callers pad).  Returns (y
+    (B,S,H,P) in x's dtype, final state (B,H,N,P) float32)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"ssd_chunked: S={S} is not a multiple of the "
+                         f"chunk {L}; pad the sequence first")
+    nc = S // L
+    y_intra, S_loc, Lam = ssd_intra_chunk(
+        x.reshape(B, nc, L, H, P), Bm.reshape(B, nc, L, N),
+        Cm.reshape(B, nc, L, N), dt.reshape(B, nc, L, H), A_log)
+    # inter-chunk recurrence: state before chunk c, S_c = S_{c-1} Lam + S_loc
+    run = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+           if initial_state is None else initial_state.float())
+    before = []
+    for c in range(nc):
+        before.append(run)
+        run = run * Lam[:, c, :, None, None] + S_loc[:, c]
+    S_before = torch.stack(before, dim=1)                 # (B,nc,H,N,P)
+    dA = dt.float().reshape(B, nc, L, H) * -torch.exp(A_log.float())
+    decay_in = torch.exp(torch.cumsum(dA, dim=2))         # (B,nc,L,H)
+    y_inter = torch.einsum("bcln,bchnp,bclh->bclhp",
+                           Cm.float().reshape(B, nc, L, N), S_before,
+                           decay_in)
+    return (y_intra + y_inter).to(x.dtype).reshape(B, S, H, P), run
+
+
+def slstm_scan(pre, R, *, state=None):
+    """The sLSTM recurrence over a whole sequence in one launch.  pre:
+    (B,S,4,d) gate pre-activations (gates i, f, z, o); R: (4,H,hd,hd)
+    block-diagonal recurrent weights, H*hd = d; state: None (the fresh
+    state, exactly the TPU kernel's function) or (c, n, h, m), each
+    (B,d).  Returns (h over time (B,S,d) in pre's dtype, final (c, n, h,
+    m) float32): see ``ref.slstm_scan_ref``."""
+    if pre.ndim != 4 or pre.shape[2] != 4 or R.ndim != 4 or R.shape[0] != 4:
+        raise ValueError(f"slstm_scan: bad shapes pre{tuple(pre.shape)} "
+                         f"R{tuple(R.shape)}")
+    B, S, _, d = pre.shape
+    _, H, hd, hd2 = R.shape
+    if hd != hd2 or H * hd != d or S < 1:
+        raise ValueError(f"slstm_scan: pre{tuple(pre.shape)} does not match "
+                         f"R{tuple(R.shape)} (need H*hd = d, S >= 1)")
+    dev = _check("slstm_scan", {"pre": pre})
+    if R.device != dev or not R.is_floating_point():
+        raise ValueError(f"slstm_scan: R must be floating on {dev}")
+    if state is not None:
+        if len(state) != 4 or any(t.shape != (B, d) or t.device != dev
+                                  for t in state):
+            raise ValueError(f"slstm_scan: state must be 4 tensors of "
+                             f"({B}, {d}) on {dev}")
+    if dev.type == "cpu":
+        return ref.slstm_scan_ref(pre, R, state)
+    _contiguous("slstm_scan", {"pre": pre, "R": R})
+    from repro_torch.kernels.build import load
+
+    lib = load("slstm_scan")
+    if state is None:
+        state = ref.slstm_initial_state(B, d, dev)
+    # c, n, m are updated in place by the kernel: fresh float32 copies
+    c, n, h0, m = (t.float().clone() for t in state)
+    hbuf = torch.empty((2, B, d), dtype=torch.float32, device=dev)
+    hbuf[0] = h0
+    h_out = torch.empty((B, d), dtype=torch.float32, device=dev)
+    r32 = R.float().contiguous()
+    y = torch.empty((B, S, d), dtype=pre.dtype, device=dev)
+    err = lib.slstm_scan_fwd(
+        pre.data_ptr(), r32.data_ptr(), y.data_ptr(), c.data_ptr(),
+        n.data_ptr(), m.data_ptr(), hbuf.data_ptr(), h_out.data_ptr(), B, S,
+        d, H, hd, _DTYPES[pre.dtype], _stream(pre))
+    _raise_on("slstm_scan", err)
+    LAUNCHES["slstm_scan"] += 1
+    return y, (c, n, h_out, m)

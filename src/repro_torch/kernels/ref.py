@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Each is the function its CUDA kernel computes, written with plain
-tensor ops and float32 softmax: the CPU tests run them, the kernel
-wrappers in ``kernels.ops`` take them for CPU tensors, and
-``chip_smoke.py`` holds each kernel against them on the card.
+tensor ops in float32: the CPU tests run them, the kernel wrappers in
+``kernels.ops`` take them for CPU tensors, and ``chip_smoke.py`` holds
+each kernel against them on the card.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.0e38
 
@@ -68,3 +69,76 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
     k = k_pages[tables].reshape(B, n_max * ps, K, D)
     v = v_pages[tables].reshape(B, n_max * ps, K, D)
     return decode_attention_ref(q, k, v, lengths, softcap=softcap)
+
+
+def ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log):
+    """Mamba2 SSD, the intra-chunk part.  x: (B,nc,L,H,P); Bm/Cm:
+    (B,nc,L,N); dt: (B,nc,L,H) post-softplus; A_log: (H,).
+
+    Returns, all float32: y_intra (B,nc,L,H,P) with
+    ``y[t] = sum_{s<=t} C_t.B_s exp(cum_t - cum_s) dt_s x_s``; S_loc
+    (B,nc,H,N,P), the chunk's outgoing state
+    ``sum_s exp(cum_L - cum_s) dt_s B_s (x) x_s``; Lam (B,nc,H), the
+    chunk's decay ``exp(sum_s dt_s a)``, where ``a = -exp(A_log)`` and
+    ``cum`` is the running sum of ``dt a`` within the chunk."""
+    x, Bm, Cm, dt = (t.float() for t in (x, Bm, Cm, dt))
+    L = x.shape[2]
+    dA = dt * -torch.exp(A_log.float())                   # (B,nc,L,H)
+    cum = torch.cumsum(dA, dim=2)
+    G = torch.einsum("bcln,bcmn->bclm", Cm, Bm)           # t=l, s=m
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    M = torch.where(causal[None, None, :, :, None],
+                    G[..., None] * decay * dt[:, :, None, :, :],
+                    torch.zeros((), device=x.device))     # (B,nc,t,s,H)
+    y = torch.einsum("bclmh,bcmhp->bclhp", M, x)
+    w_end = torch.exp(cum[:, :, -1:, :] - cum) * dt       # (B,nc,L,H)
+    S_loc = torch.einsum("bcln,bclh,bclhp->bchnp", Bm, w_end, x)
+    Lam = torch.exp(dA.sum(dim=2))
+    return y, S_loc, Lam
+
+
+def slstm_initial_state(B, d, device):
+    """The sLSTM cell's fresh state (c, n, h, m): zeros, with n = 1e-6."""
+    z = torch.zeros(B, d, device=device)
+    return z, z + 1e-6, z.clone(), z.clone()
+
+
+def slstm_scan_ref(pre, R, state=None):
+    """The sLSTM recurrence.  pre: (B,S,4,d) gate pre-activations (gate
+    order i, f, z, o); R: (4,H,hd,hd) block-diagonal recurrent weights,
+    H*hd = d; state: None (fresh) or (c, n, h, m), each (B,d).
+
+    Per step, with rec_g = h R_g (per head):
+      gi = pre_i + rec_i;  gf = pre_f + rec_f
+      gz = tanh(pre_z + rec_z);  go = sigmoid(pre_o + rec_o)
+      m' = max(logsigmoid(gf) + m, gi)
+      c = exp(logsigmoid(gf) + m - m') c + exp(gi - m') gz
+      n = exp(logsigmoid(gf) + m - m') n + exp(gi - m')
+      h = go c / max(n, 1e-6)
+    Returns (h over time (B,S,d) in pre's dtype, final (c, n, h, m)
+    float32)."""
+    B, S, _, d = pre.shape
+    _, H, hd, _ = R.shape
+    Rf, p = R.float(), pre.float()
+    if state is None:
+        state = slstm_initial_state(B, d, pre.device)
+    c, n, h, m = (t.float() for t in state)
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhd,ghde->gbhe", h.reshape(B, H, hd),
+                           Rf).reshape(4, B, d)
+        gi = p[:, t, 0] + rec[0]
+        gf = p[:, t, 1] + rec[1]
+        gz = torch.tanh(p[:, t, 2] + rec[2])
+        go = torch.sigmoid(p[:, t, 3] + rec[3])
+        logf = F.logsigmoid(gf)
+        m_new = torch.maximum(logf + m, gi)
+        fp = torch.exp(logf + m - m_new)
+        ip = torch.exp(gi - m_new)
+        c = fp * c + ip * gz
+        n = fp * n + ip
+        h = go * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(pre.dtype), (c, n, h, m)

@@ -1,0 +1,137 @@
+"""Mamba2 (State-Space Duality) block.
+
+Chunkwise-parallel SSD for prefill (linear in sequence length), with
+the intra-chunk part in the hand-written SSD kernel
+(``kernels.ops.ssd_chunked``), and an O(1) recurrent step for decode
+(``S == 1``), in torch as in the reference.  ``ssd_recurrent_ref`` is
+the naive per-step oracle the tests use.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.layers.initializers import WSpec
+from repro_torch.layers.norms import apply_norm, norm_specs
+
+
+def mamba2_dims(cfg):
+    d_in = cfg.mamba_expand * cfg.d_model
+    n_heads = d_in // cfg.mamba_head_dim
+    return d_in, n_heads, cfg.ssm_state
+
+
+def mamba2_specs(cfg):
+    d_in, H, N = mamba2_dims(cfg)
+    W = cfg.mamba_conv_width
+    return {
+        "wz": WSpec((cfg.d_model, d_in), ("embed", "ssm_inner")),
+        "wx": WSpec((cfg.d_model, d_in), ("embed", "ssm_inner")),
+        "wB": WSpec((cfg.d_model, N), ("embed", "ssm_state")),
+        "wC": WSpec((cfg.d_model, N), ("embed", "ssm_state")),
+        "wdt": WSpec((cfg.d_model, H), ("embed", "ssm_heads")),
+        "conv_x": WSpec((W, d_in), (None, "ssm_inner")),
+        "conv_B": WSpec((W, N), (None, "ssm_state")),
+        "conv_C": WSpec((W, N), (None, "ssm_state")),
+        "A_log": WSpec((H,), ("ssm_heads",), init="zeros"),
+        "dt_bias": WSpec((H,), ("ssm_heads",), init="zeros"),
+        "D_skip": WSpec((H,), ("ssm_heads",), init="ones"),
+        "out_norm": norm_specs(d_in),
+        "w_out": WSpec((d_in, cfg.d_model), ("ssm_inner", "embed")),
+    }
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv.  x: (B, S, C), w: (W, C).
+
+    With ``state`` (B, W-1, C) the conv continues from cached history.
+    Returns (out, new_state) — the last W-1 inputs, history included."""
+    W = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], W - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(W))
+    return out, xp[:, -(W - 1):, :]
+
+
+def _ssd_chunked(xh, Bm, Cm, dt, A_log, D_skip, chunk: int,
+                 initial_state=None):
+    """Chunkwise SSD with the D skip.  xh: (B,S,H,P); Bm/Cm: (B,S,N);
+    dt: (B,S,H) post-softplus.  A ragged tail is padded to the chunk
+    with dt = 0 (decay 1, update 0: state-neutral).  Returns (y
+    (B,S,H,P), final state (B,H,N,P) float32)."""
+    S = xh.shape[1]
+    L = min(chunk, S)
+    pad = (L - S % L) % L
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    y, final = kops.ssd_chunked(xh.contiguous(), Bm.contiguous(),
+                                Cm.contiguous(), dt.contiguous(), A_log,
+                                chunk=L, initial_state=initial_state)
+    y = y[:, :S] + xh[:, :S].float() * D_skip.float()[None, None, :, None]
+    return y.to(xh.dtype), final
+
+
+def ssd_recurrent_ref(xh, Bm, Cm, dt, A_log, D_skip, initial_state=None):
+    """Naive per-step SSD: s = s exp(dt a) + dt B (x) x; y = C.s + D x."""
+    Bsz, S, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    a = -torch.exp(A_log.float())
+    s = (torch.zeros((Bsz, H, N, Pd), dtype=torch.float32, device=xh.device)
+         if initial_state is None else initial_state.float())
+    xs, Bs, Cs, dts = (t.float() for t in (xh, Bm, Cm, dt))
+    D = D_skip.float()[None, :, None]
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dts[:, t] * a)                   # (B,H)
+        upd = torch.einsum("bn,bh,bhp->bhnp", Bs[:, t], dts[:, t], xs[:, t])
+        s = s * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", Cs[:, t], s) + xs[:, t] * D)
+    return torch.stack(ys, dim=1).to(xh.dtype), s
+
+
+def mamba2_apply(params, x, cfg, *, state=None):
+    """Full block body.  x: (B, S, d_model).
+
+    state: None (fresh) or dict(ssm=(B,H,N,P), conv_x/conv_B/conv_C).
+    A multi-token call (prefill) runs the chunked SSD through the kernel;
+    a one-token call (decode) the recurrent step.  Returns (y, new_state)."""
+    d_in, H, N = mamba2_dims(cfg)
+    dt_ = x.dtype
+    z = x @ params["wz"].to(dt_)
+    xr = x @ params["wx"].to(dt_)
+    Br = x @ params["wB"].to(dt_)
+    Cr = x @ params["wC"].to(dt_)
+    dtl = x @ params["wdt"].to(dt_)
+
+    cs = state or {}
+    xc, ns_x = _causal_conv(xr, params["conv_x"].to(dt_), cs.get("conv_x"))
+    Bc, ns_B = _causal_conv(Br, params["conv_B"].to(dt_), cs.get("conv_B"))
+    Cc, ns_C = _causal_conv(Cr, params["conv_C"].to(dt_), cs.get("conv_C"))
+    xc, Bc, Cc = F.silu(xc), F.silu(Bc), F.silu(Cc)
+
+    dt_soft = F.softplus(dtl.float() + params["dt_bias"].float())
+    xh = xc.reshape(*xc.shape[:2], H, cfg.mamba_head_dim)
+
+    init_ssm = cs.get("ssm")
+    if x.shape[1] == 1:
+        y, final = ssd_recurrent_ref(xh, Bc, Cc, dt_soft, params["A_log"],
+                                     params["D_skip"], initial_state=init_ssm)
+    else:
+        y, final = _ssd_chunked(xh, Bc, Cc, dt_soft, params["A_log"],
+                                params["D_skip"], cfg.mamba_chunk,
+                                initial_state=init_ssm)
+
+    y = y.reshape(*x.shape[:2], d_in)
+    y = apply_norm(params["out_norm"], y * F.silu(z), cfg.norm, cfg.norm_eps)
+    out = y @ params["w_out"].to(dt_)
+    new_state = {"ssm": final, "conv_x": ns_x, "conv_B": ns_B, "conv_C": ns_C}
+    return out, new_state

@@ -22,6 +22,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.common.config import ArchConfig
+from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_map
 from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply, head_specs
 from repro_torch.layers.initializers import WSpec, init_tree, spec_param_count, stack_specs
@@ -45,32 +46,40 @@ class ModelBundle:
     paged_cache_specs: Callable | None = None   # (n_pages, page_size, dtype)
     loss_fn: Callable | None = None             # the training slice
 
+    # ``device=None`` is the card (``common.device.resolve_device``):
+    # with no CUDA device these raise unless the caller names "cpu"
     def init(self, generator: torch.Generator, dtype=torch.float32,
-             device="cpu"):
-        return init_tree(self.specs, generator, dtype, device)
+             device=None):
+        return init_tree(self.specs, generator, dtype,
+                         resolve_device(device))
 
     def param_count(self) -> int:
         return spec_param_count(self.specs)
 
-    def init_cache(self, B: int, T: int, dtype=torch.float32, device="cpu"):
-        return init_tree(self.cache_specs(B, T, dtype), device=device)
+    def init_cache(self, B: int, T: int, dtype=torch.float32, device=None):
+        return init_tree(self.cache_specs(B, T, dtype),
+                         device=resolve_device(device))
 
     def init_paged_cache(self, n_pages: int, page_size: int,
-                         dtype=torch.float32, device="cpu"):
+                         dtype=torch.float32, device=None):
         if self.paged_cache_specs is None:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} has no paged-KV cache layout")
         return init_tree(self.paged_cache_specs(n_pages, page_size, dtype),
-                         device=device)
+                         device=resolve_device(device))
 
 
 def _lm_specs(cfg, stages):
     sp: dict[str, Any] = {
         "embed": embed_specs(cfg.vocab_size, cfg.d_model),
-        "stages": {st.name: {"blocks": stack_specs(st.block_specs, st.n)}
-                   for st in stages},
+        "stages": {},
         "final_norm": norm_specs(cfg.d_model, cfg.norm),
     }
+    for st in stages:
+        entry = {"blocks": stack_specs(st.block_specs, st.n)}
+        if st.shared_specs is not None:
+            entry["shared"] = st.shared_specs
+        sp["stages"][st.name] = entry
     if not cfg.tie_embeddings:
         sp["head"] = head_specs(cfg.d_model, cfg.vocab_size)
     if cfg.has_vision_stub:
@@ -99,14 +108,19 @@ def _logits(cfg, params, h):
 
 def _run_backbone(stages, params, h, ctx, caches):
     """Run every stage's layers in order; layer i reads the i-th slice of
-    the stacked weights and writes the i-th slice of the stage cache."""
+    the stacked weights and writes the i-th slice of the stage cache.  A
+    stage's unstacked weights (zamba2's shared attention block) reach
+    every one of its layers as ``ctx["shared_attn"]``."""
     for st in stages:
-        p_st = params["stages"][st.name]["blocks"]
+        p_st = params["stages"][st.name]
+        ctx_st = dict(ctx)
+        if st.shared_specs is not None:
+            ctx_st["shared_attn"] = p_st["shared"]
         cache_st = caches[st.name]
         for i in range(st.n):
-            lp = tree_map(lambda t, i=i: t[i], p_st)
+            lp = tree_map(lambda t, i=i: t[i], p_st["blocks"])
             cl = tree_map(lambda t, i=i: t[i], cache_st)
-            h = st.block_fn(lp, h, cl, ctx)
+            h = st.block_fn(lp, h, cl, ctx_st)
     return h
 
 
@@ -143,6 +157,10 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     # Every dense/vlm stage cache is {"k","v"} with (B, T, K, D) leaves:
     # re-reading (B, T) as (n_pages, page_size) gives the global page
     # pool the paged decode kernel and the block-table scatter consume.
+    # Recurrent (hybrid/ssm) caches do not fit the page layout; those
+    # bundles keep the paged fields None, as in the JAX package.
+    paged_supported = cfg.family in ("dense", "vlm")
+
     def paged_decode_step(params, tokens, cache, block_tables, lengths):
         return _decode(params, tokens, cache, lengths, cache_layout="paged",
                        block_tables=block_tables)
@@ -162,5 +180,6 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
 
     return ModelBundle(
         cfg=cfg, specs=specs, prefill=prefill, decode_step=decode_step,
-        cache_specs=cache_specs, paged_decode_step=paged_decode_step,
-        paged_cache_specs=paged_cache_specs)
+        cache_specs=cache_specs,
+        paged_decode_step=paged_decode_step if paged_supported else None,
+        paged_cache_specs=paged_cache_specs if paged_supported else None)

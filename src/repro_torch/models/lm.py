@@ -1,30 +1,44 @@
 """Decoder-only LM blocks: embedding -> [stage] -> final norm -> head.
 
-The port covers the dense/vlm ``"blocks"`` stage: a stack of
-homogeneous attention + gated-MLP blocks whose weights are stacked on a
-leading layer axis, as in the JAX package.  Where the reference scans
-the stack, the port loops over the layer index; each layer's weights
-and cache are views into the stacked tensors, so cache writes land in
-place.
+A model is a short sequence of stages, each a stack of homogeneous
+blocks whose weights are stacked on a leading axis, as in the JAX
+package.  The port covers:
 
-Modes: "prefill" (fills the dense cache through the flash attention
-kernel) and "decode" (one token per row against a dense cache through
-the decode attention kernel, or against a paged pool through the paged
-decode kernel).  Windowed (local) layers and the pairs / moe / hybrid /
-ssm stages are not ported yet and raise.
+* dense/vlm ``"blocks"``: attention + gated-MLP blocks;
+* hybrid (zamba2) ``"super"``: superblocks of ``n_mamba_per_super``
+  Mamba2 blocks (weights ``(n_super, k, ...)``) followed by one
+  attention + MLP block whose weights exist once, under
+  ``params["stages"]["super"]["shared"]``, and a ``"tail"`` of the
+  leftover Mamba2 blocks;
+* ssm (xLSTM) ``"xgroup"``: groups of ``mlstm_to_slstm`` mLSTM blocks
+  (weights ``(n_groups, m, ...)``) and one sLSTM block.
+
+Where the reference scans a stack, the port loops over the block index;
+each block's weights and cache are views into the stacked tensors, so
+cache writes land in place.
+
+Modes: "prefill" (fills the caches: attention through the flash kernel,
+Mamba2 through the SSD kernel, sLSTM through its kernel) and "decode"
+(one token per row: attention against a dense cache through the decode
+kernel, or a paged pool through the paged kernel; the recurrent blocks
+step their state).  Windowed (local) layers and the pairs / moe stages
+are not ported yet and raise.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn
-from repro_torch.layers.initializers import WSpec
+from repro_torch.layers import mamba2 as m2
+from repro_torch.layers import xlstm as xl
+from repro_torch.layers.initializers import WSpec, stack_specs
 from repro_torch.layers.mlp import mlp_apply, mlp_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
 
@@ -107,6 +121,60 @@ def _attn_block(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
     return _apply_ffn_sub(p, h, cfg, post_norm=post_norm)
 
 
+def _write_state(cache, new):
+    """Copy a block's new recurrent state into its cache views."""
+    tree_map(lambda c, x: c.copy_(x), cache, new)
+
+
+def _mamba_block_specs(cfg):
+    return {"ln": norm_specs(cfg.d_model, cfg.norm), "mamba": m2.mamba2_specs(cfg)}
+
+
+def _shared_attn_specs(cfg):
+    d = cfg.d_model
+    return {
+        "ln_attn": norm_specs(d, cfg.norm),
+        "attn": attn.attention_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "ln_mlp": norm_specs(d, cfg.norm),
+        "mlp": mlp_specs(d, cfg.shared_attn_d_ff or cfg.d_ff),
+    }
+
+
+def _mamba_block(p, h, cache, ctx, cfg):
+    x = apply_norm(p["ln"], h, cfg.norm, cfg.norm_eps)
+    state = cache if ctx["mode"] == "decode" else None
+    y, new_state = m2.mamba2_apply(p["mamba"], x, cfg, state=state)
+    _write_state(cache, new_state)
+    return h + y
+
+
+def _xlstm_block(apply, p, h, cache, ctx, cfg):
+    """An mLSTM or sLSTM block (``apply`` norms its own input); its cache
+    is the state list, written in place."""
+    state = tuple(cache) if ctx["mode"] == "decode" else None
+    y, new_state = apply(p, h, cfg, state=state)
+    _write_state(cache, new_state)
+    return h + y
+
+
+def _super_block(p, h, cache, ctx, cfg, *, k: int):
+    """k Mamba2 blocks, then the shared attention + MLP block."""
+    for j in range(k):
+        h = _mamba_block(tree_map(lambda t: t[j], p["mamba"]), h,
+                         tree_map(lambda t: t[j], cache["mamba"]), ctx, cfg)
+    return _attn_block(ctx["shared_attn"], h, cache["attn"], ctx, cfg,
+                       local=False, post_norm=False)
+
+
+def _xgroup_block(p, h, cache, ctx, cfg, *, m: int):
+    """m mLSTM blocks, then one sLSTM block."""
+    for j in range(m):
+        h = _xlstm_block(xl.mlstm_apply, tree_map(lambda t: t[j], p["mlstm"]),
+                         h, [t[j] for t in cache["mlstm"]], ctx, cfg)
+    return _xlstm_block(xl.slstm_apply, p["slstm"], h, cache["slstm"], ctx,
+                        cfg)
+
+
 @dataclass
 class StageDef:
     name: str
@@ -114,6 +182,7 @@ class StageDef:
     block_specs: Any                         # unstacked per-block spec tree
     block_fn: Callable                       # (p, h, cache_l, ctx) -> h
     cache_specs: Callable                    # (cfg, B, T, dtype) -> per-layer WSpecs
+    shared_specs: Any = None                 # unstacked weights (zamba2 shared attn)
 
 
 def _kv_cache_specs(cfg, B, T, dtype):
@@ -126,14 +195,82 @@ def _kv_cache_specs(cfg, B, T, dtype):
     }
 
 
+def _mamba_cache_specs(cfg, B, T, dtype):
+    d_in, H, N = m2.mamba2_dims(cfg)
+    W = cfg.mamba_conv_width
+    return {
+        "ssm": WSpec((B, H, N, cfg.mamba_head_dim),
+                     ("cache_batch", "ssm_heads", None, None), init="zeros",
+                     dtype=torch.float32),
+        "conv_x": WSpec((B, W - 1, d_in), ("cache_batch", None, "ssm_inner"),
+                        init="zeros", dtype=dtype),
+        "conv_B": WSpec((B, W - 1, N), ("cache_batch", None, None), init="zeros",
+                        dtype=dtype),
+        "conv_C": WSpec((B, W - 1, N), ("cache_batch", None, None), init="zeros",
+                        dtype=dtype),
+    }
+
+
+def _mlstm_cache_specs(cfg, B, T, dtype):
+    d_in, H, hd = xl.mlstm_dims(cfg)
+    return [
+        WSpec((B, H, hd, hd), ("cache_batch", "ssm_heads", None, None),
+              init="zeros", dtype=torch.float32),
+        WSpec((B, H, hd), ("cache_batch", "ssm_heads", None), init="zeros",
+              dtype=torch.float32),
+        WSpec((B, H), ("cache_batch", "ssm_heads"), init="zeros",
+              dtype=torch.float32),
+    ]
+
+
+def _slstm_cache_specs(cfg, B, T, dtype):
+    return [WSpec((B, cfg.d_model), ("cache_batch", None), init="zeros",
+                  dtype=torch.float32) for _ in range(4)]
+
+
+def _stacked(spec_tree, k):
+    """Per-layer cache specs with a leading stacked axis of length k."""
+    return tree_map(lambda ws: replace(ws, shape=(k, *ws.shape),
+                                       axes=("layers", *ws.axes)), spec_tree)
+
+
 def make_stages(cfg) -> list[StageDef]:
-    if cfg.family not in ("dense", "vlm") or cfg.attn_pattern:
-        raise NotImplementedError(
-            f"make_stages: only the dense/vlm 'blocks' stage is ported; "
-            f"{cfg.name!r} (family {cfg.family!r}, attn_pattern "
-            f"{cfg.attn_pattern!r}) needs a later slice")
-    return [StageDef(
-        "blocks", cfg.n_layers, _attn_block_specs(cfg, cfg.post_norm),
-        partial(_attn_block, cfg=cfg, local=False, post_norm=cfg.post_norm),
-        _kv_cache_specs,
-    )]
+    fam = cfg.family
+    if fam in ("dense", "vlm") and not cfg.attn_pattern:
+        return [StageDef(
+            "blocks", cfg.n_layers, _attn_block_specs(cfg, cfg.post_norm),
+            partial(_attn_block, cfg=cfg, local=False, post_norm=cfg.post_norm),
+            _kv_cache_specs,
+        )]
+    if fam == "hybrid":  # zamba2: superblocks of mamba + shared attention
+        k = cfg.n_mamba_per_super
+        n_super = cfg.n_layers // k
+        tail = cfg.n_layers - n_super * k
+        stages = [StageDef(
+            "super", n_super,
+            {"mamba": stack_specs(_mamba_block_specs(cfg), k)},
+            partial(_super_block, cfg=cfg, k=k),
+            lambda cfg_, B, T, dtype, k=k: {
+                "mamba": _stacked(_mamba_cache_specs(cfg_, B, T, dtype), k),
+                "attn": _kv_cache_specs(cfg_, B, T, dtype)},
+            shared_specs=_shared_attn_specs(cfg))]
+        if tail:
+            stages.append(StageDef(
+                "tail", tail, _mamba_block_specs(cfg),
+                partial(_mamba_block, cfg=cfg), _mamba_cache_specs))
+        return stages
+    if fam == "ssm":  # xLSTM m:1 groups
+        m = cfg.mlstm_to_slstm
+        return [StageDef(
+            "xgroup", cfg.n_layers // (m + 1),
+            {"mlstm": stack_specs(xl.mlstm_specs(cfg), m),
+             "slstm": xl.slstm_specs(cfg)},
+            partial(_xgroup_block, cfg=cfg, m=m),
+            lambda cfg_, B, T, dtype, m=m: {
+                "mlstm": [_stacked(ws, m)
+                          for ws in _mlstm_cache_specs(cfg_, B, T, dtype)],
+                "slstm": _slstm_cache_specs(cfg_, B, T, dtype)})]
+    raise NotImplementedError(
+        f"make_stages: {cfg.name!r} (family {fam!r}, attn_pattern "
+        f"{cfg.attn_pattern!r}) needs a later slice; the port has the "
+        "dense/vlm, hybrid and ssm stages")

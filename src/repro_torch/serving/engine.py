@@ -26,25 +26,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device  # noqa: F401  (re-export)
 from repro_torch.common.pytree import tree_map
 from repro_torch.core.module import ModelSpec, ModuleSpec
 from repro_torch.core.placement import Placement
 from repro_torch.core.registry import ModuleRegistry
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Span, Tracer
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device the port runs on: CUDA unless the caller names another
-    (the CPU tests pass ``"cpu"``).  With no CUDA device and no explicit
-    choice this raises — the port never drops to the CPU by itself."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "port on the CPU")
-    return torch.device("cuda")
 
 
 def to_device(tree, device):

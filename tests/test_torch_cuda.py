@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels against their plain versions on the
-card, at the serving path's shapes (internvl2-1b: H=14, K=2, D=64).
+card, at the serving paths' shapes (internvl2-1b attention: H=14, K=2,
+D=64; zamba2-7b: shared attention H=K=32, D=112, and the SSD kernel at
+L=128, H=112, P=64, N=64; xlstm-1.3b's sLSTM at d=2048, H=4, hd=512).
 
 Marked ``cuda``: they skip where no CUDA device is visible.  This file
 imports no jax, so it runs on a machine with the card alone:
@@ -67,7 +69,7 @@ def test_cuda_model_steps_match_cpu_plain_path(cuda_device):
 
     cfg = get_config("internvl2-1b", smoke=True)
     b = build_model(cfg)
-    p_cpu = b.init(torch.Generator().manual_seed(0))
+    p_cpu = b.init(torch.Generator().manual_seed(0), device="cpu")
     g = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 9), generator=g,
                                      dtype=torch.int32),
@@ -125,3 +127,87 @@ def test_cuda_sampled_serve_equals_submit(cuda_device):
     for req, res in zip(reqs, sched.serve(reqs)):
         np.testing.assert_array_equal(res.output,
                                       sched.engine.generate(req).output)
+
+
+TOLS = [(torch.float32, 2e-4, 2e-4),
+        # both sides round one f32 result to bf16: at most one ulp apart
+        (torch.bfloat16, 1e-3, 2.0**-7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+def test_cuda_attention_head_dim_112(cuda_device, dtype, atol, rtol):
+    """zamba2-7b's shared attention block: H = K = 32, D = 112, prefill
+    of a ragged 383 tokens and decode over ~400 keys."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q, k, v = rnd(1, 383, 32, 112), rnd(1, 383, 32, 112), rnd(1, 383, 32, 112)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v).float(),
+        ref.flash_attention_ref(q, k, v).float(), rtol=rtol, atol=atol)
+    qd = rnd(2, 32, 112)
+    kd, vd = rnd(2, 400, 32, 112), rnd(2, 400, 32, 112)
+    lens = torch.tensor([399, 77], dtype=torch.int32, device=cuda_device)
+    torch.testing.assert_close(
+        ops.decode_attention(qd, kd, vd, lens).float(),
+        ref.decode_attention_ref(qd, kd, vd, lens).float(), rtol=rtol,
+        atol=atol)
+
+
+def ssd_inputs(gen, B, nc, L, H, P, N, dtype):
+    """Inputs at the scales of a Mamba2 layer: silu-sized x, B, C;
+    dt = softplus(.); A_log spread over a few decades of decay."""
+    dev = gen.device
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = rnd(B, nc, L, H, P)
+    Bm, Cm = 0.5 * rnd(B, nc, L, N), 0.5 * rnd(B, nc, L, N)
+    dt = torch.nn.functional.softplus(rnd(B, nc, L, H) - 1.0)
+    A_log = 0.5 * rnd(H)
+    return (*(t.to(dtype) for t in (x, Bm, Cm, dt)), A_log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("shape", [(1, 3, 128, 112, 64, 64),   # zamba2 path
+                                   (1, 1, 126, 112, 64, 64),   # L < chunk
+                                   (2, 2, 8, 8, 16, 16)])      # smoke
+def test_cuda_ssd_intra_chunk_matches_plain(cuda_device, dtype, atol, rtol,
+                                            shape):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    args = ssd_inputs(g, *shape, dtype)
+    # all three outputs are float32 on both sides
+    for got, want in zip(ops.ssd_intra_chunk(*args),
+                         ref.ssd_intra_chunk_ref(*args)):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("B,S,H,hd", [(1, 383, 4, 512),   # xlstm-1.3b
+                                      (2, 9, 4, 16)])     # smoke
+def test_cuda_slstm_scan_matches_plain(cuda_device, dtype, atol, rtol, B, S,
+                                       H, hd):
+    """Zero state, a random initial state, and one decode step (S=1)
+    from that state; outputs and final states."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    d = H * hd
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    pre = rnd(B, S, 4, d).to(dtype)
+    R = 0.02 * rnd(4, H, hd, hd)
+    state = (rnd(B, d), 1.0 + rnd(B, d).abs(), rnd(B, d).tanh(), rnd(B, d))
+    for p, st in ((pre, None), (pre, state), (pre[:, :1].contiguous(), state)):
+        y, fin = ops.slstm_scan(p, R, state=st)
+        y_ref, fin_ref = ref.slstm_scan_ref(p, R, st)
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=rtol,
+                                   atol=atol)
+        for a, b in zip(fin, fin_ref):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)

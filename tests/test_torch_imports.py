@@ -84,6 +84,27 @@ def test_materialize_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
     assert out.devices == {"enc": "dev0", "head": "dev0"}
 
 
+@pytest.mark.parametrize("arch", ["internvl2-1b", "zamba2-7b", "xlstm-1.3b"])
+def test_model_init_needs_cuda_unless_cpu_is_asked_for(monkeypatch, arch):
+    """A model built with no device lands on the card: with CUDA hidden,
+    its weights and caches raise instead of falling back to the CPU."""
+    from repro_torch.common.config import get_config
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.models.api import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = build_model(get_config(arch, smoke=True))
+    for make in (lambda: b.init(torch.Generator().manual_seed(0)),
+                 lambda: b.init_cache(1, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    params = b.init(torch.Generator().manual_seed(0), device="cpu")
+    assert {t.device.type for t in tree_leaves(params)} == {"cpu"}
+    if b.paged_cache_specs is not None:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            b.init_paged_cache(4, 8)
+
+
 def test_unported_verify_passes_raise():
     dep = _tiny_deployment()
     assert dep.verify() == []
@@ -107,8 +128,10 @@ def test_kernel_wrappers_take_plain_version_for_cpu_tensors(monkeypatch):
     torch.testing.assert_close(ops.decode_attention(q, k, k, lens),
                                ref.decode_attention_ref(q, k, k, lens),
                                rtol=0, atol=0)
-    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
-                            "paged_decode_attention": 0}
+    assert set(ops.LAUNCHES) == {"flash_attention", "decode_attention",
+                                 "paged_decode_attention", "ssd_intra_chunk",
+                                 "slstm_scan"}
+    assert not any(ops.LAUNCHES.values())
 
 
 def test_build_names_libraries_by_source_hash():

@@ -47,7 +47,7 @@ def test_specs_and_param_count_match_reference(models):
     _, jb, jp, tb, tp = models
     assert tb.param_count() == jb.param_count()
     tshapes = [tuple(x.shape) for x in tree_leaves(tb.init(
-        torch.Generator().manual_seed(0)))]
+        torch.Generator().manual_seed(0), device="cpu"))]
     assert sorted(tshapes) == sorted(tuple(x.shape)
                                      for x in jax.tree.leaves(jp))
 
@@ -59,7 +59,7 @@ def test_prefill_then_decode_matches_reference(models):
     jc = jb.init_cache(2, T, jnp.float32)
     jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks),
                              "image_embeds": jnp.asarray(img)}, jc)
-    tc = tb.init_cache(2, T)
+    tc = tb.init_cache(2, T, device="cpu")
     tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks),
                              "image_embeds": torch.from_numpy(img)}, tc)
     _close(tl, jl)
@@ -88,10 +88,10 @@ def test_paged_decode_matches_reference(models):
                             "image_embeds": jnp.asarray(img)}, jd)
     jpool = ref_insert_pages(jb.init_paged_cache(n_pages, ps, jnp.float32),
                              jd, pages, L)
-    td = tb.init_cache(1, span)
+    td = tb.init_cache(1, span, device="cpu")
     _, td = tb.prefill(tp, {"tokens": torch.from_numpy(toks),
                             "image_embeds": torch.from_numpy(img)}, td)
-    tpool = insert_pages(tb.init_paged_cache(n_pages, ps), td, pages, L)
+    tpool = insert_pages(tb.init_paged_cache(n_pages, ps, device="cpu"), td, pages, L)
     _close(tpool["blocks"]["v"], jpool["blocks"]["v"])
     # row 0 live, row 1 dead (dummy page 0); tables with garbage tails
     tables = np.array([[5, 2, 7, -4], [0, 0, 0, 0]], np.int32)
