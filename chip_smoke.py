@@ -6,18 +6,27 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. Build: compile the CUDA kernels under ``src/repro_torch/csrc`` with
-   ``nvcc`` for sm_90a (one process per source, in parallel) and print
-   the card's name and power limit.
+   ``nvcc`` for sm_90a (one process per source, in parallel), print the
+   card's name and power limit, each kernel instance's registers,
+   static shared memory and spills (``ptxas -v``; a spill in an
+   attention kernel fails) and the flash kernel's tiles and dynamic
+   shared memory per head dim.
 2. Kernels: hold each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the serving paths give it, in
    float32 and bfloat16: the attention kernels at internvl2-1b's head
    geometry (random lengths, garbage block-table entries past each
    row's pages, a logit softcap, a ragged S) and at zamba2-7b's shared
-   attention (H = K = 32, D = 112), the Mamba2 SSD intra-chunk kernel
-   at zamba2-7b's prefill shape and the sLSTM kernel at xlstm-1.3b's
-   (fresh state, a random state, one decode step); then time each
-   kernel, its plain version and, where one PyTorch call computes the
-   same function (``scaled_dot_product_attention``), that call.
+   attention (H = K = 32, D = 112), with the flash kernel's edges (S = 1,
+   S under one tile, windows, non-causal, B = 2, softcap) and the
+   split-KV decode kernel's (lengths 0, 1, a split boundary +- 1 and T
+   in one batch, G = 1 and 7, B = 4, softcap); the Mamba2 SSD
+   intra-chunk kernel at zamba2-7b's prefill shape and the sLSTM kernel
+   at xlstm-1.3b's (fresh state, a random state, one decode step); then
+   time each kernel (CUDA events over back-to-back calls; its own
+   device time under ``torch.profiler``; the wrapper's host enqueue
+   time), its plain version and, where one PyTorch call computes the
+   same function (``scaled_dot_product_attention``), that call, in turns
+   with the kernel.
 3. Serve internvl2-1b at full width (24 layers, d_model 896, random
    float32 weights from a seed) as the generative head ``vlm-head``
    behind a shared encoder ``pix-enc``, three tasks (caption, ocr,
@@ -112,17 +121,95 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# libraries whose kernels must not spill registers (the redesigned
+# attention kernels; a spill there is a failure)
+NO_SPILL = ("flash_attention", "decode_attention")
+
+
+def ptxas_entries(report: str) -> list[dict]:
+    """Per entry function of an ``nvcc -Xptxas -v`` report: its mangled
+    name, registers, static shared memory and spilled bytes."""
+    import re
+
+    entries, cur, props = [], None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"name": m.group(1), "registers": None, "smem": 0,
+                   "spill": 0}
+            entries.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props == cur["name"]:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
+    return entries
+
+
+def _short_names(names: list[str]) -> list[str]:
+    """``flash_fwd<float, 112, 32, 32>`` for a mangled kernel name (via
+    the toolkit's ``cu++filt``; the mangled names where it is missing)."""
+    from repro_torch.kernels.build import nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cu++filt"
+    try:
+        out = subprocess.run([str(tool), *names], capture_output=True,
+                             text=True, check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return names
+    lines = out.stdout.splitlines()
+    if len(lines) != len(names):
+        return names
+    short = []
+    for ln in lines:
+        ln = (ln.replace("(anonymous namespace)::", "")
+              .replace("<unnamed>::", "").replace("(int)", "")
+              .removeprefix("void "))
+        short.append(ln.split(">(")[0] + ">" if ">(" in ln
+                     else ln.split("(")[0])
+    return short
+
+
 def phase_build():
-    from repro_torch.kernels import build
+    import ctypes
+
+    from repro_torch.kernels import build, ops
 
     t0 = time.perf_counter()
     reports = build.build_all()
     log(f"[build] {len(reports)} libraries in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {build.NVCC_FLAGS[1]})")
+    spilled = []
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        entries = ptxas_entries(rep)
+        for e, short in zip(entries, _short_names([e["name"] for e in entries])):
+            log(f"[build] {name}: {short}: {e['registers']} registers, "
+                f"{e['smem']} B static shared memory, {e['spill']} B "
+                "spilled")
+            if e["spill"] and name in NO_SPILL:
+                spilled.append(short)
+    plan = (ctypes.c_int * 4)()
+    lib = build.load("flash_attention")
+    for D in ops.HEAD_DIMS:
+        if lib.flash_attention_plan(D, plan) != 0:
+            fail(f"flash_attention has no plan for D={D}")
+        log(f"[build] flash_attention plan D={D}: BQ {plan[0]}, BK "
+            f"{plan[1]}, {plan[2]} threads, {plan[3]} B dynamic shared "
+            "memory")
+    if spilled:
+        fail(f"register spills in {spilled}")
 
 
 # --------------------------------------------------------------------------
@@ -143,6 +230,49 @@ def time_ms(fn, iters=200, warmup=20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=200) -> float:
+    """The host's enqueue time of one call (no synchronise inside the
+    loop; the queue does not fill at these counts)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def device_ms(fn, kernel: str, iters=50):
+    """Device time of one call from ``torch.profiler``: with a kernel
+    name, the mean duration of the device events whose name holds it
+    (a wrapper launches its kernel once a call); with "" the summed time
+    of every kernel and copy over ``iters`` calls, per call.  None when
+    the profiler saw no such event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    if not ev:
+        return None
+    if kernel and len(ev) != iters:
+        log(f"[kernels] the profiler saw {len(ev)} '{kernel}' events in "
+            f"{iters} calls")
+    total = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    return total / len(ev) if kernel else total / iters
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -183,22 +313,83 @@ def _check(name, dtype, what, got, want) -> float:
     return err
 
 
-def _row(name, src, repl, err, fn, plain, lib, nbytes, flops,
+def _row(name, src, repl, kernel, err, fn, plain, lib, nbytes, flops,
          dname="float32", iters=200) -> dict:
     """One entry of the kernels line: the kernel, its plain version and
     (where there is one) the one-call library equivalent, timed on the
-    same inputs; ``launches`` is filled in from the main-path run."""
+    same inputs, the kernel and the library in turns (kernel, library,
+    kernel, library; the faster of each pair is kept); ``device_ms`` is
+    the kernel's own device time (events named ``kernel``) under the
+    profiler and ``host_us`` the wrapper's enqueue time; ``launches`` is
+    filled in from the main-path run."""
     b_ms, b_by = bound(nbytes, flops, dname)
+    k_ms, l_ms = [], []
+    for _ in range(2):
+        k_ms.append(time_ms(fn, iters))
+        if lib is not None:
+            l_ms.append(time_ms(lib, iters))
+    n_prof = min(iters, 50)
     row = {"name": name, "route": "cuda",
            "source": f"src/repro_torch/{src}", "replaces": repl,
            "launches": None, "max_abs_err": err,
-           "ms": time_ms(fn, iters), "plain_ms": time_ms(plain, iters),
+           "ms": min(k_ms), "plain_ms": time_ms(plain, iters),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": time_ms(lib, iters) if lib is not None else None}
-    log(f"[kernels] {name} {dname} timing: kernel {row['ms']:.4f} ms, "
-        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
-        f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {flops:.3e} FLOP)")
+           "library_ms": min(l_ms) if lib is not None else None,
+           "device_ms": device_ms(fn, kernel, n_prof),
+           "host_us": host_us(fn, iters)}
+    lib_dev = device_ms(lib, "", n_prof) if lib is not None else None
+    log(f"[kernels] {name} {dname} timing: kernel {row['ms']:.4f} ms "
+        f"(turns {', '.join(f'{t:.4f}' for t in k_ms)}; device "
+        f"{row['device_ms']} ms, host enqueue {row['host_us']:.1f} us), "
+        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms "
+        f"(turns {', '.join(f'{t:.4f}' for t in l_ms) or '-'}; device "
+        f"{lib_dev} ms), bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
+        f"{flops:.3e} FLOP)")
     return row
+
+
+def _flash_edges(mk, dname, H_, K_, D_, T_full):
+    """Shapes at the flash kernel's edges for one head geometry: S = 1
+    and S under one q-tile (causal and not), a window inside a short S,
+    one query against a longer non-causal T, and B = 2 with a ragged S
+    and a softcap."""
+    from repro_torch.kernels import ops, ref
+
+    for B_, S_, T_, kw in ((1, 1, 1, {}), (1, 5, 5, {}),
+                           (1, 5, 5, dict(causal=False)),
+                           (1, 20, 20, dict(window=7)),
+                           (1, 1, T_full, dict(causal=False)),
+                           (2, 37, 37, dict(softcap=30.0))):
+        q = mk(B_, S_, H_, D_)
+        k, v = mk(B_, T_, K_, D_), mk(B_, T_, K_, D_)
+        _check("flash_attention", dname,
+               f"D={D_} B={B_} S={S_} T={T_} {kw}",
+               ops.flash_attention(q, k, v, **kw),
+               ref.flash_attention_ref(q, k, v, **kw))
+
+
+def _decode_edges(mk, dname, dev, H_, K_, D_, T_):
+    """One batch whose lengths reach the split-KV kernel's edges: 0, 1,
+    the first split boundary of a full row - 1 and + 1, and T; without
+    and with a softcap."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    B_ = 5
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = ops.decode_splits(T_, B_, K_, H_ // K_, n_sm)
+    c = ops.split_range(T_, n, 1)[0]
+    lens = torch.tensor([0, 1, c - 1, c + 1, T_], dtype=torch.int32,
+                        device=dev)
+    q = mk(B_, H_, D_)
+    k, v = mk(B_, T_, K_, D_), mk(B_, T_, K_, D_)
+    for sc in (0.0, 30.0):
+        _check("decode_attention", dname,
+               f"D={D_} G={H_ // K_} n_split={n} lengths {lens.tolist()} "
+               f"softcap={sc}",
+               ops.decode_attention(q, k, v, lens, softcap=sc),
+               ref.decode_attention_ref(q, k, v, lens, softcap=sc))
 
 
 def phase_kernels(dev) -> list[dict]:
@@ -234,6 +425,7 @@ def phase_kernels(dev) -> list[dict]:
         _check("flash_attention", dname, "B=2 S=61",
                ops.flash_attention(q2, k2, v2),
                ref.flash_attention_ref(q2, k2, v2))
+        _flash_edges(lambda *sh: rnd(*sh, dtype=dt), dname, H, K, D, S)
         visible = S * (S + 1) / 2                          # causal keys seen
         flash_bytes = 2 * q.numel() * isz + 2 * k.numel() * isz
         flash_flops = 4 * D * H * visible
@@ -253,6 +445,7 @@ def phase_kernels(dev) -> list[dict]:
         _check("decode_attention", dname, "B=4 lengths [T,1,137,0] softcap=30",
                ops.decode_attention(qb, kb, vb, lens_b, softcap=30.0),
                ref.decode_attention_ref(qb, kb, vb, lens_b, softcap=30.0))
+        _decode_edges(lambda *sh: rnd(*sh, dtype=dt), dname, dev, H, K, D, T)
         n_keys = int(lens_d.clamp(max=T).sum())
         dec_bytes = 2 * qd.numel() * isz + 2 * n_keys * K * D * isz + 4
         dec_flops = 4 * D * H * n_keys
@@ -292,14 +485,14 @@ def phase_kernels(dev) -> list[dict]:
             :, None, None, :]
         specs = [
             ("flash_attention", "csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:93", err_f,
+             "src/repro/kernels/flash_attention.py:93", "flash_fwd", err_f,
              lambda: ops.flash_attention(q, k, v),
              lambda: ref.flash_attention_ref(q, k, v),
              lambda: F.scaled_dot_product_attention(
                  qh, kh_, vh, is_causal=True, enable_gqa=True),
              flash_bytes, flash_flops),
             ("decode_attention", "csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:70", err_d,
+             "src/repro/kernels/decode_attention.py:70", "decode_fwd", err_d,
              lambda: ops.decode_attention(qd, kd, vd, lens_d),
              lambda: ref.decode_attention_ref(qd, kd, vd, lens_d),
              lambda: F.scaled_dot_product_attention(
@@ -307,7 +500,8 @@ def phase_kernels(dev) -> list[dict]:
                  attn_mask=mask_d, enable_gqa=True),
              dec_bytes, dec_flops),
             ("paged_decode_attention", "csrc/decode_attention.cu",
-             "src/repro/kernels/paged_decode_attention.py:77", err_p,
+             "src/repro/kernels/paged_decode_attention.py:77",
+             "paged_decode_fwd", err_p,
              lambda: ops.paged_decode_attention(qb, kp, vp, tables, lens_p),
              lambda: ref.paged_decode_attention_ref(qb, kp, vp, tables,
                                                     lens_p),
@@ -370,6 +564,13 @@ def phase_kernels_recurrent(dev) -> list[dict]:
         err_f = _check("flash_attention", dname, f"D=112 S={S_REC} causal",
                        ops.flash_attention(q, k, v),
                        ref.flash_attention_ref(q, k, v))
+        for kw in (dict(softcap=30.0), dict(window=100),
+                   dict(causal=False)):
+            _check("flash_attention", dname, f"D=112 S={S_REC} {kw}",
+                   ops.flash_attention(q, k, v, **kw),
+                   ref.flash_attention_ref(q, k, v, **kw))
+        _flash_edges(lambda *sh: rnd(*sh).to(dt), dname, Z_HEADS, Z_HEADS,
+                     Z_D, S_REC)
         qd = rnd(1, Z_HEADS, Z_D).to(dt)
         kd, vd = (rnd(1, T_REC, Z_HEADS, Z_D).to(dt) for _ in range(2))
         lens = torch.tensor([S_REC + REC_NEW], dtype=torch.int32, device=dev)
@@ -377,6 +578,16 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                        f"D=112 T={T_REC} len={lens.item()}",
                        ops.decode_attention(qd, kd, vd, lens),
                        ref.decode_attention_ref(qd, kd, vd, lens))
+        qb = rnd(4, Z_HEADS, Z_D).to(dt)
+        kb, vb = (rnd(4, T_REC, Z_HEADS, Z_D).to(dt) for _ in range(2))
+        lens_b = torch.tensor([T_REC, 1, 237, 0], dtype=torch.int32,
+                              device=dev)
+        _check("decode_attention", dname,
+               f"D=112 B=4 lengths {lens_b.tolist()} softcap=30",
+               ops.decode_attention(qb, kb, vb, lens_b, softcap=30.0),
+               ref.decode_attention_ref(qb, kb, vb, lens_b, softcap=30.0))
+        _decode_edges(lambda *sh: rnd(*sh).to(dt), dname, dev, 4, 4, Z_D,
+                      T_REC)
 
         # -- SSD intra-chunk at zamba2-7b's prefill shape ----------------
         ssd_args = _ssd_inputs(g, dt)
@@ -423,14 +634,16 @@ def phase_kernels_recurrent(dev) -> list[dict]:
         sl_flops = 2 * 4 * SL_D * hd * S_REC
         rows += [
             _row("flash_attention_d112", "csrc/flash_attention.cu",
-                 "src/repro/kernels/flash_attention.py:93", err_f,
+                 "src/repro/kernels/flash_attention.py:93", "flash_fwd",
+                 err_f,
                  lambda: ops.flash_attention(q, k, v),
                  lambda: ref.flash_attention_ref(q, k, v),
                  lambda: F.scaled_dot_product_attention(qh, kh_, vh,
                                                         is_causal=True),
                  4 * q.numel() * isz, 4 * Z_D * Z_HEADS * visible),
             _row("decode_attention_d112", "csrc/decode_attention.cu",
-                 "src/repro/kernels/decode_attention.py:70", err_d,
+                 "src/repro/kernels/decode_attention.py:70", "decode_fwd",
+                 err_d,
                  lambda: ops.decode_attention(qd, kd, vd, lens),
                  lambda: ref.decode_attention_ref(qd, kd, vd, lens),
                  lambda: F.scaled_dot_product_attention(
@@ -439,12 +652,14 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                  2 * qd.numel() * isz + 2 * n_keys * Z_HEADS * Z_D * isz + 4,
                  4 * Z_D * Z_HEADS * n_keys),
             _row("ssd_intra_chunk", "csrc/ssd_scan.cu",
-                 "src/repro/kernels/ssd_scan.py:51", err_s,
+                 "src/repro/kernels/ssd_scan.py:51", "ssd_intra_kernel",
+                 err_s,
                  lambda: ops.ssd_intra_chunk(*ssd_args),
                  lambda: ref.ssd_intra_chunk_ref(*ssd_args), None,
                  ssd_bytes, ssd_flops),
             _row("slstm_scan", "csrc/slstm_scan.cu",
-                 "src/repro/kernels/slstm_scan.py:91", max(errs),
+                 "src/repro/kernels/slstm_scan.py:91", "slstm_kernel",
+                 max(errs),
                  lambda: ops.slstm_scan(pre, R),
                  lambda: ref.slstm_scan_ref(pre, R), None,
                  sl_bytes, sl_flops, iters=20),

@@ -1,36 +1,64 @@
 // Single-query decode attention for Hopper (sm_90a): a contiguous KV
-// cache and a paged one, sharing one device function.
+// cache (split-KV across blocks) and a paged one.
 //
 // Replaces two TPU kernels:
 //   * `decode_attention` of src/repro/kernels/decode_attention.py (body
 //     `_kernel`): one query per row over a (B,T,K,D) cache, keys at or
-//     past lengths[b] masked;
+//     past lengths[b] masked -> `decode_fwd`;
 //   * `paged_decode_attention` of src/repro/kernels/paged_decode_attention.py
 //     (body `_kernel`): the same over a global page pool (P,ps,K,D) with
 //     per-row block tables (B,n_max); table entries are clamped into
-//     [0, P-1] and keys at or past lengths[b] are masked.
+//     [0, P-1] and keys at or past lengths[b] are masked ->
+//     `paged_decode_fwd`.
 // Both: q (B,H,D), H % K == 0, optional tanh softcap applied before the
 // mask, f32 running max / sum / accumulator, a row with no key gives 0.
 //
-// What bounds it here: each call reads every live key and value once —
-// on the serving path B=4 rows of ~300 keys, K=2, D=64 in f32, about
-// 1.2 MB, well under a microsecond at 3.35 TB/s.  The FLOPs (2*H*D per
-// key and side) are smaller still.  So the bound is bytes, and at these
-// sizes launch latency dominates whatever the kernel does.
+// What bounds them here: each call reads every live key and value once.
+// internvl2-1b's solo decode (B=1, K=2, D=64, ~300 keys, f32) moves
+// 0.3 MB (0.09 us at 3.35 TB/s); zamba2-7b's (B=1, K=32, D=112, ~400
+// keys) 11.5 MB (3.4 us).  The FLOPs (2*H*D per key and side) are
+// smaller still.  So bytes bound them, and at these sizes the latency of
+// a few dependent memory round trips and of the launch sets the time;
+// what a kernel can do is put every SM to work on the bytes at once.
 //
-// Design: one block per (kv-head, row, group of up to NW q-heads).  The
-// TPU grid (B*H, n_max) reads each page once per q-head; here the whole
-// block stages a tile of TK keys and values into shared memory once and
-// every warp (one per q-head of the GQA group, G = H/K; G = 7 on
-// internvl2-1b, so warp NW-1 idles behind a bound check) attends its
-// q-head over the staged tile.  Lanes map over keys: each lane keeps its
-// own running max / sum / D-wide accumulator over the keys it saw, and
-// the 32 partial states merge with warp shuffles at the end (flash-
-// decoding within the warp).  Shared rows are padded to D+1 floats so
-// lanes reading 32 different keys hit 32 different banks.  The paged
-// variant resolves each tile row's page from the block table (clamped)
-// before the tile load.  The loop stops at min(length, cache span), so
-// pages past a row's length are never read.
+// `decode_fwd`: split-KV (flash-decoding).  A one-block-per-(kv-head,
+// row) grid runs 2 blocks at internvl2-1b (B=1, K=2) and 32 at zamba2-7b,
+// each walking ~300-400 keys; so the grid is (n_split, K, B * ceil(G/8))
+// and each block takes its share of [0, lengths[b]) on the device
+// (`split_lo`), reading lengths itself: no split range comes from the
+// host and nothing syncs with it.  n_split is chosen on the host from
+// static shapes and the SM count (kernels.ops.decode_splits).  In a
+// block of 8 warps each warp serves one q-head of the GQA group; when
+// G < 8 the warps of one q-head split the block's keys (at G = 1 all 8
+// do), and their states merge through shared memory.  Inside a warp
+// each quad of 4 lanes takes one key: a lane reads a quarter of the
+// key's row in 16-byte loads (8-byte for bf16), forms four independent
+// partial dot products, and the quad sums them with two shuffles; each
+// quad keeps its own running (m, l, acc) and the 8 quads merge by
+// shuffles at the end.  Each block writes its partial (m, l, acc[D]) per
+// q-head to an f32 workspace slot (b, h, split) that the wrapper
+// allocates.  The merge is done by the last block of each (row, kv-head,
+// head group) to finish (an atomic ticket after a __threadfence), not by
+// a second kernel: the call is launch-bound, and a second launch would
+// add its own launch latency and host enqueue time to every decode step.
+// The ticket counters reset themselves, so one zeroed buffer per device
+// serves every call on a stream.  The last block issues its reads of the
+// splits' accumulators before it turns their (m, l) into weights, so the
+// merge costs one round trip to L2 (on an H100 it took 4.3 of 9.0 us at
+// internvl2-1b's shape with the reads in turn, 2.8 of 7.6 us so).  The
+// log-sum-exp merge gives a split or row with no live key weight 0, so a
+// row of length 0 gives 0.
+//
+// `paged_decode_fwd` (unchanged since it was ported): one block per
+// (kv-head, row, group of up to NW q-heads).  The whole block stages a
+// tile of TK keys and values into shared memory once and every warp (one
+// per q-head of the group) attends its q-head over the staged tile;
+// lanes map over keys, each keeping its own running max / sum / D-wide
+// accumulator, merged with warp shuffles at the end.  Shared rows are
+// padded to D+1 floats so lanes reading 32 different keys hit 32
+// different banks.  Each tile row's page comes from the block table
+// (clamped) before the tile load, and the loop stops at min(length,
+// table span), so pages past a row's length are never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,19 +203,6 @@ __device__ void decode_block(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int TK>
 __global__ void __launch_bounds__(NW * 32)
-decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const int* __restrict__ lengths,
-           T* __restrict__ o, int H, int K, int Tk, float scale,
-           float softcap) {
-  const int kh = blockIdx.x, b = blockIdx.y, h_base = blockIdx.z * NW;
-  const int G = H / K;
-  const int n_keys = min(max(lengths[b], 0), Tk);
-  decode_block<T, D, TK>(q, k, v, o, b, H, G, kh, h_base, n_keys, scale,
-                         softcap, ContigAddr{b, Tk, K, kh, D});
-}
-
-template <typename T, int D, int TK>
-__global__ void __launch_bounds__(NW * 32)
 paged_decode_fwd(const T* __restrict__ q, const T* __restrict__ kp,
                  const T* __restrict__ vp, const int* __restrict__ tables,
                  const int* __restrict__ lengths, T* __restrict__ o, int H,
@@ -199,6 +214,296 @@ paged_decode_fwd(const T* __restrict__ q, const T* __restrict__ kp,
   decode_block<T, D, TK>(
       q, kp, vp, o, b, H, G, kh, h_base, n_keys, scale, softcap,
       PagedAddr{tables + (int64_t)b * n_max, P, ps, K, kh, D});
+}
+
+// ---------------------------------------------------------------------------
+// Contiguous cache: split-KV (flash-decoding) across blocks.
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_SPLITS = 256;  // = kernels.ops.DECODE_MAX_SPLITS
+constexpr int MERGE_LOADS = 16;  // merge loads a thread keeps in flight
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xffff0000u));
+}
+
+// Split i of n_split takes keys [split_lo(i), split_lo(i + 1)) of [0, n)
+// (kernels.ops.split_range is the same rule on the host).
+__device__ __forceinline__ int split_lo(int n, int n_split, int i) {
+  return (int)((int64_t)n * i / n_split);
+}
+
+// exp(m - m_new), and 0 for a state that has seen no key
+__device__ __forceinline__ float rescale(float m, float m_new) {
+  return m > NEG_INF / 2 ? expf(m - m_new) : 0.f;
+}
+
+// One block: keys of split `split` of row b, kv-head kh, for q-heads
+// [h_base, h_base + NW) of the group; then, if it is the last block of
+// its (row, kv-head, head group) to finish, the merge of every split.
+// `addr(t)` gives the element offset of key t.
+template <typename T, int D, class Addr>
+__device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ ws, int* counter, int B,
+                            int b, int H, int G, int kh, int h_base,
+                            int n_keys, int split, int n_split, float scale,
+                            float softcap, const Addr& addr) {
+  constexpr int NC = D / 16;  // lane ql of a quad holds chunks ql + 4c
+  // keys a quad holds in registers at once: two at D <= 64 (both loads
+  // in flight together), one at D = 112 (the register cap of 2 blocks an
+  // SM)
+  constexpr int U = D > 64 ? 1 : 2;
+  __shared__ float4 sm_q[NW][D / 4];
+  __shared__ float sm_acc[NW][D];
+  __shared__ float sm_m[NW], sm_l[NW];
+  __shared__ float sm_w[NW][MAX_SPLITS];  // merge: per q-head and split,
+  __shared__ float sm_lw[NW][MAX_SPLITS]; // the max, then the weight; l
+  __shared__ float4 sm_part[NW * 32];     // merge: partial sums
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, ql = lane % 4;
+  const int HG = min(G - h_base, NW);   // q-heads in this block
+  const int slices = max(1, NW / HG);   // warps per q-head
+  const int g = warp / slices, slice = warp % slices;
+  const bool busy = g < HG;             // warp-uniform
+  const int64_t row0 = (int64_t)b * H + kh * G + h_base;  // (b, h) of g=0
+
+  // this block's keys, then this warp's slice of them
+  const int lo = split_lo(n_keys, n_split, split);
+  const int hi = split_lo(n_keys, n_split, split + 1);
+  const int w_lo = lo + (int)((int64_t)(hi - lo) * slice / slices);
+  const int w_hi = lo + (int)((int64_t)(hi - lo) * (slice + 1) / slices);
+
+  // the quad's keys t0 + quad + 8u: every load issued before any is used
+  float4 kr[U][NC], vr[U][NC];
+  auto fetch = [&](int t0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + quad + 8 * u;
+      const bool ok = t < w_hi;
+      const int64_t off = ok ? addr(t) : 0;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int e = 4 * (ql + 4 * c);
+        kr[u][c] = ok ? load4(k + off + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+        vr[u][c] = ok ? load4(v + off + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+  if (busy && w_lo < w_hi) fetch(w_lo);  // in flight while q is staged
+  for (int i = tid; i < HG * (D / 4); i += blockDim.x) {
+    const int gg = i / (D / 4), c = i - gg * (D / 4);
+    sm_q[gg][c] = load4(q + (row0 + gg) * D + 4 * c);
+  }
+  __syncthreads();
+
+  // each quad walks its own keys with a running (m, l, acc); lanes of a
+  // quad hold the same m and l and a quarter of the D columns
+  float m = NEG_INF, l = 0.f;
+  float4 acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (busy) {
+    for (int t0 = w_lo; t0 < w_hi; t0 += 8 * U) {  // warp-uniform trips
+      if (t0 > w_lo) fetch(t0);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // four independent partial sums, then the quad's four lanes
+        float px = 0.f, py = 0.f, pz = 0.f, pw = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 qv = sm_q[g][ql + 4 * c];
+          px = fmaf(qv.x, kr[u][c].x, px);
+          py = fmaf(qv.y, kr[u][c].y, py);
+          pz = fmaf(qv.z, kr[u][c].z, pz);
+          pw = fmaf(qv.w, kr[u][c].w, pw);
+        }
+        float dot = (px + py) + (pz + pw);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        if (t0 + quad + 8 * u < w_hi) {
+          float x = dot * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          const float m_new = fmaxf(m, x);
+          const float alpha = rescale(m, m_new);
+          const float p = expf(x - m_new);
+          l = l * alpha + p;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            acc[c].x = fmaf(p, vr[u][c].x, acc[c].x * alpha);
+            acc[c].y = fmaf(p, vr[u][c].y, acc[c].y * alpha);
+            acc[c].z = fmaf(p, vr[u][c].z, acc[c].z * alpha);
+            acc[c].w = fmaf(p, vr[u][c].w, acc[c].w * alpha);
+          }
+          m = m_new;
+        }
+      }
+    }
+  }
+  // merge the warp's 8 quads (every quad ends with the merged state)
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo_ = __shfl_xor_sync(0xffffffffu, l, off);
+    const float m_new = fmaxf(m, mo);
+    const float a = rescale(m, m_new), ao = rescale(mo, m_new);
+    l = l * a + lo_ * ao;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[c].x = acc[c].x * a + __shfl_xor_sync(0xffffffffu, acc[c].x, off) * ao;
+      acc[c].y = acc[c].y * a + __shfl_xor_sync(0xffffffffu, acc[c].y, off) * ao;
+      acc[c].z = acc[c].z * a + __shfl_xor_sync(0xffffffffu, acc[c].z, off) * ao;
+      acc[c].w = acc[c].w * a + __shfl_xor_sync(0xffffffffu, acc[c].w, off) * ao;
+    }
+    m = m_new;
+  }
+  if (quad == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(&sm_acc[warp][4 * (ql + 4 * c)]) = acc[c];
+    if (ql == 0) {
+      sm_m[warp] = m;
+      sm_l[warp] = l;
+    }
+  }
+  __syncthreads();
+
+  // the block's partial (m, l, acc) per q-head: the warps of one q-head
+  // merged, written to the workspace slot (b, h, split)
+  const int64_t n_slots = (int64_t)B * H * n_split;
+  float* ws_acc = ws;                 // [B*H][n_split][D]
+  float* ws_ml = ws + n_slots * D;    // [B*H][n_split][2]
+  for (int i = tid; i < HG * D; i += blockDim.x) {
+    const int gg = i / D, d = i - gg * D;
+    float mm = NEG_INF;
+    for (int s = 0; s < slices; ++s) mm = fmaxf(mm, sm_m[gg * slices + s]);
+    float ll = 0.f, aa = 0.f;
+    for (int s = 0; s < slices; ++s) {
+      const int w = gg * slices + s;
+      const float a = rescale(sm_m[w], mm);
+      ll += a * sm_l[w];
+      aa += a * sm_acc[w][d];
+    }
+    const int64_t slot = (row0 + gg) * n_split + split;
+    ws_acc[slot * D + d] = aa;
+    if (d == 0) {
+      ws_ml[2 * slot] = mm;
+      ws_ml[2 * slot + 1] = ll;
+    }
+  }
+  __threadfence();  // partials visible device-wide before the ticket
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counter, 1) == n_split - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // last block: log-sum-exp merge of the splits, read through L2.  NP
+  // threads share a float4 of output, each over every NP-th split.  Its
+  // first MERGE_LOADS accumulator loads are issued before the weights,
+  // which do not depend on them, so both reads share one round trip.
+  constexpr int D4 = D / 4;
+  const int n_el = HG * D4;  // <= NW * 28 <= blockDim.x
+  const int NP = blockDim.x / n_el;
+  const bool has_el = tid < n_el * NP;
+  const int e = tid % n_el, p = tid / n_el;
+  const int gg = e / D4, d4 = e - gg * D4;
+  const float4* src =
+      reinterpret_cast<const float4*>(ws_acc + (row0 + gg) * n_split * D) + d4;
+  float4 x[MERGE_LOADS];
+  auto fetch_acc = [&](int s0) {
+#pragma unroll
+    for (int u = 0; u < MERGE_LOADS; ++u) {
+      const int s = s0 + p + u * NP;
+      x[u] = has_el && s < n_split ? __ldcg(src + s * D4)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  fetch_acc(0);
+  // warp w turns q-head w's (m, l) per split into weights exp(m - max) / L
+  // (0 for a split with no key, all 0 for a row with none)
+  if (warp < HG) {
+    const float2* ml = reinterpret_cast<const float2*>(ws_ml) +
+                       (row0 + warp) * n_split;
+    float mm = NEG_INF;
+    for (int s = lane; s < n_split; s += 32) {
+      const float2 y = __ldcg(ml + s);
+      sm_w[warp][s] = y.x;
+      sm_lw[warp][s] = y.y;
+      mm = fmaxf(mm, y.x);
+    }
+    mm = warp_max(mm);
+    float ll = 0.f;
+    for (int s = lane; s < n_split; s += 32) {
+      const float a = rescale(sm_w[warp][s], mm);
+      ll += a * sm_lw[warp][s];
+      sm_w[warp][s] = a;
+    }
+    ll = warp_sum(ll);
+    const float inv = ll > 0.f ? 1.f / ll : 0.f;
+    for (int s = lane; s < n_split; s += 32) sm_w[warp][s] *= inv;
+  }
+  __syncthreads();
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0;;) {
+#pragma unroll
+    for (int u = 0; u < MERGE_LOADS; ++u) {
+      const int s = s0 + p + u * NP;
+      if (has_el && s < n_split) {
+        const float w = sm_w[gg][s];
+        a.x = fmaf(w, x[u].x, a.x);
+        a.y = fmaf(w, x[u].y, a.y);
+        a.z = fmaf(w, x[u].z, a.z);
+        a.w = fmaf(w, x[u].w, a.w);
+      }
+    }
+    s0 += MERGE_LOADS * NP;
+    if (s0 >= n_split) break;
+    fetch_acc(s0);
+  }
+  if (has_el) sm_part[tid] = a;
+  __syncthreads();
+  if (tid < n_el) {
+    float4 t = sm_part[tid];
+    for (int q2 = 1; q2 < NP; ++q2) {
+      const float4 y = sm_part[q2 * n_el + tid];
+      t.x += y.x;
+      t.y += y.y;
+      t.z += y.z;
+      t.w += y.w;
+    }
+    T* out = o + (row0 + gg) * D + 4 * d4;
+    store(out, t.x);
+    store(out + 1, t.y);
+    store(out + 2, t.z);
+    store(out + 3, t.w);
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NW * 32, 2)
+decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const int* __restrict__ lengths,
+           T* __restrict__ o, float* __restrict__ ws, int* counters, int H,
+           int K, int Tk, int n_split, int n_hg, float scale,
+           float softcap) {
+  const int split = blockIdx.x, kh = blockIdx.y;
+  const int b = blockIdx.z / n_hg, hg = blockIdx.z % n_hg;
+  const int B = gridDim.z / n_hg;
+  const int n_keys = min(max(lengths[b], 0), Tk);
+  split_block<T, D>(q, k, v, o, ws, counters + blockIdx.z * K + kh, B, b, H,
+                    H / K, kh, hg * NW, n_keys, split, n_split, scale,
+                    softcap, ContigAddr{b, Tk, K, kh, D});
 }
 
 // keys per staged tile: 64 (2 per lane, ~35 KB of shared memory at
@@ -214,12 +519,15 @@ dim3 grid_for(int B, int H, int K) {
 
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const int* lengths, void* o, int B, int H, int K,
-                          int Tk, float softcap, cudaStream_t stream) {
-  decode_fwd<T, D, tile_keys<D>()><<<grid_for(B, H, K), NW * 32, 0, stream>>>(
+                          const int* lengths, void* o, float* ws,
+                          int* counters, int B, int H, int K, int Tk,
+                          int n_split, float softcap, cudaStream_t stream) {
+  const int n_hg = (H / K + NW - 1) / NW;
+  const dim3 grid(n_split, K, B * n_hg);
+  decode_fwd<T, D><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), H, K, Tk,
-      1.f / sqrtf((float)D), softcap);
+      static_cast<const T*>(v), lengths, static_cast<T*>(o), ws, counters, H,
+      K, Tk, n_split, n_hg, 1.f / sqrtf((float)D), softcap);
   return cudaGetLastError();
 }
 
@@ -247,21 +555,27 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  ws: B*H*n_split*(D+2) floats of
+// scratch; counters: B*ceil(H/K/8)*K ints, zero before the launch and
+// left zero by it.  Returns the launch's cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lengths,
-                                    void* o, int B, int H, int K, int D,
-                                    int T, int dtype, float softcap,
-                                    void* stream) {
+                                    void* o, void* ws, void* counters, int B,
+                                    int H, int K, int D, int T, int n_split,
+                                    int dtype, float softcap, void* stream) {
   if (B <= 0) return cudaSuccess;
+  if (n_split < 1 || n_split > MAX_SPLITS) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
   if (dtype == 0) {
-    DISPATCH_D(D, launch_decode, float, q, k, v, len, o, B, H, K, T, softcap, s)
+    DISPATCH_D(D, launch_decode, float, q, k, v, len, o, w, cnt, B, H, K, T,
+               n_split, softcap, s)
   }
   if (dtype == 1) {
-    DISPATCH_D(D, launch_decode, __nv_bfloat16, q, k, v, len, o, B, H, K, T,
-               softcap, s)
+    DISPATCH_D(D, launch_decode, __nv_bfloat16, q, k, v, len, o, w, cnt, B,
+               H, K, T, n_split, softcap, s)
   }
   return cudaErrorInvalidValue;
 }

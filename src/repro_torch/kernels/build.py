@@ -38,11 +38,14 @@ LIBRARIES = {
         # q, k, v, o, B, S, T, H, K, D, dtype, causal, window, softcap, stream
         "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
+        # D, int[4] out: BQ, BK, threads, dynamic shared-memory bytes
+        "flash_attention_plan": [_I, _P],
     }),
     "decode_attention": ("decode_attention.cu", {
-        # q, k, v, lengths, o, B, H, K, D, T, dtype, softcap, stream
-        "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _F, _P],
+        # q, k, v, lengths, o, ws, counters, B, H, K, D, T, n_split, dtype,
+        # softcap, stream
+        "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _F, _P],
         # q, kp, vp, tables, lengths, o, B, H, K, D, P, ps, n_max, dtype,
         # softcap, stream
         "paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,

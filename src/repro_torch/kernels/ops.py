@@ -11,6 +11,8 @@ can show that its work went through the kernels.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ref
@@ -27,6 +29,12 @@ HEAD_DIMS = (16, 64, 112)
 #: the SSD kernel's limit on the chunk length L, the head dim P and the
 #: state size N (its tiles and shared memory are sized for them)
 SSD_MAX_DIM = 128
+
+#: the split-KV decode kernel: the fewest keys of a full cache that one
+#: split keeps, the q-heads (warps) of one block, and its most splits
+DECODE_MIN_KEYS = 16
+DECODE_HEADS_PER_BLOCK = 8
+DECODE_MAX_SPLITS = 256
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,6 +75,15 @@ def _cuda_ready(name, tensors, D):
         raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
 
 
+def _aligned(name, tensors):
+    """The flash and split-KV decode kernels read rows with 16-byte
+    (f32) or 8-byte (bf16) vector loads."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte "
+                             "boundary")
+
+
 def _raise_on(name, err):
     if err != 0:
         raise KernelLaunchError(f"{name}: CUDA error {err} at launch")
@@ -92,6 +109,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
     _cuda_ready("flash_attention", {"q": q, "k": k, "v": v}, D)
+    _aligned("flash_attention", {"q": q, "k": k, "v": v})
     from repro_torch.kernels.build import load
 
     lib = load("flash_attention")
@@ -113,6 +131,43 @@ def _lengths_ok(name, lengths, B, dev):
                          f"{lengths.device}")
 
 
+def decode_splits(T, B, K, G, n_sm):
+    """How many blocks share one row's keys in the contiguous-cache
+    decode kernel, whose grid is (n_split, K, B * ceil(G / 8)): as many
+    as fill two blocks an SM, but no more than leave each split
+    ``DECODE_MIN_KEYS`` keys of a full cache of T keys (and at most
+    ``DECODE_MAX_SPLITS``).  It reads only static shapes, so every step
+    of a decode loop gets the same grid."""
+    blocks = B * K * -(-G // DECODE_HEADS_PER_BLOCK)
+    return max(1, min(2 * n_sm // blocks, T // DECODE_MIN_KEYS,
+                      DECODE_MAX_SPLITS))
+
+
+def split_range(n_keys, n_split, i):
+    """Keys [lo, hi) of split i of a row with n_keys live keys: the rule
+    the kernel applies on the device to each row's length."""
+    return n_keys * i // n_split, n_keys * (i + 1) // n_split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _ticket_counters(dev, n):
+    """The split-KV kernel's merge tickets: zeroed once per device; every
+    launch leaves them zero again, so launches on one device must be
+    ordered (one stream), not concurrent."""
+    t = _TICKETS.get(dev.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _TICKETS[dev.index] = t
+    return t
+
+
 def decode_attention(q, k, v, lengths, *, softcap=0.0):
     """q: (B,H,D); k/v: (B,T,K,D); lengths: (B,) int32 valid key counts
     (keys at or past them are masked).  Returns (B,H,D)."""
@@ -130,14 +185,22 @@ def decode_attention(q, k, v, lengths, *, softcap=0.0):
         return ref.decode_attention_ref(q, k, v, lengths, softcap=softcap)
     _cuda_ready("decode_attention",
                 {"q": q, "k": k, "v": v, "lengths": lengths}, D)
+    _aligned("decode_attention", {"q": q, "k": k, "v": v})
     from repro_torch.kernels.build import load
 
     lib = load("decode_attention")
     o = torch.empty_like(q)
+    G = H // K
+    n_split = decode_splits(T, B, K, G, _sm_count(dev.index))
+    # per (b, h, split): the partial max, sum and D-wide accumulator
+    ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                     device=dev)
+    tickets = _ticket_counters(
+        dev, B * K * -(-G // DECODE_HEADS_PER_BLOCK))
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), B, H, K, D, T, _DTYPES[q.dtype], float(softcap),
-        _stream(q))
+        o.data_ptr(), ws.data_ptr(), tickets.data_ptr(), B, H, K, D, T,
+        n_split, _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("decode_attention", err)
     LAUNCHES["decode_attention"] += 1
     return o

@@ -211,3 +211,75 @@ def test_cuda_slstm_scan_matches_plain(cuda_device, dtype, atol, rtol, B, S,
                                    atol=atol)
         for a, b in zip(fin, fin_ref):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+# the attention kernels' edge cases at each path's head geometry:
+# (H, K, D, the path's S or T)
+ATTN_GEOMS = {"internvl2-1b": (14, 2, 64, 267), "zamba2-7b": (32, 32, 112, 383)}
+# (B, S, T, keywords); None is the path's S
+FLASH_EDGES = [
+    (1, 1, 1, {}), (1, 5, 5, {}), (1, 5, 5, dict(causal=False)),
+    (1, 20, 20, dict(window=7)), (1, 1, None, dict(causal=False)),
+    (2, 37, 37, dict(softcap=30.0)), (1, None, None, dict(window=100)),
+    (1, None, None, dict(causal=False)), (1, None, None, dict(softcap=30.0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("arch", ATTN_GEOMS)
+@pytest.mark.parametrize("B,S,T,kw", FLASH_EDGES)
+def test_cuda_flash_edges(cuda_device, dtype, atol, rtol, arch, B, S, T, kw):
+    """S = 1, S under one q-tile, windows, non-causal, B = 2, softcap."""
+    H, K, D, S_path = ATTN_GEOMS[arch]
+    S, T = S or S_path, T or S_path
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q, k, v = rnd(B, S, H, D), rnd(B, T, K, D), rnd(B, T, K, D)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, **kw).float(),
+        ref.flash_attention_ref(q, k, v, **kw).float(), rtol=rtol, atol=atol)
+
+
+DECODE_GEOMS = {"internvl2-1b": (14, 2, 64, 304),     # G = 7
+                "zamba2-7b": (32, 32, 112, 400),      # G = 1
+                "G=1 D=112 K=4": (4, 4, 112, 400)}    # G = 1, several splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("arch", DECODE_GEOMS)
+@pytest.mark.parametrize("batch", ["split edges", "B=4"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_cuda_decode_split_edges(cuda_device, dtype, atol, rtol, arch, batch,
+                                 softcap):
+    """Lengths 0, 1, the first split boundary of a full row - 1 and + 1,
+    and T in one batch (or B = 4 with T, 1, 237, 0); the merge tickets
+    are left zero, and a second call gives the same bits."""
+    H, K, D, T = DECODE_GEOMS[arch]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if batch == "B=4":
+        lens = [T, 1, 237, 0]
+    else:
+        n = ops.decode_splits(T, 5, K, H // K, n_sm)
+        c = ops.split_range(T, n, 1)[0]
+        lens = [0, 1, c - 1, c + 1, T]
+    B = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q, k, v = rnd(B, H, D), rnd(B, T, K, D), rnd(B, T, K, D)
+    got = ops.decode_attention(q, k, v, lengths, softcap=softcap)
+    torch.testing.assert_close(
+        got.float(),
+        ref.decode_attention_ref(q, k, v, lengths, softcap=softcap).float(),
+        rtol=rtol, atol=atol)
+    again = ops.decode_attention(q, k, v, lengths, softcap=softcap)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    assert int(ops._TICKETS[cuda_device.index or 0].abs().sum()) == 0
