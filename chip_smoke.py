@@ -9,8 +9,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``nvcc`` for sm_90a (one process per source, in parallel), print the
    card's name and power limit, each kernel instance's registers,
    static shared memory and spills (``ptxas -v``; a spill in an
-   attention kernel fails) and the flash kernel's tiles and dynamic
-   shared memory per head dim.
+   attention kernel fails), the flash kernel's tiles and dynamic
+   shared memory per head dim, and the sLSTM prefill kernel's plan at
+   xlstm-1.3b (cluster size, shared memory, and how many such clusters
+   the card holds at once: ``cudaOccupancyMaxActiveClusters``).
 2. Kernels: hold each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the serving paths give it, in
    float32 and bfloat16: the attention kernels at internvl2-1b's head
@@ -18,10 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
    row's pages, a logit softcap, a ragged S) and at zamba2-7b's shared
    attention (H = K = 32, D = 112), with the flash kernel's edges (S = 1,
    S under one tile, windows, non-causal, B = 2, softcap) and the
-   split-KV decode kernel's (lengths 0, 1, a split boundary +- 1 and T
-   in one batch, G = 1 and 7, B = 4, softcap); the Mamba2 SSD
-   intra-chunk kernel at zamba2-7b's prefill shape and the sLSTM kernel
-   at xlstm-1.3b's (fresh state, a random state, one decode step); then
+   split-KV decode kernels' (lengths 0, 1, a split boundary +- 1 and T
+   in one batch, G = 1 and 7, B = 4, softcap; for the paged kernel also
+   ps - 1, ps, ps + 1 and the full span, at D = 16, 64 and 112); the
+   Mamba2 SSD intra-chunk kernel at zamba2-7b's prefill shape and the
+   sLSTM kernels at xlstm-1.3b's (S = 383 and 1000, two rows of two
+   steps, one decode step) and the smoke shape (fresh and random state;
+   R as four gate tensors against R stacked); then
    time each kernel (CUDA events over back-to-back calls; its own
    device time under ``torch.profiler``; the wrapper's host enqueue
    time), its plain version and, where one PyTorch call computes the
@@ -99,6 +104,10 @@ S_REC = max(REC_PROMPTS)
 Z_HEADS, Z_D, T_REC = 32, 112, 400
 SSD_SHAPE = (1, 3, 128, 112, 64, 64)                     # B, nc, L, H, P, N
 SL_D, SL_H = 2048, 4
+# the sLSTM kernels' checks (B, S, H, hd): xlstm-1.3b's longest prompt,
+# its decode step, a long prefill, two rows of two steps, and smoke
+SLSTM_CHECKS = ((1, S_REC, SL_H, 512), (1, 1, SL_H, 512),
+                (1, 1000, SL_H, 512), (2, 2, SL_H, 512), (2, 9, 4, 16))
 
 
 def log(msg: str) -> None:
@@ -210,6 +219,26 @@ def phase_build():
             "memory")
     if spilled:
         fail(f"register spills in {spilled}")
+    # the sLSTM prefill kernel's plan at xlstm-1.3b, and whether the card
+    # holds a cluster per head at once
+    hd = SL_D // SL_H
+    info = (ctypes.c_int * 3)()
+    for B_ in (1, ops.SLSTM_MAX_ROWS):
+        p = ops.slstm_plan(B_, SL_H, hd)
+        if build.load("slstm_scan").slstm_prefill_info(
+                hd, p.cluster, p.reg_slots, p.rows, info) != 0:
+            fail(f"slstm_scan has no prefill plan for hd={hd}, B={B_}")
+        log(f"[build] slstm_scan prefill plan hd={hd} B={B_}: clusters of "
+            f"{p.cluster} blocks x {info[1]} threads, {p.units} units a "
+            f"block, R rows {p.smem_slots * 32} in shared memory and "
+            f"{p.reg_rows} in registers, {info[0]} B dynamic shared memory; "
+            f"cudaOccupancyMaxActiveClusters {info[2]} (needs {SL_H})")
+        if info[0] != p.smem or info[1] != p.threads:
+            fail(f"slstm_scan plan disagrees with the kernel: "
+                 f"{list(info)[:2]} vs {p.smem}, {p.threads}")
+        if info[2] < SL_H:
+            fail(f"the card holds {info[2]} clusters of {p.cluster}, "
+                 f"fewer than the {SL_H} heads")
 
 
 # --------------------------------------------------------------------------
@@ -392,6 +421,42 @@ def _decode_edges(mk, dname, dev, H_, K_, D_, T_):
                ref.decode_attention_ref(q, k, v, lens, softcap=sc))
 
 
+def _paged_edges(mk, dname, dev, H_, K_, D_):
+    """The split-KV paged kernel over the serve tick's 129-page pool with
+    garbage (many out-of-range) table entries past each row's pages: one
+    batch of lengths 0, 1, ps - 1, ps, ps + 1, the first split boundary
+    of a full span - 1 and + 1, and the full span; without and with a
+    softcap."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    span = N_MAX * PAGE
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = ops.decode_splits(span, 8, K_, H_ // K_, n_sm)
+    c = ops.split_range(span, n, 1)[0]
+    lens = torch.tensor([0, 1, PAGE - 1, PAGE, PAGE + 1, c - 1, c + 1, span],
+                        dtype=torch.int32, device=dev)
+    B_ = len(lens)
+    pages = torch.randint(0, N_PAGES, (B_, N_MAX), generator=g, device=dev,
+                          dtype=torch.int32)
+    junk = torch.randint(-50, N_PAGES + 50, (B_, N_MAX), generator=g,
+                         device=dev, dtype=torch.int32)
+    owned = torch.arange(N_MAX, device=dev)[None] * PAGE < lens[:, None]
+    tables = torch.where(owned, pages, junk).contiguous()
+    q = mk(B_, H_, D_)
+    kp, vp = mk(N_PAGES, PAGE, K_, D_), mk(N_PAGES, PAGE, K_, D_)
+    for sc in (0.0, 30.0):
+        _check("paged_decode_attention", dname,
+               f"D={D_} G={H_ // K_} n_split={n} lengths {lens.tolist()} "
+               f"softcap={sc}",
+               ops.paged_decode_attention(q, kp, vp, tables, lens,
+                                          softcap=sc),
+               ref.paged_decode_attention_ref(q, kp, vp, tables, lens,
+                                              softcap=sc))
+
+
 def phase_kernels(dev) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -472,6 +537,10 @@ def phase_kernels(dev) -> list[dict]:
                                           softcap=30.0),
                ref.paged_decode_attention_ref(qb, kp, vp, tables, lens_p,
                                               softcap=30.0))
+        for H_, K_ in ((H, K), (4, 4)):                  # G = 7 and G = 1
+            for D_ in ops.HEAD_DIMS:
+                _paged_edges(lambda *sh: rnd(*sh, dtype=dt), dname, dev, H_,
+                             K_, D_)
         live = int(lens_p.sum())
         paged_bytes = (2 * qb.numel() * isz + 2 * live * K * D * isz
                        + int(owned.sum()) * 4 + ROWS * 4)
@@ -599,21 +668,40 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                         ref.ssd_intra_chunk_ref(*ssd_args)))
 
         # -- sLSTM at xlstm-1.3b: fresh state, random state, decode -------
-        hd = SL_D // SL_H
-        pre = rnd(1, S_REC, 4, SL_D).to(dt)
-        R = 0.02 * rnd(4, SL_H, hd, hd)
-        state = (rnd(1, SL_D), 1.0 + rnd(1, SL_D).abs(), rnd(1, SL_D).tanh(),
-                 rnd(1, SL_D))
+        errs, errs1 = [], []
+        for B_, S_, H_, hd_ in SLSTM_CHECKS:
+            d_ = H_ * hd_
+            R_ = 0.02 * rnd(4, H_, hd_, hd_)
+            gates_ = tuple(R_[i].clone() for i in range(4))
+            pre_s = rnd(B_, S_, 4, d_).to(dt)
+            state_s = (rnd(B_, d_), 1.0 + rnd(B_, d_).abs(),
+                       rnd(B_, d_).tanh(), rnd(B_, d_))
+            cases = [("fresh state", pre_s, None),
+                     ("random state", pre_s, state_s)]
+            if S_ > 1:
+                cases.append(("S=1 (decode) random state",
+                              pre_s[:, :1].contiguous(), state_s))
+            for what, p, st in cases:
+                what = f"B={B_} S={p.shape[1]} H={H_} hd={hd_} {what}"
+                (y, fin), (y_r, fin_r) = (ops.slstm_scan(p, R_, state=st),
+                                          ref.slstm_scan_ref(p, R_, st))
+                err = _check("slstm_scan", dname, f"{what}: h", y, y_r)
+                if hd_ == SL_D // SL_H:       # the rows' path shapes
+                    (errs1 if p.shape[1] == 1 else errs).append(err)
+                for part, a, b in zip("cnhm", fin, fin_r):  # float32 state
+                    _check("slstm_scan", "float32", f"{what}: final {part}",
+                           a, b)
+                y4, fin4 = ops.slstm_scan(p, gates_, state=st)
+                torch.cuda.synchronize()
+                if not (torch.equal(y4, y) and all(
+                        torch.equal(a, b) for a, b in zip(fin4, fin))):
+                    fail(f"slstm_scan {dname} {what}: four gate tensors "
+                         "differ from the stacked R")
+            if (B_, S_, H_) == (1, S_REC, SL_H):
+                pre, state, R, gates = pre_s, state_s, R_, gates_
+        log(f"[kernels] slstm_scan {dname}: R as four gate tensors gives "
+            "the stacked R's bits in every case")
         pre1 = pre[:, :1].contiguous()
-        errs = []
-        for what, p, st in ((f"S={S_REC} fresh state", pre, None),
-                            (f"S={S_REC} random state", pre, state),
-                            ("S=1 (decode) random state", pre1, state)):
-            (y, fin), (y_r, fin_r) = (ops.slstm_scan(p, R, state=st),
-                                      ref.slstm_scan_ref(p, R, st))
-            errs.append(_check("slstm_scan", dname, f"{what}: h", y, y_r))
-            for part, a, b in zip("cnhm", fin, fin_r):   # float32 state
-                _check("slstm_scan", "float32", f"{what}: final {part}", a, b)
         if dt is not torch.float32:
             continue
 
@@ -630,8 +718,12 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                             + B_ * nc * Hs))
         # C.B^T and M@x over the causal pairs, B^T@x over the whole chunk
         ssd_flops = B_ * nc * Hs * (2 * causal_pairs * (N + P) + 2 * L * N * P)
+        hd = SL_D // SL_H
         sl_bytes = (pre.numel() + R.numel() + S_REC * SL_D + 8 * SL_D) * 4
         sl_flops = 2 * 4 * SL_D * hd * S_REC
+        # the decode step: R read once, pre, the state in and out, y
+        sl1_bytes = (R.numel() + pre1.numel() + 9 * SL_D) * 4
+        sl1_flops = 2 * 4 * SL_D * hd
         rows += [
             _row("flash_attention_d112", "csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:93", "flash_fwd",
@@ -658,20 +750,20 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                  lambda: ref.ssd_intra_chunk_ref(*ssd_args), None,
                  ssd_bytes, ssd_flops),
             _row("slstm_scan", "csrc/slstm_scan.cu",
-                 "src/repro/kernels/slstm_scan.py:91", "slstm_kernel",
+                 "src/repro/kernels/slstm_scan.py:91", "slstm_prefill_kernel",
                  max(errs),
                  lambda: ops.slstm_scan(pre, R),
                  lambda: ref.slstm_scan_ref(pre, R), None,
                  sl_bytes, sl_flops, iters=20),
+            # the decode step's call (S = 1, from a state), as the layer
+            # makes it: R as four gate tensors
+            _row("slstm_scan_s1", "csrc/slstm_scan.cu",
+                 "src/repro/kernels/slstm_scan.py:91", "slstm_step_kernel",
+                 max(errs1),
+                 lambda: ops.slstm_scan(pre1, gates, state=state),
+                 lambda: ref.slstm_scan_ref(pre1, R, state), None,
+                 sl1_bytes, sl1_flops),
         ]
-        # the decode step's call (S=1, from a state): logged, not a row;
-        # its bound is R's 16 MiB read once
-        log("[kernels] slstm_scan float32 S=1 decode step (from a state): "
-            f"kernel {time_ms(lambda: ops.slstm_scan(pre1, R, state=state)):.4f}"
-            f" ms, plain "
-            f"{time_ms(lambda: ref.slstm_scan_ref(pre1, R, state)):.4f} ms, "
-            f"bound {bound(R.numel() * 4, 2 * 4 * SL_D * hd, dname)[0]:.5f} "
-            "ms (bytes)")
     return rows
 
 
@@ -1044,7 +1136,8 @@ DECODE_TOL = 5e-4
 
 def expected_launches(cfg, n_prefills: int, n_steps: int) -> dict:
     """Kernel launches of n_prefills prefills and n_steps decode steps:
-    one sLSTM launch per sLSTM block per call (xLSTM); one SSD launch per
+    one sLSTM launch per sLSTM block per call, the cluster kernel in
+    prefill and the one-step kernel in decode (xLSTM); one SSD launch per
     Mamba2 block per prefill and one attention launch per shared-block
     call (zamba2)."""
     from repro_torch.kernels import ops
@@ -1052,7 +1145,8 @@ def expected_launches(cfg, n_prefills: int, n_steps: int) -> dict:
     want = dict.fromkeys(ops.LAUNCHES, 0)
     if cfg.family == "ssm":
         n_slstm = cfg.n_layers // (cfg.mlstm_to_slstm + 1)
-        want["slstm_scan"] = n_slstm * (n_prefills + n_steps)
+        want["slstm_scan"] = n_slstm * n_prefills
+        want["slstm_scan_s1"] = n_slstm * n_steps
     else:
         n_attn = cfg.n_layers // cfg.n_mamba_per_super
         want["ssd_intra_chunk"] = cfg.n_layers * n_prefills
@@ -1288,7 +1382,8 @@ def main() -> int:
             "flash_attention_d112": zamba["flash_attention"],
             "decode_attention_d112": zamba["decode_attention"],
             "ssd_intra_chunk": zamba["ssd_intra_chunk"],
-            "slstm_scan": xlstm["slstm_scan"]}[row["name"]]
+            "slstm_scan": xlstm["slstm_scan"],
+            "slstm_scan_s1": xlstm["slstm_scan_s1"]}[row["name"]]
     rows += rec_rows
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

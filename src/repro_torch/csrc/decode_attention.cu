@@ -16,7 +16,8 @@
 // What bounds them here: each call reads every live key and value once.
 // internvl2-1b's solo decode (B=1, K=2, D=64, ~300 keys, f32) moves
 // 0.3 MB (0.09 us at 3.35 TB/s); zamba2-7b's (B=1, K=32, D=112, ~400
-// keys) 11.5 MB (3.4 us).  The FLOPs (2*H*D per key and side) are
+// keys) 11.5 MB (3.4 us); internvl2-1b's paged tick (4 rows of ~270
+// keys) 0.7 MB (0.2 us).  The FLOPs (2*H*D per key and side) are
 // smaller still.  So bytes bound them, and at these sizes the latency of
 // a few dependent memory round trips and of the launch sets the time;
 // what a kernel can do is put every SM to work on the bytes at once.
@@ -49,16 +50,18 @@
 // log-sum-exp merge gives a split or row with no live key weight 0, so a
 // row of length 0 gives 0.
 //
-// `paged_decode_fwd` (unchanged since it was ported): one block per
-// (kv-head, row, group of up to NW q-heads).  The whole block stages a
-// tile of TK keys and values into shared memory once and every warp (one
-// per q-head of the group) attends its q-head over the staged tile;
-// lanes map over keys, each keeping its own running max / sum / D-wide
-// accumulator, merged with warp shuffles at the end.  Shared rows are
-// padded to D+1 floats so lanes reading 32 different keys hit 32
-// different banks.  Each tile row's page comes from the block table
-// (clamped) before the tile load, and the loop stops at min(length,
-// table span), so pages past a row's length are never read.
+// `paged_decode_fwd`: the same split-KV blocks over a page pool.  One
+// block per (kv-head, row, head group), the first design, ran 8 blocks on
+// 132 SMs at internvl2-1b's tick (4 rows, K = 2, G = 7), each walking
+// ~260-300 keys in turn: latency-bound on one SM's round trips.  Now the grid is decode_fwd's, (n_split, K, B * ceil(G/8)),
+// with n_split from static shapes (kernels.ops.decode_splits over the
+// table's span n_max * ps: 32 splits, 256 blocks at that tick), so no
+// length is read on the host and the launch can be captured in a graph.
+// Each block takes its share of [0, min(lengths[b], n_max * ps)); a key's
+// page comes from the row's table entry (clamped into [0, P-1]) when the
+// quad fetches it, so no page past a row's length is read and no table
+// entry past its pages is looked at.  Same workspace, tickets and
+// last-block merge as decode_fwd.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,10 +72,6 @@ namespace {
 constexpr float NEG_INF = -2.0e38f;
 constexpr int NW = 8;  // warps per block = q-heads served per block
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -109,115 +108,8 @@ struct PagedAddr {
   }
 };
 
-// One block: q-heads [h_base, h_base + NW) of kv-head kh in row b, over
-// keys [0, n_keys).  `addr(t)` gives the element offset of key t.
-template <typename T, int D, int TK, class Addr>
-__device__ void decode_block(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, T* __restrict__ o,
-                             int b, int H, int G, int kh, int h_base,
-                             int n_keys, float scale, float softcap,
-                             const Addr& addr) {
-  constexpr int DP = D + 1;  // padded shared row
-  constexpr int KPL = TK / 32;  // keys per lane per tile
-  __shared__ float ks[TK * DP];
-  __shared__ float vs[TK * DP];
-  __shared__ float qs[NW][D];
-  __shared__ int64_t row_off[TK];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = h_base + warp;         // q-head within the GQA group
-  const bool head_ok = g < G;
-  const int h = kh * G + g;
-
-  for (int i = tid; i < NW * D; i += blockDim.x) {
-    const int w = i / D, d = i - w * D;
-    const int gg = h_base + w;
-    qs[w][d] = gg < G ? to_f32(q[((int64_t)b * H + kh * G + gg) * D + d])
-                      : 0.f;
-  }
-
-  float m = NEG_INF, l = 0.f;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
-  for (int t0 = 0; t0 < n_keys; t0 += TK) {
-    __syncthreads();  // previous tile consumed; qs visible
-    if (tid < TK) row_off[tid] = t0 + tid < n_keys ? addr(t0 + tid) : -1;
-    __syncthreads();
-    for (int i = tid; i < TK * D; i += blockDim.x) {
-      const int r = i / D, c = i - r * D;
-      const int64_t off = row_off[r];
-      ks[r * DP + c] = off >= 0 ? to_f32(k[off + c]) : 0.f;
-      vs[r * DP + c] = off >= 0 ? to_f32(v[off + c]) : 0.f;
-    }
-    __syncthreads();
-    if (!head_ok) continue;
-
-    float s[KPL];
-    float mt = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int r = lane + 32 * i;
-      s[i] = NEG_INF;
-      if (t0 + r < n_keys) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qs[warp][d], ks[r * DP + d], dot);
-        float x = dot * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        s[i] = x;
-      }
-      mt = fmaxf(mt, s[i]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float alpha = m > NEG_INF / 2 ? expf(m - m_new) : 0.f;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int r = lane + 32 * i;
-      const float p = s[i] > NEG_INF / 2 ? expf(s[i] - m_new) : 0.f;
-      l += p;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[r * DP + d], acc[d]);
-    }
-    m = m_new;
-  }
-  if (!head_ok) return;
-
-  // merge the 32 lane-partial softmax states
-  const float m_all = warp_max(m);
-  const float w = m > NEG_INF / 2 ? expf(m - m_all) : 0.f;
-  const float l_all = warp_sum(l * w);
-  const float inv = 1.f / fmaxf(l_all, 1e-30f);
-  T* out = o + ((int64_t)b * H + h) * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float x = warp_sum(acc[d] * w);
-    if ((d & 31) == lane) store(out + d, x * inv);
-  }
-}
-
-template <typename T, int D, int TK>
-__global__ void __launch_bounds__(NW * 32)
-paged_decode_fwd(const T* __restrict__ q, const T* __restrict__ kp,
-                 const T* __restrict__ vp, const int* __restrict__ tables,
-                 const int* __restrict__ lengths, T* __restrict__ o, int H,
-                 int K, int P, int ps, int n_max, float scale,
-                 float softcap) {
-  const int kh = blockIdx.x, b = blockIdx.y, h_base = blockIdx.z * NW;
-  const int G = H / K;
-  const int n_keys = min(max(lengths[b], 0), n_max * ps);
-  decode_block<T, D, TK>(
-      q, kp, vp, o, b, H, G, kh, h_base, n_keys, scale, softcap,
-      PagedAddr{tables + (int64_t)b * n_max, P, ps, K, kh, D});
-}
-
 // ---------------------------------------------------------------------------
-// Contiguous cache: split-KV (flash-decoding) across blocks.
+// Split-KV (flash-decoding) across blocks, over either cache.
 // ---------------------------------------------------------------------------
 
 constexpr int MAX_SPLITS = 256;  // = kernels.ops.DECODE_MAX_SPLITS
@@ -506,15 +398,22 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
                     softcap, ContigAddr{b, Tk, K, kh, D});
 }
 
-// keys per staged tile: 64 (2 per lane, ~35 KB of shared memory at
-// D=64); 32 above D=64, where 64 keys of k and v (58 KB at D=112) would
-// pass the 48 KB static shared-memory limit
-template <int D>
-constexpr int tile_keys() { return D > 64 ? 32 : 64; }
-
-dim3 grid_for(int B, int H, int K) {
-  const int G = H / K;
-  return dim3(K, B, (G + NW - 1) / NW);
+template <typename T, int D>
+__global__ void __launch_bounds__(NW * 32, 2)
+paged_decode_fwd(const T* __restrict__ q, const T* __restrict__ kp,
+                 const T* __restrict__ vp, const int* __restrict__ tables,
+                 const int* __restrict__ lengths, T* __restrict__ o,
+                 float* __restrict__ ws, int* counters, int H, int K, int P,
+                 int ps, int n_max, int n_split, int n_hg, float scale,
+                 float softcap) {
+  const int split = blockIdx.x, kh = blockIdx.y;
+  const int b = blockIdx.z / n_hg, hg = blockIdx.z % n_hg;
+  const int B = gridDim.z / n_hg;
+  const int n_keys = min(max(lengths[b], 0), n_max * ps);
+  split_block<T, D>(q, kp, vp, o, ws, counters + blockIdx.z * K + kh, B, b,
+                    H, H / K, kh, hg * NW, n_keys, split, n_split, scale,
+                    softcap,
+                    PagedAddr{tables + (int64_t)b * n_max, P, ps, K, kh, D});
 }
 
 template <typename T, int D>
@@ -534,13 +433,16 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 template <typename T, int D>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          const int* tables, const int* lengths, void* o,
-                         int B, int H, int K, int P, int ps, int n_max,
-                         float softcap, cudaStream_t stream) {
-  paged_decode_fwd<T, D, tile_keys<D>()>
-      <<<grid_for(B, H, K), NW * 32, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(kp),
-          static_cast<const T*>(vp), tables, lengths, static_cast<T*>(o), H,
-          K, P, ps, n_max, 1.f / sqrtf((float)D), softcap);
+                         float* ws, int* counters, int B, int H, int K, int P,
+                         int ps, int n_max, int n_split, float softcap,
+                         cudaStream_t stream) {
+  const int n_hg = (H / K + NW - 1) / NW;
+  const dim3 grid(n_split, K, B * n_hg);
+  paged_decode_fwd<T, D><<<grid, NW * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), tables, lengths, static_cast<T*>(o), ws,
+      counters, H, K, P, ps, n_max, n_split, n_hg, 1.f / sqrtf((float)D),
+      softcap);
   return cudaGetLastError();
 }
 
@@ -580,23 +482,28 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-extern "C" int paged_decode_attention_fwd(const void* q, const void* kp,
-                                          const void* vp, const void* tables,
-                                          const void* lengths, void* o,
-                                          int B, int H, int K, int D, int P,
-                                          int ps, int n_max, int dtype,
-                                          float softcap, void* stream) {
+// The paged twin: k/v pages (P, ps, K, D), tables (B, n_max) int32, the
+// same workspace and counters as decode_attention_fwd.
+extern "C" int paged_decode_attention_fwd(
+    const void* q, const void* kp, const void* vp, const void* tables,
+    const void* lengths, void* o, void* ws, void* counters, int B, int H,
+    int K, int D, int P, int ps, int n_max, int n_split, int dtype,
+    float softcap, void* stream) {
   if (B <= 0) return cudaSuccess;
+  if (n_split < 1 || n_split > MAX_SPLITS || P < 1 || ps < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tbl = static_cast<const int*>(tables);
   const int* len = static_cast<const int*>(lengths);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
   if (dtype == 0) {
-    DISPATCH_D(D, launch_paged, float, q, kp, vp, tbl, len, o, B, H, K, P, ps,
-               n_max, softcap, s)
+    DISPATCH_D(D, launch_paged, float, q, kp, vp, tbl, len, o, w, cnt, B, H,
+               K, P, ps, n_max, n_split, softcap, s)
   }
   if (dtype == 1) {
-    DISPATCH_D(D, launch_paged, __nv_bfloat16, q, kp, vp, tbl, len, o, B, H,
-               K, P, ps, n_max, softcap, s)
+    DISPATCH_D(D, launch_paged, __nv_bfloat16, q, kp, vp, tbl, len, o, w,
+               cnt, B, H, K, P, ps, n_max, n_split, softcap, s)
   }
   return cudaErrorInvalidValue;
 }

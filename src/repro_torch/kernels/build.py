@@ -46,10 +46,11 @@ LIBRARIES = {
         # softcap, stream
         "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _P],
-        # q, kp, vp, tables, lengths, o, B, H, K, D, P, ps, n_max, dtype,
-        # softcap, stream
-        "paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                       _I, _I, _I, _I, _I, _F, _P],
+        # q, kp, vp, tables, lengths, o, ws, counters, B, H, K, D, P, ps,
+        # n_max, n_split, dtype, softcap, stream
+        "paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                       _P],
     }),
     "ssd_scan": ("ssd_scan.cu", {
         # x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H, P, N, dtype, stream
@@ -57,9 +58,15 @@ LIBRARIES = {
                                 _I, _I, _I, _P],
     }),
     "slstm_scan": ("slstm_scan.cu", {
-        # pre, R, y, c, n, m, hbuf, h_out, B, S, d, H, hd, dtype, stream
-        "slstm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _P],
+        # pre, r_i, r_f, r_z, r_o, y, c, n, h, m, state_out, B, S, d, H,
+        # hd, C, jr, rows, dtype, stream
+        "slstm_scan_fwd": [_P] * 11 + [_I] * 9 + [_P],
+        # pre, r_i, r_f, r_z, r_o, y, c, n, h, m, state_out, B, d, H, hd,
+        # dtype, stream
+        "slstm_step_fwd": [_P] * 11 + [_I] * 5 + [_P],
+        # hd, C, jr, rows, int[3] out: shared-memory bytes, threads, the
+        # clusters the card holds at once
+        "slstm_prefill_info": [_I, _I, _I, _I, _P],
     }),
 }
 

@@ -12,15 +12,18 @@ can show that its work went through the kernels.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import ref
 
 #: kernel name -> launches since the last ``reset_launches()``
+#: (``slstm_scan`` counts the prefill kernel, ``slstm_scan_s1`` the
+#: one-step decode kernel; both are launched by ``slstm_scan()``)
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_intra_chunk": 0,
-            "slstm_scan": 0}
+            "slstm_scan": 0, "slstm_scan_s1": 0}
 
 #: head dims the attention kernels are instantiated for: the smoke
 #: configs' 16, internvl2-1b's 64 and zamba2-7b's 112
@@ -35,6 +38,16 @@ SSD_MAX_DIM = 128
 DECODE_MIN_KEYS = 16
 DECODE_HEADS_PER_BLOCK = 8
 DECODE_MAX_SPLITS = 256
+
+#: the sLSTM prefill kernel: the largest cluster (blocks a head; 16 is a
+#: non-portable size that Hopper allows), the 32-row slots of R a lane
+#: keeps in registers, the batch rows one cluster carries, the largest
+#: head dim (both sLSTM kernels), and a block's shared-memory limit
+SLSTM_MAX_CLUSTER = 16
+SLSTM_REG_SLOTS = 4
+SLSTM_MAX_ROWS = 4
+SLSTM_MAX_HEAD_DIM = 512
+SMEM_LIMIT = 232448
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -90,7 +103,16 @@ def _raise_on(name, err):
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream on t's device (without
+    building a ``torch.cuda.Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _f32(t):
+    """t as a contiguous float32 tensor: t itself when it is one."""
+    if t.dtype is torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -210,7 +232,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            softcap=0.0):
     """Batched paged-KV decode: q (B,H,D); k/v pages (n_pages, page_size,
     K, D); block_tables (B, n_max) int32 page ids, clamped into range;
-    lengths (B,) int32 masks each row's ragged tail.  Returns (B,H,D)."""
+    lengths (B,) int32 masks each row's ragged tail.  Returns (B,H,D).
+    The split count comes from static shapes (the table's span
+    n_max * page_size), so nothing is read back from the device."""
     if q.ndim != 3 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             f"paged_decode_attention: bad shapes q{tuple(q.shape)} "
@@ -235,15 +259,24 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _cuda_ready("paged_decode_attention",
                 {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                  "block_tables": block_tables, "lengths": lengths}, D)
+    _aligned("paged_decode_attention",
+             {"q": q, "k_pages": k_pages, "v_pages": v_pages})
     from repro_torch.kernels.build import load
 
     lib = load("decode_attention")
     o = torch.empty_like(q)
     n_max = block_tables.shape[1]
+    G = H // K
+    n_split = decode_splits(n_max * ps, B, K, G, _sm_count(dev.index))
+    ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                     device=dev)
+    tickets = _ticket_counters(
+        dev, B * K * -(-G // DECODE_HEADS_PER_BLOCK))
     err = lib.paged_decode_attention_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), B, H, K,
-        D, P, ps, n_max, _DTYPES[q.dtype], float(softcap), _stream(q))
+        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+        ws.data_ptr(), tickets.data_ptr(), B, H, K, D, P, ps, n_max,
+        n_split, _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("paged_decode_attention", err)
     LAUNCHES["paged_decode_attention"] += 1
     return o
@@ -324,23 +357,100 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, *, chunk=128, initial_state=None):
     return (y_intra + y_inter).to(x.dtype).reshape(B, S, H, P), run
 
 
+@dataclass(frozen=True)
+class SlstmPlan:
+    """How the sLSTM prefill kernel lays one call out on the card."""
+
+    cluster: int      # C: blocks of one head's cluster
+    units: int        # units of its head a block owns, for all 4 gates
+    threads: int      # threads a block: one warp per 2 units
+    smem_slots: int   # 32-row slots of the block's R slice in shared memory
+    reg_slots: int    # ... in registers (the last k rows)
+    rows: int         # batch rows one cluster carries (ceil(B / rows)
+                      # clusters a head)
+    smem: int         # dynamic shared-memory bytes a block
+
+    @property
+    def reg_rows(self) -> int:
+        """The k rows of R held in registers: [hd - reg_rows, hd) when hd
+        is a multiple of 32."""
+        return 32 * self.reg_slots
+
+
+@functools.lru_cache(maxsize=None)
+def slstm_plan(B, H, hd):
+    """The sLSTM kernels' layout for B rows of H heads of hd units.  One
+    cluster per head: the fewest blocks C (a power of two, at most
+    ``SLSTM_MAX_CLUSTER``) that leave each block an even count of at most 32
+    units; the last ``SLSTM_REG_SLOTS`` 32-row slots of the block's R
+    slice in registers and the rest in shared memory; up to
+    ``SLSTM_MAX_ROWS`` rows a cluster.  Raises ValueError for an hd that
+    fits no plan: not a multiple of 8 (the one-step kernel's 8 units a
+    block), above ``SLSTM_MAX_HEAD_DIM``, with no such cluster, or with
+    more shared memory than a block's ``SMEM_LIMIT``."""
+    if hd < 8 or hd % 8 or hd > SLSTM_MAX_HEAD_DIM or B < 1 or H < 1:
+        raise ValueError(
+            f"slstm_scan: no kernel plan for head dim {hd} (the kernels "
+            f"take multiples of 8 up to {SLSTM_MAX_HEAD_DIM}), B={B}, H={H}")
+    C = next((c for c in (1, 2, 4, 8, 16) if c <= SLSTM_MAX_CLUSTER
+              and hd % c == 0 and (hd // c) % 2 == 0 and hd // c <= 32),
+             None)
+    if C is None:
+        raise ValueError(
+            f"slstm_scan: head dim {hd} splits into no cluster of at most "
+            f"{SLSTM_MAX_CLUSTER} blocks of an even count of at most 32 "
+            "units")
+    units = hd // C
+    slots = -(-hd // 32)
+    reg = min(slots, SLSTM_REG_SLOTS)
+    rows = min(B, SLSTM_MAX_ROWS)
+    smem = (16 + (units // 2) * (slots - reg) * 1024      # 2 mbarriers, R
+            + 4 * (2 * rows * 32 * slots + 2 * rows * 4 * units
+                   + 3 * rows * units))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"slstm_scan: head dim {hd} needs {smem} B of "
+                         f"shared memory a block, above {SMEM_LIMIT}")
+    return SlstmPlan(cluster=C, units=units, threads=16 * units,
+                     smem_slots=slots - reg, reg_slots=reg, rows=rows,
+                     smem=smem)
+
+
+def _slstm_gates(R):
+    """R as its four (H, hd, hd) gate tensors: a stacked (4,H,hd,hd)
+    tensor is split into views, without a copy."""
+    if isinstance(R, torch.Tensor):
+        if R.ndim != 4 or R.shape[0] != 4:
+            raise ValueError(f"slstm_scan: bad shape R{tuple(R.shape)}")
+        return R.unbind(0)
+    gates = tuple(R)
+    if len(gates) != 4 or any(
+            not isinstance(g, torch.Tensor) or g.ndim != 3
+            or g.shape != gates[0].shape for g in gates):
+        raise ValueError("slstm_scan: R must be a (4,H,hd,hd) tensor or "
+                         "four (H,hd,hd) gate tensors (i, f, z, o)")
+    return gates
+
+
 def slstm_scan(pre, R, *, state=None):
     """The sLSTM recurrence over a whole sequence in one launch.  pre:
-    (B,S,4,d) gate pre-activations (gates i, f, z, o); R: (4,H,hd,hd)
-    block-diagonal recurrent weights, H*hd = d; state: None (the fresh
-    state, exactly the TPU kernel's function) or (c, n, h, m), each
+    (B,S,4,d) gate pre-activations (gates i, f, z, o); R: block-diagonal
+    recurrent weights, H*hd = d, either a (4,H,hd,hd) tensor or the four
+    gate tensors (r_i, r_f, r_z, r_o), each (H,hd,hd); state: None (the
+    fresh state, exactly the TPU kernel's function) or (c, n, h, m), each
     (B,d).  Returns (h over time (B,S,d) in pre's dtype, final (c, n, h,
-    m) float32): see ``ref.slstm_scan_ref``."""
-    if pre.ndim != 4 or pre.shape[2] != 4 or R.ndim != 4 or R.shape[0] != 4:
-        raise ValueError(f"slstm_scan: bad shapes pre{tuple(pre.shape)} "
-                         f"R{tuple(R.shape)}")
+    m) float32): see ``ref.slstm_scan_ref``.  On the card S = 1 launches
+    the one-step kernel, S > 1 the cluster kernel (``slstm_plan``)."""
+    gates = _slstm_gates(R)
+    if pre.ndim != 4 or pre.shape[2] != 4:
+        raise ValueError(f"slstm_scan: bad shape pre{tuple(pre.shape)}")
     B, S, _, d = pre.shape
-    _, H, hd, hd2 = R.shape
+    H, hd, hd2 = gates[0].shape
     if hd != hd2 or H * hd != d or S < 1:
         raise ValueError(f"slstm_scan: pre{tuple(pre.shape)} does not match "
-                         f"R{tuple(R.shape)} (need H*hd = d, S >= 1)")
+                         f"R gates {tuple(gates[0].shape)} (need H*hd = d, "
+                         "S >= 1)")
     dev = _check("slstm_scan", {"pre": pre})
-    if R.device != dev or not R.is_floating_point():
+    if any(g.device != dev or not g.is_floating_point() for g in gates):
         raise ValueError(f"slstm_scan: R must be floating on {dev}")
     if state is not None:
         if len(state) != 4 or any(t.shape != (B, d) or t.device != dev
@@ -348,24 +458,29 @@ def slstm_scan(pre, R, *, state=None):
             raise ValueError(f"slstm_scan: state must be 4 tensors of "
                              f"({B}, {d}) on {dev}")
     if dev.type == "cpu":
-        return ref.slstm_scan_ref(pre, R, state)
-    _contiguous("slstm_scan", {"pre": pre, "R": R})
+        R4 = R if isinstance(R, torch.Tensor) else torch.stack(gates)
+        return ref.slstm_scan_ref(pre, R4, state)
+    _contiguous("slstm_scan", {"pre": pre})
+    plan = slstm_plan(B, H, hd)
+    r = [_f32(g) for g in gates]              # no copy when f32 already
+    _aligned("slstm_scan", dict(zip(("r_i", "r_f", "r_z", "r_o"), r)))
+    st = (None,) * 4 if state is None else [_f32(t) for t in state]
     from repro_torch.kernels.build import load
 
     lib = load("slstm_scan")
-    if state is None:
-        state = ref.slstm_initial_state(B, d, dev)
-    # c, n, m are updated in place by the kernel: fresh float32 copies
-    c, n, h0, m = (t.float().clone() for t in state)
-    hbuf = torch.empty((2, B, d), dtype=torch.float32, device=dev)
-    hbuf[0] = h0
-    h_out = torch.empty((B, d), dtype=torch.float32, device=dev)
-    r32 = R.float().contiguous()
+    out = torch.empty((4, B, d), dtype=torch.float32, device=dev)
     y = torch.empty((B, S, d), dtype=pre.dtype, device=dev)
-    err = lib.slstm_scan_fwd(
-        pre.data_ptr(), r32.data_ptr(), y.data_ptr(), c.data_ptr(),
-        n.data_ptr(), m.data_ptr(), hbuf.data_ptr(), h_out.data_ptr(), B, S,
-        d, H, hd, _DTYPES[pre.dtype], _stream(pre))
+    ptrs = [t.data_ptr() for t in r] + [y.data_ptr()] + [
+        None if t is None else t.data_ptr() for t in st]
+    if S == 1:
+        err = lib.slstm_step_fwd(pre.data_ptr(), *ptrs, out.data_ptr(), B, d,
+                                 H, hd, _DTYPES[pre.dtype], _stream(pre))
+        key = "slstm_scan_s1"
+    else:
+        err = lib.slstm_scan_fwd(pre.data_ptr(), *ptrs, out.data_ptr(), B, S,
+                                 d, H, hd, plan.cluster, plan.reg_slots,
+                                 plan.rows, _DTYPES[pre.dtype], _stream(pre))
+        key = "slstm_scan"
     _raise_on("slstm_scan", err)
-    LAUNCHES["slstm_scan"] += 1
-    return y, (c, n, h_out, m)
+    LAUNCHES[key] += 1
+    return y, tuple(out.unbind(0))

@@ -214,7 +214,8 @@ def slstm_apply(params, x, cfg, *, state=None):
     xf = x.float()
     pre = torch.stack([xf @ params[f"w_{g}"].float() + params[f"b_{g}"].float()
                        for g in GATES], dim=2)          # (B,S,4,d)
-    R = torch.stack([params[f"r_{g}"].float() for g in GATES])  # (4,H,hd,hd)
+    # R as its four (H,hd,hd) gate tensors: no stacked copy per call
+    R = tuple(params[f"r_{g}"] for g in GATES)
     y, new_state = kops.slstm_scan(pre, R, state=state)
     y = y.to(dt)
     # post-FFN (GeLU, tanh form as jax.nn.gelu's default; pf 4/3)

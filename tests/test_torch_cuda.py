@@ -187,23 +187,34 @@ def test_cuda_ssd_intra_chunk_matches_plain(cuda_device, dtype, atol, rtol,
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
-@pytest.mark.parametrize("B,S,H,hd", [(1, 383, 4, 512),   # xlstm-1.3b
-                                      (2, 9, 4, 16)])     # smoke
-def test_cuda_slstm_scan_matches_plain(cuda_device, dtype, atol, rtol, B, S,
-                                       H, hd):
-    """Zero state, a random initial state, and one decode step (S=1)
-    from that state; outputs and final states."""
-    g = torch.Generator(device=cuda_device).manual_seed(3)
+SLSTM_SHAPES = [(1, 383, 4, 512),    # xlstm-1.3b's longest prompt
+                (1, 1, 4, 512),      # its decode step (the one-step kernel)
+                (2, 9, 4, 16),       # smoke
+                (1, 1000, 4, 512),   # a long prefill
+                (2, 2, 4, 512)]      # two rows, two steps
+
+
+def _slstm_inputs(device, B, S, H, hd, dtype):
+    g = torch.Generator(device=device).manual_seed(3)
     d = H * hd
 
     def rnd(*shape):
-        return torch.randn(shape, generator=g, device=cuda_device)
+        return torch.randn(shape, generator=g, device=device)
 
     pre = rnd(B, S, 4, d).to(dtype)
     R = 0.02 * rnd(4, H, hd, hd)
     state = (rnd(B, d), 1.0 + rnd(B, d).abs(), rnd(B, d).tanh(), rnd(B, d))
+    return pre, R, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("B,S,H,hd", SLSTM_SHAPES)
+def test_cuda_slstm_scan_matches_plain(cuda_device, dtype, atol, rtol, B, S,
+                                       H, hd):
+    """Zero state, a random initial state, and one decode step (S=1)
+    from that state; outputs and final states."""
+    pre, R, state = _slstm_inputs(cuda_device, B, S, H, hd, dtype)
     for p, st in ((pre, None), (pre, state), (pre[:, :1].contiguous(), state)):
         y, fin = ops.slstm_scan(p, R, state=st)
         y_ref, fin_ref = ref.slstm_scan_ref(p, R, st)
@@ -211,6 +222,94 @@ def test_cuda_slstm_scan_matches_plain(cuda_device, dtype, atol, rtol, B, S,
                                    atol=atol)
         for a, b in zip(fin, fin_ref):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd", SLSTM_SHAPES)
+def test_cuda_slstm_four_gate_R_equals_stacked(cuda_device, B, S, H, hd):
+    """R as four gate tensors gives the stacked R's bits, and each call
+    counts one launch of the kernel its S selects."""
+    pre, R, state = _slstm_inputs(cuda_device, B, S, H, hd, torch.float32)
+    four = tuple(R[i].clone() for i in range(4))
+    key = "slstm_scan_s1" if S == 1 else "slstm_scan"
+    for st in (None, state):
+        ops.reset_launches()
+        y, fin = ops.slstm_scan(pre, R, state=st)
+        y4, fin4 = ops.slstm_scan(pre, four, state=st)
+        assert ops.LAUNCHES[key] == 2 and sum(ops.LAUNCHES.values()) == 2
+        torch.testing.assert_close(y4, y, rtol=0, atol=0)
+        for a, b in zip(fin4, fin):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# the paged kernel's geometries: (H, K, D) at G = 7 and G = 1
+PAGED_GEOMS = {"D=16 G=7": (14, 2, 16), "D=64 G=7": (14, 2, 64),
+               "D=112 G=7": (14, 2, 112), "D=16 G=1": (4, 4, 16),
+               "D=64 G=1": (4, 4, 64), "D=112 G=1": (4, 4, 112)}
+PAGE, N_MAX, N_PAGES = 16, 32, 129   # internvl2-1b's serve tick
+
+
+def paged_edge_lengths(n_split, ps=PAGE, n_max=N_MAX):
+    """0, 1, ps - 1, ps, ps + 1, the first split boundary of a full span
+    - 1 and + 1, and the full span n_max * ps."""
+    c = ops.split_range(n_max * ps, n_split, 1)[0]
+    return [0, 1, ps - 1, ps, ps + 1, c - 1, c + 1, n_max * ps]
+
+
+def paged_tables(gen, lengths, device, ps=PAGE, n_max=N_MAX, P=N_PAGES):
+    """Random pages for each row's live keys; the table entries past them
+    are garbage, many out of [0, P)."""
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    B = len(lengths)
+    pages = torch.randint(0, P, (B, n_max), generator=gen, device=device,
+                          dtype=torch.int32)
+    junk = torch.randint(-50, P + 50, (B, n_max), generator=gen,
+                         device=device, dtype=torch.int32)
+    owned = torch.arange(n_max, device=device)[None] * ps < lens[:, None]
+    return torch.where(owned, pages, junk).contiguous(), lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("geom", PAGED_GEOMS)
+@pytest.mark.parametrize("batch", ["edges", "B=1", "B=4"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_cuda_paged_split_edges(cuda_device, dtype, atol, rtol, geom, batch,
+                                softcap):
+    """The split-KV paged kernel over a 129-page pool with garbage table
+    tails: one batch of edge lengths, one row, or four rows; the merge
+    tickets are left zero, and a second call gives the same bits."""
+    H, K, D = PAGED_GEOMS[geom]
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    span = N_MAX * PAGE
+    if batch == "edges":
+        lens = paged_edge_lengths(ops.decode_splits(span, 8, K, H // K, n_sm))
+    elif batch == "B=1":
+        lens = [273]
+    else:
+        lens = [span, 1, 137, 0]
+    tables, lengths = paged_tables(g, lens, cuda_device)
+    B = len(lens)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q = rnd(B, H, D)
+    kp, vp = rnd(N_PAGES, PAGE, K, D), rnd(N_PAGES, PAGE, K, D)
+    got = ops.paged_decode_attention(q, kp, vp, tables, lengths,
+                                     softcap=softcap)
+    torch.testing.assert_close(
+        got.float(),
+        ref.paged_decode_attention_ref(q, kp, vp, tables, lengths,
+                                       softcap=softcap).float(),
+        rtol=rtol, atol=atol)
+    again = ops.paged_decode_attention(q, kp, vp, tables, lengths,
+                                       softcap=softcap)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    assert int(ops._TICKETS[cuda_device.index or 0].abs().sum()) == 0
+    if 0 in lens:
+        assert not bool(got[lens.index(0)].float().abs().any())
 
 
 # the attention kernels' edge cases at each path's head geometry:

@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""Kernel experiments on one NVIDIA GPU, beside ``chip_smoke.py``.
+
+    git show <commit>:src/repro_torch/csrc/slstm_scan.cu \\
+        > build/ab/slstm_scan_old.cu
+    python3 tools/kernel_sweep.py --old-slstm build/ab/slstm_scan_old.cu \\
+        [--alt-slstm NAME=PATH ...]
+
+From the root of a checkout, on a machine with the card and ``nvcc``:
+
+1. sLSTM A/B: the earlier cooperative sLSTM source (its C interface
+   ``slstm_scan_fwd(pre, R, y, c, n, m, hbuf, h_out, B, S, d, H, hd,
+   dtype, stream)``, built with the package's nvcc flags into
+   ``build/ab/``, called through a copy of its wrapper) against the
+   package's ``ops.slstm_scan``, at xlstm-1.3b's decode step (S = 1
+   from a state) and longest prompt (S = 383), float32, in turns (old,
+   new, new, old): CUDA-event time over back-to-back wrapper calls, the
+   kernel's device time under ``torch.profiler`` and the wrapper's host
+   enqueue time; and the per-call R stack the layer no longer makes.
+2. sLSTM prefill: device time over S (the slope is one step's time),
+   over the register slots of the plan, and of each ``--alt-slstm``
+   source (a variant with the package's C interface, built beside it)
+   in turns with the package's, at S = 383.
+3. The cluster barrier: one ``barrier.cluster`` arrive/wait a step over
+   many steps, with and without a distributed-shared-memory store per
+   thread before it, at cluster sizes 2-16: the latency floor of a
+   sequential recurrence on one cluster.
+4. Paged decode: device time over the split count at internvl2-1b's
+   serve tick (4 rows, H = 14, K = 2, D = 64, pages of 16, 32 a row).
+
+Prints one line per measurement, the card's ``nvidia-smi`` name and
+power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+AB_DIR = ROOT / "build" / "ab"
+SEED = 0
+
+BARRIER_PROBE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
+
+__global__ void __launch_bounds__(512, 1)
+barrier_probe_kernel(float* out, int n_iter, int remote) {
+  extern __shared__ float sm[];  // [2][512]
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, peer = tid & 15, C = (int)cl.num_blocks();
+  sm[tid] = 0.f;
+  sm[512 + tid] = 0.f;
+  cl.sync();
+  float x = 0.f;
+  for (int i = 0; i < n_iter; ++i) {
+    float* buf = sm + (i & 1) * 512 + tid;
+    if (remote && peer < C) *cl.map_shared_rank(buf, peer) = (float)i;
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    x += *buf;
+  }
+  out[blockIdx.x * blockDim.x + tid] = x;
+}
+
+extern "C" int barrier_probe(int C, int n_clusters, int n_iter, int remote,
+                             void* out, void* stream) {
+  const int smem = 202112;  // the sLSTM prefill block's, one block an SM
+  cudaFuncSetAttribute(barrier_probe_kernel,
+                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaFuncSetAttribute(barrier_probe_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * n_clusters);
+  cfg.blockDim = dim3(512);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute a[1];
+  a[0].id = cudaLaunchAttributeClusterDimension;
+  a[0].val.clusterDim.x = C;
+  a[0].val.clusterDim.y = 1;
+  a[0].val.clusterDim.z = 1;
+  cfg.attrs = a;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, barrier_probe_kernel,
+                                     static_cast<float*>(out), n_iter, remote);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+"""
+
+def record(kind: str, **kw) -> None:
+    print(f"[sweep] {kind}: " + ", ".join(
+        f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in kw.items()), flush=True)
+
+
+def build_lib(src: Path, name: str) -> ctypes.CDLL:
+    from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
+
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    out = AB_DIR / f"{name}.so"
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"kernel_sweep: nvcc failed for {src}:\n"
+                         f"{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def old_slstm_wrapper(lib):
+    """The earlier ``ops.slstm_scan`` body (argument checks, four state
+    clones, the h double buffer, one cooperative launch) over ``lib``."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    fn = lib.slstm_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(pre, R, state=None):
+        B, S, _, d = pre.shape
+        _, H, hd, _ = R.shape
+        dev = ops._check("slstm_scan", {"pre": pre})
+        ops._contiguous("slstm_scan", {"pre": pre, "R": R})
+        if state is None:
+            state = ref.slstm_initial_state(B, d, dev)
+        c, n, h0, m = (t.float().clone() for t in state)
+        hbuf = torch.empty((2, B, d), dtype=torch.float32, device=dev)
+        hbuf[0] = h0
+        h_out = torch.empty((B, d), dtype=torch.float32, device=dev)
+        r32 = R.float().contiguous()
+        y = torch.empty((B, S, d), dtype=pre.dtype, device=dev)
+        err = fn(pre.data_ptr(), r32.data_ptr(), y.data_ptr(), c.data_ptr(),
+                 n.data_ptr(), m.data_ptr(), hbuf.data_ptr(),
+                 h_out.data_ptr(), B, S, d, H, hd, ops._DTYPES[pre.dtype],
+                 torch.cuda.current_stream(pre.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"old slstm_scan: CUDA error {err}")
+        return y, (c, n, h_out, m)
+
+    return call
+
+
+def slstm_ab(old_src: Path, dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops
+
+    old = old_slstm_wrapper(build_lib(old_src, "slstm_scan_old"))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d, H = cs.SL_D, cs.SL_H
+    hd = d // H
+    R = 0.02 * torch.randn(4, H, hd, hd, generator=g, device=dev)
+    gates = tuple(R[i].clone() for i in range(4))
+    state = tuple(torch.randn(1, d, generator=g, device=dev)
+                  for _ in range(4))
+    state = (state[0], 1.0 + state[1].abs(), state[2].tanh(), state[3])
+    for S in (1, cs.S_REC):
+        pre = torch.randn(1, S, 4, d, generator=g, device=dev)
+        st = state if S == 1 else None
+        y_old, _ = old(pre, R, st)
+        y_new, _ = ops.slstm_scan(pre, gates, state=st)
+        torch.cuda.synchronize()
+        diff = (y_old - y_new).abs().max().item()
+        iters = 200 if S == 1 else 20
+        calls = {"old": lambda: old(pre, R, st),
+                 "new, R stacked": lambda: ops.slstm_scan(pre, R, state=st),
+                 "new, four gate tensors": lambda: ops.slstm_scan(
+                     pre, gates, state=st)}
+        names = {"old": "slstm_kernel", "new, R stacked":
+                 "slstm_step_kernel" if S == 1 else "slstm_prefill_kernel"}
+        names["new, four gate tensors"] = names["new, R stacked"]
+        order = ["old", "new, R stacked", "new, four gate tensors",
+                 "new, four gate tensors", "new, R stacked", "old"]
+        ms: dict[str, list[float]] = {k: [] for k in calls}
+        for k in order:
+            ms[k].append(cs.time_ms(calls[k], iters))
+        for k, fn in calls.items():
+            record("slstm_ab", S=S, version=k, events_ms=min(ms[k]),
+                   turns=[round(t, 5) for t in ms[k]],
+                   device_ms=cs.device_ms(fn, names[k], min(iters, 50)),
+                   host_us=cs.host_us(fn, iters), max_abs_diff_vs_old=diff)
+    # what slstm_apply no longer does on every call: stack R (16 MiB)
+    stack = lambda: torch.stack([r.float() for r in gates])  # noqa: E731
+    record("slstm_r_stack", events_ms=cs.time_ms(stack, 50),
+           host_us=cs.host_us(stack, 50))
+
+
+def prefill_call(lib, pre, gates, out, y, jr=None):
+    """One direct launch of ``lib``'s sLSTM prefill kernel (fresh state)
+    with the package's plan for these shapes, or ``jr`` register slots."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B, S, _, d = pre.shape
+    H, hd = gates[0].shape[:2]
+    plan = ops.slstm_plan(B, H, hd)
+    fn = lib.slstm_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        err = fn(pre.data_ptr(), *(g.data_ptr() for g in gates),
+                 y.data_ptr(), None, None, None, None, out.data_ptr(), B, S,
+                 d, H, hd, plan.cluster, plan.reg_slots if jr is None else jr,
+                 plan.rows, 0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+    return call
+
+
+def slstm_prefill_sweep(dev, alts: dict[str, Path]) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    d, H = cs.SL_D, cs.SL_H
+    hd = d // H
+    R = 0.02 * torch.randn(4, H, hd, hd, generator=g, device=dev)
+    gates = R.unbind(0)
+    for S in (2, 100, cs.S_REC, 1000):
+        pre = torch.randn(1, S, 4, d, generator=g, device=dev)
+        fn = lambda: ops.slstm_scan(pre, R)  # noqa: E731
+        t = cs.device_ms(fn, "slstm_prefill_kernel", 20)
+        record("slstm_prefill_over_S", S=S, device_ms=t,
+               us_per_step=1e3 * t / S if t else None)
+    pre = torch.randn(1, cs.S_REC, 4, d, generator=g, device=dev)
+    out = torch.empty((4, 1, d), device=dev)
+    y = torch.empty((1, cs.S_REC, d), device=dev)
+    lib = build.load("slstm_scan")
+    plan = ops.slstm_plan(1, H, hd)
+    for jr in range(plan.reg_slots, -1, -1):
+        call = prefill_call(lib, pre, gates, out, y, jr)
+        try:
+            call()
+        except RuntimeError as e:     # no room in shared memory for it
+            record("slstm_prefill_reg_slots", reg_slots=jr, error=str(e))
+            break
+        record("slstm_prefill_reg_slots", reg_slots=jr, S=cs.S_REC,
+               device_ms=cs.device_ms(call, "slstm_prefill_kernel", 20))
+    if not alts:
+        return
+    calls = {"package": prefill_call(lib, pre, gates, out, y)}
+    for name, src in alts.items():
+        calls[name] = prefill_call(build_lib(src, f"slstm_alt_{name}"), pre,
+                                   gates, out, y)
+    want = None
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        if want is None:
+            want = y.clone()
+        record("slstm_prefill_variant_check", variant=name,
+               max_abs_diff=(y - want).abs().max().item())
+    order = list(calls) + list(reversed(calls))
+    times: dict[str, list] = {k: [] for k in calls}
+    for name in order:
+        times[name].append(cs.device_ms(calls[name], "slstm_prefill_kernel",
+                                        20))
+    for name, ts in times.items():
+        record("slstm_prefill_variant", variant=name, S=cs.S_REC,
+               device_ms=min(ts), turns=[round(t, 5) for t in ts])
+
+
+def barrier_latency(dev) -> None:
+    import torch
+
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    src = AB_DIR / "barrier_probe.cu"
+    src.write_text(BARRIER_PROBE)
+    fn = build_lib(src, "barrier_probe").barrier_probe
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    out = torch.empty(16 * 4 * 512, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch_ms(C, n_iter, remote):
+        ts = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            if fn(C, 4, n_iter, remote, out.data_ptr(), stream):
+                raise RuntimeError("barrier probe launch failed")
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return min(ts)
+
+    lo, hi = 64, 4096
+    for C in (2, 4, 8, 16):
+        for remote in (0, 1):
+            t = (launch_ms(C, hi, remote) - launch_ms(C, lo, remote)) / (hi - lo)
+            record("cluster_barrier", cluster=C, clusters=4,
+                   dsmem_store=bool(remote), us_per_barrier=1e3 * t)
+
+
+def paged_split_sweep(dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    H, K, D = cs.H, cs.K, cs.D
+    B, ps, n_max, P = cs.ROWS, cs.PAGE, cs.N_MAX, cs.N_PAGES
+    q = torch.randn(B, H, D, generator=g, device=dev)
+    kp = torch.randn(P, ps, K, D, generator=g, device=dev)
+    vp = torch.randn(P, ps, K, D, generator=g, device=dev)
+    lens = torch.randint(1, 300, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    tables = (torch.randperm(P - 1, generator=g, device=dev) + 1)[
+        :B * n_max].reshape(B, n_max).to(torch.int32).contiguous()
+    lib = build.load("decode_attention")
+    want = ops.paged_decode_attention(q, kp, vp, tables, lens)
+    tickets = ops._ticket_counters(dev, B * K)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = ops.decode_splits(n_max * ps, B, K, H // K, n_sm)
+    for n_split in (1, 2, 4, 8, 16, 32, 64, 128):
+        ws = torch.empty(B * H * n_split * (D + 2), device=dev)
+        o = torch.empty_like(q)
+
+        def call(n_split=n_split, ws=ws, o=o):
+            err = lib.paged_decode_attention_fwd(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
+                lens.data_ptr(), o.data_ptr(), ws.data_ptr(),
+                tickets.data_ptr(), B, H, K, D, P, ps, n_max, n_split, 0, 0.0,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"CUDA error {err}")
+        call()
+        torch.cuda.synchronize()
+        record("paged_splits", n_split=n_split, chosen=n_split == chosen,
+               blocks=n_split * K * B, max_abs_diff=(o - want).abs().max().item(),
+               device_ms=cs.device_ms(call, "paged_decode_fwd", 50))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-slstm", type=Path, required=True,
+                    help="an earlier slstm_scan.cu (cooperative interface)")
+    ap.add_argument("--alt-slstm", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="a variant slstm_scan.cu with the package's "
+                         "interface, timed beside it")
+    ap.add_argument("--parts", default="ab,prefill,barrier,paged",
+                    help="comma-separated sections to run (default: all)")
+    args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    alts = dict(a.split("=", 1) for a in args.alt_slstm)
+    alts = {k: Path(v) for k, v in alts.items()}
+    import torch
+
+    import chip_smoke as cs
+    import repro_torch  # noqa: F401  (sets the float32 matmul precision)
+
+    if not torch.cuda.is_available():
+        print("kernel_sweep: no CUDA device is visible", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    print(f"[card] {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    if "ab" in parts:
+        slstm_ab(args.old_slstm, dev)
+    if "prefill" in parts:
+        slstm_prefill_sweep(dev, alts)
+    if "barrier" in parts:
+        barrier_latency(dev)
+    if "paged" in parts:
+        paged_split_sweep(dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
