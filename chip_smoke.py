@@ -9,10 +9,13 @@ Phases (any failure exits non-zero; nothing is caught):
    ``nvcc`` for sm_90a (one process per source, in parallel), print the
    card's name and power limit, each kernel instance's registers,
    static shared memory and spills (``ptxas -v``; a spill in an
-   attention kernel fails), the flash kernel's tiles and dynamic
-   shared memory per head dim, and the sLSTM prefill kernel's plan at
-   xlstm-1.3b (cluster size, shared memory, and how many such clusters
-   the card holds at once: ``cudaOccupancyMaxActiveClusters``).
+   attention or SSD kernel fails), the flash kernel's tiles and dynamic
+   shared memory per head dim, the SSD kernel's plan at zamba2-7b's three
+   prefill shapes (tiles, threads, shared memory, and how many blocks an
+   SM holds: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, at least
+   two), and the sLSTM prefill kernel's plan at xlstm-1.3b (cluster size,
+   shared memory, and how many such clusters the card holds at once:
+   ``cudaOccupancyMaxActiveClusters``).
 2. Kernels: hold each hand-written kernel against its plain PyTorch
    version on the card, at the shapes the serving paths give it, in
    float32 and bfloat16: the attention kernels at internvl2-1b's head
@@ -23,7 +26,8 @@ Phases (any failure exits non-zero; nothing is caught):
    split-KV decode kernels' (lengths 0, 1, a split boundary +- 1 and T
    in one batch, G = 1 and 7, B = 4, softcap; for the paged kernel also
    ps - 1, ps, ps + 1 and the full span, at D = 16, 64 and 112); the
-   Mamba2 SSD intra-chunk kernel at zamba2-7b's prefill shape and the
+   Mamba2 SSD intra-chunk kernel at zamba2-7b's three prefill shapes (one
+   chunk of 126, two and three of 128) and the smoke shape, and the
    sLSTM kernels at xlstm-1.3b's (S = 383 and 1000, two rows of two
    steps, one decode step) and the smoke shape (fresh and random state;
    R as four gate tensors against R stacked); then
@@ -96,13 +100,17 @@ ROWS, PAGE, N_MAX, N_PAGES = 4, 16, 32, 129
 
 # the recurrent paths (phase 5): prompts of 126, 200 and 383 tokens, 16
 # new tokens each; zamba2-7b's shared attention (H = K = 32, D = 112)
-# and its SSD prefill of the longest prompt (B=1, 3 chunks of L=128 after
-# padding, H=112 heads of P=64, state N=64); xlstm-1.3b's sLSTM (d=2048,
-# H=4 heads of hd=512)
+# and its SSD prefills (B=1; the prompts run as 1 chunk of L=126, 2 and
+# 3 chunks of L=128 after padding; H=112 heads of P=64, state N=64), one
+# kernels-line row each; xlstm-1.3b's sLSTM (d=2048, H=4 heads of hd=512)
 REC_PROMPTS, REC_NEW = (126, 200, 383), 16
 S_REC = max(REC_PROMPTS)
 Z_HEADS, Z_D, T_REC = 32, 112, 400
 SSD_SHAPE = (1, 3, 128, 112, 64, 64)                     # B, nc, L, H, P, N
+SSD_ROWS = {"ssd_intra_chunk": SSD_SHAPE,
+            "ssd_intra_chunk_nc2": (1, 2, 128, 112, 64, 64),
+            "ssd_intra_chunk_l126": (1, 1, 126, 112, 64, 64)}
+SSD_SMOKE = (2, 2, 8, 8, 16, 16)                          # the smoke config
 SL_D, SL_H = 2048, 4
 # the sLSTM kernels' checks (B, S, H, hd): xlstm-1.3b's longest prompt,
 # its decode step, a long prefill, two rows of two steps, and smoke
@@ -131,8 +139,8 @@ def card_line() -> str:
 
 
 # libraries whose kernels must not spill registers (the redesigned
-# attention kernels; a spill there is a failure)
-NO_SPILL = ("flash_attention", "decode_attention")
+# attention and SSD kernels; a spill there is a failure)
+NO_SPILL = ("flash_attention", "decode_attention", "ssd_scan")
 
 
 def ptxas_entries(report: str) -> list[dict]:
@@ -194,6 +202,8 @@ def _short_names(names: list[str]) -> list[str]:
 def phase_build():
     import ctypes
 
+    import torch
+
     from repro_torch.kernels import build, ops
 
     t0 = time.perf_counter()
@@ -219,6 +229,30 @@ def phase_build():
             "memory")
     if spilled:
         fail(f"register spills in {spilled}")
+    # the SSD kernel's plan at zamba2-7b's prefills (and smoke): the
+    # planner's shared memory and threads against the kernel's own, and
+    # the blocks an SM holds (two at least at the path shapes)
+    info = (ctypes.c_int * 3)()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (B_, nc, L, H_, P, N) in (*SSD_ROWS.items(),
+                                         ("smoke", SSD_SMOKE)):
+        p = ops.ssd_plan(L, P, N, H_, B_ * nc, n_sm)
+        if build.load("ssd_scan").ssd_intra_chunk_info(L, P, N, p.tr, p.ns,
+                                                      info) != 0:
+            fail(f"ssd_scan has no plan for L={L} P={P} N={N}")
+        log(f"[build] ssd_scan plan {name} (B, nc, L, H, P, N) = "
+            f"{(B_, nc, L, H_, P, N)}: {p.n_y} y tiles of {p.tr} rows + "
+            f"{p.n_s} S_loc tiles of {p.ns} state rows a (chunk, head), "
+            f"{p.n_heavy} y tiles before them, "
+            f"{p.blocks} blocks of {info[1]} threads, {info[0]} B dynamic "
+            f"shared memory; blocks an SM: {info[2]} "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor; planner "
+            f"{p.blocks_per_sm})")
+        if info[0] != p.smem or info[1] != p.threads:
+            fail(f"ssd_scan plan disagrees with the kernel: {list(info)[:2]}"
+                 f" vs {p.smem}, {p.threads}")
+        if name != "smoke" and info[2] < 2:
+            fail(f"ssd_scan: {info[2]} block(s) an SM at {name}, not two")
     # the sLSTM prefill kernel's plan at xlstm-1.3b, and whether the card
     # holds a cluster per head at once
     hd = SL_D // SL_H
@@ -591,12 +625,13 @@ def phase_kernels(dev) -> list[dict]:
     return rows
 
 
-def _ssd_inputs(g, dt):
-    """SSD inputs at a Mamba2 layer's scales: silu-sized x, B, C;
-    dt = softplus(.); A_log spread over a few decades of decay."""
+def _ssd_inputs(g, dt, shape=SSD_SHAPE):
+    """SSD inputs of ``shape`` (B, nc, L, H, P, N) at a Mamba2 layer's
+    scales: silu-sized x, B, C; dt = softplus(.); A_log spread over a few
+    decades of decay."""
     import torch
 
-    B, nc, L, Hs, P, N = SSD_SHAPE
+    B, nc, L, Hs, P, N = shape
     dev = g.device
 
     def rnd(*shape):
@@ -606,6 +641,18 @@ def _ssd_inputs(g, dt):
     Bm, Cm = 0.5 * rnd(B, nc, L, N), 0.5 * rnd(B, nc, L, N)
     dtt = torch.nn.functional.softplus(rnd(B, nc, L, Hs) - 1.0)
     return (*(t.to(dt) for t in (x, Bm, Cm, dtt)), 0.5 * rnd(Hs))
+
+
+def _ssd_work(shape, args) -> tuple[int, float]:
+    """The SSD call's bytes (inputs read once, float32 outputs written
+    once) and FLOPs (C.B^T and M@x over the causal pairs, B^T@x over the
+    whole chunk)."""
+    B_, nc, L, Hs, P, N = shape
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + 4 * (B_ * nc * L * Hs * P + B_ * nc * Hs * N * P
+                     + B_ * nc * Hs))
+    causal_pairs = L * (L + 1) / 2
+    return nbytes, B_ * nc * Hs * (2 * causal_pairs * (N + P) + 2 * L * N * P)
 
 
 def phase_kernels_recurrent(dev) -> list[dict]:
@@ -658,14 +705,16 @@ def phase_kernels_recurrent(dev) -> list[dict]:
         _decode_edges(lambda *sh: rnd(*sh).to(dt), dname, dev, 4, 4, Z_D,
                       T_REC)
 
-        # -- SSD intra-chunk at zamba2-7b's prefill shape ----------------
-        ssd_args = _ssd_inputs(g, dt)
-        err_s = max(_check("ssd_intra_chunk", dname, f"{SSD_SHAPE} {what}",
-                           got, want)
-                    for what, got, want in zip(
-                        ("y_intra", "S_loc", "Lam"),
-                        ops.ssd_intra_chunk(*ssd_args),
-                        ref.ssd_intra_chunk_ref(*ssd_args)))
+        # -- SSD intra-chunk at zamba2-7b's three prefill shapes, smoke ---
+        ssd_args, ssd_err = {}, {}
+        for name, shape in (*SSD_ROWS.items(), ("smoke", SSD_SMOKE)):
+            args_ = _ssd_inputs(g, dt, shape)
+            ssd_args[name] = args_
+            ssd_err[name] = max(
+                _check("ssd_intra_chunk", dname, f"{shape} {what}", got, want)
+                for what, got, want in zip(
+                    ("y_intra", "S_loc", "Lam"), ops.ssd_intra_chunk(*args_),
+                    ref.ssd_intra_chunk_ref(*args_)))
 
         # -- sLSTM at xlstm-1.3b: fresh state, random state, decode -------
         errs, errs1 = [], []
@@ -711,13 +760,6 @@ def phase_kernels_recurrent(dev) -> list[dict]:
         mask = (torch.arange(T_REC, device=dev)[None] < lens[:, None])[
             :, None, None, :]
         qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
-        B_, nc, L, Hs, P, N = SSD_SHAPE
-        causal_pairs = L * (L + 1) / 2
-        ssd_bytes = (sum(t.numel() * t.element_size() for t in ssd_args)
-                     + 4 * (B_ * nc * L * Hs * P + B_ * nc * Hs * N * P
-                            + B_ * nc * Hs))
-        # C.B^T and M@x over the causal pairs, B^T@x over the whole chunk
-        ssd_flops = B_ * nc * Hs * (2 * causal_pairs * (N + P) + 2 * L * N * P)
         hd = SL_D // SL_H
         sl_bytes = (pre.numel() + R.numel() + S_REC * SL_D + 8 * SL_D) * 4
         sl_flops = 2 * 4 * SL_D * hd * S_REC
@@ -743,12 +785,13 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                      attn_mask=mask),
                  2 * qd.numel() * isz + 2 * n_keys * Z_HEADS * Z_D * isz + 4,
                  4 * Z_D * Z_HEADS * n_keys),
-            _row("ssd_intra_chunk", "csrc/ssd_scan.cu",
-                 "src/repro/kernels/ssd_scan.py:51", "ssd_intra_kernel",
-                 err_s,
-                 lambda: ops.ssd_intra_chunk(*ssd_args),
-                 lambda: ref.ssd_intra_chunk_ref(*ssd_args), None,
-                 ssd_bytes, ssd_flops),
+            *(_row(name, "csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan.py:51", "ssd_tile_kernel",
+                   ssd_err[name],
+                   lambda a=ssd_args[name]: ops.ssd_intra_chunk(*a),
+                   lambda a=ssd_args[name]: ref.ssd_intra_chunk_ref(*a), None,
+                   *_ssd_work(SSD_ROWS[name], ssd_args[name]))
+              for name in SSD_ROWS),
             _row("slstm_scan", "csrc/slstm_scan.cu",
                  "src/repro/kernels/slstm_scan.py:91", "slstm_prefill_kernel",
                  max(errs),
@@ -1155,6 +1198,20 @@ def expected_launches(cfg, n_prefills: int, n_steps: int) -> dict:
     return want
 
 
+def expected_ssd_shapes(cfg, prompts) -> dict:
+    """SSD launches by call shape (batch, chunks, L) of one prefill of each
+    prompt: a prompt of S tokens runs as chunks of L = min(chunk, S),
+    padded to a multiple of L; one launch per Mamba2 block."""
+    want: dict = {}
+    if cfg.family == "ssm":
+        return want
+    for S in prompts:
+        L = min(cfg.mamba_chunk, S)
+        key = (1, -(-S // L), L)
+        want[key] = want.get(key, 0) + cfg.n_layers
+    return want
+
+
 def _fresh_prefill(bundle, params, tokens, dev):
     import torch
 
@@ -1246,7 +1303,8 @@ def _profile_decode(arch, bundle, params, cache, L0, dev, steps=3):
 def phase_recurrent(dev) -> dict[str, dict]:
     """Each recurrent family at its published widths and depth through
     the port's serve entry point; returns each arch's main-path kernel
-    launch counts."""
+    launch counts (and, under "ssd_by_shape", the SSD launches by call
+    shape)."""
     import gc
 
     import numpy as np
@@ -1270,6 +1328,7 @@ def phase_recurrent(dev) -> dict[str, dict]:
             run = serve_arch(cfg, reqs, device=dev)  # weights from seed 0
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
+        ssd_shapes = dict(ops.SSD_LAUNCHES)
         rt = next(iter(run.engine.decoders.values()))
         bundle, params = rt.bundle, rt.params
         n = bundle.param_count()
@@ -1316,7 +1375,12 @@ def phase_recurrent(dev) -> dict[str, dict]:
         log(f"[recurrent] {arch} kernel launches {launches}, expected {want}")
         if launches != want:
             fail(f"{arch}: kernel launches {launches} != expected {want}")
-        counts[arch] = launches
+        want_ssd = expected_ssd_shapes(cfg, REC_PROMPTS)
+        log(f"[recurrent] {arch} SSD launches by (B, nc, L) {ssd_shapes}, "
+            f"expected {want_ssd}")
+        if ssd_shapes != want_ssd:
+            fail(f"{arch}: SSD launches {ssd_shapes} != expected {want_ssd}")
+        counts[arch] = {**launches, "ssd_by_shape": ssd_shapes}
 
         # prefill time of the longest prompt (warm), decode rate of the run
         batch = {"tokens": torch.tensor([reqs[-1].prompt], dtype=torch.int32,
@@ -1381,9 +1445,12 @@ def main() -> int:
         row["launches"] = {
             "flash_attention_d112": zamba["flash_attention"],
             "decode_attention_d112": zamba["decode_attention"],
-            "ssd_intra_chunk": zamba["ssd_intra_chunk"],
+            **{name: zamba["ssd_by_shape"].get(shape[:3], 0)
+               for name, shape in SSD_ROWS.items()},
             "slstm_scan": xlstm["slstm_scan"],
             "slstm_scan_s1": xlstm["slstm_scan_s1"]}[row["name"]]
+        if row["name"] in SSD_ROWS:   # each SSD row's share of the launches
+            row["launches_of_kernel"] = zamba["ssd_intra_chunk"]
     rows += rec_rows
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -53,9 +53,12 @@ LIBRARIES = {
                                        _P],
     }),
     "ssd_scan": ("ssd_scan.cu", {
-        # x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H, P, N, dtype, stream
-        "ssd_intra_chunk_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _P],
+        # x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H, P, N, then the
+        # plan (tr, ns, n_heavy, threads, smem), dtype, stream
+        "ssd_intra_chunk_fwd": [_P] * 8 + [_I] * 11 + [_P],
+        # L, P, N, tr, ns, int[3] out: dynamic shared-memory bytes,
+        # threads, the blocks an SM holds
+        "ssd_intra_chunk_info": [_I] * 5 + [_P],
     }),
     "slstm_scan": ("slstm_scan.cu", {
         # pre, r_i, r_f, r_z, r_o, y, c, n, h, m, state_out, B, S, d, H,

@@ -25,6 +25,11 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_intra_chunk": 0,
             "slstm_scan": 0, "slstm_scan_s1": 0}
 
+#: the SSD kernel's launches since the last ``reset_launches()`` by call
+#: shape (batch, chunks, chunk length L): they sum to
+#: ``LAUNCHES["ssd_intra_chunk"]``
+SSD_LAUNCHES: dict[tuple[int, int, int], int] = {}
+
 #: head dims the attention kernels are instantiated for: the smoke
 #: configs' 16, internvl2-1b's 64 and zamba2-7b's 112
 HEAD_DIMS = (16, 64, 112)
@@ -32,6 +37,18 @@ HEAD_DIMS = (16, 64, 112)
 #: the SSD kernel's limit on the chunk length L, the head dim P and the
 #: state size N (its tiles and shared memory are sized for them)
 SSD_MAX_DIM = 128
+
+#: the SSD kernel's query rows a y tile that it takes (16 and 64 only in
+#: float32 with P <= 64, for experiments) and the state rows a thread
+#: owns in an S_loc tile (S_loc tiles are tr / 4 * that rows tall); the
+#: planner's y tile rows
+SSD_TILE_ROWS = (16, 32, 64)
+SSD_STATE_ROWS_A_THREAD = (4, 8)
+SSD_PLAN_ROWS = 32
+#: the waves of blocks up to which the planner takes 64-row S_loc tiles
+SSD_WIDE_WAVES = 3
+#: the steps (keys) of B and x a block stages in shared memory at once
+SSD_KEY_BLOCK = 64
 
 #: the split-KV decode kernel: the fewest keys of a full cache that one
 #: split keeps, the q-heads (warps) of one block, and its most splits
@@ -48,6 +65,11 @@ SLSTM_REG_SLOTS = 4
 SLSTM_MAX_ROWS = 4
 SLSTM_MAX_HEAD_DIM = 512
 SMEM_LIMIT = 232448
+#: an SM's shared memory (228 KiB), of which each resident block takes
+#: its dynamic bytes plus 1 KiB the system reserves
+SM_SMEM, SMEM_RESERVED = 233472, 1024
+#: an SM's 32-bit registers
+SM_REGISTERS = 65536
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,6 +81,7 @@ class KernelLaunchError(RuntimeError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SSD_LAUNCHES.clear()
 
 
 def _check(name, tensors):
@@ -282,11 +305,90 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     return o
 
 
+@dataclass(frozen=True)
+class SsdPlan:
+    """How the SSD intra-chunk kernel lays one call out on the card: per
+    (chunk, head), n_y y tiles of tr query rows and n_s S_loc tiles of ns
+    state rows, each one block; the grid puts every (chunk, head)'s
+    n_heavy heaviest y tiles first, then its S_loc tiles, then the other
+    y tiles, heaviest first (tile rank r covers blocks r * H * BC on)."""
+
+    tr: int             # query rows a y tile
+    n_y: int            # y tiles a (chunk, head): ceil(L / tr)
+    ns: int             # state rows an S_loc tile
+    n_s: int            # S_loc tiles a (chunk, head): ceil(N / ns)
+    n_heavy: int        # y tiles placed before the S_loc tiles
+    threads: int        # threads a block: 4 tr
+    smem: int           # dynamic shared-memory bytes a block
+    blocks: int         # the grid: (n_y + n_s) * H * BC
+    blocks_per_sm: int  # blocks an SM holds by shared memory and threads
+
+
+def ssd_layout(L, P, N, tr, ns, H=1, BC=1, n_heavy=0):
+    """The SSD kernel's plan with tr query rows a y tile and ns state rows
+    an S_loc tile, for BC chunks of H heads: its shared memory (the
+    larger of the two tiles' layouts in ``csrc/ssd_scan.cu``: a y tile
+    holds C [tr][ldn], one staged block of ``SSD_KEY_BLOCK`` B and x rows
+    [KB][ldn / ldp], M [tr][KB + 16], cum and dt [L16]; an S_loc tile B
+    w_end [KB][ns + 4] and x [KB][ldp] in two stages, cum and dt [L16])
+    and the blocks an SM holds (registers are capped at 128 a thread),
+    with n_heavy y tiles before the S_loc tiles in the grid.  Raises ValueError for a shape, split or
+    order the kernel does not take."""
+    if not (1 <= min(L, P, N) and max(L, P, N) <= SSD_MAX_DIM):
+        raise ValueError(f"ssd_intra_chunk: L={L}, P={P}, N={N}; the kernel "
+                         f"takes each from 1 to {SSD_MAX_DIM}")
+    if tr not in SSD_TILE_ROWS or ns % (tr // 4) or \
+            ns // (tr // 4) not in SSD_STATE_ROWS_A_THREAD:
+        raise ValueError(f"ssd_intra_chunk: no kernel for tr={tr}, ns={ns} "
+                         f"(tr in {SSD_TILE_ROWS}, ns = tr / 4 times one "
+                         f"of {SSD_STATE_ROWS_A_THREAD})")
+    KB, L16 = SSD_KEY_BLOCK, -(-L // 16) * 16
+    ldn, ldp = -(-N // 4) * 4 + 4, -(-P // 4) * 4 + 4
+    y_floats = tr * ldn + KB * ldn + KB * ldp + tr * (KB + 16) + 2 * L16
+    s_floats = 2 * (KB * (ns + 4) + KB * ldp) + 2 * L16
+    smem = 4 * max(y_floats, s_floats)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_intra_chunk: tr={tr} needs {smem} B of shared "
+                         f"memory a block, above {SMEM_LIMIT}")
+    n_y, n_s = -(-L // tr), -(-N // ns)
+    if not 0 <= n_heavy <= n_y:
+        raise ValueError(f"ssd_intra_chunk: n_heavy={n_heavy} outside "
+                         f"[0, {n_y}]")
+    threads = 4 * tr
+    return SsdPlan(tr=tr, n_y=n_y, ns=ns, n_s=n_s, n_heavy=n_heavy,
+                   threads=threads, smem=smem,
+                   blocks=(n_y + n_s) * H * BC,
+                   blocks_per_sm=min(SM_SMEM // (smem + SMEM_RESERVED),
+                                     SM_REGISTERS // (threads * 128)))
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(L, P, N, H, BC, n_sm):
+    """The SSD kernel's layout for BC chunks of L steps, H heads of P and
+    state N on a card of n_sm SMs: y tiles of ``SSD_PLAN_ROWS`` query
+    rows, and, as ``tools/kernel_sweep.py --parts ssd`` measured best on
+    an H100 at zamba2-7b's prefills (1-3 chunks, H = 112, P = N = 64):
+
+    * while the grid fits in ``SSD_WIDE_WAVES`` waves, one S_loc tile of
+      64 state rows (three blocks an SM) behind the two heaviest y tiles;
+    * past that, S_loc tiles of 32 state rows first (four blocks an SM),
+      then the y tiles, heaviest first.
+
+    Raises ValueError for a shape the kernel does not take."""
+    if N > 32:
+        wide = ssd_layout(L, P, N, SSD_PLAN_ROWS, 64, H, BC,
+                          n_heavy=min(2, -(-L // SSD_PLAN_ROWS)))
+        if wide.blocks <= SSD_WIDE_WAVES * wide.blocks_per_sm * n_sm:
+            return wide
+    return ssd_layout(L, P, N, SSD_PLAN_ROWS, 32, H, BC)
+
+
 def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
     """Mamba2 SSD, intra-chunk part.  x: (B,nc,L,H,P); Bm/Cm: (B,nc,L,N);
     dt: (B,nc,L,H) post-softplus; A_log: (H,).  Returns float32 (y_intra
     (B,nc,L,H,P), S_loc (B,nc,H,N,P), Lam (B,nc,H)): see
-    ``ref.ssd_intra_chunk_ref``."""
+    ``ref.ssd_intra_chunk_ref``.  On the card, one launch laid out by
+    ``ssd_plan``."""
     if x.ndim != 5 or Bm.ndim != 4 or Bm.shape != Cm.shape or dt.ndim != 4:
         raise ValueError(f"ssd_intra_chunk: bad shapes x{tuple(x.shape)} "
                          f"B{tuple(Bm.shape)} C{tuple(Cm.shape)} "
@@ -305,22 +407,23 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
     if dev.type == "cpu":
         return ref.ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log)
     _contiguous("ssd_intra_chunk", {"x": x, "Bm": Bm, "Cm": Cm, "dt": dt})
-    if max(L, P, N) > SSD_MAX_DIM:
-        raise ValueError(f"ssd_intra_chunk: L={L}, P={P}, N={N}; the kernel "
-                         f"takes each up to {SSD_MAX_DIM}")
+    plan = ssd_plan(L, P, N, H, B * nc, _sm_count(dev.index))
     from repro_torch.kernels.build import load
 
     lib = load("ssd_scan")
-    a_log = A_log.float().contiguous()
+    a_log = _f32(A_log)
     y = torch.empty((B, nc, L, H, P), dtype=torch.float32, device=dev)
     s_loc = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
     lam = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
     err = lib.ssd_intra_chunk_fwd(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
         a_log.data_ptr(), y.data_ptr(), s_loc.data_ptr(), lam.data_ptr(),
-        B * nc, L, H, P, N, _DTYPES[x.dtype], _stream(x))
+        B * nc, L, H, P, N, plan.tr, plan.ns, plan.n_heavy, plan.threads,
+        plan.smem, _DTYPES[x.dtype], _stream(x))
     _raise_on("ssd_intra_chunk", err)
     LAUNCHES["ssd_intra_chunk"] += 1
+    key = (B, nc, L)
+    SSD_LAUNCHES[key] = SSD_LAUNCHES.get(key, 0) + 1
     return y, s_loc, lam
 
 

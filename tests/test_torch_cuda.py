@@ -176,7 +176,10 @@ def ssd_inputs(gen, B, nc, L, H, P, N, dtype):
 @pytest.mark.parametrize("dtype,atol,rtol", TOLS)
 @pytest.mark.parametrize("shape", [(1, 3, 128, 112, 64, 64),   # zamba2 path
                                    (1, 1, 126, 112, 64, 64),   # L < chunk
-                                   (2, 2, 8, 8, 16, 16)])      # smoke
+                                   (1, 2, 128, 112, 64, 64),   # two chunks
+                                   (2, 2, 8, 8, 16, 16),       # smoke
+                                   (3, 1, 40, 5, 48, 24),      # ragged tiles
+                                   (1, 1, 128, 4, 128, 128)])  # the limits
 def test_cuda_ssd_intra_chunk_matches_plain(cuda_device, dtype, atol, rtol,
                                             shape):
     g = torch.Generator(device=cuda_device).manual_seed(2)

@@ -4,7 +4,11 @@
     git show <commit>:src/repro_torch/csrc/slstm_scan.cu \\
         > build/ab/slstm_scan_old.cu
     python3 tools/kernel_sweep.py --old-slstm build/ab/slstm_scan_old.cu \\
-        [--alt-slstm NAME=PATH ...]
+        [--alt-slstm NAME=PATH ...] [--parts ab,prefill,barrier,paged]
+    git show <commit>:src/repro_torch/csrc/ssd_scan.cu \\
+        > build/ab/ssd_scan_old.cu
+    python3 tools/kernel_sweep.py --parts ssd \\
+        --old-ssd build/ab/ssd_scan_old.cu
 
 From the root of a checkout, on a machine with the card and ``nvcc``:
 
@@ -27,6 +31,21 @@ From the root of a checkout, on a machine with the card and ``nvcc``:
    sequential recurrence on one cluster.
 4. Paged decode: device time over the split count at internvl2-1b's
    serve tick (4 rows, H = 14, K = 2, D = 64, pages of 16, 32 a row).
+5. SSD (``--parts ssd``): an earlier SSD source (its C interface
+   ``ssd_intra_chunk_fwd(x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H,
+   P, N, dtype, stream)``, built into ``build/ab/``, called through a
+   copy of its wrapper) against the package's ``ops.ssd_intra_chunk`` at
+   zamba2-7b's three prefill calls ((B, nc, L) = (1, 1, 126), (1, 2,
+   128), (1, 3, 128); H = 112, P = N = 64, float32), in turns (old, new,
+   new, old): CUDA-event time, device time under ``torch.profiler`` and
+   host enqueue time; then the package kernel's device time over its
+   query rows a y tile (16, 32, 64), state rows an S_loc tile and (at the
+   planner's rows) grid order at the three calls, each checked against
+   the plain version; and each
+   ``--alt-ssd`` source (a variant with the package's C interface) in
+   turns with the package's kernel at the three calls.
+
+Each ``--old-*`` source is needed only by the part that uses it.
 
 Prints one line per measurement, the card's ``nvidia-smi`` name and
 power limit first.
@@ -102,17 +121,26 @@ def record(kind: str, **kw) -> None:
         for k, v in kw.items()), flush=True)
 
 
-def build_lib(src: Path, name: str) -> ctypes.CDLL:
+def build_libs(srcs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
+    """Build each source into ``build/ab/<name>.so`` with the package's
+    nvcc flags, one nvcc per source, all started together."""
     from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
 
     AB_DIR.mkdir(parents=True, exist_ok=True)
-    out = AB_DIR / f"{name}.so"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-                           str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"kernel_sweep: nvcc failed for {src}:\n"
-                         f"{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out))
+    procs = {name: subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(AB_DIR / f"{name}.so"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, src in srcs.items()}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_sweep: nvcc failed for "
+                             f"{srcs[name]}:\n{log}")
+    return {name: ctypes.CDLL(str(AB_DIR / f"{name}.so")) for name in srcs}
+
+
+def build_lib(src: Path, name: str) -> ctypes.CDLL:
+    return build_libs({name: src})[name]
 
 
 def old_slstm_wrapper(lib):
@@ -350,20 +378,214 @@ def paged_split_sweep(dev) -> None:
                device_ms=cs.device_ms(call, "paged_decode_fwd", 50))
 
 
+SSD_AB_SHAPES = ((1, 1, 126), (1, 2, 128), (1, 3, 128))   # B, nc, L
+SSD_H, SSD_P, SSD_N = 112, 64, 64
+
+
+def old_ssd_wrapper(lib):
+    """The earlier ``ops.ssd_intra_chunk`` CUDA path (no plan; one block
+    per (chunk, head)) over ``lib``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    fn = lib.ssd_intra_chunk_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, Bm, Cm, dt, A_log):
+        B, nc, L, H, P = x.shape
+        N = Bm.shape[-1]
+        dev = x.device
+        y = torch.empty((B, nc, L, H, P), dtype=torch.float32, device=dev)
+        s_loc = torch.empty((B, nc, H, N, P), dtype=torch.float32,
+                            device=dev)
+        lam = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
+        a_log = A_log.float().contiguous()
+        err = fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+                 a_log.data_ptr(), y.data_ptr(), s_loc.data_ptr(),
+                 lam.data_ptr(), B * nc, L, H, P, N, ops._DTYPES[x.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"old ssd_intra_chunk: CUDA error {err}")
+        return y, s_loc, lam
+
+    return call
+
+
+def ssd_plan_call(lib, args, plan, outs, smem=None, n_heavy=None):
+    """One direct launch of an SSD kernel with ``plan`` (any tile rows and
+    S_loc split the kernel takes) into ``outs``; ``smem`` and ``n_heavy``
+    replace the plan's (a variant source's own layout, another grid
+    order)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    x, Bm, Cm, dt, A_log = args
+    B, nc, L, H, P = x.shape
+    N = Bm.shape[-1]
+
+    def call():
+        err = lib.ssd_intra_chunk_fwd(
+            *(t.data_ptr() for t in (x, Bm, Cm, dt, A_log, *outs)), B * nc,
+            L, H, P, N, plan.tr, plan.ns,
+            plan.n_heavy if n_heavy is None else n_heavy, plan.threads,
+            plan.smem if smem is None else smem, ops._DTYPES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"ssd_intra_chunk tr={plan.tr} ns={plan.ns}: "
+                               f"CUDA error {err}")
+    return call
+
+
+def _ssd_err(got, want) -> float:
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def ssd_ab(old_src: Path, dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops, ref
+
+    old = old_ssd_wrapper(build_lib(old_src, "ssd_scan_old"))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    names = {"old": "ssd_intra_kernel", "new": "ssd_tile_kernel"}
+    for B, nc, L in SSD_AB_SHAPES:
+        args = cs._ssd_inputs(g, torch.float32,
+                              (B, nc, L, SSD_H, SSD_P, SSD_N))
+        want = ref.ssd_intra_chunk_ref(*args)
+        calls = {"old": lambda: old(*args),
+                 "new": lambda: ops.ssd_intra_chunk(*args)}
+        errs = {k: _ssd_err(fn(), want) for k, fn in calls.items()}
+        ev: dict[str, list] = {k: [] for k in calls}
+        dv: dict[str, list] = {k: [] for k in calls}
+        for k in ("old", "new", "new", "old"):
+            ev[k].append(cs.time_ms(calls[k], 200))
+            dv[k].append(cs.device_ms(calls[k], names[k], 50))
+        for k, fn in calls.items():
+            record("ssd_ab", B=B, nc=nc, L=L, version=k,
+                   device_ms=min(dv[k]), events_ms=min(ev[k]),
+                   device_turns=[round(t, 5) for t in dv[k]],
+                   host_us=cs.host_us(fn, 200), max_abs_err=errs[k])
+
+
+def ssd_variants(dev, alts: dict[str, Path]) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+
+    libs = {"package": build.load("ssd_scan")}
+    for name, lib in build_libs(alts).items():
+        lib.ssd_intra_chunk_fwd.argtypes = (
+            libs["package"].ssd_intra_chunk_fwd.argtypes)
+        libs[name] = lib
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for B, nc, L in SSD_AB_SHAPES:
+        args = cs._ssd_inputs(g, torch.float32,
+                              (B, nc, L, SSD_H, SSD_P, SSD_N))
+        want = ref.ssd_intra_chunk_ref(*args)
+        plan = ops.ssd_plan(L, SSD_P, SSD_N, SSD_H, B * nc,
+                            ops._sm_count(dev.index))
+        outs = tuple(torch.empty(w.shape, device=dev) for w in want)
+        info = (ctypes.c_int * 3)()
+        calls = {}
+        for k, lib in libs.items():       # each source's own layout
+            if lib.ssd_intra_chunk_info(L, SSD_P, SSD_N, plan.tr, plan.ns,
+                                        info):
+                raise RuntimeError(f"{k}: no SSD plan tr={plan.tr}")
+            calls[k] = ssd_plan_call(lib, args, plan, outs, smem=info[0])
+            record("ssd_variant_layout", variant=k, nc=nc, smem=info[0],
+                   blocks_per_sm=info[2])
+        errs = {}
+        for k, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            errs[k] = _ssd_err(outs, want)
+        times: dict[str, list] = {k: [] for k in calls}
+        for k in list(calls) + list(reversed(calls)):
+            times[k].append(cs.device_ms(calls[k], "ssd_tile_kernel", 50))
+        for k, ts in times.items():
+            record("ssd_variant", nc=nc, L=L, variant=k, device_ms=min(ts),
+                   turns=[round(t, 5) for t in ts], max_abs_err=errs[k])
+
+
+def ssd_tile_sweep(dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+
+    lib = build.load("ssd_scan")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    info = (ctypes.c_int * 3)()
+    for B, nc, L in SSD_AB_SHAPES:
+        shape = (B, nc, L, SSD_H, SSD_P, SSD_N)
+        args = cs._ssd_inputs(g, torch.float32, shape)
+        want = ref.ssd_intra_chunk_ref(*args)
+        outs = tuple(torch.empty(w.shape, device=dev) for w in want)
+        chosen = ops.ssd_plan(L, SSD_P, SSD_N, SSD_H, B * nc,
+                              ops._sm_count(dev.index))
+        for tr in ops.SSD_TILE_ROWS:
+            for rms in ops.SSD_STATE_ROWS_A_THREAD:
+                plan = ops.ssd_layout(L, SSD_P, SSD_N, tr, tr // 4 * rms,
+                                      SSD_H, B * nc)
+                if lib.ssd_intra_chunk_info(L, SSD_P, SSD_N, tr, plan.ns,
+                                            info):
+                    raise RuntimeError(f"no SSD plan tr={tr} ns={plan.ns}")
+                call = ssd_plan_call(lib, args, plan, outs)
+                call()
+                torch.cuda.synchronize()
+                record("ssd_tiles", nc=nc, L=L, tr=tr, ns=plan.ns,
+                       chosen=(tr, plan.ns) == (chosen.tr, chosen.ns),
+                       blocks=plan.blocks, smem=plan.smem,
+                       blocks_per_sm=info[2],
+                       max_abs_err=_ssd_err(outs, want),
+                       device_ms=cs.device_ms(call, "ssd_tile_kernel", 50))
+                if tr != chosen.tr:
+                    continue
+                # the grid order: n_heavy y tiles before the S_loc tiles
+                for nh in range(plan.n_y + 1):
+                    call = ssd_plan_call(lib, args, plan, outs, n_heavy=nh)
+                    call()
+                    torch.cuda.synchronize()
+                    record("ssd_order", nc=nc, L=L, tr=tr, ns=plan.ns,
+                           n_heavy=nh, chosen=(plan.ns, nh) == (
+                               chosen.ns, chosen.n_heavy),
+                           max_abs_err=_ssd_err(outs, want),
+                           device_ms=cs.device_ms(call, "ssd_tile_kernel",
+                                                  50))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-slstm", type=Path, required=True,
-                    help="an earlier slstm_scan.cu (cooperative interface)")
+    ap.add_argument("--old-slstm", type=Path,
+                    help="an earlier slstm_scan.cu (cooperative interface; "
+                         "part ab)")
+    ap.add_argument("--old-ssd", type=Path,
+                    help="an earlier ssd_scan.cu (one block per (chunk, "
+                         "head); part ssd)")
     ap.add_argument("--alt-slstm", action="append", default=[],
                     metavar="NAME=PATH",
                     help="a variant slstm_scan.cu with the package's "
                          "interface, timed beside it")
-    ap.add_argument("--parts", default="ab,prefill,barrier,paged",
+    ap.add_argument("--alt-ssd", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="a variant ssd_scan.cu with the package's "
+                         "interface, timed beside it (part ssd)")
+    ap.add_argument("--parts", default="ab,prefill,barrier,paged,ssd",
                     help="comma-separated sections to run (default: all)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
-    alts = dict(a.split("=", 1) for a in args.alt_slstm)
-    alts = {k: Path(v) for k, v in alts.items()}
+    for part, src in (("ab", "old_slstm"), ("ssd", "old_ssd")):
+        if part in parts and getattr(args, src) is None:
+            ap.error(f"part {part} needs --{src.replace('_', '-')}")
+    alts = {k: Path(v) for k, v in (a.split("=", 1) for a in args.alt_slstm)}
+    ssd_alts = {k: Path(v)
+                for k, v in (a.split("=", 1) for a in args.alt_ssd)}
     import torch
 
     import chip_smoke as cs
@@ -384,6 +606,11 @@ def main() -> int:
         barrier_latency(dev)
     if "paged" in parts:
         paged_split_sweep(dev)
+    if "ssd" in parts:
+        ssd_ab(args.old_ssd, dev)
+        ssd_tile_sweep(dev)
+        if ssd_alts:
+            ssd_variants(dev, ssd_alts)
     return 0
 
 
