@@ -60,8 +60,33 @@ Phases (any failure exits non-zero; nothing is caught):
    Then a warm prefill of the longest prompt is timed, and three decode
    steps run under ``torch.profiler`` (device busy share, kernels per
    step, the kernels that take the device time).
-6. Print the kernels line (JSON), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. The paper's multi-task scenario, ``repro_torch.examples.
+   multi_task_serving``, on the card: retrieval, classification and VQA
+   on the shared mini-clip towers (flash D = 16) through plan,
+   materialize, verify, simulate + submit, split == monolithic, a
+   9-request serve() burst with cross-task batches, SLO rows, the trace,
+   compare() (no route divergence) and evict + replan.  Checked: every
+   check of the CPU test, the towers on the card against the CPU, and
+   exactly one flash launch per tower layer per tower call (each tower's
+   counted at its own call shapes).
+7. tinyllama-1.1b (22 layers, d_model 2048, 32 q / 4 kv heads) and
+   whisper-tiny (4 + 4 layers, 1500 encoder frames) at their published
+   widths and depths, random float32 weights from a seed, through
+   ``launch.serve.serve_arch``: tinyllama's 6 greedy requests through the
+   paged scheduler and again through the solo path (tokens and every
+   step's logits equal), whisper's 3 through ``Deployment.submit()``;
+   decode == a fresh prefill, card == CPU (tinyllama with depth cut to
+   2 layers, whisper at full depth), exact launch counts by kernel and
+   by call shape, prefill ms and decode tokens/s.  Phase 2 checks and
+   times the attention kernels at these phases' shapes (D = 16 towers,
+   G = 8, S = T = 1500, the cross-attention prefill, T = 1500 cross
+   decode, the paged G = 8 tick).
+8. Print the kernels line (JSON), the card line, and last
+   ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
+   timed at a call shape its path runs; its ``launches`` are that path's
+   main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
+   the kernel's launches on the path (``launches_of_kernel``); a row
+   whose shape its path never ran fails.
 
 It exits non-zero, printing no result, when no CUDA device is visible
 or when run outside a checkout of the repository.
@@ -94,8 +119,6 @@ TOL = {"float32": (2e-4, 0.0),        # f32 math, another summation order
 H, K, D = 14, 2, 64
 PROMPT_MAX, MAX_NEW_MAX = 12, 32
 N_IMG = 256
-S_PREFILL = N_IMG + 11                                    # ragged, not a block multiple
-T_DENSE = -(-(N_IMG + PROMPT_MAX + MAX_NEW_MAX + 1) // 8) * 8
 ROWS, PAGE, N_MAX, N_PAGES = 4, 16, 32, 129
 
 # the recurrent paths (phase 5): prompts of 126, 200 and 383 tokens, 16
@@ -116,6 +139,50 @@ SL_D, SL_H = 2048, 4
 # its decode step, a long prefill, two rows of two steps, and smoke
 SLSTM_CHECKS = ((1, S_REC, SL_H, 512), (1, 1, SL_H, 512),
                 (1, 1000, SL_H, 512), (2, 2, SL_H, 512), (2, 9, 4, 16))
+
+# the multi-task scenario (phase 6): the mini-clip towers, H = K = 4
+# heads of 16; a request carries 4 images of 16 patches and 4 token rows
+# of 12, and serve() batches up to 8 requests (32 rows) at a tower
+CLIP = "mini-clip"
+CLIP_B, CLIP_HEADS, CLIP_D, CLIP_PATCHES, CLIP_TEXT = 4, 4, 16, 16, 12
+# phase 7: tinyllama-1.1b (32 q / 4 kv heads of 64) serves 6 greedy
+# requests, prompts of 4-12 tokens, 16 new tokens, 4 decode rows, pages
+# of 16 (the serve launcher's pool: 4 x 256 / 16 + 1 pages); whisper-tiny
+# (6 heads of 64, 1500 encoder frames) 3 greedy requests, prompts of 2-8
+# tokens, 16 new tokens
+TL_ARCH, TL_REQS, TL_NEW, TL_PROMPTS = "tinyllama-1.1b", 6, 16, (4, 12)
+TL_H, TL_K, TL_ROWS, TL_CACHE = 32, 4, 4, 256
+TL_PAGES, TL_NMAX = TL_ROWS * TL_CACHE // PAGE + 1, TL_CACHE // PAGE
+W_ARCH, W_REQS, W_NEW, W_PROMPTS = "whisper-tiny", 3, 16, (2, 8)
+W_HEADS, W_T = 6, 1500
+
+
+def prompt_lens(bounds, n) -> list[int]:
+    """Phase 7's n prompt lengths, drawn in [lo, hi] from the seed; phase
+    2 times its kernels-line rows at the longest."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [int(x) for x in rng.integers(bounds[0], bounds[1] + 1, n)]
+
+
+def dense_T(prompt: int, new: int) -> int:
+    """The dense cache length ``S2M3Engine.generate()`` gives a prompt."""
+    return -(-(prompt + new + 1) // 8) * 8
+
+
+def serve_shapes() -> tuple[int, int]:
+    """Phase 3's longest prefill (the image's tokens and a prompt: ragged,
+    not a block multiple) and longest solo cache, at which phase 2 times
+    the internvl2-1b rows."""
+    from repro_torch.common.config import get_config
+    from repro_torch.s2m3 import Request
+
+    gen = [r for r in _workload(get_config("internvl2-1b"), Request)
+           if r.prompt is not None]
+    return (max(N_IMG + len(r.prompt) for r in gen),
+            max(dense_T(N_IMG + len(r.prompt), r.max_new_tokens)
+                for r in gen))
 
 
 def log(msg: str) -> None:
@@ -491,7 +558,41 @@ def _paged_edges(mk, dname, dev, H_, K_, D_):
                                               softcap=sc))
 
 
-def phase_kernels(dev) -> list[dict]:
+# the work a call must do, for its bound: each input read once, each
+# output written once, and the FLOPs of the pairs this call's data makes
+# live (QK^T and PV: 4 D a query-key pair and head)
+
+def _flash_work(B, S, T, H, K, D, causal, isz) -> tuple[int, float]:
+    """A flash call's bytes (q, k, v, o) and FLOPs over the visible
+    pairs: all S x T, or the causal triangle where S = T."""
+    pairs = S * (S + 1) / 2 if causal else S * T
+    return (2 * B * S * H * D + 2 * B * T * K * D) * isz, 4 * D * H * B * pairs
+
+
+def _decode_work(q, k, lens, isz) -> tuple[int, float]:
+    """A decode call's bytes (q, o, the live keys' k and v, the lengths)
+    and FLOPs over the live keys (lengths clamped to the cache's T)."""
+    T, K, D = k.shape[1:]
+    n_keys = int(lens.clamp(0, T).sum())
+    return (2 * q.numel() * isz + 2 * n_keys * K * D * isz
+            + 4 * lens.numel()), 4 * D * q.shape[1] * n_keys
+
+
+def _paged_work(q, k_pages, lens, owned, isz) -> tuple[int, float]:
+    """A paged decode call's bytes (q, o, the live keys' k and v, the
+    owned table entries, the lengths) and FLOPs over the live keys."""
+    K, D = k_pages.shape[2:]
+    live = int(lens.sum())
+    nbytes = (2 * q.numel() * isz + 2 * live * K * D * isz
+              + 4 * int(owned.sum()) + 4 * lens.numel())
+    return nbytes, 4 * D * q.shape[1] * live
+
+
+def phase_kernels(dev) -> tuple[list[dict], dict]:
+    """The attention kernels at internvl2-1b's head geometry (phase 3's
+    serve path), with their edges; one kernels-line row each, timed at
+    the path's longest prefill and solo cache.  Returns the rows and, for
+    each row, (path, kernel, call shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -499,6 +600,13 @@ def phase_kernels(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
+    S_pre, T_dec = serve_shapes()
+    keys = {"flash_attention": ("serve", "flash_attention",
+                                (1, S_pre, S_pre, H, K, D, True)),
+            "decode_attention": ("serve", "decode_attention",
+                                 (1, T_dec, H, K, D)),
+            "paged_decode_attention": ("serve", "paged_decode_attention",
+                                       (ROWS, N_MAX, PAGE, H, K, D))}
 
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -508,7 +616,7 @@ def phase_kernels(dev) -> list[dict]:
         isz = torch.tensor([], dtype=dt).element_size()
 
         # -- flash attention: batch-1 prefill, ragged S, causal, GQA 7 --
-        S = S_PREFILL
+        S = S_pre
         q, k, v = rnd(1, S, H, D, dtype=dt), rnd(1, S, K, D, dtype=dt), \
             rnd(1, S, K, D, dtype=dt)
         err_f = _check("flash_attention", dname, f"S={S} causal",
@@ -525,12 +633,10 @@ def phase_kernels(dev) -> list[dict]:
                ops.flash_attention(q2, k2, v2),
                ref.flash_attention_ref(q2, k2, v2))
         _flash_edges(lambda *sh: rnd(*sh, dtype=dt), dname, H, K, D, S)
-        visible = S * (S + 1) / 2                          # causal keys seen
-        flash_bytes = 2 * q.numel() * isz + 2 * k.numel() * isz
-        flash_flops = 4 * D * H * visible
+        flash_work = _flash_work(1, S, S, H, K, D, True, isz)
 
         # -- decode attention: batch-1 dense cache, random lengths ------
-        T = T_DENSE
+        T = T_dec
         qd = rnd(1, H, D, dtype=dt)
         kd, vd = rnd(1, T, K, D, dtype=dt), rnd(1, T, K, D, dtype=dt)
         lens_d = torch.randint(1, T + 1, (1,), generator=g, device=dev,
@@ -545,9 +651,7 @@ def phase_kernels(dev) -> list[dict]:
                ops.decode_attention(qb, kb, vb, lens_b, softcap=30.0),
                ref.decode_attention_ref(qb, kb, vb, lens_b, softcap=30.0))
         _decode_edges(lambda *sh: rnd(*sh, dtype=dt), dname, dev, H, K, D, T)
-        n_keys = int(lens_d.clamp(max=T).sum())
-        dec_bytes = 2 * qd.numel() * isz + 2 * n_keys * K * D * isz + 4
-        dec_flops = 4 * D * H * n_keys
+        dec_work = _decode_work(qd, kd, lens_d, isz)
 
         # -- paged decode: 4 rows over a 129-page pool ------------------
         kp = rnd(N_PAGES, PAGE, K, D, dtype=dt)
@@ -575,10 +679,7 @@ def phase_kernels(dev) -> list[dict]:
             for D_ in ops.HEAD_DIMS:
                 _paged_edges(lambda *sh: rnd(*sh, dtype=dt), dname, dev, H_,
                              K_, D_)
-        live = int(lens_p.sum())
-        paged_bytes = (2 * qb.numel() * isz + 2 * live * K * D * isz
-                       + int(owned.sum()) * 4 + ROWS * 4)
-        paged_flops = 4 * D * H * live
+        paged_work = _paged_work(qb, kp, lens_p, owned, isz)
 
         if dt is not torch.float32:
             continue
@@ -593,7 +694,7 @@ def phase_kernels(dev) -> list[dict]:
              lambda: ref.flash_attention_ref(q, k, v),
              lambda: F.scaled_dot_product_attention(
                  qh, kh_, vh, is_causal=True, enable_gqa=True),
-             flash_bytes, flash_flops),
+             *flash_work),
             ("decode_attention", "csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:70", "decode_fwd", err_d,
              lambda: ops.decode_attention(qd, kd, vd, lens_d),
@@ -601,14 +702,14 @@ def phase_kernels(dev) -> list[dict]:
              lambda: F.scaled_dot_product_attention(
                  qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
                  attn_mask=mask_d, enable_gqa=True),
-             dec_bytes, dec_flops),
+             *dec_work),
             ("paged_decode_attention", "csrc/decode_attention.cu",
              "src/repro/kernels/paged_decode_attention.py:77",
              "paged_decode_fwd", err_p,
              lambda: ops.paged_decode_attention(qb, kp, vp, tables, lens_p),
              lambda: ref.paged_decode_attention_ref(qb, kp, vp, tables,
                                                     lens_p),
-             None, paged_bytes, paged_flops),
+             None, *paged_work),
         ]
         rows += [_row(*spec) for spec in specs]
         # the paged kernel has no one-call library equivalent; as a
@@ -622,7 +723,7 @@ def phase_kernels(dev) -> list[dict]:
         log("[kernels] paged_decode_attention float32: SDPA over the "
             "pre-gathered pages (gather not timed) "
             f"{time_ms(lambda: F.scaled_dot_product_attention(qb[:, :, None], kg, vg, attn_mask=mask_p, enable_gqa=True)):.4f} ms")
-    return rows
+    return rows, keys
 
 
 def _ssd_inputs(g, dt, shape=SSD_SHAPE):
@@ -655,11 +756,12 @@ def _ssd_work(shape, args) -> tuple[int, float]:
     return nbytes, B_ * nc * Hs * (2 * causal_pairs * (N + P) + 2 * L * N * P)
 
 
-def phase_kernels_recurrent(dev) -> list[dict]:
+def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
     """The recurrent paths' kernels against their plain versions: the
     attention kernels at zamba2-7b's D = 112, the SSD intra-chunk kernel
     and the sLSTM kernel.  The SSD and sLSTM kernels have no one-call
-    PyTorch equivalent (``library_ms`` null)."""
+    PyTorch equivalent (``library_ms`` null).  Returns the rows and, for
+    each row, (path, kernel, call shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -667,6 +769,17 @@ def phase_kernels_recurrent(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = []
+    keys = {"flash_attention_d112": (
+                "zamba2-7b", "flash_attention",
+                (1, S_REC, S_REC, Z_HEADS, Z_HEADS, Z_D, True)),
+            "decode_attention_d112": ("zamba2-7b", "decode_attention",
+                                      (1, T_REC, Z_HEADS, Z_HEADS, Z_D)),
+            **{name: ("zamba2-7b", "ssd_intra_chunk", shape[:3])
+               for name, shape in SSD_ROWS.items()},
+            "slstm_scan": ("xlstm-1.3b", "slstm_scan",
+                           (1, S_REC, SL_H, SL_D // SL_H)),
+            "slstm_scan_s1": ("xlstm-1.3b", "slstm_scan_s1",
+                              (1, 1, SL_H, SL_D // SL_H))}
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev)
@@ -755,8 +868,6 @@ def phase_kernels_recurrent(dev) -> list[dict]:
             continue
 
         # timing at the path's dtype (float32) and shapes
-        visible = S_REC * (S_REC + 1) / 2
-        n_keys = int(lens.item())
         mask = (torch.arange(T_REC, device=dev)[None] < lens[:, None])[
             :, None, None, :]
         qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
@@ -774,7 +885,8 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                  lambda: ref.flash_attention_ref(q, k, v),
                  lambda: F.scaled_dot_product_attention(qh, kh_, vh,
                                                         is_causal=True),
-                 4 * q.numel() * isz, 4 * Z_D * Z_HEADS * visible),
+                 *_flash_work(1, S_REC, S_REC, Z_HEADS, Z_HEADS, Z_D, True,
+                              isz)),
             _row("decode_attention_d112", "csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:70", "decode_fwd",
                  err_d,
@@ -783,8 +895,7 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                  lambda: F.scaled_dot_product_attention(
                      qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
                      attn_mask=mask),
-                 2 * qd.numel() * isz + 2 * n_keys * Z_HEADS * Z_D * isz + 4,
-                 4 * Z_D * Z_HEADS * n_keys),
+                 *_decode_work(qd, kd, lens, isz)),
             *(_row(name, "csrc/ssd_scan.cu",
                    "src/repro/kernels/ssd_scan.py:51", "ssd_tile_kernel",
                    ssd_err[name],
@@ -807,7 +918,163 @@ def phase_kernels_recurrent(dev) -> list[dict]:
                  lambda: ref.slstm_scan_ref(pre1, R, state), None,
                  sl1_bytes, sl1_flops),
         ]
-    return rows
+    return rows, keys
+
+
+def phase_kernels_slice(dev) -> tuple[list[dict], dict]:
+    """The attention kernels at the shapes the multi-task scenario and
+    the phase 7 models give them, in float32 and bfloat16 against their
+    plain versions, one kernels-line row each (float32), timed at a
+    shape its path runs (phase 7's longest prompt):
+
+    * flash D = 16 at the mini-clip towers: the vision tower's 16
+      patches non-causal and the text tower's 12 tokens causal, H = K =
+      4, one request's 4 rows (and serve()'s batch of 32 rows, checked);
+    * flash D = 64, G = 8 at tinyllama-1.1b's longest prompt (causal);
+    * flash D = 64, G = 1 at whisper-tiny's encoder, S = T = 1500,
+      non-causal, and its cross-attention prefill, the longest prompt's
+      queries against the 1500 encoder keys;
+    * decode D = 64, G = 1 over whisper-tiny's 1500 cross keys (lengths
+      = T), and D = 64, G = 8 over tinyllama-1.1b's solo cache of the
+      longest prompt (and whisper-tiny's self-attention cache, checked);
+    * paged decode D = 64, G = 8 at tinyllama-1.1b's serve tick: 4 rows
+      over a 65-page pool, garbage table tails.
+
+    Returns the rows and, for each row, (path, kernel, call shape): the
+    key under which its path's main-path run counts the row's launches
+    in ``ops.SHAPE_LAUNCHES``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows, keys = [], {}
+    S_tl = max(prompt_lens(TL_PROMPTS, TL_REQS))
+    S_w = max(prompt_lens(W_PROMPTS, W_REQS))
+    T_tl, T_w = dense_T(S_tl, TL_NEW), dense_T(S_w, W_NEW)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # name, path, B, S, T, H, K, causal, what; D = 16 for the towers,
+    # else 64
+    flash = (("flash_attention_d16", "scenario", CLIP_B, CLIP_PATCHES,
+              CLIP_PATCHES, CLIP_HEADS, CLIP_HEADS, False,
+              "mini-clip vision tower"),
+             ("flash_attention_d16_causal", "scenario", CLIP_B, CLIP_TEXT,
+              CLIP_TEXT, CLIP_HEADS, CLIP_HEADS, True, "mini-clip text tower"),
+             ("flash_attention_g8", TL_ARCH, 1, S_tl, S_tl, TL_H, TL_K, True,
+              "tinyllama-1.1b prefill"),
+             ("flash_attention_t1500", W_ARCH, 1, W_T, W_T, W_HEADS, W_HEADS,
+              False, "whisper-tiny encoder"),
+             ("flash_attention_cross", W_ARCH, 1, S_w, W_T, W_HEADS, W_HEADS,
+              False, "whisper-tiny cross-attention prefill"))
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        isz = torch.tensor([], dtype=dt).element_size()
+        specs = []
+        for name, path, B_, S_, T_, H_, K_, causal, what in flash:
+            D_ = CLIP_D if path == "scenario" else D
+            keys[name] = (path, "flash_attention",
+                          (B_, S_, T_, H_, K_, D_, causal))
+            q = rnd(B_, S_, H_, D_).to(dt)
+            k, v = rnd(B_, T_, K_, D_).to(dt), rnd(B_, T_, K_, D_).to(dt)
+            err = _check("flash_attention", dname,
+                         f"{what}: B={B_} S={S_} T={T_} H={H_} K={K_} "
+                         f"D={D_} causal={causal}",
+                         ops.flash_attention(q, k, v, causal=causal),
+                         ref.flash_attention_ref(q, k, v, causal=causal))
+            qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
+            specs.append((
+                name, "csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:93", "flash_fwd", err,
+                lambda q=q, k=k, v=v, c=causal: ops.flash_attention(
+                    q, k, v, causal=c),
+                lambda q=q, k=k, v=v, c=causal: ref.flash_attention_ref(
+                    q, k, v, causal=c),
+                lambda q=qh, k=kh_, v=vh, c=causal, gqa=H_ != K_:
+                    F.scaled_dot_product_attention(q, k, v, is_causal=c,
+                                                   enable_gqa=gqa),
+                *_flash_work(B_, S_, T_, H_, K_, D_, causal, isz)))
+        # serve() stacks up to 8 requests' rows at a tower
+        for S_, causal in ((CLIP_PATCHES, False), (CLIP_TEXT, True)):
+            q = rnd(8 * CLIP_B, S_, CLIP_HEADS, CLIP_D).to(dt)
+            k, v = (rnd(8 * CLIP_B, S_, CLIP_HEADS, CLIP_D).to(dt)
+                    for _ in range(2))
+            _check("flash_attention", dname,
+                   f"mini-clip tower batch of 8 requests: B={8 * CLIP_B} "
+                   f"S={S_} D={CLIP_D} causal={causal}",
+                   ops.flash_attention(q, k, v, causal=causal),
+                   ref.flash_attention_ref(q, k, v, causal=causal))
+
+        # -- decode: whisper-tiny cross (T = 1500, lengths = T) and self,
+        #    tinyllama-1.1b solo ----------------------------------------
+        for name, path, H_, K_, T_, lens, what in (
+                ("decode_attention_t1500", W_ARCH, W_HEADS, W_HEADS, W_T,
+                 [W_T], "whisper-tiny cross-attention decode"),
+                ("decode_attention_g8", TL_ARCH, TL_H, TL_K, T_tl,
+                 [S_tl + TL_NEW // 2], "tinyllama-1.1b solo decode"),
+                (None, W_ARCH, W_HEADS, W_HEADS, T_w, [S_w + W_NEW // 2],
+                 "whisper-tiny self-attention decode")):
+            qd = rnd(1, H_, D).to(dt)
+            kd, vd = rnd(1, T_, K_, D).to(dt), rnd(1, T_, K_, D).to(dt)
+            ld = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err = _check("decode_attention", dname,
+                         f"{what}: H={H_} K={K_} D={D} T={T_} lengths {lens}",
+                         ops.decode_attention(qd, kd, vd, ld),
+                         ref.decode_attention_ref(qd, kd, vd, ld))
+            if name is None:
+                continue
+            keys[name] = (path, "decode_attention", (1, T_, H_, K_, D))
+            mask = (torch.arange(T_, device=dev)[None] < ld[:, None])[
+                :, None, None, :]
+            specs.append((
+                name, "csrc/decode_attention.cu",
+                "src/repro/kernels/decode_attention.py:70", "decode_fwd", err,
+                lambda q=qd, k=kd, v=vd, l_=ld: ops.decode_attention(
+                    q, k, v, l_),
+                lambda q=qd, k=kd, v=vd, l_=ld: ref.decode_attention_ref(
+                    q, k, v, l_),
+                lambda q=qd, k=kd, v=vd, m=mask, gqa=H_ != K_:
+                    F.scaled_dot_product_attention(
+                        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                        attn_mask=m, enable_gqa=gqa),
+                *_decode_work(qd, kd, ld, isz)))
+
+        # -- paged decode at tinyllama-1.1b's serve tick -----------------
+        keys["paged_decode_attention_g8"] = (
+            TL_ARCH, "paged_decode_attention",
+            (TL_ROWS, TL_NMAX, PAGE, TL_H, TL_K, D))
+        qp = rnd(TL_ROWS, TL_H, D).to(dt)
+        kp, vp = (rnd(TL_PAGES, PAGE, TL_K, D).to(dt) for _ in range(2))
+        lens_p = torch.randint(TL_PROMPTS[0], TL_PROMPTS[1] + TL_NEW,
+                               (TL_ROWS,), generator=g, device=dev,
+                               dtype=torch.int32)
+        perm = torch.randperm(TL_PAGES - 1, generator=g, device=dev) + 1
+        tables = perm[:TL_ROWS * TL_NMAX].reshape(TL_ROWS, TL_NMAX).to(
+            torch.int32)
+        junk = torch.randint(-50, TL_PAGES + 50, (TL_ROWS, TL_NMAX),
+                             generator=g, device=dev, dtype=torch.int32)
+        owned = torch.arange(TL_NMAX, device=dev)[None] * PAGE < lens_p[:, None]
+        tables = torch.where(owned, tables, junk).contiguous()
+        err_p = _check("paged_decode_attention", dname,
+                       f"tinyllama-1.1b tick: H={TL_H} K={TL_K} D={D} "
+                       f"lengths {lens_p.tolist()} garbage tails",
+                       ops.paged_decode_attention(qp, kp, vp, tables, lens_p),
+                       ref.paged_decode_attention_ref(qp, kp, vp, tables,
+                                                      lens_p))
+        specs.append((
+            "paged_decode_attention_g8", "csrc/decode_attention.cu",
+            "src/repro/kernels/paged_decode_attention.py:77",
+            "paged_decode_fwd", err_p,
+            lambda: ops.paged_decode_attention(qp, kp, vp, tables, lens_p),
+            lambda: ref.paged_decode_attention_ref(qp, kp, vp, tables,
+                                                   lens_p),
+            None, *_paged_work(qp, kp, lens_p, owned, isz)))
+        if dt is torch.float32:
+            rows += [_row(*spec) for spec in specs]
+    return rows, keys
 
 
 # --------------------------------------------------------------------------
@@ -916,7 +1183,7 @@ def _model_steps(bundle, params, batch, device):
 
     cfg = bundle.cfg
     S = batch["tokens"].shape[1]
-    L = cfg.n_image_tokens + S
+    L = (cfg.n_image_tokens if cfg.has_vision_stub else 0) + S
     ps = 16
     n_pages = -(-(L + 3) // ps)
     dense = bundle.init_cache(1, n_pages * ps, torch.float32, device)
@@ -1020,6 +1287,9 @@ def phase_serve(dev) -> dict:
     torch.cuda.synchronize()
     t_submit = time.perf_counter() - t_submit
     launches = dict(ops.LAUNCHES)
+    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    log(f"[serve] launches by call shape: "
+        f"{ {k: v for k, v in shapes.items() if v} }")
 
     sched = dep.scheduler
     stream = sched.decode["vlm-head"]
@@ -1118,7 +1388,7 @@ def phase_serve(dev) -> dict:
         f"(mean rows {stream.decode_tokens / len(ticks):.2f})")
     submit_tok_s = (submit_steps + len(gen_reqs)) / t_submit
     log(f"[serve] submit() solo decode: {submit_tok_s:.1f} tokens/s")
-    return launches, dep, gen_reqs
+    return {"launches": launches, "shapes": shapes}, dep, gen_reqs
 
 
 def phase_profile(dep, gen_reqs) -> None:
@@ -1212,56 +1482,70 @@ def expected_ssd_shapes(cfg, prompts) -> dict:
     return want
 
 
-def _fresh_prefill(bundle, params, tokens, dev):
+def _fresh_prefill(bundle, params, tokens, dev, frames=None):
+    """The last-token logits of one prefill over ``tokens`` (after an
+    encoder-decoder's audio ``frames``, where given)."""
     import torch
 
     cache = bundle.init_cache(1, -(-(len(tokens) + 1) // 8) * 8,
                               torch.float32, dev)
-    logits, _ = bundle.prefill(
-        params, {"tokens": torch.tensor([tokens], dtype=torch.int32,
-                                        device=dev)}, cache)
+    batch = {"tokens": torch.tensor([tokens], dtype=torch.int32, device=dev)}
+    if frames is not None:
+        batch["audio_frames"] = torch.as_tensor(frames, device=dev)[None]
+    logits, _ = bundle.prefill(params, batch, cache)
     return logits[0]
 
 
-def phase_recurrent_reference(dev, arch):
-    """The same weights through the kernels on the card and through the
-    plain versions on the CPU (which the CPU tests hold to the JAX
-    package), at full width with depth cut: a 130-token prefill (one
-    full chunk and a ragged one) and 3 decode steps."""
+def _card_vs_cpu(dev, cfg, batch, cache_T, tag, label) -> None:
+    """The same weights (seed 0) through the kernels on the card and
+    through the plain versions on the CPU (which the CPU tests hold to
+    the JAX package): a prefill of ``batch`` into a dense cache of
+    cache_T, then 3 decode steps; fails past ``LOGIT_TOL``."""
     import torch
 
-    from repro_torch.common.config import get_config
     from repro_torch.common.pytree import tree_map
     from repro_torch.models.api import build_model
 
-    cfg = get_config(arch).with_overrides(n_layers=REC_CUT[arch])
     b = build_model(cfg)
     p_cpu = b.init(torch.Generator().manual_seed(SEED), device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (1, 130),
-                         generator=torch.Generator().manual_seed(SEED + 1),
-                         dtype=torch.int32)
+    L = batch["tokens"].shape[1]
     outs = {}
     for device in ("cpu", dev):
         p = p_cpu if device == "cpu" else tree_map(lambda t: t.to(dev), p_cpu)
-        cache = b.init_cache(1, 136, torch.float32, device)
-        logits, cache = b.prefill(p, {"tokens": toks.to(device)}, cache)
+        cache = b.init_cache(1, cache_T, torch.float32, device)
+        logits, cache = b.prefill(
+            p, {k: v.to(device) for k, v in batch.items()}, cache)
         got = [logits.cpu()]
         for i in range(3):
             logits, cache = b.decode_step(
                 p, torch.tensor([[i + 5]], dtype=torch.int32, device=device),
-                cache, torch.tensor([130 + i], dtype=torch.int32,
-                                    device=device))
+                cache, torch.tensor([L + i], dtype=torch.int32, device=device))
             got.append(logits.cpu())
         outs[str(device)] = got
         del p, cache
     worst = max(_err(a, c) for a, c in zip(outs["cpu"], outs[str(dev)]))
     ok = worst <= LOGIT_TOL
-    log(f"[recurrent] {arch} full width, {cfg.n_layers} layers, "
-        f"{b.param_count():,} parameters: card (kernels) vs CPU (plain "
-        f"versions), prefill of 130 + 3 decode steps: max |dlogit| "
-        f"{worst:.3e} (tol {LOGIT_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+    log(f"[{tag}] {cfg.name} {label}, {b.param_count():,} parameters: card "
+        f"(kernels) vs CPU (plain versions), prefill of {L} + 3 decode "
+        f"steps: max |dlogit| {worst:.3e} (tol {LOGIT_TOL:g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
-        fail(f"{arch} depth-cut model on the card disagrees with the CPU")
+        fail(f"{cfg.name} {label} on the card disagrees with the CPU")
+
+
+def phase_recurrent_reference(dev, arch):
+    """Card == CPU at full width with depth cut: a 130-token prefill (one
+    full chunk and a ragged one) and 3 decode steps."""
+    import torch
+
+    from repro_torch.common.config import get_config
+
+    cfg = get_config(arch).with_overrides(n_layers=REC_CUT[arch])
+    toks = torch.randint(0, cfg.vocab_size, (1, 130),
+                         generator=torch.Generator().manual_seed(SEED + 1),
+                         dtype=torch.int32)
+    _card_vs_cpu(dev, cfg, {"tokens": toks}, 136, "recurrent",
+                 f"full width, {cfg.n_layers} layers")
 
 
 def _profile_decode(arch, bundle, params, cache, L0, dev, steps=3):
@@ -1285,29 +1569,27 @@ def _profile_decode(arch, bundle, params, cache, L0, dev, steps=3):
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        log(f"[recurrent] {arch}: the profiler saw no device kernels: "
+        log(f"[profile] {arch}: the profiler saw no device kernels: "
             "device time not measured")
         return
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
-    log(f"[recurrent] {arch}: {steps} decode steps under the profiler: "
+    log(f"[profile] {arch}: {steps} decode steps under the profiler: "
         f"wall {1e3 * wall:.1f} ms, {len(kern) // steps} kernels per step, "
         f"device busy {1e3 * busy:.1f} ms ({100 * busy / wall:.1f}%)")
     by_name: dict[str, list[float]] = {}
     for e in kern:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]:
-        log(f"[recurrent]   {sum(ts) / 1e3:8.2f} ms  {len(ts):6d} x  "
+        log(f"[profile]   {sum(ts) / 1e3:8.2f} ms  {len(ts):6d} x  "
             f"{name[:90]}")
 
 
 def phase_recurrent(dev) -> dict[str, dict]:
     """Each recurrent family at its published widths and depth through
-    the port's serve entry point; returns each arch's main-path kernel
-    launch counts (and, under "ssd_by_shape", the SSD launches by call
-    shape)."""
+    the port's serve entry point; returns each arch's main-path launches:
+    by kernel and by call shape."""
     import gc
 
-    import numpy as np
     import torch
 
     from repro_torch.common.config import get_config
@@ -1328,7 +1610,10 @@ def phase_recurrent(dev) -> dict[str, dict]:
             run = serve_arch(cfg, reqs, device=dev)  # weights from seed 0
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
-        ssd_shapes = dict(ops.SSD_LAUNCHES)
+        shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        ssd_shapes = shapes["ssd_intra_chunk"]
+        log(f"[recurrent] {arch} launches by call shape: "
+            f"{ {k: v for k, v in shapes.items() if v} }")
         rt = next(iter(run.engine.decoders.values()))
         bundle, params = rt.bundle, rt.params
         n = bundle.param_count()
@@ -1380,7 +1665,7 @@ def phase_recurrent(dev) -> dict[str, dict]:
             f"expected {want_ssd}")
         if ssd_shapes != want_ssd:
             fail(f"{arch}: SSD launches {ssd_shapes} != expected {want_ssd}")
-        counts[arch] = {**launches, "ssd_by_shape": ssd_shapes}
+        counts[arch] = {"launches": launches, "shapes": shapes}
 
         # prefill time of the longest prompt (warm), decode rate of the run
         batch = {"tokens": torch.tensor([reqs[-1].prompt], dtype=torch.int32,
@@ -1409,6 +1694,381 @@ def phase_recurrent(dev) -> dict[str, dict]:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 6: the paper's multi-task scenario (mini-clip towers)
+# --------------------------------------------------------------------------
+
+def phase_scenario(dev) -> dict:
+    """``repro_torch.examples.multi_task_serving`` on the card: retrieval,
+    classification and VQA on the shared mini-clip towers through plan,
+    materialize, verify, simulate + submit, split == monolithic, a
+    9-request serve() burst with cross-task batches, the SLO rows, the
+    trace, compare() and evict + replan.  Before it, the towers through
+    the flash kernel on the card against the plain versions on the CPU.
+    Returns the main-path launches: by kernel and by call shape."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs.s2m3_zoo import get_clip_config
+    from repro_torch.examples import multi_task_serving as ex
+    from repro_torch.kernels import ops
+    from repro_torch.models import clip as C
+
+    ccfg = get_clip_config(CLIP)
+    patches, ids = ex.make_inputs(ccfg)
+    p_cpu = C.init_clip(torch.Generator().manual_seed(SEED), ccfg, "cpu")
+    p_cpu["logit_scale"] = torch.tensor(2.0)      # exercise exp(scale)
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    x_cpu = (torch.from_numpy(patches), torch.from_numpy(ids))
+    x_dev = tuple(t.to(dev) for t in x_cpu)
+    for what, fn in (
+            ("encode_image", lambda p, x: C.encode_image(p["vision"], x[0],
+                                                        ccfg)),
+            ("encode_text", lambda p, x: C.encode_text(p["text"], x[1], ccfg)),
+            ("clip_forward", lambda p, x: C.clip_forward(p, *x, ccfg))):
+        err = _err(fn(p_dev, x_dev).cpu(), fn(p_cpu, x_cpu))
+        ok = err <= LOGIT_TOL
+        log(f"[scenario] {CLIP} {what}: card (flash kernel) vs CPU (plain "
+            f"version) max |diff| {err:.3e} (tol {LOGIT_TOL:g}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{CLIP} {what} on the card disagrees with the CPU")
+
+    # ---- the main path: counts from 0, the whole scenario ---------------
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = Path(tmp) / "multi_task_trace.json"
+        out = ex.main(device=dev, trace_path=trace_path)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        trace_bytes = trace_path.stat().st_size
+    dep = out["deployment"]
+
+    # the CPU test's checks (tests/test_torch_clip.py)
+    for sim, real in out["routes"]:
+        if sim != real:
+            fail(f"scenario: simulated route {sim} != real {real}")
+    if out["verify"] != []:
+        fail(f"scenario: verify() found {out['verify']}")
+    if out["tampered_finding"].code != "plan/memory-overflow":
+        fail(f"scenario: tampered ledger gave {out['tampered_finding']}")
+    if out["split_diff"] != 0.0:
+        fail(f"scenario: split != monolithic by {out['split_diff']:.3e}")
+    if out["batched_diff"] > LOGIT_TOL:
+        fail(f"scenario: batched != solo by {out['batched_diff']:.3e}")
+    if out["cross_task_batches"] < 1:
+        fail("scenario: no cross-task encoder batch")
+    if [r["model"] for r in out["slo"]] != ["classify", "retrieval", "vqa"] \
+            or any(r["requests"] != 3 for r in out["slo"]):
+        fail(f"scenario: SLO rows {out['slo']}")
+    drift = out["drift"]
+    if drift.n_route_divergences != 0 or drift.routes_checked == 0:
+        fail(f"scenario: compare() {drift.summary()}")
+    if trace_bytes == 0:
+        fail("scenario: empty trace file")
+    if out["evicted"] != ["mini-lm"] or \
+            "dev0" in out["after_replan"].devices.values():
+        fail(f"scenario: evict {out['evicted']}, after replan "
+             f"{out['after_replan'].devices}")
+    # exact launches: each tower call runs one flash kernel a layer (the
+    # engine counts the towers' calls; main() adds one monolithic pass);
+    # the vision tower's are the non-causal calls over its patches, the
+    # text tower's the causal ones over its tokens
+    calls = {m: int(dep.engine.metrics.value("engine.module_calls",
+                                             module=m)) + 1
+             for m in ("mini-vit", "mini-trf")}
+    want_tower = {"vision": ccfg.vision_layers * calls["mini-vit"],
+                  "text": ccfg.text_layers * calls["mini-trf"]}
+    tower_of = {(CLIP_PATCHES, False): "vision", (CLIP_TEXT, True): "text"}
+    by_tower = dict.fromkeys(want_tower, 0)
+    for (_, S_, T_, H_, K_, D_, causal), n in shapes[
+            "flash_attention"].items():
+        tower = tower_of.get((S_, causal))
+        if tower is None or (T_, H_, K_, D_) != (S_, CLIP_HEADS, CLIP_HEADS,
+                                                 CLIP_D):
+            fail(f"scenario: flash at no tower's shape {S_, T_, H_, K_, D_}")
+        by_tower[tower] += n
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["flash_attention"] = sum(want_tower.values())
+    log(f"[scenario] {CLIP} on {dev}: routes == simulate(), verify() clean, "
+        f"tampered ledger -> {out['tampered_finding'].code}, split == "
+        f"monolithic (max |diff| {out['split_diff']:.1e}), batched vs solo "
+        f"{out['batched_diff']:.3e}, {out['cross_task_batches']} cross-task "
+        f"batches, compare() {drift.routes_checked} routes / "
+        f"{drift.n_route_divergences} divergences, trace {trace_bytes} B, "
+        f"evict + replan ok; {seconds:.3f} s")
+    log(f"[scenario] tower calls {calls} (x {ccfg.vision_layers} / "
+        f"{ccfg.text_layers} layers); kernel launches {launches}, expected "
+        f"{want}; flash by tower {by_tower}, expected {want_tower}; by "
+        f"shape {shapes['flash_attention']}")
+    if launches != want or by_tower != want_tower:
+        fail(f"scenario: kernel launches {launches}, by tower {by_tower} != "
+             f"expected {want}, {want_tower}")
+    return {"launches": launches, "shapes": shapes}
+
+
+# --------------------------------------------------------------------------
+# phase 7: tinyllama-1.1b and whisper-tiny at full width
+# --------------------------------------------------------------------------
+
+def _decode_vs_prefill(arch, bundle, params, reqs, results, logits, dev,
+                       ks, frames_of=None) -> list[int]:
+    """Step k's logits against a fresh prefill of the prompt and the first
+    k tokens, for each k in ``ks``; returns each request's decode steps."""
+    import torch
+
+    steps = []
+    for req, r in zip(reqs, results):
+        lg = torch.stack(logits[r.rid])
+        toks = [int(t) for t in r.output]
+        if len(toks) != len(lg) or not bool(torch.isfinite(lg).all()):
+            fail(f"{arch} rid {r.rid}: {len(toks)} tokens, {len(lg)} finite "
+                 "logit rows expected")
+        steps.append(len(toks) - 1)
+        frames = None if frames_of is None else frames_of(req)
+        worst = max(_err(_fresh_prefill(bundle, params,
+                                        list(req.prompt) + toks[:k], dev,
+                                        frames), lg[k])
+                    for k in ks if k < len(toks))
+        ok = worst <= DECODE_TOL
+        log(f"[phase7] {arch} rid {r.rid} prompt {len(req.prompt)}: tokens "
+            f"{toks}; decode steps {list(ks)} vs fresh prefill max |dlogit| "
+            f"{worst:.3e} (tol {DECODE_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{arch} rid {r.rid}: decode disagrees with prefill")
+    return steps
+
+
+def _prefill_ms(bundle, params, batch, T, dev):
+    """Three warm prefills of ``batch`` into one dense cache of T: their
+    times (ms) and the filled cache."""
+    import torch
+
+    cache = bundle.init_cache(1, T, torch.float32, dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times, cache
+
+
+def phase_tinyllama(dev) -> dict:
+    """tinyllama-1.1b at its published width and depth (22 layers, random
+    float32 weights from seed 0) through ``launch.serve.serve_arch``: 6
+    greedy requests through the paged scheduler (serve()), then each
+    again through the solo path (submit()).  Checked: tokens and every
+    step's logits serve == submit, decode == a fresh prefill, exact
+    launches, by kernel and by call shape (each prefill's flash at its
+    prompt, each solo step's decode at its request's cache, each tick's
+    paged decode at the pool's table); before it, card == CPU at full
+    width with 2 layers.  Returns the main-path launches: by kernel and
+    by call shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve_arch
+
+    cfg = get_config(TL_ARCH)
+    g = torch.Generator().manual_seed(SEED + 1)
+    _card_vs_cpu(dev, cfg.with_overrides(n_layers=2),
+                 {"tokens": torch.randint(0, cfg.vocab_size, (1, 9),
+                                          generator=g, dtype=torch.int32)},
+                 32, "phase7", "full width, 2 layers")
+
+    lens = prompt_lens(TL_PROMPTS, TL_REQS)
+    reqs = make_requests(cfg, TL_REQS, TL_NEW, prompt_lens=lens, seed=SEED)
+    served, solo = {}, {}
+    # ---- the main path: counts from 0, serve(), then submit() ----------
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    with record_logits(served):
+        run = serve_arch(cfg, reqs, device=dev, max_batch=TL_ROWS,
+                         cache_len=TL_CACHE)
+    rt = next(iter(run.engine.decoders.values()))
+    t_submit = time.perf_counter()
+    with record_logits(solo):
+        solo_res = {r.rid: run.engine.generate(r) for r in reqs}
+    torch.cuda.synchronize()
+    t_submit = time.perf_counter() - t_submit
+    launches = dict(ops.LAUNCHES)
+    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    n = rt.bundle.param_count()
+    log(f"[phase7] {TL_ARCH}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, H {cfg.n_heads}, K "
+        f"{cfg.n_kv_heads}; serve() of {len(reqs)} requests (prompts "
+        f"{lens}, {TL_NEW} new tokens) in {run.seconds:.3f} s, submit() x"
+        f"{len(reqs)} in {t_submit:.3f} s")
+
+    for r in run.results:
+        a, b = np.asarray(r.output), np.asarray(solo_res[r.rid].output)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"{TL_ARCH} rid {r.rid}: serve tokens {a.tolist()} != "
+                 f"submit {b.tolist()}")
+        dlogit = _err(torch.stack(served[r.rid]), torch.stack(solo[r.rid]))
+        log(f"[phase7] {TL_ARCH} rid {r.rid}: serve == submit over {len(a)} "
+            f"tokens, max |dlogit| {dlogit:.3e} (tol {LOGIT_TOL:g})")
+        if dlogit > LOGIT_TOL:
+            fail(f"{TL_ARCH} rid {r.rid}: serve logits differ from submit's "
+                 f"by {dlogit:.3e}")
+    req_steps = _decode_vs_prefill(TL_ARCH, rt.bundle, rt.params, reqs,
+                                   [solo_res[r.rid] for r in reqs], solo,
+                                   dev, (1, TL_NEW - 1))
+    steps = sum(req_steps)
+    n_l, hkd = cfg.n_layers, (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update({"flash_attention": 2 * len(reqs) * n_l,
+                 "paged_decode_attention": run.decode_steps * n_l,
+                 "decode_attention": steps * n_l})
+    # by shape: serve() and submit() each prefill a prompt once, one
+    # flash a layer; each solo step decodes over its request's cache;
+    # every tick decodes the pool's rows through one table width
+    want_shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
+    for S_, n_steps in zip(lens, req_steps):
+        for kernel, key, n in (
+                ("flash_attention", (1, S_, S_, *hkd, True), 2 * n_l),
+                ("decode_attention", (1, dense_T(S_, TL_NEW), *hkd),
+                 n_steps * n_l)):
+            want_shapes[kernel][key] = want_shapes[kernel].get(key, 0) + n
+    want_shapes["paged_decode_attention"] = {
+        (TL_ROWS, TL_NMAX, PAGE, *hkd): run.decode_steps * n_l}
+    log(f"[phase7] {TL_ARCH} kernel launches {launches}, expected {want}; "
+        f"by shape {shapes}, expected {want_shapes}")
+    if launches != want or shapes != want_shapes:
+        fail(f"{TL_ARCH}: kernel launches {launches}, by shape {shapes} != "
+             f"expected {want}, {want_shapes}")
+
+    # rates: the serve() ticks, the solo decode spans, a warm prefill
+    trace = run.scheduler.tracer.trace
+    ticks, ttft = {}, []
+    for r in reqs:
+        spans = trace.spans_for(r.rid)
+        root = trace.tree(r.rid)
+        ttft.append(next(s for s in spans if s.phase == "prefill").t1 - root.t0)
+        for s in spans:
+            if s.phase == "decode_tick":
+                ticks[(s.t0, s.t1)] = s.t1 - s.t0
+    stats = run.scheduler.stats_dict()[cfg.name]
+    decode_s = sum(ticks.values())
+    solo_s = sum(s.t1 - s.t0 for r in solo_res.values() for s in r.timeline
+                 if s.phase == "decode")
+    batch = {"tokens": torch.tensor([reqs[int(np.argmax(lens))].prompt],
+                                    dtype=torch.int32, device=dev)}
+    pre, cache = _prefill_ms(rt.bundle, rt.params, batch,
+                             dense_T(max(lens), TL_NEW), dev)
+    _profile_decode(TL_ARCH, rt.bundle, rt.params, cache, max(lens), dev)
+    log(f"[phase7] {TL_ARCH}: prefill of {max(lens)} tokens "
+        f"{min(pre):.1f} ms (best of 3, warm; {', '.join(f'{t:.1f}' for t in pre)}); "
+        f"TTFT mean {1e3 * np.mean(ttft):.1f} ms, max {1e3 * max(ttft):.1f} "
+        f"ms; serve() decode {stats['decode_tokens']} tokens over "
+        f"{len(ticks)} ticks, {stats['decode_tokens'] / decode_s:.1f} "
+        f"tokens/s, {1e3 * decode_s / len(ticks):.2f} ms per tick; solo "
+        f"decode {steps} steps, {steps / solo_s:.1f} tokens/s "
+        f"({1e3 * solo_s / steps:.2f} ms per token)")
+    return {"launches": launches, "shapes": shapes}
+
+
+def phase_whisper(dev) -> dict:
+    """whisper-tiny at its published width and depth (4 + 4 layers,
+    1500 encoder frames, random float32 weights from seed 0) through
+    ``launch.serve.serve_arch`` (solo prefill and dense decode per
+    request through ``Deployment.submit()``).  Checked: card == CPU at
+    full depth, decode == a fresh prefill (frames included), exact
+    launches: 12 flash a prefill (4 encoder, 4 self, 4 cross) and 8
+    decode a step (4 self, 4 cross), each counted at its call shape.
+    Returns the main-path launches: by kernel and by call shape."""
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve_arch
+
+    cfg = get_config(W_ARCH)
+    lens = prompt_lens(W_PROMPTS, W_REQS)
+    reqs = make_requests(cfg, W_REQS, W_NEW, prompt_lens=lens, seed=SEED)
+    _card_vs_cpu(dev, cfg, {"tokens": torch.tensor([reqs[0].prompt],
+                                                   dtype=torch.int32),
+                            "audio_frames": torch.from_numpy(
+                                reqs[0].inputs["audio"])[None]},
+                 32, "phase7", "full width and depth")
+
+    logits: dict = {}
+    # ---- the main path: counts from 0, serve_arch -> submit() ----------
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    with record_logits(logits):
+        run = serve_arch(cfg, reqs, device=dev)
+    launches = dict(ops.LAUNCHES)
+    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    rt = next(iter(run.engine.decoders.values()))
+    n = rt.bundle.param_count()
+    log(f"[phase7] {W_ARCH}: {n:,} parameters ({n * 4 / 1e6:.1f} MB f32), "
+        f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"{cfg.encoder_seq} frames; served {len(reqs)} requests (prompts "
+        f"{lens}, {W_NEW} new tokens) through serve_arch -> "
+        f"Deployment.submit() in {run.seconds:.3f} s")
+    req_steps = _decode_vs_prefill(W_ARCH, rt.bundle, rt.params, reqs,
+                                   run.results, logits, dev, (1, W_NEW - 1),
+                                   frames_of=lambda q: q.inputs["audio"])
+    steps = sum(req_steps)
+    n_l, hkd = cfg.n_layers, (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    T_enc = cfg.encoder_seq
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update({"flash_attention": (cfg.n_encoder_layers + 2 * n_l)
+                 * len(reqs),
+                 "decode_attention": 2 * n_l * steps})
+    # by shape: a prefill runs the encoder (S = T = frames, non-causal),
+    # then a layer's self (causal, over the prompt) and cross (the
+    # prompt against the frames) flash; a step a layer's self decode
+    # over its request's cache and its cross decode over the frames
+    want_shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
+    for S_, n_steps in zip(lens, req_steps):
+        for kernel, key, n in (
+                ("flash_attention", (1, T_enc, T_enc, *hkd, False),
+                 cfg.n_encoder_layers),
+                ("flash_attention", (1, S_, S_, *hkd, True), n_l),
+                ("flash_attention", (1, S_, T_enc, *hkd, False), n_l),
+                ("decode_attention", (1, dense_T(S_, W_NEW), *hkd),
+                 n_steps * n_l),
+                ("decode_attention", (1, T_enc, *hkd), n_steps * n_l)):
+            want_shapes[kernel][key] = want_shapes[kernel].get(key, 0) + n
+    log(f"[phase7] {W_ARCH} kernel launches {launches}, expected {want}; "
+        f"by shape {shapes}, expected {want_shapes}")
+    if launches != want or shapes != want_shapes:
+        fail(f"{W_ARCH}: kernel launches {launches}, by shape {shapes} != "
+             f"expected {want}, {want_shapes}")
+    pre_s = [s.t1 - s.t0 for r in run.results for s in r.timeline
+             if s.phase == "prefill"]
+    solo_s = sum(s.t1 - s.t0 for r in run.results for s in r.timeline
+                 if s.phase == "decode")
+    batch = {"tokens": torch.tensor([reqs[0].prompt], dtype=torch.int32,
+                                    device=dev),
+             "audio_frames": torch.from_numpy(reqs[0].inputs["audio"]
+                                              ).to(dev)[None]}
+    pre, cache = _prefill_ms(rt.bundle, rt.params, batch, 32, dev)
+    _profile_decode(W_ARCH, rt.bundle, rt.params, cache,
+                    len(reqs[0].prompt), dev)
+    log(f"[phase7] {W_ARCH}: prefill ({cfg.encoder_seq} frames + "
+        f"{len(reqs[0].prompt)} "
+        f"tokens) {min(pre):.1f} ms (best of 3, warm; "
+        f"{', '.join(f'{t:.1f}' for t in pre)}; in submit() "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in pre_s)}); solo decode {steps} "
+        f"steps, {steps / solo_s:.1f} tokens/s ({1e3 * solo_s / steps:.2f} "
+        "ms per token)")
+    return {"launches": launches, "shapes": shapes}
+
+
 def main() -> int:
     try:
         import torch
@@ -1431,27 +2091,28 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     phase_build()
-    rows = phase_kernels(dev)
-    rec_rows = phase_kernels_recurrent(dev)
-    launches, dep, gen_reqs = phase_serve(dev)
+    rows, keys = phase_kernels(dev)
+    rec_rows, rec_keys = phase_kernels_recurrent(dev)
+    slice_rows, slice_keys = phase_kernels_slice(dev)
+    serve, dep, gen_reqs = phase_serve(dev)
     phase_profile(dep, gen_reqs)
     del dep, gen_reqs
-    rec = phase_recurrent(dev)
-    # launches: each row's count from its own path's main-path run
+    paths = {"serve": serve, **phase_recurrent(dev),
+             "scenario": phase_scenario(dev), TL_ARCH: phase_tinyllama(dev),
+             W_ARCH: phase_whisper(dev)}
+    # each row's launches at its own call shape on its path's main-path
+    # run, beside the kernel's launches on that path
+    rows += rec_rows + slice_rows
+    keys.update(rec_keys, **slice_keys)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-    zamba, xlstm = rec["zamba2-7b"], rec["xlstm-1.3b"]
-    for row in rec_rows:
-        row["launches"] = {
-            "flash_attention_d112": zamba["flash_attention"],
-            "decode_attention_d112": zamba["decode_attention"],
-            **{name: zamba["ssd_by_shape"].get(shape[:3], 0)
-               for name, shape in SSD_ROWS.items()},
-            "slstm_scan": xlstm["slstm_scan"],
-            "slstm_scan_s1": xlstm["slstm_scan_s1"]}[row["name"]]
-        if row["name"] in SSD_ROWS:   # each SSD row's share of the launches
-            row["launches_of_kernel"] = zamba["ssd_intra_chunk"]
-    rows += rec_rows
+        path, kernel, key = keys[row["name"]]
+        row["launches"] = paths[path]["shapes"][kernel].get(key, 0)
+        row["launches_of_kernel"] = paths[path]["launches"][kernel]
+        log(f"[launches] {row['name']}: {row['launches']} of {path}'s "
+            f"{row['launches_of_kernel']} {kernel} launches at {key}")
+        if not row["launches"]:
+            fail(f"{row['name']}: its timed shape {key} never ran on the "
+                 f"{path} path")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,12 +1,16 @@
 """The paper's own 14-model testbed zoo (Tables II & V).
 
-``ZOO`` — ModelSpec-level data (module names + param counts from
-Table V / Table VI) consumed by the placement/routing simulator to
-reproduce the paper's tables at full scale.  The runnable CLIP configs
-of the JAX package's copy of this file arrive with the CLIP slice.
+Two granularities:
+* ``ZOO`` — ModelSpec-level data (module names + param counts from
+  Table V / Table VI) consumed by the placement/routing simulator to
+  reproduce the paper's tables at full scale.
+* ``CLIP_CONFIGS`` — small *runnable* CLIP configs used by the serving
+  engine demo and the split-vs-monolithic equivalence tests.
 """
 
 from __future__ import annotations
+
+from repro_torch.models.clip import ClipConfig
 
 M = 1_000_000
 B = 1_000_000_000
@@ -80,3 +84,21 @@ ZOO: dict[str, tuple[str, tuple[str, ...], str]] = {
     # image classification
     "clip-cls-vit-b/16": ("classification", ("vit-b/16",), "classifier"),
 }
+
+# small runnable CLIP configs for engine demos / equivalence tests
+CLIP_CONFIGS: dict[str, ClipConfig] = {
+    "mini-clip": ClipConfig(
+        name="mini-clip", vision_layers=2, vision_width=64, vision_heads=4,
+        text_layers=2, text_width=64, text_heads=4, vocab_size=256,
+        embed_dim=32, n_image_tokens=16,
+    ),
+    "mini-clip-l": ClipConfig(
+        name="mini-clip-l", vision_layers=4, vision_width=96, vision_heads=6,
+        text_layers=2, text_width=64, text_heads=4, vocab_size=256,
+        embed_dim=32, n_image_tokens=16,
+    ),
+}
+
+
+def get_clip_config(name: str) -> ClipConfig:
+    return CLIP_CONFIGS[name]

@@ -78,15 +78,10 @@ def arch_model_spec(cfg: ArchConfig) -> ModelSpec:
 
     Multi-modal archs split into encoder+head; pure text LMs are
     head-only models (the paper's own characterization of decoder-only
-    VQA: no parallel-routing benefit, full sharing benefit).  The
-    encoder-decoder split needs the port's encdec model, which is not
-    ported yet: it raises."""
+    VQA: no parallel-routing benefit, full sharing benefit).
+    """
     from repro_torch.models.api import build_model
 
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"arch_model_spec: {cfg.name!r} is encoder-decoder; the port's "
-            "encdec model is not ported yet")
     n_total = build_model(cfg).param_count()
 
     def lm_head(n) -> ModuleSpec:
@@ -110,4 +105,17 @@ def arch_model_spec(cfg: ArchConfig) -> ModelSpec:
             input_bytes=600_000,
         )
         return ModelSpec(cfg.name, "vqa-dec", (enc,), lm_head(n_total - n_enc))
+    if cfg.is_encoder_decoder:
+        # real split: encoder tower params vs decoder params
+        from repro_torch.layers.initializers import spec_param_count as spc
+        from repro_torch.models.encdec import _enc_block_specs
+
+        n_enc = spc(_enc_block_specs(cfg)) * cfg.n_encoder_layers \
+            + cfg.d_model * cfg.d_model
+        enc = ModuleSpec(
+            name=f"{cfg.name}-audio-encoder", kind="encoder", modality="audio",
+            n_params=n_enc, flops_per_query=2.0 * n_enc * TOKENS_PER_QUERY["audio"],
+            input_bytes=960_000,
+        )
+        return ModelSpec(cfg.name, "asr", (enc,), lm_head(n_total - n_enc))
     return ModelSpec(cfg.name, "text-gen", (), lm_head(n_total))

@@ -5,8 +5,9 @@ Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream or — only for tensors that lie on the CPU — takes
 the plain version from ``kernels.ref``.  A CUDA tensor never falls back:
 a kernel that does not build or launch raises.  ``LAUNCHES`` counts the
-kernel launches of each wrapper (the CPU path does not count), so a run
-can show that its work went through the kernels.
+kernel launches of each wrapper, and ``SHAPE_LAUNCHES`` the same launches
+by call shape (the CPU path does not count), so a run can show that its
+work went through the kernels, and at which shapes.
 """
 
 from __future__ import annotations
@@ -25,10 +26,12 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_intra_chunk": 0,
             "slstm_scan": 0, "slstm_scan_s1": 0}
 
-#: the SSD kernel's launches since the last ``reset_launches()`` by call
-#: shape (batch, chunks, chunk length L): they sum to
-#: ``LAUNCHES["ssd_intra_chunk"]``
-SSD_LAUNCHES: dict[tuple[int, int, int], int] = {}
+#: kernel name -> launches since the last ``reset_launches()`` by call
+#: shape, which sum to the kernel's ``LAUNCHES`` entry: flash (B, S, T,
+#: H, K, D, causal), decode (B, T, H, K, D), paged decode (B, n_max,
+#: page_size, H, K, D), SSD (B, chunks, chunk length L) and both sLSTM
+#: kernels (B, S, H, hd)
+SHAPE_LAUNCHES: dict[str, dict[tuple, int]] = {name: {} for name in LAUNCHES}
 
 #: head dims the attention kernels are instantiated for: the smoke
 #: configs' 16, internvl2-1b's 64 and zamba2-7b's 112
@@ -81,7 +84,15 @@ class KernelLaunchError(RuntimeError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    SSD_LAUNCHES.clear()
+    for counts in SHAPE_LAUNCHES.values():
+        counts.clear()
+
+
+def _count(name, key) -> None:
+    """One launch of kernel ``name`` at call shape ``key``."""
+    LAUNCHES[name] += 1
+    counts = SHAPE_LAUNCHES[name]
+    counts[key] = counts.get(key, 0) + 1
 
 
 def _check(name, tensors):
@@ -164,7 +175,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         K, D, _DTYPES[q.dtype], int(bool(causal)), int(window),
         float(softcap), _stream(q))
     _raise_on("flash_attention", err)
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention", (B, S, T, H, K, D, bool(causal)))
     return o
 
 
@@ -247,7 +258,7 @@ def decode_attention(q, k, v, lengths, *, softcap=0.0):
         o.data_ptr(), ws.data_ptr(), tickets.data_ptr(), B, H, K, D, T,
         n_split, _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("decode_attention", err)
-    LAUNCHES["decode_attention"] += 1
+    _count("decode_attention", (B, T, H, K, D))
     return o
 
 
@@ -301,7 +312,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         ws.data_ptr(), tickets.data_ptr(), B, H, K, D, P, ps, n_max,
         n_split, _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("paged_decode_attention", err)
-    LAUNCHES["paged_decode_attention"] += 1
+    _count("paged_decode_attention", (B, n_max, ps, H, K, D))
     return o
 
 
@@ -421,9 +432,7 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
         B * nc, L, H, P, N, plan.tr, plan.ns, plan.n_heavy, plan.threads,
         plan.smem, _DTYPES[x.dtype], _stream(x))
     _raise_on("ssd_intra_chunk", err)
-    LAUNCHES["ssd_intra_chunk"] += 1
-    key = (B, nc, L)
-    SSD_LAUNCHES[key] = SSD_LAUNCHES.get(key, 0) + 1
+    _count("ssd_intra_chunk", (B, nc, L))
     return y, s_loc, lam
 
 
@@ -585,5 +594,5 @@ def slstm_scan(pre, R, *, state=None):
                                  plan.rows, _DTYPES[pre.dtype], _stream(pre))
         key = "slstm_scan"
     _raise_on("slstm_scan", err)
-    LAUNCHES[key] += 1
+    _count(key, (B, S, H, hd))
     return y, tuple(out.unbind(0))

@@ -7,9 +7,10 @@
 
 Families with a paged-KV layout (dense/vlm) stream through the
 continuous-batching scheduler (``lm_scheduler``).  The recurrent
-families (hybrid zamba2, ssm xLSTM) have no paged layout: each request
-runs its solo prefill and dense-cache decode through
-``Deployment.submit()`` of a head-only generative model.  ``--plan``
+families (hybrid zamba2, ssm xLSTM) and the encoder-decoder family
+(whisper, whose requests carry their audio frames) have no paged
+layout: each request runs its solo prefill and dense-cache decode
+through ``Deployment.submit()`` of a head-only generative model.  ``--plan``
 prints the S2M3 deployment plan for the arch over the paper's edge
 testbed (placement, memory ledger, predicted latency) instead.
 
@@ -43,6 +44,8 @@ class ServeRun:
     seconds: float           # wall time of serving, device work included
     decode_steps: int        # decode steps (batched ticks, or solo steps)
     engine: Any              # serving.engine.S2M3Engine holding the model
+    scheduler: Any = None    # the ServeScheduler of a paged run (its trace
+    #                          and stats), None for the solo path
 
 
 def plan_s2m3(cfg, routing: str):
@@ -69,7 +72,8 @@ def make_requests(cfg, n: int, max_new: int, *, temperature: float = 0.0,
                   prompt_lens=None, seed: int = 0) -> list[Request]:
     """``n`` requests to the head-only model "lm", prompts drawn from
     ``seed`` (2-7 tokens unless ``prompt_lens`` gives each length); VLM
-    requests carry a precomputed image prefix."""
+    requests carry a precomputed image prefix, encoder-decoder requests
+    ``encoder_seq`` precomputed audio frames."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
@@ -77,6 +81,9 @@ def make_requests(cfg, n: int, max_new: int, *, temperature: float = 0.0,
         if cfg.has_vision_stub:
             inputs["vision"] = 0.1 * rng.standard_normal(
                 (cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.is_encoder_decoder:
+            inputs["audio"] = 0.1 * rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
         size = rng.integers(2, 8) if prompt_lens is None else prompt_lens[i]
         prompt = tuple(rng.integers(1, cfg.vocab_size, size=size).tolist())
         reqs.append(Request(rid=i, model="lm", source="dev0", prompt=prompt,
@@ -128,6 +135,7 @@ def serve_arch(cfg, requests, *, device=None, params=None,
                              device=device)
     before = dict(kops.LAUNCHES)
     t0 = time.perf_counter()
+    sched = None
     if bundle.paged_decode_step is not None:
         sched = lm_scheduler(bundle, params, device=device,
                              config=SchedulerConfig(
@@ -145,7 +153,7 @@ def serve_arch(cfg, requests, *, device=None, params=None,
     sync(device)
     seconds = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in kops.LAUNCHES.items()}
-    return ServeRun(results, launches, seconds, steps, engine)
+    return ServeRun(results, launches, seconds, steps, engine, sched)
 
 
 def main(argv=None):

@@ -5,8 +5,15 @@ API:
   gqa_scores(q, k, v, ...)                 -> attention output (pre-wo),
                                               plain tensor ops
   attention_apply(params, x, ...)          -> full self-attention
-                                              (prefill), through the
-                                              flash attention kernel
+                                              (prefill), or cross-
+                                              attention over an
+                                              encoder's k/v, through
+                                              the flash attention kernel
+  cross_kv_project(params, enc_out, cfg)   -> cross-attention k, v
+  cross_attention_decode(params, x, k, v, cfg)
+                                           -> one query per row over
+                                              cached cross k/v, through
+                                              the decode kernel
 
 Weights keep the JAX package's layouts: ``wq`` (d, H, hd), ``wk``/``wv``
 (d, K, hd), ``wo`` (H, hd, d).  Cache updates write in place.
@@ -95,11 +102,23 @@ def gqa_scores(q, k, v, *, q_positions, kv_positions, causal: bool = True,
 
 
 def attention_apply(params, x, *, positions, cfg, local: bool = False,
-                    causal: bool = True):
-    """Self-attention over one segment (prefill), through the flash
-    attention kernel.  ``positions`` must be the trivial arange — the
-    kernel assumes it.  Returns (out, (k, v)) — the freshly projected
-    k/v for cache insertion."""
+                    causal: bool = True, cross_kv=None, cross_positions=None):
+    """Self- (or cross-) attention over one segment (prefill), through
+    the flash attention kernel.  ``positions`` must be the trivial
+    arange — the kernel assumes it.  With ``cross_kv`` = (k, v) from an
+    encoder (B, T, K, D), the S queries attend to all T keys,
+    non-causally, so ``cross_positions`` (the encoder's arange) does not
+    enter.  Returns (out, (k, v)) — the freshly projected k/v for cache
+    insertion, or the cross k/v."""
+    if cross_kv is not None:
+        q = _proj(x, params["wq"])
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+        k, v = cross_kv
+        out = kops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
+            softcap=cfg.attn_logit_softcap)
+        return output_proj(params, out, x.dtype), (k, v)
     if local:
         raise NotImplementedError(
             "windowed (local) attention layers are not ported yet")
@@ -108,6 +127,25 @@ def attention_apply(params, x, *, positions, cfg, local: bool = False,
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
         softcap=cfg.attn_logit_softcap)
     return output_proj(params, out, x.dtype), (k, v)
+
+
+def cross_kv_project(params, enc_out, cfg):
+    """Project encoder output into cross-attention K/V once (cached)."""
+    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
+
+
+def cross_attention_decode(params, x, k, v, cfg, positions=None):
+    """One decode step's cross-attention: x (B, 1, d) queries every one
+    of the T cached encoder keys k/v (B, T, K, D), through the decode
+    kernel with lengths = T."""
+    q = _proj(x, params["wq"])
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    B, T = k.shape[:2]
+    lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    out = kops.decode_attention(q[:, 0].contiguous(), k, v, lengths,
+                                softcap=cfg.attn_logit_softcap)[:, None]
+    return output_proj(params, out, x.dtype)
 
 
 def cache_insert(cache_arr, new_val, lengths):

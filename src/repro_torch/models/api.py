@@ -125,6 +125,12 @@ def _run_backbone(stages, params, h, ctx, caches):
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
+    if cfg.is_encoder_decoder:
+        # encoder-decoder families have no paged layout: the paged
+        # fields stay None, as in the JAX package
+        from repro_torch.models.encdec import build_encdec
+
+        return build_encdec(cfg)
     stages = make_stages(cfg)
     specs = _lm_specs(cfg, stages)
 

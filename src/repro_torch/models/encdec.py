@@ -1,0 +1,210 @@
+"""Encoder-decoder model (whisper-tiny family).
+
+The conv audio frontend is a STUB, as in the JAX package: requests carry
+precomputed frame embeddings (B, encoder_seq, d_model).  The encoder is
+a bidirectional transformer; the decoder adds cross-attention over the
+encoder output.  Positions are sinusoidal (parameter-free).
+
+S2M3 view: the encoder is a modality-wise *encoder module*; the decoder
+is the *task head module*.
+
+Where the reference scans the stacked layers, the port loops over the
+layer index and writes each layer's cache slice in place.  Attention
+goes through the kernels: the encoder's non-causal self-attention and
+the decoder's causal self-attention and non-causal cross-attention
+(S prompt queries against the T encoder keys) through the flash kernel
+in prefill; in decode, the self-attention through the decode kernel
+over the dense cache up to ``lengths + 1`` and the cross-attention
+through the decode kernel over the cached cross K/V with lengths = T.
+The port computes in float32; ``loss_fn`` is None until the training
+slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.common.pytree import tree_map
+from repro_torch.kernels import ops as kops
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply
+from repro_torch.layers.initializers import WSpec, stack_specs
+from repro_torch.layers.mlp import mlp_apply, mlp_specs
+from repro_torch.layers.norms import apply_norm, norm_specs
+
+
+def sinusoid(positions, d_model):
+    """positions: (B, S) -> (B, S, d) float32 sinusoidal embedding."""
+    half = d_model // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=positions.device)
+                     * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _enc_block_specs(cfg):
+    d = cfg.d_model
+    return {
+        "ln_attn": norm_specs(d, cfg.norm),
+        "attn": attn_lib.attention_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "ln_mlp": norm_specs(d, cfg.norm),
+        "mlp": mlp_specs(d, cfg.d_ff),
+    }
+
+
+def _dec_block_specs(cfg):
+    d = cfg.d_model
+    return {
+        "ln_self": norm_specs(d, cfg.norm),
+        "self_attn": attn_lib.attention_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "ln_cross": norm_specs(d, cfg.norm),
+        "cross_attn": attn_lib.attention_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        "ln_mlp": norm_specs(d, cfg.norm),
+        "mlp": mlp_specs(d, cfg.d_ff),
+    }
+
+
+def _enc_block(p, h, positions, cfg):
+    x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
+    y, _ = attn_lib.attention_apply(p["attn"], x, positions=positions,
+                                    cfg=cfg, causal=False)
+    h = h + y
+    x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
+    return h + mlp_apply(p["mlp"], x, cfg.act_fn)
+
+
+def _dec_block(p, h, cache, ctx, cfg, enc_out, enc_positions):
+    """cache: {self: {k,v}, cross: {k,v}}, this layer's views, written in
+    place (prefill fills both; decode appends one self k/v per row)."""
+    mode = ctx["mode"]
+    positions = ctx["positions"]
+
+    # --- self attention ---
+    x = apply_norm(p["ln_self"], h, cfg.norm, cfg.norm_eps)
+    if mode == "prefill":
+        S = x.shape[1]
+        y, (k, v) = attn_lib.attention_apply(p["self_attn"], x,
+                                             positions=positions, cfg=cfg)
+        cache["self"]["k"][:, :S] = k.to(cache["self"]["k"].dtype)
+        cache["self"]["v"][:, :S] = v.to(cache["self"]["v"].dtype)
+    else:
+        lengths = ctx["lengths"]
+        q, k_new, v_new = attn_lib.project_qkv(p["self_attn"], x, positions, cfg)
+        attn_lib.cache_insert(cache["self"]["k"], k_new, lengths)
+        attn_lib.cache_insert(cache["self"]["v"], v_new, lengths)
+        out = kops.decode_attention(
+            q[:, 0].contiguous(), cache["self"]["k"], cache["self"]["v"],
+            (lengths + 1).to(torch.int32),
+            softcap=cfg.attn_logit_softcap)[:, None]
+        y = attn_lib.output_proj(p["self_attn"], out, x.dtype)
+    h = h + y
+
+    # --- cross attention ---
+    x = apply_norm(p["ln_cross"], h, cfg.norm, cfg.norm_eps)
+    if mode == "prefill":
+        ck, cv = attn_lib.cross_kv_project(p["cross_attn"], enc_out, cfg)
+        cache["cross"]["k"].copy_(ck)
+        cache["cross"]["v"].copy_(cv)
+        y, _ = attn_lib.attention_apply(
+            p["cross_attn"], x, positions=positions, cfg=cfg,
+            cross_kv=(ck, cv), cross_positions=enc_positions)
+    else:
+        y = attn_lib.cross_attention_decode(
+            p["cross_attn"], x, cache["cross"]["k"], cache["cross"]["v"], cfg,
+            positions=positions)
+    h = h + y
+
+    x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
+    return h + mlp_apply(p["mlp"], x, cfg.act_fn)
+
+
+def _layer(tree, i):
+    return tree_map(lambda t: t[i], tree)
+
+
+def _encode(cfg, params, frames):
+    B, S = frames.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=frames.device).expand(B, S)
+    h = frames.float() @ params["audio_proj"]["w"].float()
+    h = h + sinusoid(positions, cfg.d_model)
+    for i in range(cfg.n_encoder_layers):
+        h = _enc_block(_layer(params["encoder"], i), h, positions, cfg)
+    h = apply_norm(params["enc_norm"], h, cfg.norm, cfg.norm_eps)
+    return h, positions
+
+
+def build_encdec(cfg):
+    from repro_torch.models.api import ModelBundle
+
+    n_dec = cfg.n_layers
+    specs: dict[str, Any] = {
+        "audio_proj": {"w": WSpec((cfg.d_model, cfg.d_model), (None, "embed"))},
+        "encoder": stack_specs(_enc_block_specs(cfg), cfg.n_encoder_layers),
+        "enc_norm": norm_specs(cfg.d_model, cfg.norm),
+        "embed": embed_specs(cfg.vocab_size, cfg.d_model),
+        "decoder": stack_specs(_dec_block_specs(cfg), n_dec),
+        "final_norm": norm_specs(cfg.d_model, cfg.norm),
+    }
+
+    def _dec_embed(params, tokens, positions):
+        h = embed_apply(params["embed"], tokens)
+        return h + sinusoid(positions, cfg.d_model)
+
+    def _head(params, h):
+        # whisper ties the decoder embedding and the output head
+        return head_apply(None, h, tied_table=params["embed"]["table"])
+
+    def _run_decoder(params, h, ctx, cache, enc_out, enc_positions):
+        for i in range(n_dec):
+            h = _dec_block(_layer(params["decoder"], i), h, _layer(cache, i),
+                           ctx, cfg, enc_out, enc_positions)
+        return h
+
+    def prefill(params, batch, cache):
+        enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"])
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        lengths = batch.get("lengths")
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.int32,
+                                 device=tokens.device)
+        ctx = {"mode": "prefill", "positions": positions, "lengths": lengths}
+        h = _dec_embed(params, tokens, positions)
+        h = _run_decoder(params, h, ctx, cache, enc_out, enc_pos)
+        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        last = (lengths.long() - 1).clamp(0, S - 1)
+        h_last = h[torch.arange(B, device=h.device), last][:, None, :]
+        return _head(params, h_last)[:, 0], cache
+
+    def decode_step(params, tokens, cache, lengths):
+        positions = lengths[:, None].to(torch.int32)
+        ctx = {"mode": "decode", "positions": positions, "lengths": lengths}
+        h = _dec_embed(params, tokens, positions)
+        h = _run_decoder(params, h, ctx, cache, None, None)
+        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        return _head(params, h)[:, 0], cache
+
+    def cache_specs(B, T, dtype=torch.float32):
+        K, D = cfg.n_kv_heads, cfg.head_dim
+
+        def kv(t):
+            return {
+                "k": WSpec((n_dec, B, t, K, D),
+                           ("layers", "cache_batch", "cache_seq", "cache_heads", None),
+                           init="zeros", dtype=dtype),
+                "v": WSpec((n_dec, B, t, K, D),
+                           ("layers", "cache_batch", "cache_seq", "cache_heads", None),
+                           init="zeros", dtype=dtype),
+            }
+
+        return {"self": kv(T), "cross": kv(cfg.encoder_seq)}
+
+    return ModelBundle(cfg=cfg, specs=specs, prefill=prefill,
+                       decode_step=decode_step, cache_specs=cache_specs)

@@ -1,16 +1,26 @@
-"""``repro_torch.obs`` — tracing and metrics for the serving stack.
+"""``repro_torch.obs`` — observability for the serving stack.
 
 * **Tracing** (``obs.trace``): ``Span``/``Tracer`` with an injectable
   monotonic clock; the engine, scheduler and decode streams emit one
   span tree per request, exportable as Chrome-trace JSON.
 * **Metrics** (``obs.metrics``): a lock-safe counter/gauge/histogram
   registry; ``stats_dict()`` is a compatibility view over it.
+  ``obs.summary.slo_summary`` renders per-task p50/p99 and SLO-deadline
+  attainment from the histograms.
+* **Drift** (``obs.drift``): ``Deployment.compare(workload)`` runs
+  ``simulate()`` and ``serve()`` on the same ``Request`` objects and
+  reports route divergences, per-module measured/predicted latency
+  ratios and queue-model error.  On the card the measured spans end
+  after a device sync, so they time the device work, not its enqueue.
 """
 
+from repro_torch.obs.drift import DriftReport, compare_deployment
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
+from repro_torch.obs.summary import format_slo_summary, slo_summary
 from repro_torch.obs.trace import Span, Trace, Tracer
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "Span", "Trace", "Tracer",
+    "Counter", "DriftReport", "Gauge", "Histogram", "MetricsRegistry",
+    "Span", "Trace", "Tracer", "compare_deployment",
+    "format_slo_summary", "slo_summary",
 ]

@@ -384,6 +384,16 @@ class Deployment:
             return self.scheduler.tracer.trace
         return self._require_engine().tracer.trace
 
+    def compare(self, workload: list[Request], **serve_kwargs):
+        """Drift check: run ``simulate()`` and ``serve()`` on the *same*
+        requests and reconcile them — route divergences (simulated
+        device != measured device, the plan-level invariant), per-module
+        predicted-vs-measured latency ratios, and queue-model error.
+        Returns an ``obs.drift.DriftReport``."""
+        from repro_torch.obs.drift import compare_deployment
+
+        return compare_deployment(self, workload, **serve_kwargs)
+
     # -- elasticity -----------------------------------------------------
     def replan(self, new_cluster: ClusterSpec | None = None) -> PlanReport:
         """Re-run the pinned strategy on a changed device pool (paper

@@ -375,6 +375,7 @@ class S2M3Engine:
         t0 = now()
         logits, cache = self.apply_prefill(
             model.head.name, self.gen_batch(prompt, enc_outputs), cache)
+        sync(logits.device)
         timeline.append(self.tracer.record(
             model.head.name, "prefill", t0, now(), rid=request.rid,
             parent=root, prompt_tokens=len(prompt)))

@@ -518,10 +518,13 @@ class ServeScheduler:
             xs = [torch.as_tensor(s.x) for s in batch]
             out, used = self.engine.apply_module(
                 module, torch.cat(xs, dim=0), host=host)
-            # views of one launch's output: no copy, no wait here
+            # views of one launch's output: no copy
             outs = torch.split(out, [x.shape[0] for x in xs], dim=0)
         self._charge(module, used, len(batch), t0)
         self._bookkeep(module, batch)
+        # the encode span ends when the device has run the batch, not
+        # when it was enqueued (CUDA launches return at once)
+        sync(out.device)
         t1 = self._now()
         modality = self.engine.registry.modules[module].modality
         models = sorted({s.request.model for s in batch})

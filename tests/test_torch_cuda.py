@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain versions on the
 card, at the serving paths' shapes (internvl2-1b attention: H=14, K=2,
 D=64; zamba2-7b: shared attention H=K=32, D=112, and the SSD kernel at
-L=128, H=112, P=64, N=64; xlstm-1.3b's sLSTM at d=2048, H=4, hd=512).
+L=128, H=112, P=64, N=64; xlstm-1.3b's sLSTM at d=2048, H=4, hd=512;
+the mini-clip towers: H=K=4, D=16; tinyllama-1.1b: H=32, K=4, D=64;
+whisper-tiny: H=K=6, D=64 over 1500 encoder frames).
 
 Marked ``cuda``: they skip where no CUDA device is visible.  This file
 imports no jax, so it runs on a machine with the card alone:
@@ -248,7 +250,8 @@ def test_cuda_slstm_four_gate_R_equals_stacked(cuda_device, B, S, H, hd):
 # the paged kernel's geometries: (H, K, D) at G = 7 and G = 1
 PAGED_GEOMS = {"D=16 G=7": (14, 2, 16), "D=64 G=7": (14, 2, 64),
                "D=112 G=7": (14, 2, 112), "D=16 G=1": (4, 4, 16),
-               "D=64 G=1": (4, 4, 64), "D=112 G=1": (4, 4, 112)}
+               "D=64 G=1": (4, 4, 64), "D=112 G=1": (4, 4, 112),
+               "D=64 G=8": (32, 4, 64)}          # tinyllama-1.1b
 PAGE, N_MAX, N_PAGES = 16, 32, 129   # internvl2-1b's serve tick
 
 
@@ -317,7 +320,10 @@ def test_cuda_paged_split_edges(cuda_device, dtype, atol, rtol, geom, batch,
 
 # the attention kernels' edge cases at each path's head geometry:
 # (H, K, D, the path's S or T)
-ATTN_GEOMS = {"internvl2-1b": (14, 2, 64, 267), "zamba2-7b": (32, 32, 112, 383)}
+ATTN_GEOMS = {"internvl2-1b": (14, 2, 64, 267), "zamba2-7b": (32, 32, 112, 383),
+              "mini-clip": (4, 4, 16, 16),            # the towers
+              "tinyllama-1.1b": (32, 4, 64, 12),      # G = 8, a prompt
+              "whisper-tiny": (6, 6, 64, 1500)}       # the encoder
 # (B, S, T, keywords); None is the path's S
 FLASH_EDGES = [
     (1, 1, 1, {}), (1, 5, 5, {}), (1, 5, 5, dict(causal=False)),
@@ -348,7 +354,9 @@ def test_cuda_flash_edges(cuda_device, dtype, atol, rtol, arch, B, S, T, kw):
 
 DECODE_GEOMS = {"internvl2-1b": (14, 2, 64, 304),     # G = 7
                 "zamba2-7b": (32, 32, 112, 400),      # G = 1
-                "G=1 D=112 K=4": (4, 4, 112, 400)}    # G = 1, several splits
+                "G=1 D=112 K=4": (4, 4, 112, 400),    # G = 1, several splits
+                "tinyllama-1.1b": (32, 4, 64, 32),    # G = 8, solo cache
+                "whisper-tiny": (6, 6, 64, 1500)}     # G = 1, cross keys
 
 
 @pytest.mark.cuda
@@ -359,13 +367,13 @@ DECODE_GEOMS = {"internvl2-1b": (14, 2, 64, 304),     # G = 7
 def test_cuda_decode_split_edges(cuda_device, dtype, atol, rtol, arch, batch,
                                  softcap):
     """Lengths 0, 1, the first split boundary of a full row - 1 and + 1,
-    and T in one batch (or B = 4 with T, 1, 237, 0); the merge tickets
+    and T in one batch (or B = 4 with T, 1, 237 or T - 1, 0); the merge tickets
     are left zero, and a second call gives the same bits."""
     H, K, D, T = DECODE_GEOMS[arch]
     g = torch.Generator(device=cuda_device).manual_seed(5)
     n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     if batch == "B=4":
-        lens = [T, 1, 237, 0]
+        lens = [T, 1, min(237, T - 1), 0]
     else:
         n = ops.decode_splits(T, 5, K, H // K, n_sm)
         c = ops.split_range(T, n, 1)[0]
@@ -385,3 +393,51 @@ def test_cuda_decode_split_edges(cuda_device, dtype, atol, rtol, arch, batch,
     again = ops.decode_attention(q, k, v, lengths, softcap=softcap)
     torch.testing.assert_close(again, got, rtol=0, atol=0)
     assert int(ops._TICKETS[cuda_device.index or 0].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("S", [2, 8])
+def test_cuda_flash_cross_attention(cuda_device, dtype, atol, rtol, S):
+    """whisper-tiny's cross-attention prefill: a prompt of S queries
+    against the 1500 encoder keys, H = K = 6, D = 64, non-causal."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q, k, v = rnd(1, S, 6, 64), rnd(1, 1500, 6, 64), rnd(1, 1500, 6, 64)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=False).float(),
+        ref.flash_attention_ref(q, k, v, causal=False).float(),
+        rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_launches_counted_by_shape(cuda_device):
+    """Each attention wrapper counts one launch under its call shape, and
+    the counts by shape sum to the kernel's launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    q, k = rnd(1, 7, 6, 64), rnd(1, 1500, 6, 64)
+    qd, kd = rnd(2, 32, 64), rnd(2, 24, 4, 64)
+    lens = torch.tensor([5, 24], dtype=torch.int32, device=cuda_device)
+    kp = rnd(9, 16, 4, 64)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32,
+                          device=cuda_device)
+    ops.reset_launches()
+    for _ in range(2):
+        ops.flash_attention(q, k, k, causal=False)
+    ops.flash_attention(q, q, q)
+    ops.decode_attention(qd, kd, kd, lens)
+    ops.paged_decode_attention(qd, kp, kp, tables, lens)
+    assert ops.SHAPE_LAUNCHES["flash_attention"] == {
+        (1, 7, 1500, 6, 6, 64, False): 2, (1, 7, 7, 6, 6, 64, True): 1}
+    assert ops.SHAPE_LAUNCHES["decode_attention"] == {(2, 24, 32, 4, 64): 1}
+    assert ops.SHAPE_LAUNCHES["paged_decode_attention"] == {
+        (2, 2, 16, 32, 4, 64): 1}
+    assert {name: sum(c.values()) for name, c in ops.SHAPE_LAUNCHES.items()
+            } == {name: ops.LAUNCHES[name] for name in ops.SHAPE_LAUNCHES}

@@ -84,7 +84,8 @@ def test_materialize_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
     assert out.devices == {"enc": "dev0", "head": "dev0"}
 
 
-@pytest.mark.parametrize("arch", ["internvl2-1b", "zamba2-7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["internvl2-1b", "zamba2-7b", "xlstm-1.3b",
+                                  "tinyllama-1.1b", "whisper-tiny"])
 def test_model_init_needs_cuda_unless_cpu_is_asked_for(monkeypatch, arch):
     """A model built with no device lands on the card: with CUDA hidden,
     its weights and caches raise instead of falling back to the CPU."""

@@ -185,10 +185,12 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     q = torch.from_numpy(_rand(rng, 1, 8, 4, 16))
     k = torch.from_numpy(_rand(rng, 1, 8, 2, 16))
     before = dict(ops.LAUNCHES)
+    shapes = {name: dict(c) for name, c in ops.SHAPE_LAUNCHES.items()}
     out = ops.flash_attention(q, k, k)
     torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k),
                                rtol=0, atol=0)
     assert ops.LAUNCHES == before
+    assert ops.SHAPE_LAUNCHES == shapes
 
 
 @pytest.mark.parametrize("bad", ["dtype", "lengths", "heads", "device"])

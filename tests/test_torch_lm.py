@@ -1,5 +1,6 @@
-"""The port's internvl2-1b (smoke) held to the JAX package's model on
-bridged weights: prefill (with the image prefix), dense-cache decode
+"""The port's dense-family models held to the JAX package's on bridged
+weights, each at smoke size: internvl2-1b (vlm, G = 2, with its image
+prefix) and tinyllama-1.1b (dense, G = 2).  Prefill, dense-cache decode
 and paged decode give the same logits at float32 2e-4, and the bridge
 round-trips parameter trees."""
 
@@ -21,12 +22,12 @@ from repro_torch.serving.kvcache import insert_pages
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-@pytest.fixture(scope="module")
-def models():
-    cfg = ref_get_config("internvl2-1b", smoke=True)
+@pytest.fixture(scope="module", params=["internvl2-1b", "tinyllama-1.1b"])
+def models(request):
+    cfg = ref_get_config(request.param, smoke=True)
     jb = ref_build_model(cfg, compute_dtype=jnp.float32)
     jp = jb.init(jax.random.PRNGKey(0))
-    tb = build_model(get_config("internvl2-1b", smoke=True))
+    tb = build_model(get_config(request.param, smoke=True))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return cfg, jb, jp, tb, tp
 
@@ -37,6 +38,17 @@ def _inputs(cfg, B=2, S=5, seed=0):
                               ).astype(np.float32)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     return img, toks
+
+
+def _batches(cfg, img, toks):
+    """The prefill batch in each package (the image prefix only for a
+    VLM), and the prefix length."""
+    j = {"tokens": jnp.asarray(toks)}
+    t = {"tokens": torch.from_numpy(toks)}
+    if cfg.has_vision_stub:
+        j["image_embeds"] = jnp.asarray(img)
+        t["image_embeds"] = torch.from_numpy(img)
+    return j, t, (cfg.n_image_tokens if cfg.has_vision_stub else 0)
 
 
 def _close(t, j):
@@ -55,16 +67,15 @@ def test_specs_and_param_count_match_reference(models):
 def test_prefill_then_decode_matches_reference(models):
     cfg, jb, jp, tb, tp = models
     img, toks = _inputs(cfg)
+    jbatch, tbatch, n_prefix = _batches(cfg, img, toks)
     T = 24
     jc = jb.init_cache(2, T, jnp.float32)
-    jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks),
-                             "image_embeds": jnp.asarray(img)}, jc)
+    jl, jc = jb.prefill(jp, jbatch, jc)
     tc = tb.init_cache(2, T, device="cpu")
-    tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks),
-                             "image_embeds": torch.from_numpy(img)}, tc)
+    tl, tc = tb.prefill(tp, tbatch, tc)
     _close(tl, jl)
     _close(tc["blocks"]["k"], jc["blocks"]["k"])
-    L = cfg.n_image_tokens + toks.shape[1]
+    L = n_prefix + toks.shape[1]
     lens = np.array([L, L - 2], np.int32)      # ragged rows
     nxt = np.array([[7], [11]], np.int32)
     for _ in range(3):
@@ -79,18 +90,17 @@ def test_prefill_then_decode_matches_reference(models):
 def test_paged_decode_matches_reference(models):
     cfg, jb, jp, tb, tp = models
     img, toks = _inputs(cfg, B=1, S=4, seed=1)
+    jbatch, tbatch, n_prefix = _batches(cfg, img, toks)
     ps, n_pages = 8, 9
-    L = cfg.n_image_tokens + toks.shape[1]
+    L = n_prefix + toks.shape[1]
     pages = [5, 2]                                # shuffled pool pages
     span = len(pages) * ps
     jd = jb.init_cache(1, span, jnp.float32)
-    _, jd = jb.prefill(jp, {"tokens": jnp.asarray(toks),
-                            "image_embeds": jnp.asarray(img)}, jd)
+    _, jd = jb.prefill(jp, jbatch, jd)
     jpool = ref_insert_pages(jb.init_paged_cache(n_pages, ps, jnp.float32),
                              jd, pages, L)
     td = tb.init_cache(1, span, device="cpu")
-    _, td = tb.prefill(tp, {"tokens": torch.from_numpy(toks),
-                            "image_embeds": torch.from_numpy(img)}, td)
+    _, td = tb.prefill(tp, tbatch, td)
     tpool = insert_pages(tb.init_paged_cache(n_pages, ps, device="cpu"), td, pages, L)
     _close(tpool["blocks"]["v"], jpool["blocks"]["v"])
     # row 0 live, row 1 dead (dummy page 0); tables with garbage tails

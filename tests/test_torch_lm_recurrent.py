@@ -121,7 +121,8 @@ def test_serve_of_a_recurrent_head_is_refused_alike(models):
     assert type(got.value) is type(want.value)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["internvl2-1b"])
+@pytest.mark.parametrize("arch", ARCHS + ["internvl2-1b", "tinyllama-1.1b",
+                                          "whisper-tiny"])
 def test_serve_launcher_runs_on_the_cpu(arch, capsys):
     tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                  "--requests", "2", "--max-new", "4"])
@@ -130,7 +131,8 @@ def test_serve_launcher_runs_on_the_cpu(arch, capsys):
     assert "[serve] 2 requests, 8 tokens" in out
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["internvl2-1b"])
+@pytest.mark.parametrize("arch", ARCHS + ["internvl2-1b", "tinyllama-1.1b",
+                                          "whisper-tiny"])
 def test_plan_matches_reference_launcher(arch, capsys):
     from repro.launch.serve import plan_s2m3 as ref_plan
 

@@ -230,7 +230,9 @@ def test_tile_partition_matches_plain_and_pallas(B, nc, L, H, P, N):
 
 
 def test_reset_launches_clears_the_ssd_shape_counts():
-    ops.SSD_LAUNCHES[(1, 3, 128)] = 81
+    for name, counts in ops.SHAPE_LAUNCHES.items():
+        counts[(1, 3, 128)] = 81
+        ops.LAUNCHES[name] = 81
     ops.reset_launches()
-    assert ops.SSD_LAUNCHES == {}
+    assert all(counts == {} for counts in ops.SHAPE_LAUNCHES.values())
     assert all(v == 0 for v in ops.LAUNCHES.values())
