@@ -81,7 +81,24 @@ Phases (any failure exits non-zero; nothing is caught):
    times the attention kernels at these phases' shapes (D = 16 towers,
    G = 8, S = T = 1500, the cross-attention prefill, T = 1500 cross
    decode, the paged G = 8 tick).
-8. Print the kernels line (JSON), the card line, and last
+8. gemma2-9b (42 layers, local layers windowed to 4,096 keys, softcaps
+   50 and 30, head dim 256), llama3-8b (32 layers, head dim 128) and
+   granite-moe-3b-a800m (32 layers, 40 experts padded to 48, top-8, G =
+   3) at their published widths and depths, one after the other
+   (random float32 weights from a seed; each freed before the next, its
+   peak device memory printed), through ``launch.serve.serve_arch``:
+   4 greedy requests of 4-12 prompt tokens each, and for gemma2 a fifth
+   whose 4,100-token prompt passes the window (in flash prefill and in
+   paged and dense decode), through the paged scheduler and again solo;
+   tokens and every step's logits serve == submit, decode == a fresh
+   prefill (gemma2's long request past position 4,096), card == CPU at
+   full width with depth cut to 2 layers, exact launches by kernel and
+   by call shape (local and global apart), prefill ms, tokens/s, device
+   busy over 3 decode steps.  Phase 2 checks and times the attention
+   kernels at these shapes (flash D = 256 local and global at S =
+   4,100, D = 128, D = 64 with G = 3; decode D = 256 local and global,
+   D = 128; paged D = 256 local, D = 128), with the window's edges.
+9. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -155,6 +172,20 @@ TL_H, TL_K, TL_ROWS, TL_CACHE = 32, 4, 4, 256
 TL_PAGES, TL_NMAX = TL_ROWS * TL_CACHE // PAGE + 1, TL_CACHE // PAGE
 W_ARCH, W_REQS, W_NEW, W_PROMPTS = "whisper-tiny", 3, 16, (2, 8)
 W_HEADS, W_T = 6, 1500
+# phase 8: gemma2-9b (16 q / 8 kv heads of 256, local layers windowed to
+# 4,096 keys, softcap 50), llama3-8b (32 / 8 of 128) and
+# granite-moe-3b-a800m (24 / 8 of 64, G = 3), each 4 greedy requests of
+# 4-12 prompt tokens, 8 new tokens, 4 decode rows, pages of 16; gemma2
+# a fifth request whose 4,100-token prompt passes the window, in a pool
+# whose rows hold 4,112 tokens
+FAM_ARCHS = ("gemma2-9b", "llama3-8b", "granite-moe-3b-a800m")
+FAM_GEOM = {"gemma2-9b": (16, 8, 256), "llama3-8b": (32, 8, 128),
+            "granite-moe-3b-a800m": (24, 8, 64)}
+FAM_REQS, FAM_NEW, FAM_PROMPTS, FAM_ROWS = 4, 8, (4, 12), 4
+G2_LONG, G2_WINDOW, G2_SOFTCAP, G2_CACHE = 4100, 4096, 50.0, 4112
+G2_DECODE_LEN = G2_LONG + FAM_NEW // 2  # phase 2's solo decode length
+FAM_CACHE = {"gemma2-9b": G2_CACHE, "llama3-8b": 256,
+             "granite-moe-3b-a800m": 256}
 
 
 def prompt_lens(bounds, n) -> list[int]:
@@ -478,6 +509,55 @@ def _row(name, src, repl, kernel, err, fn, plain, lib, nbytes, flops,
     return row
 
 
+# flex_attention's mask_mods at gemma2-9b's rows: each row has its own
+# function, with no closure or default argument, because torch 2.11's
+# compiled flex_attention reuses the mask compiled for one function object
+# when called with another of the same code (seen on the H100: a causal
+# call then ran with the windowed mask)
+def _g2_prefill_local(b, h, qi, ki):
+    return (qi >= ki) & (qi - ki < G2_WINDOW)
+
+
+def _g2_prefill_global(b, h, qi, ki):
+    return qi >= ki
+
+
+def _g2_decode_local(b, h, qi, ki):
+    return (ki < G2_DECODE_LEN) & (ki >= G2_DECODE_LEN - G2_WINDOW)
+
+
+def _g2_decode_global(b, h, qi, ki):
+    return ki < G2_DECODE_LEN
+
+
+def _g2_softcap(s, b, h, qi, ki):
+    return G2_SOFTCAP * (s / G2_SOFTCAP).tanh()
+
+
+def _flex_lib(name, q, k, v, want, mask_mod, Q_LEN, KV_LEN):
+    """The one-call library equivalent where SDPA has no softcap:
+    ``flex_attention`` over q (1, H, Q_LEN, D) and k, v (1, K, KV_LEN, D)
+    with gemma2-9b's tanh softcap as score_mod, ``mask_mod`` as a block
+    mask and GQA, compiled once here, outside any timing.  Its output
+    (1, H, Q_LEN, D) is held to ``want`` (the plain version's) at the
+    float32 tolerance before it is timed; returns the call."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    block_mask = create_block_mask(mask_mod, 1, None, Q_LEN, KV_LEN,
+                                   device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        return flex(q, k, v, score_mod=_g2_softcap, block_mask=block_mask,
+                    enable_gqa=True)
+
+    _check(name, "float32", "library (flex_attention) vs plain",
+           call().transpose(1, 2).reshape(want.shape), want)
+    return call
+
+
 def _flash_edges(mk, dname, H_, K_, D_, T_full):
     """Shapes at the flash kernel's edges for one head geometry: S = 1
     and S under one q-tile (causal and not), a window inside a short S,
@@ -562,29 +642,49 @@ def _paged_edges(mk, dname, dev, H_, K_, D_):
 # output written once, and the FLOPs of the pairs this call's data makes
 # live (QK^T and PV: 4 D a query-key pair and head)
 
-def _flash_work(B, S, T, H, K, D, causal, isz) -> tuple[int, float]:
+def _flash_work(B, S, T, H, K, D, causal, isz, window=0) -> tuple[int, float]:
     """A flash call's bytes (q, k, v, o) and FLOPs over the visible
-    pairs: all S x T, or the causal triangle where S = T."""
+    pairs: all S x T, or the causal triangle where S = T, less the keys a
+    window hides (query i sees min(i + 1, window) keys)."""
     pairs = S * (S + 1) / 2 if causal else S * T
+    if causal and 0 < window < S:
+        pairs = window * (window + 1) / 2 + (S - window) * window
     return (2 * B * S * H * D + 2 * B * T * K * D) * isz, 4 * D * H * B * pairs
 
 
-def _decode_work(q, k, lens, isz) -> tuple[int, float]:
+def _live_keys(lens, T, window=0):
+    """Per row, the first live key and the live keys' count: [max(0, n -
+    window), min(n, T)) under a window, [0, min(n, T)) without one."""
+    end = lens.long().clamp(0, T)
+    start = (lens.long() - window).clamp_min(0) if window else end * 0
+    return start, (end - start).clamp_min(0)
+
+
+def _decode_work(q, k, lens, isz, window=0) -> tuple[int, float]:
     """A decode call's bytes (q, o, the live keys' k and v, the lengths)
-    and FLOPs over the live keys (lengths clamped to the cache's T)."""
+    and FLOPs over the live keys (lengths clamped to the cache's T; a
+    window's span only)."""
     T, K, D = k.shape[1:]
-    n_keys = int(lens.clamp(0, T).sum())
+    n_keys = int(_live_keys(lens, T, window)[1].sum())
     return (2 * q.numel() * isz + 2 * n_keys * K * D * isz
             + 4 * lens.numel()), 4 * D * q.shape[1] * n_keys
 
 
-def _paged_work(q, k_pages, lens, owned, isz) -> tuple[int, float]:
+def _paged_work(q, k_pages, lens, owned, isz, window=0) -> tuple[int, float]:
     """A paged decode call's bytes (q, o, the live keys' k and v, the
-    owned table entries, the lengths) and FLOPs over the live keys."""
+    table entries of the pages they lie in, the lengths) and FLOPs over
+    the live keys (a window's span only).  ``owned`` marks the table
+    entries a row owns; under a window only those of its span are read."""
+    import torch
+
     K, D = k_pages.shape[2:]
-    live = int(lens.sum())
+    ps = k_pages.shape[1]
+    start, n = _live_keys(lens, owned.shape[1] * ps, window)
+    live = int(n.sum())
+    cols = torch.arange(owned.shape[1], device=owned.device)[None]
+    read = owned & (cols >= (start // ps)[:, None]) & (n[:, None] > 0)
     nbytes = (2 * q.numel() * isz + 2 * live * K * D * isz
-              + 4 * int(owned.sum()) + 4 * lens.numel())
+              + 4 * int(read.sum()) + 4 * lens.numel())
     return nbytes, 4 * D * q.shape[1] * live
 
 
@@ -602,11 +702,11 @@ def phase_kernels(dev) -> tuple[list[dict], dict]:
     rows = []
     S_pre, T_dec = serve_shapes()
     keys = {"flash_attention": ("serve", "flash_attention",
-                                (1, S_pre, S_pre, H, K, D, True)),
+                                (1, S_pre, S_pre, H, K, D, True, 0)),
             "decode_attention": ("serve", "decode_attention",
-                                 (1, T_dec, H, K, D)),
+                                 (1, T_dec, H, K, D, 0)),
             "paged_decode_attention": ("serve", "paged_decode_attention",
-                                       (ROWS, N_MAX, PAGE, H, K, D))}
+                                       (ROWS, N_MAX, PAGE, H, K, D, 0))}
 
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -771,9 +871,9 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
     rows = []
     keys = {"flash_attention_d112": (
                 "zamba2-7b", "flash_attention",
-                (1, S_REC, S_REC, Z_HEADS, Z_HEADS, Z_D, True)),
+                (1, S_REC, S_REC, Z_HEADS, Z_HEADS, Z_D, True, 0)),
             "decode_attention_d112": ("zamba2-7b", "decode_attention",
-                                      (1, T_REC, Z_HEADS, Z_HEADS, Z_D)),
+                                      (1, T_REC, Z_HEADS, Z_HEADS, Z_D, 0)),
             **{name: ("zamba2-7b", "ssd_intra_chunk", shape[:3])
                for name, shape in SSD_ROWS.items()},
             "slstm_scan": ("xlstm-1.3b", "slstm_scan",
@@ -977,7 +1077,7 @@ def phase_kernels_slice(dev) -> tuple[list[dict], dict]:
         for name, path, B_, S_, T_, H_, K_, causal, what in flash:
             D_ = CLIP_D if path == "scenario" else D
             keys[name] = (path, "flash_attention",
-                          (B_, S_, T_, H_, K_, D_, causal))
+                          (B_, S_, T_, H_, K_, D_, causal, 0))
             q = rnd(B_, S_, H_, D_).to(dt)
             k, v = rnd(B_, T_, K_, D_).to(dt), rnd(B_, T_, K_, D_).to(dt)
             err = _check("flash_attention", dname,
@@ -1026,7 +1126,7 @@ def phase_kernels_slice(dev) -> tuple[list[dict], dict]:
                          ref.decode_attention_ref(qd, kd, vd, ld))
             if name is None:
                 continue
-            keys[name] = (path, "decode_attention", (1, T_, H_, K_, D))
+            keys[name] = (path, "decode_attention", (1, T_, H_, K_, D, 0))
             mask = (torch.arange(T_, device=dev)[None] < ld[:, None])[
                 :, None, None, :]
             specs.append((
@@ -1045,7 +1145,7 @@ def phase_kernels_slice(dev) -> tuple[list[dict], dict]:
         # -- paged decode at tinyllama-1.1b's serve tick -----------------
         keys["paged_decode_attention_g8"] = (
             TL_ARCH, "paged_decode_attention",
-            (TL_ROWS, TL_NMAX, PAGE, TL_H, TL_K, D))
+            (TL_ROWS, TL_NMAX, PAGE, TL_H, TL_K, D, 0))
         qp = rnd(TL_ROWS, TL_H, D).to(dt)
         kp, vp = (rnd(TL_PAGES, PAGE, TL_K, D).to(dt) for _ in range(2))
         lens_p = torch.randint(TL_PROMPTS[0], TL_PROMPTS[1] + TL_NEW,
@@ -1077,6 +1177,221 @@ def phase_kernels_slice(dev) -> tuple[list[dict], dict]:
     return rows, keys
 
 
+def fam_prompts(arch) -> list[int]:
+    """Phase 8's prompt lengths for ``arch``: 4 drawn from the seed, and
+    for gemma2-9b the 4,100-token one that passes its window."""
+    lens = prompt_lens(FAM_PROMPTS, FAM_REQS)
+    return lens + [G2_LONG] if arch == "gemma2-9b" else lens
+
+
+def phase_kernels_families(dev) -> tuple[list[dict], dict]:
+    """The attention kernels at phase 8's new shapes, float32 and
+    bfloat16 against their plain versions, one kernels-line row each
+    (float32), timed at a call its path makes:
+
+    * flash D = 256, H = 16, K = 8, softcap 50 at gemma2-9b's 4,100-token
+      prefill, its local layers (window 4,096) and its global ones;
+      D = 128, H = 32, K = 8 at llama3-8b's longest prompt; D = 64, H =
+      24, K = 8 (G = 3) at granite-moe-3b-a800m's;
+    * decode D = 256 over gemma2's solo cache of the long request (4,112
+      slots, 4,104 keys: 4,096 live under the window), local and
+      global; D = 128 over llama3's solo cache;
+    * paged decode D = 256 at gemma2's serve tick (4 rows, tables of 257
+      pages, the long row and three short ones), local; D = 128 at
+      llama3's tick.
+
+    Checked besides (no row): the same decode and paged calls without a
+    window or with softcap 0, granite's G = 3 decode and tick, each
+    window edge (lengths 0, 1, window - 1, window, window + 1), and
+    decode and paged decode at D = 256 with G = 8 and 12 (the merge in
+    passes).  The library call is SDPA, or where a row has a softcap
+    ``flex_attention`` (``_flex_lib``).  Returns the rows and each row's
+    (path, kernel, call shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows, keys = [], {}
+    g2, l3, gr = FAM_ARCHS
+    S_short = max(fam_prompts(l3))
+    T_long = dense_T(G2_LONG, FAM_NEW)
+    T_short = dense_T(S_short, FAM_NEW)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        isz = torch.tensor([], dtype=dt).element_size()
+        specs = []
+        # -- flash ------------------------------------------------------
+        for name, path, S_, window, softcap, flex_mask in (
+                ("flash_attention_d256_local", g2, G2_LONG, G2_WINDOW,
+                 G2_SOFTCAP, _g2_prefill_local),
+                ("flash_attention_d256_global", g2, G2_LONG, 0, G2_SOFTCAP,
+                 _g2_prefill_global),
+                ("flash_attention_d128", l3, S_short, 0, 0.0, None),
+                ("flash_attention_g3", gr, S_short, 0, 0.0, None)):
+            H_, K_, D_ = FAM_GEOM[path]
+            keys[name] = (path, "flash_attention",
+                          (1, S_, S_, H_, K_, D_, True, window))
+            kw = dict(window=window, softcap=softcap)
+            q = rnd(1, S_, H_, D_).to(dt)
+            k, v = rnd(1, S_, K_, D_).to(dt), rnd(1, S_, K_, D_).to(dt)
+            err = _check("flash_attention", dname,
+                         f"{path} prefill: S={S_} H={H_} K={K_} D={D_} {kw}",
+                         ops.flash_attention(q, k, v, **kw),
+                         ref.flash_attention_ref(q, k, v, **kw))
+            lib = None
+            qh, kh_, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            if not softcap and not window:
+                lib = (lambda q=qh, k=kh_, v=vh:
+                       F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True))
+            elif dt is torch.float32:
+                lib = _flex_lib(name, qh, kh_, vh,
+                                ref.flash_attention_ref(q, k, v, **kw),
+                                flex_mask, S_, S_)
+            specs.append((
+                name, "csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:93", "flash_fwd", err,
+                lambda q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.flash_attention_ref(
+                    q, k, v, **kw),
+                lib, *_flash_work(1, S_, S_, H_, K_, D_, True, isz, window),
+                dname, 20 if S_ == G2_LONG else 200))
+        # window edges of the windowed flash at D = 256 (S = 600, window
+        # 256, ragged) and a non-causal window
+        H_, K_, D_ = FAM_GEOM[g2]
+        q, k, v = rnd(1, 600, H_, D_).to(dt), rnd(1, 600, K_, D_).to(dt), \
+            rnd(1, 600, K_, D_).to(dt)
+        for kw in (dict(window=256, softcap=G2_SOFTCAP), dict(window=1),
+                   dict(window=256, causal=False)):
+            _check("flash_attention", dname, f"D=256 S=600 {kw}",
+                   ops.flash_attention(q, k, v, **kw),
+                   ref.flash_attention_ref(q, k, v, **kw))
+
+        # -- decode: gemma2's long solo cache, local and global; llama3's
+        #    and granite's short ones -------------------------------------
+        for name, path, T_, n_len, window, softcap, flex_mask in (
+                ("decode_attention_d256_local", g2, T_long, G2_DECODE_LEN,
+                 G2_WINDOW, G2_SOFTCAP, _g2_decode_local),
+                ("decode_attention_d256_global", g2, T_long, G2_DECODE_LEN,
+                 0, G2_SOFTCAP, _g2_decode_global),
+                ("decode_attention_d128", l3, T_short,
+                 S_short + FAM_NEW // 2, 0, 0.0, None),
+                (None, gr, T_short, S_short + FAM_NEW // 2, 0, 0.0, None)):
+            H_, K_, D_ = FAM_GEOM[path]
+            qd = rnd(1, H_, D_).to(dt)
+            kd, vd = rnd(1, T_, K_, D_).to(dt), rnd(1, T_, K_, D_).to(dt)
+            ld = torch.tensor([n_len], dtype=torch.int32, device=dev)
+            kw = dict(window=window, softcap=softcap)
+            err = _check("decode_attention", dname,
+                         f"{path} solo decode: H={H_} K={K_} D={D_} T={T_} "
+                         f"length {n_len} {kw} n_split "
+                         f"{ops.decode_splits(T_, 1, K_, H_ // K_, n_sm, window)}",
+                         ops.decode_attention(qd, kd, vd, ld, **kw),
+                         ref.decode_attention_ref(qd, kd, vd, ld, **kw))
+            if name is None:
+                continue
+            keys[name] = (path, "decode_attention",
+                          (1, T_, H_, K_, D_, window))
+            lib = None
+            if not softcap:
+                mask = (torch.arange(T_, device=dev)[None] < ld[:, None])[
+                    :, None, None, :]
+                lib = (lambda q=qd, k=kd, v=vd, m=mask:
+                       F.scaled_dot_product_attention(
+                           q[:, :, None], k.transpose(1, 2),
+                           v.transpose(1, 2), attn_mask=m, enable_gqa=True))
+            elif dt is torch.float32:
+                lib = _flex_lib(name, qd[:, :, None].contiguous(),
+                                kd.transpose(1, 2).contiguous(),
+                                vd.transpose(1, 2).contiguous(),
+                                ref.decode_attention_ref(qd, kd, vd, ld, **kw),
+                                flex_mask, 1, T_)
+            specs.append((
+                name, "csrc/decode_attention.cu",
+                "src/repro/kernels/decode_attention.py:70", "decode_fwd", err,
+                lambda q=qd, k=kd, v=vd, l_=ld, kw=kw: ops.decode_attention(
+                    q, k, v, l_, **kw),
+                lambda q=qd, k=kd, v=vd, l_=ld, kw=kw:
+                    ref.decode_attention_ref(q, k, v, l_, **kw),
+                lib, *_decode_work(qd, kd, ld, isz, window), dname))
+        # the window's edges in one batch, over gemma2's geometry
+        H_, K_, D_ = FAM_GEOM[g2]
+        w = 256
+        lens = torch.tensor([0, 1, w - 1, w, w + 1, 600, 1000],
+                            dtype=torch.int32, device=dev)
+        qd = rnd(len(lens), H_, D_).to(dt)
+        kd, vd = (rnd(len(lens), 1000, K_, D_).to(dt) for _ in range(2))
+        for kw in (dict(window=w), dict(window=w, softcap=G2_SOFTCAP)):
+            _check("decode_attention", dname,
+                   f"D=256 window edges lengths {lens.tolist()} {kw}",
+                   ops.decode_attention(qd, kd, vd, lens, **kw),
+                   ref.decode_attention_ref(qd, kd, vd, lens, **kw))
+
+        # D = 256 with more q-heads a block (G = 8; G = 12, a block of 8
+        # and one of 4) than the merge has a thread for each output float4:
+        # the merge runs in passes
+        for H_, K_ in ((16, 2), (12, 1)):
+            mk = (lambda *sh: rnd(*sh).to(dt))
+            _decode_edges(mk, dname, dev, H_, K_, 256, 1000)
+            _paged_edges(mk, dname, dev, H_, K_, 256)
+
+        # -- paged decode: gemma2's tick (local), llama3's and granite's --
+        for name, path, cache, window, softcap in (
+                ("paged_decode_attention_d256_local", g2, G2_CACHE,
+                 G2_WINDOW, G2_SOFTCAP),
+                (None, g2, G2_CACHE, 0, G2_SOFTCAP),
+                ("paged_decode_attention_d128", l3, FAM_CACHE[l3], 0, 0.0),
+                (None, gr, FAM_CACHE[gr], 0, 0.0)):
+            H_, K_, D_ = FAM_GEOM[path]
+            n_max = cache // PAGE
+            P = FAM_ROWS * n_max + 1
+            row_lens = [n + FAM_NEW // 2 for n in fam_prompts(path)]
+            lens_p = torch.tensor(sorted(row_lens, reverse=True)[:FAM_ROWS],
+                                  dtype=torch.int32, device=dev)
+            qp = rnd(FAM_ROWS, H_, D_).to(dt)
+            kp, vp = (rnd(P, PAGE, K_, D_).to(dt) for _ in range(2))
+            perm = torch.randperm(P - 1, generator=g, device=dev) + 1
+            tables = perm[:FAM_ROWS * n_max].reshape(FAM_ROWS, n_max).to(
+                torch.int32)
+            junk = torch.randint(-50, P + 50, (FAM_ROWS, n_max), generator=g,
+                                 device=dev, dtype=torch.int32)
+            owned = torch.arange(n_max, device=dev)[None] * PAGE < lens_p[:, None]
+            tables = torch.where(owned, tables, junk).contiguous()
+            kw = dict(window=window, softcap=softcap)
+            err = _check("paged_decode_attention", dname,
+                         f"{path} tick: H={H_} K={K_} D={D_} {n_max} pages a "
+                         f"row, lengths {lens_p.tolist()} {kw}",
+                         ops.paged_decode_attention(qp, kp, vp, tables,
+                                                    lens_p, **kw),
+                         ref.paged_decode_attention_ref(qp, kp, vp, tables,
+                                                        lens_p, **kw))
+            if name is None:
+                continue
+            keys[name] = (path, "paged_decode_attention",
+                          (FAM_ROWS, n_max, PAGE, H_, K_, D_, window))
+            specs.append((
+                name, "csrc/decode_attention.cu",
+                "src/repro/kernels/paged_decode_attention.py:77",
+                "paged_decode_fwd", err,
+                lambda q=qp, k=kp, v=vp, t=tables, l_=lens_p, kw=kw:
+                    ops.paged_decode_attention(q, k, v, t, l_, **kw),
+                lambda q=qp, k=kp, v=vp, t=tables, l_=lens_p, kw=kw:
+                    ref.paged_decode_attention_ref(q, k, v, t, l_, **kw),
+                None, *_paged_work(qp, kp, lens_p, owned, isz, window),
+                dname))
+        if dt is torch.float32:
+            rows += [_row(*spec) for spec in specs]
+        del specs
+    return rows, keys
+
+
 # --------------------------------------------------------------------------
 # phase 3: serve at full width
 # --------------------------------------------------------------------------
@@ -1098,14 +1413,13 @@ def _deployment(dev, cfg):
     d = cfg.d_model
     w_enc = 0.1 * torch.randn(d, d, generator=gen, device=dev)
     w_cls = 0.05 * torch.randn(d, 1000, generator=gen, device=dev)
-    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
     enc = ModuleSpec("pix-enc", "encoder", "vision", d * d,
                      bytes_per_param=4.0,
                      flops_per_query=2.0 * cfg.n_image_tokens * d * d)
     head = ModuleSpec("vlm-head", "head", "task", bundle.param_count(),
                       bytes_per_param=4.0, generative=True,
                       flops_per_query=2.0 * bundle.param_count(),
-                      kv_bytes_per_token=kv_bytes)
+                      kv_bytes_per_token=bundle.kv_bytes_per_token())
     cls = ModuleSpec("cls-head", "head", "task", d * 1000,
                      bytes_per_param=4.0, flops_per_query=2.0 * d * 1000)
     builders = {
@@ -1787,11 +2101,11 @@ def phase_scenario(dev) -> dict:
                   "text": ccfg.text_layers * calls["mini-trf"]}
     tower_of = {(CLIP_PATCHES, False): "vision", (CLIP_TEXT, True): "text"}
     by_tower = dict.fromkeys(want_tower, 0)
-    for (_, S_, T_, H_, K_, D_, causal), n in shapes[
+    for (_, S_, T_, H_, K_, D_, causal, window), n in shapes[
             "flash_attention"].items():
         tower = tower_of.get((S_, causal))
-        if tower is None or (T_, H_, K_, D_) != (S_, CLIP_HEADS, CLIP_HEADS,
-                                                 CLIP_D):
+        if tower is None or (T_, H_, K_, D_, window) != (
+                S_, CLIP_HEADS, CLIP_HEADS, CLIP_D, 0):
             fail(f"scenario: flash at no tower's shape {S_, T_, H_, K_, D_}")
         by_tower[tower] += n
     want = dict.fromkeys(ops.LAUNCHES, 0)
@@ -1818,7 +2132,7 @@ def phase_scenario(dev) -> dict:
 # --------------------------------------------------------------------------
 
 def _decode_vs_prefill(arch, bundle, params, reqs, results, logits, dev,
-                       ks, frames_of=None) -> list[int]:
+                       ks, frames_of=None, tag="phase7") -> list[int]:
     """Step k's logits against a fresh prefill of the prompt and the first
     k tokens, for each k in ``ks``; returns each request's decode steps."""
     import torch
@@ -1837,7 +2151,7 @@ def _decode_vs_prefill(arch, bundle, params, reqs, results, logits, dev,
                                         frames), lg[k])
                     for k in ks if k < len(toks))
         ok = worst <= DECODE_TOL
-        log(f"[phase7] {arch} rid {r.rid} prompt {len(req.prompt)}: tokens "
+        log(f"[{tag}] {arch} rid {r.rid} prompt {len(req.prompt)}: tokens "
             f"{toks}; decode steps {list(ks)} vs fresh prefill max |dlogit| "
             f"{worst:.3e} (tol {DECODE_TOL:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
@@ -1936,12 +2250,12 @@ def phase_tinyllama(dev) -> dict:
     want_shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
     for S_, n_steps in zip(lens, req_steps):
         for kernel, key, n in (
-                ("flash_attention", (1, S_, S_, *hkd, True), 2 * n_l),
-                ("decode_attention", (1, dense_T(S_, TL_NEW), *hkd),
+                ("flash_attention", (1, S_, S_, *hkd, True, 0), 2 * n_l),
+                ("decode_attention", (1, dense_T(S_, TL_NEW), *hkd, 0),
                  n_steps * n_l)):
             want_shapes[kernel][key] = want_shapes[kernel].get(key, 0) + n
     want_shapes["paged_decode_attention"] = {
-        (TL_ROWS, TL_NMAX, PAGE, *hkd): run.decode_steps * n_l}
+        (TL_ROWS, TL_NMAX, PAGE, *hkd, 0): run.decode_steps * n_l}
     log(f"[phase7] {TL_ARCH} kernel launches {launches}, expected {want}; "
         f"by shape {shapes}, expected {want_shapes}")
     if launches != want or shapes != want_shapes:
@@ -2035,13 +2349,13 @@ def phase_whisper(dev) -> dict:
     want_shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
     for S_, n_steps in zip(lens, req_steps):
         for kernel, key, n in (
-                ("flash_attention", (1, T_enc, T_enc, *hkd, False),
+                ("flash_attention", (1, T_enc, T_enc, *hkd, False, 0),
                  cfg.n_encoder_layers),
-                ("flash_attention", (1, S_, S_, *hkd, True), n_l),
-                ("flash_attention", (1, S_, T_enc, *hkd, False), n_l),
-                ("decode_attention", (1, dense_T(S_, W_NEW), *hkd),
+                ("flash_attention", (1, S_, S_, *hkd, True, 0), n_l),
+                ("flash_attention", (1, S_, T_enc, *hkd, False, 0), n_l),
+                ("decode_attention", (1, dense_T(S_, W_NEW), *hkd, 0),
                  n_steps * n_l),
-                ("decode_attention", (1, T_enc, *hkd), n_steps * n_l)):
+                ("decode_attention", (1, T_enc, *hkd, 0), n_steps * n_l)):
             want_shapes[kernel][key] = want_shapes[kernel].get(key, 0) + n
     log(f"[phase7] {W_ARCH} kernel launches {launches}, expected {want}; "
         f"by shape {shapes}, expected {want_shapes}")
@@ -2066,6 +2380,172 @@ def phase_whisper(dev) -> dict:
         f"{', '.join(f'{1e3 * t:.1f}' for t in pre_s)}); solo decode {steps} "
         f"steps, {steps / solo_s:.1f} tokens/s ({1e3 * solo_s / steps:.2f} "
         "ms per token)")
+    return {"launches": launches, "shapes": shapes}
+
+
+# --------------------------------------------------------------------------
+# phase 8: gemma2-9b, llama3-8b, granite-moe-3b-a800m at full width
+# --------------------------------------------------------------------------
+
+def _family_expected(cfg, lens, req_steps, ticks, cache_len):
+    """Exact launches of phase 8's main path, by kernel and by call shape:
+    serve() and submit() each prefill a prompt once (one flash a layer at
+    its prompt length), each solo step decodes over its request's dense
+    cache, each tick over the pool's tables; a local layer's calls carry
+    the window, a global one's 0."""
+    from repro_torch.kernels import ops
+
+    H_, K_, D_ = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pat = cfg.attn_pattern or ("global",)
+    per = len(pat)
+    windows = {}
+    for kind in pat:
+        w = cfg.sliding_window if kind == "local" else 0
+        windows[w] = windows.get(w, 0) + cfg.n_layers // per
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update({"flash_attention": 2 * len(lens) * cfg.n_layers,
+                 "decode_attention": sum(req_steps) * cfg.n_layers,
+                 "paged_decode_attention": ticks * cfg.n_layers})
+    shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
+
+    def add(kernel, key, n):
+        shapes[kernel][key] = shapes[kernel].get(key, 0) + n
+
+    for w, n_l in windows.items():
+        for S_, n_steps in zip(lens, req_steps):
+            add("flash_attention", (1, S_, S_, H_, K_, D_, True, w), 2 * n_l)
+            add("decode_attention", (1, dense_T(S_, FAM_NEW), H_, K_, D_, w),
+                n_steps * n_l)
+        add("paged_decode_attention",
+            (FAM_ROWS, cache_len // PAGE, PAGE, H_, K_, D_, w), ticks * n_l)
+    return want, shapes
+
+
+def phase_family(dev, arch) -> dict:
+    """One of gemma2-9b, llama3-8b and granite-moe-3b-a800m at its
+    published width and depth (random float32 weights from seed 0)
+    through ``launch.serve.serve_arch``: its requests through the paged
+    scheduler (serve()), then each through the solo path (submit()).
+    Checked: tokens and every step's logits serve == submit, decode == a
+    fresh prefill (gemma2's long request at positions past its window),
+    exact launches by kernel and by call shape (local and global apart);
+    before it, card == CPU at full width with 2 layers.  Prints the
+    prefill time, serve() and solo rates, device busy over 3 decode
+    steps and the peak device memory.  Returns the main-path launches:
+    by kernel and by call shape."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve_arch
+
+    cfg = get_config(arch)
+    g = torch.Generator().manual_seed(SEED + 1)
+    _card_vs_cpu(dev, cfg.with_overrides(n_layers=2),
+                 {"tokens": torch.randint(0, cfg.vocab_size, (1, 9),
+                                          generator=g, dtype=torch.int32)},
+                 32, "phase8", "full width, 2 layers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    lens = fam_prompts(arch)
+    cache_len = FAM_CACHE[arch]
+    reqs = make_requests(cfg, len(lens), FAM_NEW, prompt_lens=lens,
+                         seed=SEED)
+    served, solo = {}, {}
+    # ---- the main path: counts from 0, serve(), then submit() ----------
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    with record_logits(served):
+        run = serve_arch(cfg, reqs, device=dev, max_batch=FAM_ROWS,
+                         cache_len=cache_len)
+    rt = next(iter(run.engine.decoders.values()))
+    t_submit = time.perf_counter()
+    with record_logits(solo):
+        solo_res = {r.rid: run.engine.generate(r) for r in reqs}
+    torch.cuda.synchronize()
+    t_submit = time.perf_counter() - t_submit
+    launches = dict(ops.LAUNCHES)
+    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    n = rt.bundle.param_count()
+    log(f"[phase8] {arch}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32), "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, H {cfg.n_heads}, K "
+        f"{cfg.n_kv_heads}, head dim {cfg.head_dim}"
+        + (f", window {cfg.sliding_window} on its local layers"
+           if cfg.attn_pattern else "")
+        + (f", {cfg.n_experts} experts (padded to {cfg.expert_pad_to}) "
+           f"top-{cfg.experts_top_k}" if cfg.family == "moe" else "")
+        + f"; serve() of {len(reqs)} requests (prompts {lens}, {FAM_NEW} "
+        f"new tokens, rows of {cache_len}) in {run.seconds:.3f} s, submit() "
+        f"x{len(reqs)} in {t_submit:.3f} s")
+
+    for req, r in zip(reqs, run.results, strict=True):
+        a, b = np.asarray(r.output), np.asarray(solo_res[r.rid].output)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"{arch} rid {r.rid}: serve tokens {a.tolist()} != "
+                 f"submit {b.tolist()}")
+        lg_a, lg_b = torch.stack(served[r.rid]), torch.stack(solo[r.rid])
+        if not bool(torch.isfinite(lg_b).all()):
+            fail(f"{arch} rid {r.rid}: non-finite logits")
+        dlogit = _err(lg_a, lg_b)
+        log(f"[phase8] {arch} rid {r.rid} prompt {len(req.prompt)}: "
+            f"serve == submit over {len(a)} tokens, max |dlogit| "
+            f"{dlogit:.3e} (tol {LOGIT_TOL:g}; |logit| up to "
+            f"{lg_b.abs().max().item():.3f})")
+        if dlogit > LOGIT_TOL:
+            fail(f"{arch} rid {r.rid}: serve logits differ from submit's by "
+                 f"{dlogit:.3e}")
+    req_steps = _decode_vs_prefill(arch, rt.bundle, rt.params, reqs,
+                                   [solo_res[r.rid] for r in reqs], solo,
+                                   dev, (1, FAM_NEW - 1), tag="phase8")
+    want, want_shapes = _family_expected(cfg, lens, req_steps,
+                                         run.decode_steps, cache_len)
+    log(f"[phase8] {arch} kernel launches {launches}, expected {want}; "
+        f"by shape {shapes}, expected {want_shapes}")
+    if launches != want or shapes != want_shapes:
+        fail(f"{arch}: kernel launches {launches}, by shape {shapes} != "
+             f"expected {want}, {want_shapes}")
+
+    # rates: the serve() ticks, the solo decode spans, a warm prefill
+    trace = run.scheduler.tracer.trace
+    ticks, ttft = {}, []
+    for r in reqs:
+        spans = trace.spans_for(r.rid)
+        ttft.append(next(s for s in spans if s.phase == "prefill").t1
+                    - trace.tree(r.rid).t0)
+        for sp in spans:
+            if sp.phase == "decode_tick":
+                ticks[(sp.t0, sp.t1)] = sp.t1 - sp.t0
+    stats = run.scheduler.stats_dict()[cfg.name]
+    decode_s = sum(ticks.values())
+    steps = sum(req_steps)
+    solo_s = sum(sp.t1 - sp.t0 for r in solo_res.values()
+                 for sp in r.timeline if sp.phase == "decode")
+    longest = reqs[int(np.argmax(lens))]
+    batch = {"tokens": torch.tensor([longest.prompt], dtype=torch.int32,
+                                    device=dev)}
+    pre, cache = _prefill_ms(rt.bundle, rt.params, batch,
+                             dense_T(max(lens), FAM_NEW), dev)
+    _profile_decode(arch, rt.bundle, rt.params, cache, max(lens), dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[phase8] {arch}: prefill of {max(lens)} tokens {min(pre):.1f} ms "
+        f"(best of 3, warm; {', '.join(f'{t:.1f}' for t in pre)}); TTFT "
+        f"mean {1e3 * np.mean(ttft):.1f} ms, max {1e3 * max(ttft):.1f} ms; "
+        f"serve() decode {stats['decode_tokens']} tokens over {len(ticks)} "
+        f"ticks, {stats['decode_tokens'] / decode_s:.1f} tokens/s, "
+        f"{1e3 * decode_s / len(ticks):.2f} ms per tick; solo decode "
+        f"{steps} steps, {steps / solo_s:.1f} tokens/s "
+        f"({1e3 * solo_s / steps:.2f} ms per token; weight-read floor "
+        f"{n * 4 / HBM_BYTES_S * 1e3:.2f} ms); peak device memory "
+        f"{peak:.1f} GB")
+    del run, rt, cache, served, solo, solo_res
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     return {"launches": launches, "shapes": shapes}
 
 
@@ -2094,16 +2574,19 @@ def main() -> int:
     rows, keys = phase_kernels(dev)
     rec_rows, rec_keys = phase_kernels_recurrent(dev)
     slice_rows, slice_keys = phase_kernels_slice(dev)
+    fam_rows, fam_keys = phase_kernels_families(dev)
     serve, dep, gen_reqs = phase_serve(dev)
     phase_profile(dep, gen_reqs)
     del dep, gen_reqs
     paths = {"serve": serve, **phase_recurrent(dev),
              "scenario": phase_scenario(dev), TL_ARCH: phase_tinyllama(dev),
              W_ARCH: phase_whisper(dev)}
+    for arch in FAM_ARCHS:
+        paths[arch] = phase_family(dev, arch)
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
-    rows += rec_rows + slice_rows
-    keys.update(rec_keys, **slice_keys)
+    rows += rec_rows + slice_rows + fam_rows
+    keys.update(rec_keys, **slice_keys, **fam_keys)
     for row in rows:
         path, kernel, key = keys[row["name"]]
         row["launches"] = paths[path]["shapes"][kernel].get(key, 0)

@@ -12,6 +12,11 @@
 //     `paged_decode_fwd`.
 // Both: q (B,H,D), H % K == 0, optional tanh softcap applied before the
 // mask, f32 running max / sum / accumulator, a row with no key gives 0.
+// Both also take a sliding window, which the TPU kernels lack (the
+// reference masks a local layer's decode outside them, with plain ops):
+// with window > 0 a row of length n sees keys [max(0, n - window), n),
+// the reference's mask kp > qp - window at qp = n - 1, and no key or
+// page below that span is read.
 //
 // What bounds them here: each call reads every live key and value once.
 // internvl2-1b's solo decode (B=1, K=2, D=64, ~300 keys, f32) moves
@@ -48,7 +53,20 @@
 // merge costs one round trip to L2 (on an H100 it took 4.3 of 9.0 us at
 // internvl2-1b's shape with the reads in turn, 2.8 of 7.6 us so).  The
 // log-sum-exp merge gives a split or row with no live key weight 0, so a
-// row of length 0 gives 0.
+// row of length 0 gives 0.  Under a window the splits share the live span
+// [start, n), not [0, n): n_split comes from min(T, window) keys
+// (kernels.ops.decode_splits), so at T >> window no split idles.
+//
+// Head dims 128 and 256 (llama3-8b, gemma2-9b): a quad's lane would hold
+// a quarter of the row, 32 and 64 floats each of q-sized k, v and acc,
+// past the 128 registers that two blocks an SM allow.  So there 8 lanes
+// share a key (LK = 8, three shuffles for the dot product, 4 keys a warp
+// at once instead of 8), and each lane holds 16 (D = 128, two keys in
+// flight) or 32 (D = 256, one) floats of each.  D <= 112 keeps its quads.
+// ptxas (sm_90a, CUDA 12.8): 128 registers at D = 128 and 256, no spill.
+// gemma2-9b's solo step over a 4,112-slot cache reads 67 MB (4,096 live
+// keys under the window, K = 8): 0.020 ms at 3.35 TB/s, 0.033 ms
+// measured on an H100 (chip_smoke.py phase 2).
 //
 // `paged_decode_fwd`: the same split-KV blocks over a page pool.  One
 // block per (kv-head, row, head group), the first design, ran 8 blocks on
@@ -59,7 +77,7 @@
 // length is read on the host and the launch can be captured in a graph.
 // Each block takes its share of [0, min(lengths[b], n_max * ps)); a key's
 // page comes from the row's table entry (clamped into [0, P-1]) when the
-// quad fetches it, so no page past a row's length is read and no table
+// lanes fetch it, so no page past a row's length is read and no table
 // entry past its pages is looked at.  Same workspace, tickets and
 // last-block merge as decode_fwd.
 
@@ -127,7 +145,8 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 }
 
 // Split i of n_split takes keys [split_lo(i), split_lo(i + 1)) of [0, n)
-// (kernels.ops.split_range is the same rule on the host).
+// of the row's live span (kernels.ops.split_range is the same rule on
+// the host).
 __device__ __forceinline__ int split_lo(int n, int n_split, int i) {
   return (int)((int64_t)n * i / n_split);
 }
@@ -137,22 +156,35 @@ __device__ __forceinline__ float rescale(float m, float m_new) {
   return m > NEG_INF / 2 ? expf(m - m_new) : 0.f;
 }
 
-// One block: keys of split `split` of row b, kv-head kh, for q-heads
-// [h_base, h_base + NW) of the group; then, if it is the last block of
-// its (row, kv-head, head group) to finish, the merge of every split.
-// `addr(t)` gives the element offset of key t.
+// How a warp's lanes share the keys at head dim D: LK lanes a key, each
+// holding NC float4 chunks of its row (lane ql of a group holds chunks
+// ql + LK c); a warp takes KPW = 32 / LK keys at once, U times over with
+// every load in flight before any is used: two keys a group at D <= 64
+// and D = 128, one at D = 112 and 256 (the register cap of two blocks an
+// SM).
+template <int D>
+struct KeyLanes {
+  static constexpr int LK = D >= 128 ? 8 : 4;
+  static constexpr int NC = D / (4 * LK);
+  static constexpr int KPW = 32 / LK;
+  static constexpr int U = NC <= 4 ? 2 : 1;
+  static_assert(NC * 4 * LK == D, "head dim splits over the key's lanes");
+};
+
+// One block: keys of split `split` of the live span [start, start +
+// n_keys) of row b, kv-head kh, for q-heads [h_base, h_base + NW) of the
+// group; then, if it is the last block of its (row, kv-head, head group)
+// to finish, the merge of every split.  `addr(t)` gives the element
+// offset of key t.
 template <typename T, int D, class Addr>
 __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
                             float* __restrict__ ws, int* counter, int B,
                             int b, int H, int G, int kh, int h_base,
-                            int n_keys, int split, int n_split, float scale,
-                            float softcap, const Addr& addr) {
-  constexpr int NC = D / 16;  // lane ql of a quad holds chunks ql + 4c
-  // keys a quad holds in registers at once: two at D <= 64 (both loads
-  // in flight together), one at D = 112 (the register cap of 2 blocks an
-  // SM)
-  constexpr int U = D > 64 ? 1 : 2;
+                            int start, int n_keys, int split, int n_split,
+                            float scale, float softcap, const Addr& addr) {
+  using KL = KeyLanes<D>;
+  constexpr int LK = KL::LK, NC = KL::NC, KPW = KL::KPW, U = KL::U;
   __shared__ float4 sm_q[NW][D / 4];
   __shared__ float sm_acc[NW][D];
   __shared__ float sm_m[NW], sm_l[NW];
@@ -162,7 +194,7 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ int is_last;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int quad = lane / 4, ql = lane % 4;
+  const int grp = lane / LK, ql = lane % LK;
   const int HG = min(G - h_base, NW);   // q-heads in this block
   const int slices = max(1, NW / HG);   // warps per q-head
   const int g = warp / slices, slice = warp % slices;
@@ -170,22 +202,22 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t row0 = (int64_t)b * H + kh * G + h_base;  // (b, h) of g=0
 
   // this block's keys, then this warp's slice of them
-  const int lo = split_lo(n_keys, n_split, split);
-  const int hi = split_lo(n_keys, n_split, split + 1);
+  const int lo = start + split_lo(n_keys, n_split, split);
+  const int hi = start + split_lo(n_keys, n_split, split + 1);
   const int w_lo = lo + (int)((int64_t)(hi - lo) * slice / slices);
   const int w_hi = lo + (int)((int64_t)(hi - lo) * (slice + 1) / slices);
 
-  // the quad's keys t0 + quad + 8u: every load issued before any is used
+  // the group's keys t0 + grp + KPW u: every load issued before any is used
   float4 kr[U][NC], vr[U][NC];
   auto fetch = [&](int t0) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int t = t0 + quad + 8 * u;
+      const int t = t0 + grp + KPW * u;
       const bool ok = t < w_hi;
       const int64_t off = ok ? addr(t) : 0;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const int e = 4 * (ql + 4 * c);
+        const int e = 4 * (ql + LK * c);
         kr[u][c] = ok ? load4(k + off + e) : make_float4(0.f, 0.f, 0.f, 0.f);
         vr[u][c] = ok ? load4(v + off + e) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -198,31 +230,32 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // each quad walks its own keys with a running (m, l, acc); lanes of a
-  // quad hold the same m and l and a quarter of the D columns
+  // each group walks its own keys with a running (m, l, acc); its lanes
+  // hold the same m and l and 1/LK of the D columns
   float m = NEG_INF, l = 0.f;
   float4 acc[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   if (busy) {
-    for (int t0 = w_lo; t0 < w_hi; t0 += 8 * U) {  // warp-uniform trips
+    for (int t0 = w_lo; t0 < w_hi; t0 += KPW * U) {  // warp-uniform trips
       if (t0 > w_lo) fetch(t0);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        // four independent partial sums, then the quad's four lanes
+        // four independent partial sums, then the group's LK lanes
         float px = 0.f, py = 0.f, pz = 0.f, pw = 0.f;
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          const float4 qv = sm_q[g][ql + 4 * c];
+          const float4 qv = sm_q[g][ql + LK * c];
           px = fmaf(qv.x, kr[u][c].x, px);
           py = fmaf(qv.y, kr[u][c].y, py);
           pz = fmaf(qv.z, kr[u][c].z, pz);
           pw = fmaf(qv.w, kr[u][c].w, pw);
         }
         float dot = (px + py) + (pz + pw);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        if (t0 + quad + 8 * u < w_hi) {
+#pragma unroll
+        for (int o2 = 1; o2 < LK; o2 <<= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o2);
+        if (t0 + grp + KPW * u < w_hi) {
           float x = dot * scale;
           if (softcap > 0.f) x = softcap * tanhf(x / softcap);
           const float m_new = fmaxf(m, x);
@@ -241,9 +274,9 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  // merge the warp's 8 quads (every quad ends with the merged state)
+  // merge the warp's KPW groups (every group ends with the merged state)
 #pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
+  for (int off = LK; off < 32; off <<= 1) {
     const float mo = __shfl_xor_sync(0xffffffffu, m, off);
     const float lo_ = __shfl_xor_sync(0xffffffffu, l, off);
     const float m_new = fmaxf(m, mo);
@@ -258,10 +291,10 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
     }
     m = m_new;
   }
-  if (quad == 0) {
+  if (grp == 0) {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      *reinterpret_cast<float4*>(&sm_acc[warp][4 * (ql + 4 * c)]) = acc[c];
+      *reinterpret_cast<float4*>(&sm_acc[warp][4 * (ql + LK * c)]) = acc[c];
     if (ql == 0) {
       sm_m[warp] = m;
       sm_l[warp] = l;
@@ -299,20 +332,27 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
   if (!is_last) return;
   __threadfence();
 
-  // last block: log-sum-exp merge of the splits, read through L2.  NP
-  // threads share a float4 of output, each over every NP-th split.  Its
-  // first MERGE_LOADS accumulator loads are issued before the weights,
-  // which do not depend on them, so both reads share one round trip.
+  // last block: log-sum-exp merge of the splits, read through L2.  The
+  // HG * D/4 output float4s are taken W at a time: NP threads share one,
+  // each over every NP-th split, when the block has threads to spare
+  // (W = HG * D/4 <= blockDim.x, one pass: always at D <= 128); else one
+  // thread an element, in passes (D = 256 with more than 4 q-heads a
+  // block).  The first pass's first MERGE_LOADS accumulator loads are
+  // issued before the weights, which do not depend on them, so both
+  // reads share one round trip.
   constexpr int D4 = D / 4;
-  const int n_el = HG * D4;  // <= NW * 28 <= blockDim.x
-  const int NP = blockDim.x / n_el;
-  const bool has_el = tid < n_el * NP;
-  const int e = tid % n_el, p = tid / n_el;
-  const int gg = e / D4, d4 = e - gg * D4;
-  const float4* src =
-      reinterpret_cast<const float4*>(ws_acc + (row0 + gg) * n_split * D) + d4;
+  constexpr bool PASSES = D4 > 32;  // HG * D4 can pass NW * 32 threads
+  const int n_el = HG * D4;
+  const int NP = max(1, (int)blockDim.x / n_el);
+  const int W = PASSES && NP == 1 ? (int)blockDim.x : n_el;
+  const int p = tid / W;
   float4 x[MERGE_LOADS];
-  auto fetch_acc = [&](int s0) {
+  auto fetch_acc = [&](int base, int s0) {
+    const int e = base + tid % W;
+    const bool has_el = p < NP && e < n_el;
+    const int gg = e / D4, d4 = e - gg * D4;
+    const float4* src = reinterpret_cast<const float4*>(
+        ws_acc + (row0 + gg) * n_split * D) + d4;
 #pragma unroll
     for (int u = 0; u < MERGE_LOADS; ++u) {
       const int s = s0 + p + u * NP;
@@ -320,7 +360,7 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
                                    : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
-  fetch_acc(0);
+  fetch_acc(0, 0);
   // warp w turns q-head w's (m, l) per split into weights exp(m - max) / L
   // (0 for a split with no key, all 0 for a row with none)
   if (warp < HG) {
@@ -345,39 +385,53 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
     for (int s = lane; s < n_split; s += 32) sm_w[warp][s] *= inv;
   }
   __syncthreads();
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s0 = 0;;) {
+  auto merge_pass = [&](int base) {
+    const int e = base + tid % W;
+    const bool has_el = p < NP && e < n_el;
+    const int gg = e / D4, d4 = e - gg * D4;
+    if (base > 0) fetch_acc(base, 0);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0;;) {
 #pragma unroll
-    for (int u = 0; u < MERGE_LOADS; ++u) {
-      const int s = s0 + p + u * NP;
-      if (has_el && s < n_split) {
-        const float w = sm_w[gg][s];
-        a.x = fmaf(w, x[u].x, a.x);
-        a.y = fmaf(w, x[u].y, a.y);
-        a.z = fmaf(w, x[u].z, a.z);
-        a.w = fmaf(w, x[u].w, a.w);
+      for (int u = 0; u < MERGE_LOADS; ++u) {
+        const int s = s0 + p + u * NP;
+        if (has_el && s < n_split) {
+          const float w = sm_w[gg][s];
+          a.x = fmaf(w, x[u].x, a.x);
+          a.y = fmaf(w, x[u].y, a.y);
+          a.z = fmaf(w, x[u].z, a.z);
+          a.w = fmaf(w, x[u].w, a.w);
+        }
+      }
+      s0 += MERGE_LOADS * NP;
+      if (s0 >= n_split) break;
+      fetch_acc(base, s0);
+    }
+    if (NP > 1) {
+      if (has_el) sm_part[tid] = a;
+      __syncthreads();
+      if (tid < n_el) {
+        for (int q2 = 1; q2 < NP; ++q2) {
+          const float4 y = sm_part[q2 * n_el + tid];
+          a.x += y.x;
+          a.y += y.y;
+          a.z += y.z;
+          a.w += y.w;
+        }
       }
     }
-    s0 += MERGE_LOADS * NP;
-    if (s0 >= n_split) break;
-    fetch_acc(s0);
-  }
-  if (has_el) sm_part[tid] = a;
-  __syncthreads();
-  if (tid < n_el) {
-    float4 t = sm_part[tid];
-    for (int q2 = 1; q2 < NP; ++q2) {
-      const float4 y = sm_part[q2 * n_el + tid];
-      t.x += y.x;
-      t.y += y.y;
-      t.z += y.z;
-      t.w += y.w;
+    if (tid < W && e < n_el) {
+      T* out = o + (row0 + gg) * D + 4 * d4;
+      store(out, a.x);
+      store(out + 1, a.y);
+      store(out + 2, a.z);
+      store(out + 3, a.w);
     }
-    T* out = o + (row0 + gg) * D + 4 * d4;
-    store(out, t.x);
-    store(out + 1, t.y);
-    store(out + 2, t.z);
-    store(out + 3, t.w);
+  };
+  if constexpr (PASSES) {
+    for (int base = 0; base < n_el; base += W) merge_pass(base);
+  } else {
+    merge_pass(0);
   }
   if (tid == 0) *counter = 0;  // ready for the next launch
 }
@@ -387,15 +441,17 @@ __global__ void __launch_bounds__(NW * 32, 2)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const int* __restrict__ lengths,
            T* __restrict__ o, float* __restrict__ ws, int* counters, int H,
-           int K, int Tk, int n_split, int n_hg, float scale,
+           int K, int Tk, int n_split, int n_hg, int window, float scale,
            float softcap) {
   const int split = blockIdx.x, kh = blockIdx.y;
   const int b = blockIdx.z / n_hg, hg = blockIdx.z % n_hg;
   const int B = gridDim.z / n_hg;
-  const int n_keys = min(max(lengths[b], 0), Tk);
+  const int len = lengths[b];
+  const int start = window > 0 ? max(len - window, 0) : 0;
+  const int end = min(max(len, 0), Tk);
   split_block<T, D>(q, k, v, o, ws, counters + blockIdx.z * K + kh, B, b, H,
-                    H / K, kh, hg * NW, n_keys, split, n_split, scale,
-                    softcap, ContigAddr{b, Tk, K, kh, D});
+                    H / K, kh, hg * NW, start, max(end - start, 0), split,
+                    n_split, scale, softcap, ContigAddr{b, Tk, K, kh, D});
 }
 
 template <typename T, int D>
@@ -404,15 +460,17 @@ paged_decode_fwd(const T* __restrict__ q, const T* __restrict__ kp,
                  const T* __restrict__ vp, const int* __restrict__ tables,
                  const int* __restrict__ lengths, T* __restrict__ o,
                  float* __restrict__ ws, int* counters, int H, int K, int P,
-                 int ps, int n_max, int n_split, int n_hg, float scale,
-                 float softcap) {
+                 int ps, int n_max, int n_split, int n_hg, int window,
+                 float scale, float softcap) {
   const int split = blockIdx.x, kh = blockIdx.y;
   const int b = blockIdx.z / n_hg, hg = blockIdx.z % n_hg;
   const int B = gridDim.z / n_hg;
-  const int n_keys = min(max(lengths[b], 0), n_max * ps);
+  const int len = lengths[b];
+  const int start = window > 0 ? max(len - window, 0) : 0;
+  const int end = min(max(len, 0), n_max * ps);
   split_block<T, D>(q, kp, vp, o, ws, counters + blockIdx.z * K + kh, B, b,
-                    H, H / K, kh, hg * NW, n_keys, split, n_split, scale,
-                    softcap,
+                    H, H / K, kh, hg * NW, start, max(end - start, 0), split,
+                    n_split, scale, softcap,
                     PagedAddr{tables + (int64_t)b * n_max, P, ps, K, kh, D});
 }
 
@@ -420,13 +478,14 @@ template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const int* lengths, void* o, float* ws,
                           int* counters, int B, int H, int K, int Tk,
-                          int n_split, float softcap, cudaStream_t stream) {
+                          int n_split, int window, float softcap,
+                          cudaStream_t stream) {
   const int n_hg = (H / K + NW - 1) / NW;
   const dim3 grid(n_split, K, B * n_hg);
   decode_fwd<T, D><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(o), ws, counters, H,
-      K, Tk, n_split, n_hg, 1.f / sqrtf((float)D), softcap);
+      K, Tk, n_split, n_hg, window, 1.f / sqrtf((float)D), softcap);
   return cudaGetLastError();
 }
 
@@ -434,24 +493,27 @@ template <typename T, int D>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          const int* tables, const int* lengths, void* o,
                          float* ws, int* counters, int B, int H, int K, int P,
-                         int ps, int n_max, int n_split, float softcap,
-                         cudaStream_t stream) {
+                         int ps, int n_max, int n_split, int window,
+                         float softcap, cudaStream_t stream) {
   const int n_hg = (H / K + NW - 1) / NW;
   const dim3 grid(n_split, K, B * n_hg);
   paged_decode_fwd<T, D><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), tables, lengths, static_cast<T*>(o), ws,
-      counters, H, K, P, ps, n_max, n_split, n_hg, 1.f / sqrtf((float)D),
-      softcap);
+      counters, H, K, P, ps, n_max, n_split, n_hg, window,
+      1.f / sqrtf((float)D), softcap);
   return cudaGetLastError();
 }
 
-// head dims: the smoke configs (16), internvl2-1b (64), zamba2-7b (112)
+// head dims: the smoke configs (16), internvl2-1b (64), zamba2-7b (112),
+// llama3-8b (128), gemma2-9b (256)
 #define DISPATCH_D(D_, FN, T_, ...)                        \
   switch (D_) {                                            \
     case 16: return FN<T_, 16>(__VA_ARGS__);               \
     case 64: return FN<T_, 64>(__VA_ARGS__);               \
     case 112: return FN<T_, 112>(__VA_ARGS__);             \
+    case 128: return FN<T_, 128>(__VA_ARGS__);             \
+    case 256: return FN<T_, 256>(__VA_ARGS__);             \
     default: return cudaErrorInvalidValue;                 \
   }
 
@@ -459,25 +521,27 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
 
 // dtype: 0 = float32, 1 = bfloat16.  ws: B*H*n_split*(D+2) floats of
 // scratch; counters: B*ceil(H/K/8)*K ints, zero before the launch and
-// left zero by it.  Returns the launch's cudaError_t.
+// left zero by it; window: 0 for none.  Returns the launch's cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* o, void* ws, void* counters, int B,
                                     int H, int K, int D, int T, int n_split,
-                                    int dtype, float softcap, void* stream) {
+                                    int window, int dtype, float softcap,
+                                    void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (n_split < 1 || n_split > MAX_SPLITS) return cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > MAX_SPLITS || window < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (dtype == 0) {
     DISPATCH_D(D, launch_decode, float, q, k, v, len, o, w, cnt, B, H, K, T,
-               n_split, softcap, s)
+               n_split, window, softcap, s)
   }
   if (dtype == 1) {
     DISPATCH_D(D, launch_decode, __nv_bfloat16, q, k, v, len, o, w, cnt, B,
-               H, K, T, n_split, softcap, s)
+               H, K, T, n_split, window, softcap, s)
   }
   return cudaErrorInvalidValue;
 }
@@ -487,10 +551,10 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* kp, const void* vp, const void* tables,
     const void* lengths, void* o, void* ws, void* counters, int B, int H,
-    int K, int D, int P, int ps, int n_max, int n_split, int dtype,
-    float softcap, void* stream) {
+    int K, int D, int P, int ps, int n_max, int n_split, int window,
+    int dtype, float softcap, void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (n_split < 1 || n_split > MAX_SPLITS || P < 1 || ps < 1)
+  if (n_split < 1 || n_split > MAX_SPLITS || P < 1 || ps < 1 || window < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tbl = static_cast<const int*>(tables);
@@ -499,11 +563,11 @@ extern "C" int paged_decode_attention_fwd(
   int* cnt = static_cast<int*>(counters);
   if (dtype == 0) {
     DISPATCH_D(D, launch_paged, float, q, kp, vp, tbl, len, o, w, cnt, B, H,
-               K, P, ps, n_max, n_split, softcap, s)
+               K, P, ps, n_max, n_split, window, softcap, s)
   }
   if (dtype == 1) {
     DISPATCH_D(D, launch_paged, __nv_bfloat16, q, kp, vp, tbl, len, o, w,
-               cnt, B, H, K, P, ps, n_max, n_split, softcap, s)
+               cnt, B, H, K, P, ps, n_max, n_split, window, softcap, s)
   }
   return cudaErrorInvalidValue;
 }

@@ -45,10 +45,17 @@
 //   Tiles per head dim were chosen on an H100 among 16-64 rows x 32-64
 //   keys: D = 64 takes 16 x 64 (238 blocks at internvl2-1b), D = 112
 //   32 x 64 (384 blocks at zamba2-7b); 64-row tiles left the causal
-//   grid unbalanced.  KV tiles wholly outside the causal diagonal or the
+//   grid unbalanced.  D = 128 and 256 (llama3-8b, gemma2-9b) were timed
+//   by tools/kernel_sweep.py --parts flash at a 4,100-token prefill (H =
+//   32 / 16, K = 8; NVIDIA H100 80GB HBM3, 700 W): D = 128 takes 64 x 32
+//   (4.26 ms; 32 x 64 4.46, 32 x 32 4.47, 16 x 64 5.68), D = 256 32 x 32
+//   (4.87 ms, 104 KB, two blocks an SM; 16 x 32 6.25, 32 x 64 6.29 at
+//   176 KB and one block, 16 x 64 7.57).  At D = 256 a thread holds 4
+//   rows x 16 output columns of P.V.  KV tiles wholly outside the causal diagonal or the
 //   window are never loaded; ragged S and T are masked in the kernel.
-// * ptxas (sm_90a, CUDA 12.8), f32: D = 112 168 registers, D = 64 80,
-//   D = 16 128; no instance spills (chip_smoke.py prints these lines).
+// * ptxas (sm_90a, CUDA 12.8), f32: D = 256 and 128 168 registers, D =
+//   112 168, D = 64 80, D = 16 128; no instance spills (chip_smoke.py
+//   prints these lines).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,11 +67,14 @@ constexpr float NEG_INF = -2.0e38f;
 constexpr int NT = 128;  // threads per block
 constexpr int RQ = 4;    // q rows per thread
 
-// q rows and keys per tile, by head dim
+// q rows and keys per tile, by head dim (tools/kernel_sweep.py --parts
+// flash builds copies of this file with other values on these lines)
 template <int D> struct Tiles;
 template <> struct Tiles<16> { static constexpr int BQ = 64, BK = 64; };
 template <> struct Tiles<64> { static constexpr int BQ = 16, BK = 64; };
 template <> struct Tiles<112> { static constexpr int BQ = 32, BK = 64; };
+template <> struct Tiles<128> { static constexpr int BQ = 64, BK = 32; };
+template <> struct Tiles<256> { static constexpr int BQ = 32, BK = 32; };
 
 template <int D, int BQ, int BK>
 struct Geom {
@@ -377,10 +387,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int window, float softcap, cudaStream_t stream) {
   switch (D) {
     // the smoke configs (16), internvl2-1b (64), zamba2-7b's shared
-    // attention block (112)
+    // attention block (112), llama3-8b (128), gemma2-9b (256)
     case 16: return launch<T, 16>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
     case 112: return launch<T, 112>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -419,6 +431,8 @@ extern "C" int flash_attention_plan(int D, int* out) {
     case 16: return plan<16>(out);
     case 64: return plan<64>(out);
     case 112: return plan<112>(out);
+    case 128: return plan<128>(out);
+    case 256: return plan<256>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -42,15 +42,12 @@ LIBRARIES = {
         "flash_attention_plan": [_I, _P],
     }),
     "decode_attention": ("decode_attention.cu", {
-        # q, k, v, lengths, o, ws, counters, B, H, K, D, T, n_split, dtype,
-        # softcap, stream
-        "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _I, _F, _P],
+        # q, k, v, lengths, o, ws, counters, B, H, K, D, T, n_split,
+        # window, dtype, softcap, stream
+        "decode_attention_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
         # q, kp, vp, tables, lengths, o, ws, counters, B, H, K, D, P, ps,
-        # n_max, n_split, dtype, softcap, stream
-        "paged_decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                       _P],
+        # n_max, n_split, window, dtype, softcap, stream
+        "paged_decode_attention_fwd": [_P] * 8 + [_I] * 10 + [_F, _P],
     }),
     "ssd_scan": ("ssd_scan.cu", {
         # x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H, P, N, then the

@@ -28,14 +28,16 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
 
 #: kernel name -> launches since the last ``reset_launches()`` by call
 #: shape, which sum to the kernel's ``LAUNCHES`` entry: flash (B, S, T,
-#: H, K, D, causal), decode (B, T, H, K, D), paged decode (B, n_max,
-#: page_size, H, K, D), SSD (B, chunks, chunk length L) and both sLSTM
-#: kernels (B, S, H, hd)
+#: H, K, D, causal, window), decode (B, T, H, K, D, window), paged
+#: decode (B, n_max, page_size, H, K, D, window), SSD (B, chunks, chunk
+#: length L) and both sLSTM kernels (B, S, H, hd); window 0 is none, so
+#: a local layer's launches count apart from a global one's
 SHAPE_LAUNCHES: dict[str, dict[tuple, int]] = {name: {} for name in LAUNCHES}
 
 #: head dims the attention kernels are instantiated for: the smoke
-#: configs' 16, internvl2-1b's 64 and zamba2-7b's 112
-HEAD_DIMS = (16, 64, 112)
+#: configs' 16, internvl2-1b's 64, zamba2-7b's 112, llama3-8b's 128 and
+#: gemma2-9b's 256
+HEAD_DIMS = (16, 64, 112, 128, 256)
 
 #: the SSD kernel's limit on the chunk length L, the head dim P and the
 #: state size N (its tiles and shared memory are sized for them)
@@ -149,9 +151,17 @@ def _f32(t):
     return t.float().contiguous()
 
 
+def _window(name, window) -> int:
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0 (0 is none)")
+    return window
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q: (B,S,H,D); k/v: (B,T,K,D) with H % K == 0.  Returns (B,S,H,D)
-    in q's dtype.  Positions are the trivial arange on both sides."""
+    in q's dtype.  Positions are the trivial arange on both sides; with
+    ``window`` > 0 query i sees keys j > i - window."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -161,6 +171,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         raise ValueError(f"flash_attention: q{tuple(q.shape)} does not "
                          f"match k/v{tuple(k.shape)}")
     dev = _check("flash_attention", {"q": q, "k": k, "v": v})
+    window = _window("flash_attention", window)
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
@@ -172,10 +183,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     o = torch.empty_like(q)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, T, H,
-        K, D, _DTYPES[q.dtype], int(bool(causal)), int(window),
+        K, D, _DTYPES[q.dtype], int(bool(causal)), window,
         float(softcap), _stream(q))
     _raise_on("flash_attention", err)
-    _count("flash_attention", (B, S, T, H, K, D, bool(causal)))
+    _count("flash_attention", (B, S, T, H, K, D, bool(causal), window))
     return o
 
 
@@ -187,22 +198,25 @@ def _lengths_ok(name, lengths, B, dev):
                          f"{lengths.device}")
 
 
-def decode_splits(T, B, K, G, n_sm):
-    """How many blocks share one row's keys in the contiguous-cache
-    decode kernel, whose grid is (n_split, K, B * ceil(G / 8)): as many
-    as fill two blocks an SM, but no more than leave each split
-    ``DECODE_MIN_KEYS`` keys of a full cache of T keys (and at most
+def decode_splits(T, B, K, G, n_sm, window=0):
+    """How many blocks share one row's keys in the split-KV decode
+    kernels, whose grid is (n_split, K, B * ceil(G / 8)): as many as
+    fill two blocks an SM, but no more than leave each split
+    ``DECODE_MIN_KEYS`` keys of a full row's live keys — T of a cache of
+    T, or min(T, window) under a window — (and at most
     ``DECODE_MAX_SPLITS``).  It reads only static shapes, so every step
     of a decode loop gets the same grid."""
     blocks = B * K * -(-G // DECODE_HEADS_PER_BLOCK)
-    return max(1, min(2 * n_sm // blocks, T // DECODE_MIN_KEYS,
+    live = min(T, window) if window and window > 0 else T
+    return max(1, min(2 * n_sm // blocks, live // DECODE_MIN_KEYS,
                       DECODE_MAX_SPLITS))
 
 
-def split_range(n_keys, n_split, i):
-    """Keys [lo, hi) of split i of a row with n_keys live keys: the rule
-    the kernel applies on the device to each row's length."""
-    return n_keys * i // n_split, n_keys * (i + 1) // n_split
+def split_range(n_keys, n_split, i, lo=0):
+    """Keys [lo + a, lo + b) of split i of a row whose n_keys live keys
+    start at key lo (a window's first key, else 0): the rule the kernel
+    applies on the device to each row's length."""
+    return lo + n_keys * i // n_split, lo + n_keys * (i + 1) // n_split
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,9 +238,11 @@ def _ticket_counters(dev, n):
     return t
 
 
-def decode_attention(q, k, v, lengths, *, softcap=0.0):
+def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
     """q: (B,H,D); k/v: (B,T,K,D); lengths: (B,) int32 valid key counts
-    (keys at or past them are masked).  Returns (B,H,D)."""
+    (keys at or past them are masked; with ``window`` > 0 so are keys
+    below ``lengths - window``, which the kernel never reads).  Returns
+    (B,H,D)."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -237,8 +253,10 @@ def decode_attention(q, k, v, lengths, *, softcap=0.0):
                          f"match k/v{tuple(k.shape)}")
     dev = _check("decode_attention", {"q": q, "k": k, "v": v})
     _lengths_ok("decode_attention", lengths, B, dev)
+    window = _window("decode_attention", window)
     if dev.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, lengths, softcap=softcap)
+        return ref.decode_attention_ref(q, k, v, lengths, window=window,
+                                        softcap=softcap)
     _cuda_ready("decode_attention",
                 {"q": q, "k": k, "v": v, "lengths": lengths}, D)
     _aligned("decode_attention", {"q": q, "k": k, "v": v})
@@ -247,7 +265,7 @@ def decode_attention(q, k, v, lengths, *, softcap=0.0):
     lib = load("decode_attention")
     o = torch.empty_like(q)
     G = H // K
-    n_split = decode_splits(T, B, K, G, _sm_count(dev.index))
+    n_split = decode_splits(T, B, K, G, _sm_count(dev.index), window)
     # per (b, h, split): the partial max, sum and D-wide accumulator
     ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
                      device=dev)
@@ -256,19 +274,21 @@ def decode_attention(q, k, v, lengths, *, softcap=0.0):
     err = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), ws.data_ptr(), tickets.data_ptr(), B, H, K, D, T,
-        n_split, _DTYPES[q.dtype], float(softcap), _stream(q))
+        n_split, window, _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("decode_attention", err)
-    _count("decode_attention", (B, T, H, K, D))
+    _count("decode_attention", (B, T, H, K, D, window))
     return o
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                           softcap=0.0):
+                           window=0, softcap=0.0):
     """Batched paged-KV decode: q (B,H,D); k/v pages (n_pages, page_size,
     K, D); block_tables (B, n_max) int32 page ids, clamped into range;
-    lengths (B,) int32 masks each row's ragged tail.  Returns (B,H,D).
-    The split count comes from static shapes (the table's span
-    n_max * page_size), so nothing is read back from the device."""
+    lengths (B,) int32 masks each row's ragged tail; with ``window`` > 0
+    keys below ``lengths - window`` are masked too (their pages are not
+    read).  Returns (B,H,D).  The split count comes from static shapes
+    (the table's span n_max * page_size, and the window), so nothing is
+    read back from the device."""
     if q.ndim != 3 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             f"paged_decode_attention: bad shapes q{tuple(q.shape)} "
@@ -286,10 +306,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if block_tables.dtype != torch.int32 or block_tables.device != dev:
         raise ValueError("paged_decode_attention: block_tables must be "
                          f"int32 on {dev}")
+    window = _window("paged_decode_attention", window)
     if dev.type == "cpu":
         return ref.paged_decode_attention_ref(q, k_pages, v_pages,
                                               block_tables, lengths,
-                                              softcap=softcap)
+                                              window=window, softcap=softcap)
     _cuda_ready("paged_decode_attention",
                 {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                  "block_tables": block_tables, "lengths": lengths}, D)
@@ -301,7 +322,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     o = torch.empty_like(q)
     n_max = block_tables.shape[1]
     G = H // K
-    n_split = decode_splits(n_max * ps, B, K, G, _sm_count(dev.index))
+    n_split = decode_splits(n_max * ps, B, K, G, _sm_count(dev.index),
+                            window)
     ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
                      device=dev)
     tickets = _ticket_counters(
@@ -310,9 +332,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         ws.data_ptr(), tickets.data_ptr(), B, H, K, D, P, ps, n_max,
-        n_split, _DTYPES[q.dtype], float(softcap), _stream(q))
+        n_split, window, _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("paged_decode_attention", err)
-    _count("paged_decode_attention", (B, n_max, ps, H, K, D))
+    _count("paged_decode_attention", (B, n_max, ps, H, K, D, window))
     return o
 
 

@@ -17,8 +17,10 @@ NEG_INF = -2.0e38
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        lengths=None):
-    """q: (B,S,H,D); k/v: (B,T,K,D). Plain softmax attention."""
+                        lengths=None, starts=None):
+    """q: (B,S,H,D); k/v: (B,T,K,D). Plain softmax attention.  Optional
+    per-row key bounds (B,): keys at or past ``lengths`` and below
+    ``starts`` are masked."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -38,6 +40,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     mask = mask[None, None].expand(B, H, S, T)
     if lengths is not None:
         mask = mask & (kp[None, None] < lengths.to(q.device)[:, None, None, None])
+    if starts is not None:
+        mask = mask & (kp[None, None] >= starts.to(q.device)[:, None, None, None])
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     # rows with every key masked produce 0 (matches the streaming kernel)
@@ -45,22 +49,28 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     return torch.einsum("bhst,bthd->bshd", p, v.float()).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, lengths, *, softcap=0.0):
+def decode_attention_ref(q, k, v, lengths, *, window=0, softcap=0.0):
     """q: (B,H,D) single query; k/v: (B,T,K,D); lengths: (B,) valid key
-    count (keys at or past it are masked)."""
+    count (keys at or past it are masked, and with ``window`` > 0 also
+    keys below ``lengths - window``: a row of length n, its query at
+    position n - 1, sees keys [max(0, n - w), n), the reference's mask
+    ``kp > qp - w``)."""
+    starts = (lengths.long() - window).clamp_min(0) if window > 0 else None
     out = flash_attention_ref(q[:, None], k, v, causal=False,
-                              softcap=softcap, lengths=lengths)
+                              softcap=softcap, lengths=lengths,
+                              starts=starts)
     return out[:, 0]
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
-                               *, softcap=0.0):
+                               *, window=0, softcap=0.0):
     """q: (B,H,D); k_pages/v_pages: (n_pages, page_size, K, D);
     block_tables: (B, n_max) page ids; lengths: (B,) valid key counts.
 
     Gathers each row's pages (table entries clamped into range) into a
     contiguous (B, n_max*ps, K, D) view and defers to
-    ``decode_attention_ref``; positions past ``lengths`` are masked.
+    ``decode_attention_ref``; positions past ``lengths`` (and, with a
+    ``window``, below ``lengths - window``) are masked.
     """
     B = q.shape[0]
     P, ps, K, D = k_pages.shape
@@ -68,7 +78,8 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
     tables = block_tables.long().clamp(0, P - 1)
     k = k_pages[tables].reshape(B, n_max * ps, K, D)
     v = v_pages[tables].reshape(B, n_max * ps, K, D)
-    return decode_attention_ref(q, k, v, lengths, softcap=softcap)
+    return decode_attention_ref(q, k, v, lengths, window=window,
+                                softcap=softcap)
 
 
 def ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log):

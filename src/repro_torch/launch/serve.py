@@ -5,8 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --device cpu               # CPU-sized smoke config
 
-Families with a paged-KV layout (dense/vlm) stream through the
-continuous-batching scheduler (``lm_scheduler``).  The recurrent
+Families with a paged-KV layout (dense/vlm, and the non-MLA moe stage)
+stream through the continuous-batching scheduler (``lm_scheduler``):
+internvl2-1b, tinyllama-1.1b, llama3-8b, gemma2-9b (its local layers
+windowed in prefill and in paged decode) and granite-moe-3b-a800m.  The recurrent
 families (hybrid zamba2, ssm xLSTM) and the encoder-decoder family
 (whisper, whose requests carry their audio frames) have no paged
 layout: each request runs its solo prefill and dense-cache decode
@@ -106,9 +108,12 @@ def head_only_deployment(bundle, params, device):
     from repro_torch.s2m3 import Deployment
 
     name = bundle.cfg.name
+    kv = (bundle.kv_bytes_per_token()
+          if bundle.paged_cache_specs is not None else 0)
     head = ModuleSpec(name, "head", "task", bundle.param_count(),
                       bytes_per_param=4.0, generative=True,
-                      flops_per_query=2.0 * bundle.param_count())
+                      flops_per_query=2.0 * bundle.param_count(),
+                      kv_bytes_per_token=kv)
     cluster = ClusterSpec(devices=[DeviceSpec("dev0", _memory_bytes(device),
                                               1e12)])
     return (Deployment(cluster)

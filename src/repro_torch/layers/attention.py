@@ -105,7 +105,8 @@ def attention_apply(params, x, *, positions, cfg, local: bool = False,
                     causal: bool = True, cross_kv=None, cross_positions=None):
     """Self- (or cross-) attention over one segment (prefill), through
     the flash attention kernel.  ``positions`` must be the trivial
-    arange — the kernel assumes it.  With ``cross_kv`` = (k, v) from an
+    arange — the kernel assumes it.  A ``local`` layer sees only the
+    ``cfg.sliding_window`` keys up to each query.  With ``cross_kv`` = (k, v) from an
     encoder (B, T, K, D), the S queries attend to all T keys,
     non-causally, so ``cross_positions`` (the encoder's arange) does not
     enter.  Returns (out, (k, v)) — the freshly projected k/v for cache
@@ -119,12 +120,10 @@ def attention_apply(params, x, *, positions, cfg, local: bool = False,
             q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
             softcap=cfg.attn_logit_softcap)
         return output_proj(params, out, x.dtype), (k, v)
-    if local:
-        raise NotImplementedError(
-            "windowed (local) attention layers are not ported yet")
     q, k, v = project_qkv(params, x, positions, cfg)
     out = kops.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=cfg.sliding_window if local else 0,
         softcap=cfg.attn_logit_softcap)
     return output_proj(params, out, x.dtype), (k, v)
 

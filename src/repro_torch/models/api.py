@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import tree_leaves, tree_map
 from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply, head_specs
 from repro_torch.layers.initializers import WSpec, init_tree, spec_param_count, stack_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
@@ -55,6 +55,17 @@ class ModelBundle:
 
     def param_count(self) -> int:
         return spec_param_count(self.specs)
+
+    def kv_bytes_per_token(self) -> int:
+        """Float32 cache bytes one token takes over every layer (what
+        ``ModuleSpec.kv_bytes_per_token`` declares for the page-budget
+        pre-flight): the cache specs at one row of one position.  Only
+        a family with a paged layout has a cache that grows by token."""
+        if self.paged_cache_specs is None:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} has no per-token KV cache")
+        return sum(math.prod(ws.shape) * ws.dtype.itemsize for ws in
+                   tree_leaves(self.cache_specs(1, 1, torch.float32)))
 
     def init_cache(self, B: int, T: int, dtype=torch.float32, device=None):
         return init_tree(self.cache_specs(B, T, dtype),
@@ -160,12 +171,14 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     def decode_step(params, tokens, cache, lengths):
         return _decode(params, tokens, cache, lengths)
 
-    # Every dense/vlm stage cache is {"k","v"} with (B, T, K, D) leaves:
-    # re-reading (B, T) as (n_pages, page_size) gives the global page
-    # pool the paged decode kernel and the block-table scatter consume.
-    # Recurrent (hybrid/ssm) caches do not fit the page layout; those
-    # bundles keep the paged fields None, as in the JAX package.
-    paged_supported = cfg.family in ("dense", "vlm")
+    # Every dense/vlm/moe stage cache is {"k","v"} with (B, T, K, D)
+    # leaves (a list of two per gemma2 pair): re-reading (B, T) as
+    # (n_pages, page_size) gives the global page pool the paged decode
+    # kernel and the block-table scatter consume.  The JAX package pages
+    # dense/vlm only; the port's non-MLA moe stage has the same cache, so
+    # it pages too.  Recurrent (hybrid/ssm) caches do not fit the page
+    # layout; those bundles keep the paged fields None.
+    paged_supported = cfg.family in ("dense", "vlm", "moe")
 
     def paged_decode_step(params, tokens, cache, block_tables, lengths):
         return _decode(params, tokens, cache, lengths, cache_layout="paged",

@@ -5,6 +5,11 @@ blocks whose weights are stacked on a leading axis, as in the JAX
 package.  The port covers:
 
 * dense/vlm ``"blocks"``: attention + gated-MLP blocks;
+* dense ``"pairs"`` (gemma2): one stacked entry per ``attn_pattern``
+  pair, ``sub0``/``sub1`` each an attention + MLP block; a ``"local"``
+  sub-block attends within ``sliding_window`` keys of its query;
+* moe ``"moe"`` (granite, non-MLA): attention + mixture-of-experts
+  blocks (``layers.moe``, the dense form);
 * hybrid (zamba2) ``"super"``: superblocks of ``n_mamba_per_super``
   Mamba2 blocks (weights ``(n_super, k, ...)``) followed by one
   attention + MLP block whose weights exist once, under
@@ -18,11 +23,11 @@ each block's weights and cache are views into the stacked tensors, so
 cache writes land in place.
 
 Modes: "prefill" (fills the caches: attention through the flash kernel,
-Mamba2 through the SSD kernel, sLSTM through its kernel) and "decode"
-(one token per row: attention against a dense cache through the decode
-kernel, or a paged pool through the paged kernel; the recurrent blocks
-step their state).  Windowed (local) layers and the pairs / moe stages
-are not ported yet and raise.
+windowed for local layers, Mamba2 through the SSD kernel, sLSTM through
+its kernel) and "decode" (one token per row: attention against a dense
+cache through the decode kernel, or a paged pool through the paged
+kernel, both with the window of a local layer; the recurrent blocks
+step their state).  MLA (deepseek) waits for a later slice and raises.
 """
 
 from __future__ import annotations
@@ -37,20 +42,24 @@ from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mamba2 as m2
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import xlstm as xl
 from repro_torch.layers.initializers import WSpec, stack_specs
 from repro_torch.layers.mlp import mlp_apply, mlp_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
 
 
-def _attn_block_specs(cfg, post_norm: bool):
+def _attn_block_specs(cfg, use_moe: bool, post_norm: bool):
     d = cfg.d_model
     specs = {
         "ln_attn": norm_specs(d, cfg.norm),
         "attn": attn.attention_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
         "ln_mlp": norm_specs(d, cfg.norm),
-        "mlp": mlp_specs(d, cfg.d_ff),
     }
+    if use_moe:
+        specs["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(d, cfg.d_ff)
     if post_norm:
         specs["ln_attn_post"] = norm_specs(d, cfg.norm)
         specs["ln_mlp_post"] = norm_specs(d, cfg.norm)
@@ -59,15 +68,15 @@ def _attn_block_specs(cfg, post_norm: bool):
 
 def _apply_attn_sub(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
     """Norm + attention + residual (+post-norm); writes the layer's
-    cache in place.  Returns the new residual stream."""
-    if local:
-        raise NotImplementedError(
-            "windowed (local) attention layers are not ported yet")
+    cache in place.  Returns the new residual stream.  A local layer
+    attends to the ``cfg.sliding_window`` keys up to its query."""
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
+    window = cfg.sliding_window if local else 0
     if ctx["mode"] == "prefill":
         S = x.shape[1]
         y, (k, v) = attn.attention_apply(p["attn"], x,
-                                         positions=ctx["positions"], cfg=cfg)
+                                         positions=ctx["positions"], cfg=cfg,
+                                         local=local)
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
     else:  # decode: one token per row at position `lengths`
@@ -75,12 +84,12 @@ def _apply_attn_sub(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
         q, k_new, v_new = attn.project_qkv(p["attn"], x, ctx["positions"], cfg)
         if ctx.get("cache_layout") == "paged":
             return _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx,
-                                      cfg, post_norm=post_norm)
+                                      cfg, window=window, post_norm=post_norm)
         attn.cache_insert(cache["k"], k_new, lengths)
         attn.cache_insert(cache["v"], v_new, lengths)
         out = kops.decode_attention(
             q[:, 0].contiguous(), cache["k"], cache["v"],
-            (lengths + 1).to(torch.int32),
+            (lengths + 1).to(torch.int32), window=window,
             softcap=cfg.attn_logit_softcap)[:, None]
         y = attn.output_proj(p["attn"], out, x.dtype)
     if post_norm:
@@ -89,17 +98,20 @@ def _apply_attn_sub(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
 
 
 def _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx, cfg, *,
-                       post_norm: bool):
+                       window: int, post_norm: bool):
     """Decode step against a paged KV cache: the layer's cache leaves
     are global page pools (n_pages, page_size, K, D) and
     ``ctx["block_tables"]`` (B, n_max) names each row's pages.  One
-    batched paged decode kernel launch serves every row."""
+    batched paged decode kernel launch serves every row, a local layer's
+    within its ``window`` (the reference gathers the pages and masks
+    instead: its kernel has no window)."""
     lengths = ctx["lengths"]
     tables = ctx["block_tables"]
     attn.paged_cache_insert(cache["k"], k_new, tables, lengths)
     attn.paged_cache_insert(cache["v"], v_new, tables, lengths)
     out = kops.paged_decode_attention(
-        q[:, 0].contiguous(), cache["k"], cache["v"], tables, (lengths + 1).to(torch.int32),
+        q[:, 0].contiguous(), cache["k"], cache["v"], tables,
+        (lengths + 1).to(torch.int32), window=window,
         softcap=cfg.attn_logit_softcap)[:, None]
     y = attn.output_proj(p["attn"], out, x.dtype)
     if post_norm:
@@ -107,18 +119,35 @@ def _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx, cfg, *,
     return h + y
 
 
-def _apply_ffn_sub(p, h, cfg, *, post_norm: bool):
+def _apply_ffn_sub(p, h, cfg, *, use_moe: bool, post_norm: bool):
+    """Norm + MLP (or MoE) + residual (+post-norm).  The MoE's router
+    loss is a training term; serving drops it."""
     x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
-    y = mlp_apply(p["mlp"], x, cfg.act_fn)
+    if use_moe:
+        y, _ = moe_lib.moe_apply(p["moe"], x, cfg)
+    else:
+        y = mlp_apply(p["mlp"], x, cfg.act_fn)
     if post_norm:
         y = apply_norm(p["ln_mlp_post"], y, cfg.norm, cfg.norm_eps)
     return h + y
 
 
-def _attn_block(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
+def _attn_block(p, h, cache, ctx, cfg, *, local: bool, use_moe: bool,
+                post_norm: bool):
     h = _apply_attn_sub(p, h, cache, ctx, cfg, local=local,
                         post_norm=post_norm)
-    return _apply_ffn_sub(p, h, cfg, post_norm=post_norm)
+    return _apply_ffn_sub(p, h, cfg, use_moe=use_moe, post_norm=post_norm)
+
+
+def _pair_block(p, h, cache, ctx, cfg, *, pat):
+    """One entry of an ``attn_pattern`` stack (gemma2: local, global):
+    sub-block i is an attention + MLP block, windowed where pat[i] is
+    "local"; its cache is the i-th of the entry's list."""
+    for i, kind in enumerate(pat):
+        h = _attn_block(p[f"sub{i}"], h, cache[i], ctx, cfg,
+                        local=kind == "local", use_moe=False,
+                        post_norm=cfg.post_norm)
+    return h
 
 
 def _write_state(cache, new):
@@ -163,7 +192,7 @@ def _super_block(p, h, cache, ctx, cfg, *, k: int):
         h = _mamba_block(tree_map(lambda t: t[j], p["mamba"]), h,
                          tree_map(lambda t: t[j], cache["mamba"]), ctx, cfg)
     return _attn_block(ctx["shared_attn"], h, cache["attn"], ctx, cfg,
-                       local=False, post_norm=False)
+                       local=False, use_moe=False, post_norm=False)
 
 
 def _xgroup_block(p, h, cache, ctx, cfg, *, m: int):
@@ -236,10 +265,22 @@ def _stacked(spec_tree, k):
 
 def make_stages(cfg) -> list[StageDef]:
     fam = cfg.family
-    if fam in ("dense", "vlm") and not cfg.attn_pattern:
+    if fam in ("dense", "vlm") and cfg.attn_pattern:  # gemma2 pairs
+        pat = cfg.attn_pattern
         return [StageDef(
-            "blocks", cfg.n_layers, _attn_block_specs(cfg, cfg.post_norm),
-            partial(_attn_block, cfg=cfg, local=False, post_norm=cfg.post_norm),
+            "pairs", cfg.n_layers // len(pat),
+            {f"sub{i}": _attn_block_specs(cfg, False, cfg.post_norm)
+             for i in range(len(pat))},
+            partial(_pair_block, cfg=cfg, pat=pat),
+            lambda cfg_, B, T, dtype, k=len(pat): [
+                _kv_cache_specs(cfg_, B, T, dtype) for _ in range(k)])]
+    if fam in ("dense", "vlm") or (fam == "moe" and not cfg.use_mla):
+        use_moe = fam == "moe"
+        return [StageDef(
+            "moe" if use_moe else "blocks", cfg.n_layers,
+            _attn_block_specs(cfg, use_moe, cfg.post_norm),
+            partial(_attn_block, cfg=cfg, local=False, use_moe=use_moe,
+                    post_norm=cfg.post_norm),
             _kv_cache_specs,
         )]
     if fam == "hybrid":  # zamba2: superblocks of mamba + shared attention
@@ -270,7 +311,10 @@ def make_stages(cfg) -> list[StageDef]:
                 "mlstm": [_stacked(ws, m)
                           for ws in _mlstm_cache_specs(cfg_, B, T, dtype)],
                 "slstm": _slstm_cache_specs(cfg_, B, T, dtype)})]
-    raise NotImplementedError(
-        f"make_stages: {cfg.name!r} (family {fam!r}, attn_pattern "
-        f"{cfg.attn_pattern!r}) needs a later slice; the port has the "
-        "dense/vlm, hybrid and ssm stages")
+    if fam == "moe":
+        raise NotImplementedError(
+            f"make_stages: {cfg.name!r} uses MLA (layers/mla.py, its "
+            "latent cache and the dense-then-MoE stages), which the next "
+            "slice of the port brings; the port has the dense/vlm "
+            "(blocks, pairs), non-MLA moe, hybrid and ssm stages")
+    raise ValueError(f"make_stages: unsupported family {fam}")

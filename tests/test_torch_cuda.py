@@ -3,7 +3,9 @@ card, at the serving paths' shapes (internvl2-1b attention: H=14, K=2,
 D=64; zamba2-7b: shared attention H=K=32, D=112, and the SSD kernel at
 L=128, H=112, P=64, N=64; xlstm-1.3b's sLSTM at d=2048, H=4, hd=512;
 the mini-clip towers: H=K=4, D=16; tinyllama-1.1b: H=32, K=4, D=64;
-whisper-tiny: H=K=6, D=64 over 1500 encoder frames).
+whisper-tiny: H=K=6, D=64 over 1500 encoder frames; gemma2-9b: H=16,
+K=8, D=256, windowed local layers and a softcap of 50; llama3-8b: H=32,
+K=8, D=128; granite-moe-3b-a800m: H=24, K=8, D=64).
 
 Marked ``cuda``: they skip where no CUDA device is visible.  This file
 imports no jax, so it runs on a machine with the card alone:
@@ -434,10 +436,110 @@ def test_cuda_attention_launches_counted_by_shape(cuda_device):
     ops.flash_attention(q, q, q)
     ops.decode_attention(qd, kd, kd, lens)
     ops.paged_decode_attention(qd, kp, kp, tables, lens)
+    ops.flash_attention(q, q, q, window=4)
+    ops.decode_attention(qd, kd, kd, lens, window=8)
     assert ops.SHAPE_LAUNCHES["flash_attention"] == {
-        (1, 7, 1500, 6, 6, 64, False): 2, (1, 7, 7, 6, 6, 64, True): 1}
-    assert ops.SHAPE_LAUNCHES["decode_attention"] == {(2, 24, 32, 4, 64): 1}
+        (1, 7, 1500, 6, 6, 64, False, 0): 2, (1, 7, 7, 6, 6, 64, True, 0): 1,
+        (1, 7, 7, 6, 6, 64, True, 4): 1}
+    assert ops.SHAPE_LAUNCHES["decode_attention"] == {
+        (2, 24, 32, 4, 64, 0): 1, (2, 24, 32, 4, 64, 8): 1}
     assert ops.SHAPE_LAUNCHES["paged_decode_attention"] == {
-        (2, 2, 16, 32, 4, 64): 1}
+        (2, 2, 16, 32, 4, 64, 0): 1}
     assert {name: sum(c.values()) for name, c in ops.SHAPE_LAUNCHES.items()
             } == {name: ops.LAUNCHES[name] for name in ops.SHAPE_LAUNCHES}
+
+
+# gemma2-9b (H=16, K=8, D=256; window 4096, softcap 50), llama3-8b
+# (H=32, K=8, D=128) and granite-moe-3b-a800m (H=24, K=8, D=64, G=3)
+FAMILY_GEOMS = [(16, 8, 256), (32, 8, 128), (24, 8, 64)]
+# and D = 256 with G = 8 and 12 (blocks of 8 and 4 q-heads), where the
+# decode merge has more output float4s than threads and runs in passes
+FAMILY_DECODE_GEOMS = FAMILY_GEOMS + [(16, 2, 256), (12, 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 2e-4, 2e-4), (torch.bfloat16, 1e-3, 2.0**-7)])
+@pytest.mark.parametrize("H,K,D", FAMILY_GEOMS)
+@pytest.mark.parametrize("kw", [dict(), dict(softcap=50.0),
+                                dict(window=37, softcap=50.0),
+                                dict(window=200)])
+def test_cuda_flash_family_head_dims(cuda_device, dtype, atol, rtol, H, K,
+                                     D, kw):
+    """Ragged S = 300 (no tile multiple), causal, with and without a
+    window and a softcap; and S = 1."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    for S in (300, 1):
+        q, k, v = rnd(1, S, H, D), rnd(1, S, K, D), rnd(1, S, K, D)
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, **kw).float(),
+            ref.flash_attention_ref(q, k, v, **kw).float(),
+            rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 2e-4, 2e-4), (torch.bfloat16, 1e-3, 2.0**-7)])
+@pytest.mark.parametrize("H,K,D", FAMILY_DECODE_GEOMS)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (0, 50.0), (100, 0.0),
+                                            (100, 50.0)])
+def test_cuda_decode_family_head_dims(cuda_device, dtype, atol, rtol, H, K,
+                                      D, window, softcap):
+    """Contiguous and paged split-KV decode: lengths 0, 1, below, at and
+    past the window, and the full cache, in one batch."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    T, ps = 320, 16
+    lens = torch.tensor([0, 1, 99, 100, 101, 257, T], dtype=torch.int32,
+                        device=cuda_device)
+    B = len(lens)
+    q, k, v = rnd(B, H, D), rnd(B, T, K, D), rnd(B, T, K, D)
+    torch.testing.assert_close(
+        ops.decode_attention(q, k, v, lens, window=window,
+                             softcap=softcap).float(),
+        ref.decode_attention_ref(q, k, v, lens, window=window,
+                                 softcap=softcap).float(),
+        rtol=rtol, atol=atol)
+    n_max = T // ps
+    P = B * n_max + 1
+    perm = torch.randperm(P - 1, generator=g, device=cuda_device) + 1
+    tables = perm.reshape(B, n_max).to(torch.int32)
+    owned = torch.arange(n_max, device=cuda_device)[None] * ps < lens[:, None]
+    junk = torch.randint(-9, P + 9, (B, n_max), generator=g,
+                         device=cuda_device, dtype=torch.int32)
+    tables = torch.where(owned, tables, junk).contiguous()
+    kp, vp = rnd(P, ps, K, D), rnd(P, ps, K, D)
+    torch.testing.assert_close(
+        ops.paged_decode_attention(q, kp, vp, tables, lens, window=window,
+                                   softcap=softcap).float(),
+        ref.paged_decode_attention_ref(q, kp, vp, tables, lens,
+                                       window=window, softcap=softcap).float(),
+        rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_windowed_decode_reads_no_key_below_the_window(cuda_device):
+    """Keys below a row's window hold NaN: the kernels never read them,
+    so the output stays finite and equal to the plain version's on a
+    clean cache."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    H, K, D, T, w = 16, 8, 256, 600, 256
+    q = torch.randn(2, H, D, generator=g, device=cuda_device)
+    k = torch.randn(2, T, K, D, generator=g, device=cuda_device)
+    v = torch.randn(2, T, K, D, generator=g, device=cuda_device)
+    lens = torch.tensor([T, 400], dtype=torch.int32, device=cuda_device)
+    want = ref.decode_attention_ref(q, k, v, lens, window=w)
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lens.tolist()):
+        k2[b, :n - w] = float("nan")
+        v2[b, :n - w] = float("nan")
+    torch.testing.assert_close(ops.decode_attention(q, k2, v2, lens,
+                                                    window=w),
+                               want, rtol=2e-4, atol=2e-4)

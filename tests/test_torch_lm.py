@@ -136,10 +136,14 @@ def test_bridge_round_trip(models, dtype):
 
 
 def test_unported_stages_raise():
+    """MLA (deepseek-v3's latent-cache attention) is the one stage the
+    port does not have yet; building it raises, naming MLA."""
     from repro_torch.common.config import ArchConfig
 
-    cfg = ArchConfig(name="pairs", family="dense", n_layers=2, d_model=16,
-                     n_heads=2, n_kv_heads=1, d_ff=32, vocab_size=32,
-                     attn_pattern=("local", "global"), sliding_window=4)
-    with pytest.raises(NotImplementedError):
+    cfg = ArchConfig(name="mla", family="moe", n_layers=2, d_model=16,
+                     n_heads=2, n_kv_heads=2, d_ff=32, vocab_size=32,
+                     n_experts=4, experts_top_k=2, use_mla=True,
+                     q_lora_rank=8, kv_lora_rank=8, qk_rope_dim=4,
+                     qk_nope_dim=4, v_head_dim=8)
+    with pytest.raises(NotImplementedError, match="MLA"):
         build_model(cfg)

@@ -45,6 +45,12 @@ From the root of a checkout, on a machine with the card and ``nvcc``:
    ``--alt-ssd`` source (a variant with the package's C interface) in
    turns with the package's kernel at the three calls.
 
+6. Flash tiles (``--parts flash``): the package's flash source built
+   with each candidate (BQ, BK) tile at D = 128 and 256, checked against
+   the plain version and timed at gemma2-9b's prefill of 4,100 tokens
+   (local with window 4,096, and global; softcap 50) and llama3-8b's;
+   each instance's registers and spills.
+
 Each ``--old-*`` source is needed only by the part that uses it.
 
 Prints one line per measurement, the card's ``nvidia-smi`` name and
@@ -55,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -121,9 +128,11 @@ def record(kind: str, **kw) -> None:
         for k, v in kw.items()), flush=True)
 
 
-def build_libs(srcs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
+def build_libs(srcs: dict[str, Path],
+               logs=None) -> dict[str, ctypes.CDLL]:
     """Build each source into ``build/ab/<name>.so`` with the package's
-    nvcc flags, one nvcc per source, all started together."""
+    nvcc flags, one nvcc per source, all started together; each compiler
+    report into ``logs[name]`` where a dict is given."""
     from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
 
     AB_DIR.mkdir(parents=True, exist_ok=True)
@@ -136,6 +145,8 @@ def build_libs(srcs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise SystemExit(f"kernel_sweep: nvcc failed for "
                              f"{srcs[name]}:\n{log}")
+        if logs is not None:
+            logs[name] = log
     return {name: ctypes.CDLL(str(AB_DIR / f"{name}.so")) for name in srcs}
 
 
@@ -367,7 +378,8 @@ def paged_split_sweep(dev) -> None:
             err = lib.paged_decode_attention_fwd(
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
                 lens.data_ptr(), o.data_ptr(), ws.data_ptr(),
-                tickets.data_ptr(), B, H, K, D, P, ps, n_max, n_split, 0, 0.0,
+                tickets.data_ptr(), B, H, K, D, P, ps, n_max, n_split, 0, 0,
+                0.0,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"CUDA error {err}")
@@ -560,6 +572,84 @@ def ssd_tile_sweep(dev) -> None:
                                                   50))
 
 
+# flash tile candidates (BQ, BK) at the new head dims, and the calls they
+# are timed at: gemma2-9b's prefill of 4,100 tokens (H = 16, K = 8, D =
+# 256, softcap 50), its local layers (window 4,096) and global ones;
+# llama3-8b's (H = 32, K = 8, D = 128) at the same length
+FLASH_TILES = {128: ((16, 64), (32, 32), (32, 64), (64, 32)),
+               256: ((16, 32), (16, 64), (32, 32), (32, 64))}
+FLASH_CALLS = ((256, 16, 8, 4100, 4096, 50.0), (256, 16, 8, 4100, 0, 50.0),
+               (128, 32, 8, 4100, 0, 0.0))
+
+
+def flash_tile_sweep(dev) -> None:
+    """The flash kernel built with each candidate tile at D = 128 and 256
+    (a copy of the package's source under ``build/ab/`` with its
+    ``Tiles<D>`` line rewritten), each checked against the plain version
+    and timed (device time under the profiler) at ``FLASH_CALLS``; the
+    package's own tile is marked ``chosen``."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ref
+
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    names = {}
+    for D, tiles in FLASH_TILES.items():
+        line = re.compile(rf"(struct Tiles<{D}> {{ static constexpr int "
+                          rf"BQ = )\d+, BK = \d+")
+        for bq, bk in tiles:
+            variant, n = line.subn(rf"\g<1>{bq}, BK = {bk}", text)
+            if n != 1:
+                raise SystemExit(f"kernel_sweep: no Tiles<{D}> line in "
+                                 "flash_attention.cu")
+            name = f"flash_d{D}_{bq}x{bk}"
+            names[name] = AB_DIR / f"{name}.cu"
+            names[name].write_text(variant)
+    logs: dict[str, str] = {}
+    libs = build_libs(names, logs)
+    for lib in libs.values():
+        for fn, argtypes in build.LIBRARIES["flash_attention"][1].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    for name, log in logs.items():
+        for e, short in zip(cs.ptxas_entries(log), cs._short_names(
+                [e["name"] for e in cs.ptxas_entries(log)])):
+            if "float" in short and (", 128," in short or ", 256," in short):
+                record("flash_ptxas", build=name, kernel=short,
+                       registers=e["registers"], spill=e["spill"])
+    plan = (ctypes.c_int * 4)()
+    own = build.load("flash_attention")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    stream = torch.cuda.current_stream().cuda_stream
+    for D, H, K, S, window, softcap in FLASH_CALLS:
+        q = torch.randn(1, S, H, D, generator=g, device=dev)
+        k = torch.randn(1, S, K, D, generator=g, device=dev)
+        v = torch.randn(1, S, K, D, generator=g, device=dev)
+        want = ref.flash_attention_ref(q, k, v, window=window,
+                                       softcap=softcap)
+        own.flash_attention_plan(D, plan)
+        chosen = (plan[0], plan[1])
+        for bq, bk in FLASH_TILES[D]:
+            lib = libs[f"flash_d{D}_{bq}x{bk}"]
+            lib.flash_attention_plan(D, plan)
+            o = torch.empty_like(q)
+
+            def call(lib=lib, o=o):
+                err = lib.flash_attention_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    1, S, S, H, K, D, 0, 1, window, softcap, stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
+            call()
+            torch.cuda.synchronize()
+            record("flash_tiles", D=D, H=H, K=K, S=S, window=window,
+                   softcap=softcap, BQ=bq, BK=bk, chosen=(bq, bk) == chosen,
+                   smem=plan[3], max_abs_err=(o - want).abs().max().item(),
+                   device_ms=cs.device_ms(call, "flash_fwd", 20))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-slstm", type=Path,
@@ -576,7 +666,7 @@ def main() -> int:
                     metavar="NAME=PATH",
                     help="a variant ssd_scan.cu with the package's "
                          "interface, timed beside it (part ssd)")
-    ap.add_argument("--parts", default="ab,prefill,barrier,paged,ssd",
+    ap.add_argument("--parts", default="ab,prefill,barrier,paged,ssd,flash",
                     help="comma-separated sections to run (default: all)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
@@ -606,6 +696,8 @@ def main() -> int:
         barrier_latency(dev)
     if "paged" in parts:
         paged_split_sweep(dev)
+    if "flash" in parts:
+        flash_tile_sweep(dev)
     if "ssd" in parts:
         ssd_ab(args.old_ssd, dev)
         ssd_tile_sweep(dev)
