@@ -98,7 +98,22 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels at these shapes (flash D = 256 local and global at S =
    4,100, D = 128, D = 64 with G = 3; decode D = 256 local and global,
    D = 128; paged D = 256 local, D = 128), with the window's edges.
-9. Print the kernels line (JSON), the card line, and last
+9. deepseek-v3-671b and llama3-405b at their published widths, depth
+   cut to fit one card (random float32 weights from a seed; each freed
+   before the next).  deepseek (MLA with its latent cache, 256 routed
+   experts top-8 and a shared one, the MTP weights carried) at 2 layers,
+   one dense and one MoE (14,630,400,000 parameters), serves phase 8's 4
+   greedy requests solo through ``launch.serve.serve_arch`` →
+   ``Deployment.submit()``: finite logits, decode == a fresh prefill,
+   card == CPU at 2 layers with 16 of the 256 experts (a cut for the
+   host), no kernel launch at all (the reference runs MLA and the MoE as
+   plain products); prints the prefill time, solo tokens/s beside the
+   weight-read floor, the latent cache's bytes a token and the peak
+   device memory, which must stay below the weights plus one expert
+   leaf.  llama3-405b (128 q / 8 kv heads of 128, G = 16) at 2 layers
+   runs phase 8's path and checks, card == CPU at 1 layer; phase 2
+   checks and times the three attention kernels at its shapes.
+10. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -186,6 +201,15 @@ G2_LONG, G2_WINDOW, G2_SOFTCAP, G2_CACHE = 4100, 4096, 50.0, 4112
 G2_DECODE_LEN = G2_LONG + FAM_NEW // 2  # phase 2's solo decode length
 FAM_CACHE = {"gemma2-9b": G2_CACHE, "llama3-8b": 256,
              "granite-moe-3b-a800m": 256}
+# phase 9: deepseek-v3-671b with 2 layers (one dense, one MoE; the CPU
+# reference with 16 of its 256 experts) and llama3-405b (128 q / 8 kv
+# heads of 128: G = 16) with 2 layers (the CPU reference with 1), phase
+# 8's requests; llama3-405b pages like llama3-8b
+DS_ARCH, DS_CUT, DS_CPU_EXPERTS = ("deepseek-v3-671b",
+                                   dict(n_layers=2, first_dense_layers=1), 16)
+L405_ARCH, L405_LAYERS, L405_CPU_LAYERS = "llama3-405b", 2, 1
+FAM_GEOM[L405_ARCH] = (128, 8, 128)
+FAM_CACHE[L405_ARCH] = 256
 
 
 def prompt_lens(bounds, n) -> list[int]:
@@ -1198,7 +1222,10 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
       global; D = 128 over llama3's solo cache;
     * paged decode D = 256 at gemma2's serve tick (4 rows, tables of 257
       pages, the long row and three short ones), local; D = 128 at
-      llama3's tick.
+      llama3's tick;
+    * phase 9's llama3-405b (H = 128, K = 8, D = 128: G = 16, two blocks
+      of 8 q-heads a kv head in both decode kernels): flash at its
+      longest prompt, decode over its solo cache, paged at its tick.
 
     Checked besides (no row): the same decode and paged calls without a
     window or with softcap 0, granite's G = 3 decode and tick, each
@@ -1215,6 +1242,7 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     rows, keys = [], {}
     g2, l3, gr = FAM_ARCHS
+    l405 = L405_ARCH
     S_short = max(fam_prompts(l3))
     T_long = dense_T(G2_LONG, FAM_NEW)
     T_short = dense_T(S_short, FAM_NEW)
@@ -1234,7 +1262,8 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
                 ("flash_attention_d256_global", g2, G2_LONG, 0, G2_SOFTCAP,
                  _g2_prefill_global),
                 ("flash_attention_d128", l3, S_short, 0, 0.0, None),
-                ("flash_attention_g3", gr, S_short, 0, 0.0, None)):
+                ("flash_attention_g3", gr, S_short, 0, 0.0, None),
+                ("flash_attention_d128_g16", l405, S_short, 0, 0.0, None)):
             H_, K_, D_ = FAM_GEOM[path]
             keys[name] = (path, "flash_attention",
                           (1, S_, S_, H_, K_, D_, True, window))
@@ -1283,7 +1312,9 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
                  0, G2_SOFTCAP, _g2_decode_global),
                 ("decode_attention_d128", l3, T_short,
                  S_short + FAM_NEW // 2, 0, 0.0, None),
-                (None, gr, T_short, S_short + FAM_NEW // 2, 0, 0.0, None)):
+                (None, gr, T_short, S_short + FAM_NEW // 2, 0, 0.0, None),
+                ("decode_attention_d128_g16", l405, T_short,
+                 S_short + FAM_NEW // 2, 0, 0.0, None)):
             H_, K_, D_ = FAM_GEOM[path]
             qd = rnd(1, H_, D_).to(dt)
             kd, vd = rnd(1, T_, K_, D_).to(dt), rnd(1, T_, K_, D_).to(dt)
@@ -1348,7 +1379,9 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
                  G2_WINDOW, G2_SOFTCAP),
                 (None, g2, G2_CACHE, 0, G2_SOFTCAP),
                 ("paged_decode_attention_d128", l3, FAM_CACHE[l3], 0, 0.0),
-                (None, gr, FAM_CACHE[gr], 0, 0.0)):
+                (None, gr, FAM_CACHE[gr], 0, 0.0),
+                ("paged_decode_attention_d128_g16", l405, FAM_CACHE[l405], 0,
+                 0.0)):
             H_, K_, D_ = FAM_GEOM[path]
             n_max = cache // PAGE
             P = FAM_ROWS * n_max + 1
@@ -1810,18 +1843,28 @@ def _fresh_prefill(bundle, params, tokens, dev, frames=None):
     return logits[0]
 
 
+def _host_mem_gb() -> float:
+    """The host's ``MemTotal`` (``/proc/meminfo``), in GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
 def _card_vs_cpu(dev, cfg, batch, cache_T, tag, label) -> None:
-    """The same weights (seed 0) through the kernels on the card and
-    through the plain versions on the CPU (which the CPU tests hold to
-    the JAX package): a prefill of ``batch`` into a dense cache of
-    cache_T, then 3 decode steps; fails past ``LOGIT_TOL``."""
+    """The same weights (seed 0, drawn on the card a leaf at a time, kept
+    on the host) through the kernels on the card and through the plain
+    versions on the CPU (which the CPU tests hold to the JAX package): a
+    prefill of ``batch`` into a dense cache of cache_T, then 3 decode
+    steps; fails past ``LOGIT_TOL``."""
     import torch
 
     from repro_torch.common.pytree import tree_map
     from repro_torch.models.api import build_model
 
     b = build_model(cfg)
-    p_cpu = b.init(torch.Generator().manual_seed(SEED), device="cpu")
+    p_cpu = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                   device="cpu")
     L = batch["tokens"].shape[1]
     outs = {}
     for device in ("cpu", dev):
@@ -1839,7 +1882,9 @@ def _card_vs_cpu(dev, cfg, batch, cache_T, tag, label) -> None:
         del p, cache
     worst = max(_err(a, c) for a, c in zip(outs["cpu"], outs[str(dev)]))
     ok = worst <= LOGIT_TOL
-    log(f"[{tag}] {cfg.name} {label}, {b.param_count():,} parameters: card "
+    log(f"[{tag}] {cfg.name} {label}, {b.param_count():,} parameters "
+        f"({b.param_count() * 4 / 1e9:.2f} GB f32; host MemTotal "
+        f"{_host_mem_gb():.1f} GB): card "
         f"(kernels) vs CPU (plain versions), prefill of {L} + 3 decode "
         f"steps: max |dlogit| {worst:.3e} (tol {LOGIT_TOL:g}) "
         f"{'ok' if ok else 'MISMATCH'}")
@@ -2421,33 +2466,34 @@ def _family_expected(cfg, lens, req_steps, ticks, cache_len):
     return want, shapes
 
 
-def phase_family(dev, arch) -> dict:
-    """One of gemma2-9b, llama3-8b and granite-moe-3b-a800m at its
-    published width and depth (random float32 weights from seed 0)
-    through ``launch.serve.serve_arch``: its requests through the paged
-    scheduler (serve()), then each through the solo path (submit()).
-    Checked: tokens and every step's logits serve == submit, decode == a
-    fresh prefill (gemma2's long request at positions past its window),
-    exact launches by kernel and by call shape (local and global apart);
-    before it, card == CPU at full width with 2 layers.  Prints the
-    prefill time, serve() and solo rates, device busy over 3 decode
-    steps and the peak device memory.  Returns the main-path launches:
-    by kernel and by call shape."""
+def phase_family(dev, cfg, cpu_layers=2, tag="phase8") -> dict:
+    """An attention family at its published width (random float32
+    weights from seed 0) through ``launch.serve.serve_arch``: phase 8's
+    gemma2-9b, llama3-8b and granite-moe-3b-a800m at their depths, phase
+    9's llama3-405b at a cut depth (``cfg``'s).  Its requests go through
+    the paged scheduler (serve()), then each through the solo path
+    (submit()).  Checked: tokens and every step's logits serve ==
+    submit, decode == a fresh prefill (gemma2's long request at
+    positions past its window), exact launches by kernel and by call
+    shape (local and global apart); before it, card == CPU at full width
+    with ``cpu_layers`` layers.  Prints the prefill time, serve() and
+    solo rates, device busy over 3 decode steps and the peak device
+    memory.  Returns the main-path launches: by kernel and by call
+    shape."""
     import gc
 
     import numpy as np
     import torch
 
-    from repro_torch.common.config import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_requests, serve_arch
 
-    cfg = get_config(arch)
+    arch = cfg.name
     g = torch.Generator().manual_seed(SEED + 1)
-    _card_vs_cpu(dev, cfg.with_overrides(n_layers=2),
+    _card_vs_cpu(dev, cfg.with_overrides(n_layers=cpu_layers),
                  {"tokens": torch.randint(0, cfg.vocab_size, (1, 9),
                                           generator=g, dtype=torch.int32)},
-                 32, "phase8", "full width, 2 layers")
+                 32, tag, f"full width, {cpu_layers} layers")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2472,7 +2518,7 @@ def phase_family(dev, arch) -> dict:
     launches = dict(ops.LAUNCHES)
     shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
     n = rt.bundle.param_count()
-    log(f"[phase8] {arch}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32), "
+    log(f"[{tag}] {arch}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32), "
         f"{cfg.n_layers} layers, d_model {cfg.d_model}, H {cfg.n_heads}, K "
         f"{cfg.n_kv_heads}, head dim {cfg.head_dim}"
         + (f", window {cfg.sliding_window} on its local layers"
@@ -2492,7 +2538,7 @@ def phase_family(dev, arch) -> dict:
         if not bool(torch.isfinite(lg_b).all()):
             fail(f"{arch} rid {r.rid}: non-finite logits")
         dlogit = _err(lg_a, lg_b)
-        log(f"[phase8] {arch} rid {r.rid} prompt {len(req.prompt)}: "
+        log(f"[{tag}] {arch} rid {r.rid} prompt {len(req.prompt)}: "
             f"serve == submit over {len(a)} tokens, max |dlogit| "
             f"{dlogit:.3e} (tol {LOGIT_TOL:g}; |logit| up to "
             f"{lg_b.abs().max().item():.3f})")
@@ -2501,10 +2547,10 @@ def phase_family(dev, arch) -> dict:
                  f"{dlogit:.3e}")
     req_steps = _decode_vs_prefill(arch, rt.bundle, rt.params, reqs,
                                    [solo_res[r.rid] for r in reqs], solo,
-                                   dev, (1, FAM_NEW - 1), tag="phase8")
+                                   dev, (1, FAM_NEW - 1), tag=tag)
     want, want_shapes = _family_expected(cfg, lens, req_steps,
                                          run.decode_steps, cache_len)
-    log(f"[phase8] {arch} kernel launches {launches}, expected {want}; "
+    log(f"[{tag}] {arch} kernel launches {launches}, expected {want}; "
         f"by shape {shapes}, expected {want_shapes}")
     if launches != want or shapes != want_shapes:
         fail(f"{arch}: kernel launches {launches}, by shape {shapes} != "
@@ -2532,7 +2578,7 @@ def phase_family(dev, arch) -> dict:
                              dense_T(max(lens), FAM_NEW), dev)
     _profile_decode(arch, rt.bundle, rt.params, cache, max(lens), dev)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[phase8] {arch}: prefill of {max(lens)} tokens {min(pre):.1f} ms "
+    log(f"[{tag}] {arch}: prefill of {max(lens)} tokens {min(pre):.1f} ms "
         f"(best of 3, warm; {', '.join(f'{t:.1f}' for t in pre)}); TTFT "
         f"mean {1e3 * np.mean(ttft):.1f} ms, max {1e3 * max(ttft):.1f} ms; "
         f"serve() decode {stats['decode_tokens']} tokens over {len(ticks)} "
@@ -2547,6 +2593,112 @@ def phase_family(dev, arch) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return {"launches": launches, "shapes": shapes}
+
+
+def phase_deepseek(dev) -> dict:
+    """deepseek-v3-671b at its published width with depth cut to one
+    dense and one MoE layer (random float32 weights from seed 0) through
+    ``launch.serve.serve_arch``: MLA's latent cache has no paged layout,
+    so each request runs solo through ``Deployment.submit()``.  Checked:
+    finite logits, decode == a fresh prefill at steps 1 and FAM_NEW - 1,
+    no kernel launch anywhere in the phase, and the peak device memory
+    below the weights plus one expert leaf (the dense MoE reads each
+    expert leaf in place); before it, card == CPU at full width with 2
+    layers and DS_CPU_EXPERTS of the 256 experts.  Prints the prefill
+    time, solo tokens/s beside the weight-read floor, the latent cache's
+    bytes a token, device busy over 3 decode steps and the peak."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve_arch
+    from repro_torch.layers.initializers import spec_param_count
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(DS_ARCH).with_overrides(**DS_CUT)
+    g = torch.Generator().manual_seed(SEED + 1)
+    ops.reset_launches()
+    _card_vs_cpu(dev, cfg.with_overrides(n_experts=DS_CPU_EXPERTS),
+                 {"tokens": torch.randint(0, cfg.vocab_size, (1, 9),
+                                          generator=g, dtype=torch.int32)},
+                 32, "phase9",
+                 f"full width, {cfg.n_layers} layers, {DS_CPU_EXPERTS} of "
+                 f"{cfg.n_experts} experts (a cut for the host)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    lens = prompt_lens(FAM_PROMPTS, FAM_REQS)
+    reqs = make_requests(cfg, len(lens), FAM_NEW, prompt_lens=lens,
+                         seed=SEED)
+    solo = {}
+    with record_logits(solo):
+        run = serve_arch(cfg, reqs, device=dev)
+    if run.scheduler is not None:
+        fail(f"{DS_ARCH}: served through the paged scheduler; MLA's "
+             "latent cache has no paged layout")
+    rt = next(iter(run.engine.decoders.values()))
+    b = rt.bundle
+    n = b.param_count()
+    n_mtp = spec_param_count(b.specs["mtp"])
+    n_embed = spec_param_count(b.specs["embed"])
+    leaf = b.specs["stages"]["moe"]["blocks"]["moe"]["wi_gate"]
+    leaf_bytes = 4 * int(np.prod(leaf.shape[1:]))
+    log(f"[phase9] {DS_ARCH}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32; "
+        f"the full model "
+        f"{build_model(get_config(DS_ARCH)).param_count():,}), {cfg.n_layers} "
+        f"layers ({cfg.first_dense_layers} dense), d_model {cfg.d_model}, "
+        f"H {cfg.n_heads}, q_lora {cfg.q_lora_rank}, kv_lora "
+        f"{cfg.kv_lora_rank}, qk {cfg.qk_nope_dim} + {cfg.qk_rope_dim}, v "
+        f"{cfg.v_head_dim}, {cfg.n_experts} experts of {cfg.moe_d_ff} "
+        f"top-{cfg.experts_top_k} + {cfg.n_shared_experts} shared, dense "
+        f"d_ff {cfg.dense_d_ff}, MTP weights {n_mtp:,} (carried, not run); "
+        f"submit() x{len(reqs)} (prompts {lens}, {FAM_NEW} new tokens) in "
+        f"{run.seconds:.3f} s")
+    req_steps = _decode_vs_prefill(DS_ARCH, b, rt.params, reqs, run.results,
+                                   solo, dev, (1, FAM_NEW - 1), tag="phase9")
+
+    solo_s = sum(sp.t1 - sp.t0 for r in run.results for sp in r.timeline
+                 if sp.phase == "decode")
+    steps = sum(req_steps)
+    longest = reqs[int(np.argmax(lens))]
+    batch = {"tokens": torch.tensor([longest.prompt], dtype=torch.int32,
+                                    device=dev)}
+    pre, cache = _prefill_ms(b, rt.params, batch, dense_T(max(lens), FAM_NEW),
+                             dev)
+    _profile_decode(DS_ARCH, b, rt.params, cache, max(lens), dev)
+    launches = dict(ops.LAUNCHES)
+    log(f"[phase9] {DS_ARCH} kernel launches over the phase {launches}, "
+        "expected none (MLA and the MoE are plain products)")
+    if any(launches.values()):
+        fail(f"{DS_ARCH}: kernel launches {launches}, expected none")
+    cache_floats = sum(int(np.prod(ws.shape)) for ws in
+                       tree_leaves(b.cache_specs(1, 1))) // cfg.n_layers
+    read = (n - n_embed - n_mtp) * 4
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[phase9] {DS_ARCH}: prefill of {max(lens)} tokens "
+        f"{min(pre):.1f} ms (best of 3, warm; "
+        f"{', '.join(f'{t:.1f}' for t in pre)}); solo decode {steps} steps, "
+        f"{steps / solo_s:.1f} tokens/s ({1e3 * solo_s / steps:.2f} ms per "
+        f"token; weight-read floor {read / HBM_BYTES_S * 1e3:.2f} ms: "
+        f"{read / 1e9:.2f} GB a step, the embedding table and the MTP block "
+        f"unread); latent cache {cache_floats} floats "
+        f"({4 * cache_floats} B) a token and layer; peak device memory "
+        f"{peak / 1e9:.2f} GB (weights {n * 4 / 1e9:.2f} GB, one expert "
+        f"leaf {leaf_bytes / 1e9:.2f} GB)")
+    if peak >= n * 4 + leaf_bytes:
+        fail(f"{DS_ARCH}: peak {peak / 1e9:.2f} GB reaches the weights plus "
+             "one expert leaf: an expert leaf was copied")
+    del run, rt, b, cache, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return {"launches": launches,
+            "shapes": {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}}
 
 
 def main() -> int:
@@ -2581,8 +2733,17 @@ def main() -> int:
     paths = {"serve": serve, **phase_recurrent(dev),
              "scenario": phase_scenario(dev), TL_ARCH: phase_tinyllama(dev),
              W_ARCH: phase_whisper(dev)}
+    from repro_torch.common.config import get_config
+
     for arch in FAM_ARCHS:
-        paths[arch] = phase_family(dev, arch)
+        paths[arch] = phase_family(dev, get_config(arch))
+    t9 = time.perf_counter()
+    paths[DS_ARCH] = phase_deepseek(dev)
+    paths[L405_ARCH] = phase_family(
+        dev, get_config(L405_ARCH).with_overrides(n_layers=L405_LAYERS),
+        cpu_layers=L405_CPU_LAYERS, tag="phase9")
+    log(f"[phase9] {DS_ARCH} and {L405_ARCH} in "
+        f"{time.perf_counter() - t9:.1f} s")
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
     rows += rec_rows + slice_rows + fam_rows

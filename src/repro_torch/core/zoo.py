@@ -1,4 +1,4 @@
-"""ModelSpecs for the paper's 14-model zoo and the assigned archs.
+"""ModelSpecs for the paper's 14-model zoo and the 10 assigned archs.
 
 The zoo feeds the placement/routing simulator (exact published param
 counts); ``arch_model_spec`` adapts an assigned ``ArchConfig`` into the

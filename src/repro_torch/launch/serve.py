@@ -7,10 +7,11 @@
 
 Families with a paged-KV layout (dense/vlm, and the non-MLA moe stage)
 stream through the continuous-batching scheduler (``lm_scheduler``):
-internvl2-1b, tinyllama-1.1b, llama3-8b, gemma2-9b (its local layers
-windowed in prefill and in paged decode) and granite-moe-3b-a800m.  The recurrent
-families (hybrid zamba2, ssm xLSTM) and the encoder-decoder family
-(whisper, whose requests carry their audio frames) have no paged
+internvl2-1b, tinyllama-1.1b, llama3-8b, llama3-405b, gemma2-9b (its
+local layers windowed in prefill and in paged decode) and
+granite-moe-3b-a800m.  The recurrent families (hybrid zamba2, ssm
+xLSTM), MLA's latent cache (deepseek-v3-671b) and the encoder-decoder
+family (whisper, whose requests carry their audio frames) have no paged
 layout: each request runs its solo prefill and dense-cache decode
 through ``Deployment.submit()`` of a head-only generative model.  ``--plan``
 prints the S2M3 deployment plan for the arch over the paper's edge
@@ -33,7 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.common.config import get_config
+from repro_torch.common.config import get_config, list_archs
 from repro_torch.common.device import resolve_device
 from repro_torch.core.routing import Request
 from repro_torch.kernels import ops as kops
@@ -141,7 +142,7 @@ def serve_arch(cfg, requests, *, device=None, params=None,
     before = dict(kops.LAUNCHES)
     t0 = time.perf_counter()
     sched = None
-    if bundle.paged_decode_step is not None:
+    if bundle.supports_paged_decode:
         sched = lm_scheduler(bundle, params, device=device,
                              config=SchedulerConfig(
                                  decode_rows=max_batch, max_seq_len=cache_len,
@@ -163,7 +164,8 @@ def serve_arch(cfg, requests, *, device=None, params=None,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="internvl2-1b")
+    ap.add_argument("--arch", default="internvl2-1b",
+                    help=f"one of {', '.join(list_archs())}")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)

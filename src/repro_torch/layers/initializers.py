@@ -60,7 +60,9 @@ def init_leaf(ws: WSpec, generator: torch.Generator, dtype,
         raise ValueError(f"init_leaf: {ws.init!r} leaf needs a generator")
     x = torch.randn(ws.shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (x * _std(ws)).to(device=device, dtype=dt)
+    # scaled in place: no second leaf-sized tensor (deepseek-v3's expert
+    # leaves are 15 GB each), the same values as ``x * std``
+    return x.mul_(_std(ws)).to(device=device, dtype=dt)
 
 
 def init_tree(spec_tree, generator: torch.Generator | None = None,

@@ -6,7 +6,10 @@ architecture: ``prefill`` (batch prefill into a dense cache),
 ``paged_decode_step`` (one token per row against a global page pool).
 Caches are updated in place and returned for symmetry with the JAX
 package, whose functions return new caches.  ``loss_fn`` is None until
-the training slice of the port.
+the training slice of the port.  A config with ``mtp_depth`` (deepseek)
+carries the reference's multi-token-prediction weights (``params["mtp"]``)
+so the trees match leaf for leaf; the reference runs them only in its
+loss, and serving reads none of them.
 
 The port computes in float32, the dtype the JAX package serves in
 (``build_model(..., compute_dtype=jnp.float32)``); ``cfg.compute_dtype``
@@ -24,8 +27,12 @@ import torch
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_leaves, tree_map
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers import mla as mla_lib
 from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply, head_specs
 from repro_torch.layers.initializers import WSpec, init_tree, spec_param_count, stack_specs
+from repro_torch.layers.mlp import mlp_specs
+from repro_torch.layers.moe import padded_experts
 from repro_torch.layers.norms import apply_norm, norm_specs
 from repro_torch.models.lm import make_stages
 
@@ -55,6 +62,22 @@ class ModelBundle:
 
     def param_count(self) -> int:
         return spec_param_count(self.specs)
+
+    @property
+    def supports_paged_decode(self) -> bool:
+        return self.paged_decode_step is not None
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k of routed experts)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        per_expert = 3 * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+        n_moe_layers = cfg.n_layers - cfg.first_dense_layers
+        routed = padded_experts(cfg) * per_expert * n_moe_layers
+        active = cfg.experts_top_k * per_expert * n_moe_layers
+        return total - routed + active
 
     def kv_bytes_per_token(self) -> int:
         """Float32 cache bytes one token takes over every layer (what
@@ -95,6 +118,22 @@ def _lm_specs(cfg, stages):
         sp["head"] = head_specs(cfg.d_model, cfg.vocab_size)
     if cfg.has_vision_stub:
         sp["img_proj"] = {"w": WSpec((cfg.d_model, cfg.d_model), (None, "embed"))}
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        sp["mtp"] = {
+            "proj": WSpec((2 * d, d), (None, "embed")),
+            "norm_h": norm_specs(d, cfg.norm),
+            "norm_e": norm_specs(d, cfg.norm),
+            "block": {
+                "ln_attn": norm_specs(d, cfg.norm),
+                "attn": mla_lib.mla_specs(cfg) if cfg.use_mla
+                else attn_lib.attention_specs(d, cfg.n_heads, cfg.n_kv_heads,
+                                              cfg.head_dim),
+                "ln_mlp": norm_specs(d, cfg.norm),
+                "mlp": mlp_specs(d, cfg.dense_d_ff or cfg.d_ff),
+            },
+            "final_norm": norm_specs(d, cfg.norm),
+        }
     return sp
 
 
@@ -171,14 +210,16 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     def decode_step(params, tokens, cache, lengths):
         return _decode(params, tokens, cache, lengths)
 
-    # Every dense/vlm/moe stage cache is {"k","v"} with (B, T, K, D)
-    # leaves (a list of two per gemma2 pair): re-reading (B, T) as
+    # Every dense/vlm/non-MLA moe stage cache is {"k","v"} with (B, T,
+    # K, D) leaves (a list of two per gemma2 pair): re-reading (B, T) as
     # (n_pages, page_size) gives the global page pool the paged decode
     # kernel and the block-table scatter consume.  The JAX package pages
     # dense/vlm only; the port's non-MLA moe stage has the same cache, so
-    # it pages too.  Recurrent (hybrid/ssm) caches do not fit the page
-    # layout; those bundles keep the paged fields None.
-    paged_supported = cfg.family in ("dense", "vlm", "moe")
+    # it pages too.  MLA's latent {"ckv","kr"} cache and the recurrent
+    # (hybrid/ssm) caches do not fit the page layout; those bundles keep
+    # the paged fields None and serve solo, as in the reference.
+    paged_supported = cfg.family in ("dense", "vlm") or (
+        cfg.family == "moe" and not cfg.use_mla)
 
     def paged_decode_step(params, tokens, cache, block_tables, lengths):
         return _decode(params, tokens, cache, lengths, cache_layout="paged",

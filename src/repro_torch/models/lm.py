@@ -10,6 +10,10 @@ package.  The port covers:
   sub-block attends within ``sliding_window`` keys of its query;
 * moe ``"moe"`` (granite, non-MLA): attention + mixture-of-experts
   blocks (``layers.moe``, the dense form);
+* moe with MLA (deepseek): a ``"dense"`` stage of ``first_dense_layers``
+  MLA + gated-MLP blocks, then a ``"moe"`` stage of MLA + MoE blocks
+  (routed experts and the shared one); each layer caches the latent
+  ``ckv`` and the rotary key ``kr`` (``layers.mla``);
 * hybrid (zamba2) ``"super"``: superblocks of ``n_mamba_per_super``
   Mamba2 blocks (weights ``(n_super, k, ...)``) followed by one
   attention + MLP block whose weights exist once, under
@@ -26,8 +30,9 @@ Modes: "prefill" (fills the caches: attention through the flash kernel,
 windowed for local layers, Mamba2 through the SSD kernel, sLSTM through
 its kernel) and "decode" (one token per row: attention against a dense
 cache through the decode kernel, or a paged pool through the paged
-kernel, both with the window of a local layer; the recurrent blocks
-step their state).  MLA (deepseek) waits for a later slice and raises.
+kernel, both with the window of a local layer; MLA attends over its
+latent cache with plain products, as the reference does; the recurrent
+blocks step their state).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mamba2 as m2
+from repro_torch.layers import mla as mla_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import xlstm as xl
 from repro_torch.layers.initializers import WSpec, stack_specs
@@ -63,6 +69,20 @@ def _attn_block_specs(cfg, use_moe: bool, post_norm: bool):
     if post_norm:
         specs["ln_attn_post"] = norm_specs(d, cfg.norm)
         specs["ln_mlp_post"] = norm_specs(d, cfg.norm)
+    return specs
+
+
+def _mla_block_specs(cfg, use_moe: bool):
+    d = cfg.d_model
+    specs = {
+        "ln_attn": norm_specs(d, cfg.norm),
+        "attn": mla_lib.mla_specs(cfg),
+        "ln_mlp": norm_specs(d, cfg.norm),
+    }
+    if use_moe:
+        specs["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(d, cfg.dense_d_ff or cfg.d_ff)
     return specs
 
 
@@ -137,6 +157,34 @@ def _attn_block(p, h, cache, ctx, cfg, *, local: bool, use_moe: bool,
     h = _apply_attn_sub(p, h, cache, ctx, cfg, local=local,
                         post_norm=post_norm)
     return _apply_ffn_sub(p, h, cfg, use_moe=use_moe, post_norm=post_norm)
+
+
+def _mla_block(p, h, cache, ctx, cfg, *, use_moe: bool):
+    """Norm + MLA + residual, then norm + MLP (or MoE) + residual.
+    Prefill writes the latent cache's first S slots; decode inserts one
+    token per row at ``lengths`` and attends over the slots below
+    ``lengths + 1``."""
+    x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
+    if ctx["mode"] == "prefill":
+        S = x.shape[1]
+        y, (ckv, kr) = mla_lib.mla_apply(p["attn"], x,
+                                         positions=ctx["positions"], cfg=cfg)
+        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+    else:
+        lengths = ctx["lengths"]
+        ckv_new, kr_new = mla_lib.mla_project_kv(p["attn"], x,
+                                                 ctx["positions"], cfg)
+        attn.cache_insert(cache["ckv"], ckv_new, lengths)
+        attn.cache_insert(cache["kr"], kr_new, lengths)
+        B, T = cache["ckv"].shape[:2]
+        kv_pos = torch.arange(T, dtype=torch.int32,
+                              device=x.device).expand(B, T)
+        y = mla_lib.mla_attend(
+            p["attn"], x, positions=ctx["positions"], cfg=cfg,
+            ckv_all=cache["ckv"].to(x.dtype), kr_all=cache["kr"].to(x.dtype),
+            kv_positions=kv_pos, kv_valid=kv_pos < (lengths + 1)[:, None])
+    return _apply_ffn_sub(p, h + y, cfg, use_moe=use_moe, post_norm=False)
 
 
 def _pair_block(p, h, cache, ctx, cfg, *, pat):
@@ -224,6 +272,15 @@ def _kv_cache_specs(cfg, B, T, dtype):
     }
 
 
+def _mla_cache_specs(cfg, B, T, dtype):
+    return {
+        "ckv": WSpec((B, T, cfg.kv_lora_rank),
+                     ("cache_batch", "cache_seq", None), init="zeros", dtype=dtype),
+        "kr": WSpec((B, T, cfg.qk_rope_dim),
+                    ("cache_batch", "cache_seq", None), init="zeros", dtype=dtype),
+    }
+
+
 def _mamba_cache_specs(cfg, B, T, dtype):
     d_in, H, N = m2.mamba2_dims(cfg)
     W = cfg.mamba_conv_width
@@ -283,6 +340,17 @@ def make_stages(cfg) -> list[StageDef]:
                     post_norm=cfg.post_norm),
             _kv_cache_specs,
         )]
+    if fam == "moe":  # deepseek: MLA, a dense stage, then the moe stage
+        stages = []
+        if cfg.first_dense_layers:
+            stages.append(StageDef(
+                "dense", cfg.first_dense_layers, _mla_block_specs(cfg, False),
+                partial(_mla_block, cfg=cfg, use_moe=False), _mla_cache_specs))
+        stages.append(StageDef(
+            "moe", cfg.n_layers - cfg.first_dense_layers,
+            _mla_block_specs(cfg, True),
+            partial(_mla_block, cfg=cfg, use_moe=True), _mla_cache_specs))
+        return stages
     if fam == "hybrid":  # zamba2: superblocks of mamba + shared attention
         k = cfg.n_mamba_per_super
         n_super = cfg.n_layers // k
@@ -311,10 +379,4 @@ def make_stages(cfg) -> list[StageDef]:
                 "mlstm": [_stacked(ws, m)
                           for ws in _mlstm_cache_specs(cfg_, B, T, dtype)],
                 "slstm": _slstm_cache_specs(cfg_, B, T, dtype)})]
-    if fam == "moe":
-        raise NotImplementedError(
-            f"make_stages: {cfg.name!r} uses MLA (layers/mla.py, its "
-            "latent cache and the dense-then-MoE stages), which the next "
-            "slice of the port brings; the port has the dense/vlm "
-            "(blocks, pairs), non-MLA moe, hybrid and ssm stages")
     raise ValueError(f"make_stages: unsupported family {fam}")

@@ -5,7 +5,8 @@ L=128, H=112, P=64, N=64; xlstm-1.3b's sLSTM at d=2048, H=4, hd=512;
 the mini-clip towers: H=K=4, D=16; tinyllama-1.1b: H=32, K=4, D=64;
 whisper-tiny: H=K=6, D=64 over 1500 encoder frames; gemma2-9b: H=16,
 K=8, D=256, windowed local layers and a softcap of 50; llama3-8b: H=32,
-K=8, D=128; granite-moe-3b-a800m: H=24, K=8, D=64).
+K=8, D=128; granite-moe-3b-a800m: H=24, K=8, D=64; llama3-405b:
+H=128, K=8, D=128).
 
 Marked ``cuda``: they skip where no CUDA device is visible.  This file
 imports no jax, so it runs on a machine with the card alone:
@@ -450,8 +451,10 @@ def test_cuda_attention_launches_counted_by_shape(cuda_device):
 
 
 # gemma2-9b (H=16, K=8, D=256; window 4096, softcap 50), llama3-8b
-# (H=32, K=8, D=128) and granite-moe-3b-a800m (H=24, K=8, D=64, G=3)
-FAMILY_GEOMS = [(16, 8, 256), (32, 8, 128), (24, 8, 64)]
+# (H=32, K=8, D=128), granite-moe-3b-a800m (H=24, K=8, D=64, G=3) and
+# llama3-405b (H=128, K=8, D=128: G=16, two blocks of 8 q-heads a kv
+# head in both decode kernels)
+FAMILY_GEOMS = [(16, 8, 256), (32, 8, 128), (24, 8, 64), (128, 8, 128)]
 # and D = 256 with G = 8 and 12 (blocks of 8 and 4 q-heads), where the
 # decode merge has more output float4s than threads and runs in passes
 FAMILY_DECODE_GEOMS = FAMILY_GEOMS + [(16, 2, 256), (12, 1, 256)]

@@ -1,7 +1,7 @@
 """The port's gemma2-9b (dense ``pairs`` stage: windowed local layers,
-both softcaps, post-norms), llama3-8b (dense) and granite-moe-3b-a800m
-(the non-MLA ``moe`` stage) at their smoke configs, held to the JAX
-package on bridged weights.
+both softcaps, post-norms), llama3-8b and llama3-405b (dense) and
+granite-moe-3b-a800m (the non-MLA ``moe`` stage) at their smoke
+configs, held to the JAX package on bridged weights.
 
 Tolerances: float32 rtol = atol = 2e-4 for prefill and decode logits
 (another summation order, the tolerance of ``tests/test_kernels.py``);
@@ -34,7 +34,7 @@ from repro_torch.serving.kvcache import insert_pages
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 DECODE_TOL = dict(rtol=5e-4, atol=5e-4)
-ARCHS = ["gemma2-9b", "llama3-8b", "granite-moe-3b-a800m"]
+ARCHS = ["gemma2-9b", "llama3-8b", "llama3-405b", "granite-moe-3b-a800m"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -79,13 +79,14 @@ def test_specs_param_count_and_stages_match_reference(models):
     shapes = [tuple(x.shape) for x in _leaves(init)]
     assert shapes == [tuple(x.shape) for x in jax.tree.leaves(jp)]
     want = {"gemma2-9b": "pairs", "llama3-8b": "blocks",
-            "granite-moe-3b-a800m": "moe"}[cfg.name]
+            "llama3-405b": "blocks", "granite-moe-3b-a800m": "moe"}[cfg.name]
     assert list(tp["stages"]) == [want]
     assert tb.paged_decode_step is not None
 
 
 @pytest.mark.parametrize("arch,n_params", [
     ("gemma2-9b", 9_241_705_984), ("llama3-8b", 8_030_261_248),
+    ("llama3-405b", 405_853_388_800),
     ("granite-moe-3b-a800m", 3_902_773_248)])
 def test_full_param_count_matches_reference(arch, n_params):
     """Specs only: the published configs' counts, no init."""
@@ -257,9 +258,9 @@ def test_plan_and_model_spec_match_reference(models, capsys):
     want = capsys.readouterr().out
     report = tserve.plan_s2m3(get_config(name), "queue_aware")
     assert capsys.readouterr().out == want
-    # gemma2-9b's 37 GB and llama3-8b's 32 GB of f32 weights fit no
-    # device of the paper's edge testbed: both plans say so alike (their
-    # printouts are equal)
+    # gemma2-9b's 37 GB, llama3-8b's 32 GB and llama3-405b's 1.6 TB of
+    # f32 weights fit no device of the paper's edge testbed: both plans
+    # say so alike (their printouts are equal)
     assert report.feasible == (name == "granite-moe-3b-a800m")
 
 

@@ -85,7 +85,8 @@ def test_materialize_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["internvl2-1b", "zamba2-7b", "xlstm-1.3b",
-                                  "tinyllama-1.1b", "whisper-tiny"])
+                                  "tinyllama-1.1b", "whisper-tiny",
+                                  "deepseek-v3-671b", "llama3-405b"])
 def test_model_init_needs_cuda_unless_cpu_is_asked_for(monkeypatch, arch):
     """A model built with no device lands on the card: with CUDA hidden,
     its weights and caches raise instead of falling back to the CPU."""

@@ -175,3 +175,29 @@ def test_init_tree_matches_reference_shapes():
     # fan-in scaled normals: same std within sampling noise
     for k in tp:
         assert abs(float(tp[k].std()) - float(jnp.std(jp[k]))) < 0.05
+
+
+def test_init_tree_scales_in_place_as_x_times_std():
+    """``init_leaf`` scales its draw in place; at a fixed seed the tree is
+    bit for bit the formula ``randn(shape) * std`` cast to the leaf's
+    dtype, drawn in tree order (fan-in, "small", "embed", an explicit
+    scale, a bf16 leaf; zeros and ones draw nothing)."""
+    from repro_torch.layers.initializers import WSpec, _std, init_tree
+
+    specs = {"a": WSpec((6, 4, 3), ("embed", "heads", None)),
+             "b": WSpec((5, 7), (None, None), init="small"),
+             "c": WSpec((9, 4), ("vocab", "embed"), init="embed"),
+             "d": WSpec((3, 8), (None, None), scale=0.37),
+             "e": WSpec((4, 4), (None, None), dtype=torch.bfloat16),
+             "f": WSpec((4,), ("norm",), init="ones"),
+             "g": WSpec((4,), ("norm",), init="zeros")}
+    got = init_tree(specs, torch.Generator().manual_seed(11))
+    g = torch.Generator().manual_seed(11)
+    for name, ws in specs.items():
+        if ws.init in ("zeros", "ones"):
+            want = torch.full(ws.shape, float(ws.init == "ones"))
+        else:
+            want = (torch.randn(ws.shape, generator=g) * _std(ws)).to(
+                ws.dtype or torch.float32)
+        assert got[name].dtype == want.dtype
+        torch.testing.assert_close(got[name], want, rtol=0, atol=0)

@@ -133,17 +133,3 @@ def test_bridge_round_trip(models, dtype):
                                       j.astype(np.float32))
     assert back["stages"]["blocks"]["blocks"]["attn"]["wq"].shape == \
         jp["stages"]["blocks"]["blocks"]["attn"]["wq"].shape
-
-
-def test_unported_stages_raise():
-    """MLA (deepseek-v3's latent-cache attention) is the one stage the
-    port does not have yet; building it raises, naming MLA."""
-    from repro_torch.common.config import ArchConfig
-
-    cfg = ArchConfig(name="mla", family="moe", n_layers=2, d_model=16,
-                     n_heads=2, n_kv_heads=2, d_ff=32, vocab_size=32,
-                     n_experts=4, experts_top_k=2, use_mla=True,
-                     q_lora_rank=8, kv_lora_rank=8, qk_rope_dim=4,
-                     qk_nope_dim=4, v_head_dim=8)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        build_model(cfg)
