@@ -113,7 +113,19 @@ Phases (any failure exits non-zero; nothing is caught):
    leaf.  llama3-405b (128 q / 8 kv heads of 128, G = 16) at 2 layers
    runs phase 8's path and checks, card == CPU at 1 layer; phase 2
    checks and times the three attention kernels at its shapes.
-10. Print the kernels line (JSON), the card line, and last
+10. The analysis passes against the card: the kernel checker's sweep
+   (``check_kernels(device=...)``) gives no ERROR and its flash, SSD and
+   sLSTM plans equal the built kernels' (``flash_attention_plan``,
+   ``ssd_intra_chunk_info``, ``slstm_prefill_info``); every case it
+   passes launches once at its full shape in float32 with seeded inputs
+   and matches its plain version at the tests' f32 tolerance (rtol =
+   atol = 2e-4); every case it marks ERROR
+   (head dim 96, sLSTM head dims 1024 and 136, SSD states of 256 and
+   1024, grid extents above CUDA's) raises in its wrapper; phase 3's
+   deployment and phase 6's scenario verify clean with ``kernels=True,
+   model_check=True`` before they materialize; ``python -m
+   repro_torch.analysis --self`` exits 0.
+11. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -136,16 +148,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-# published H100 SXM peaks (dense): HBM bytes/s and FLOP/s by input type;
-# bf16 counts at the tensor-core rate, float32 at the non-tensor rate
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # |got - want| <= atol + rtol * |want|, elementwise, as (atol, rtol)
 TOL = {"float32": (2e-4, 0.0),        # f32 math, another summation order
        # both sides do f32 math on the same bf16 inputs and round the
        # result to bf16: at most one bf16 ulp (2^-7 relative) apart; the
        # 1e-3 floor stays below one key's share of a ~270-key softmax
        "bfloat16": (1e-3, 2.0**-7)}
+# phase 10 holds each kernel-checker case to its plain version at
+# TOL["float32"], except the SSD cases: those are held to the plain
+# version in float64 (ssd_intra_chunk_ref, and for ssd_chunked the
+# step-by-step ssd_scan_ref), each output no further from it than
+# SSD_F64_MULTIPLE times the float32 plain version of the same chunked
+# algorithm is, plus SSD_F64_FLOOR for outputs float32 holds almost
+# exactly (Lam near 0).  An SSD y reaches |y| ~ 50, where float32's
+# exp(cum_t - cum_s) alone costs the plain version ~1e-4
+# (tools/ssd_precision.py)
+SSD_ENTRIES = ("ssd_intra_chunk", "ssd_chunked")
+SSD_F64_MULTIPLE, SSD_F64_FLOOR = 2.0, 1e-6
 
 # the serving path's shapes (internvl2-1b: H=14, K=2, D=64)
 H, K, D = 14, 2, 64
@@ -461,9 +480,19 @@ def device_ms(fn, kernel: str, iters=50):
 
 
 def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least ms the card could take (``common.hw``: the published
+    H100 SXM dense peaks; bf16 at the tensor-core rate, float32 at the
+    FMA rate), and whether bytes or operations set it."""
+    from repro_torch.common import hw
+
+    t, by = hw.bound_s(nbytes, flops, dtype)
+    return t * 1e3, by
+
+
+def hbm_bytes_s() -> float:
+    from repro_torch.common.hw import H100_SXM
+
+    return H100_SXM.hbm_bandwidth
 
 
 def _err(a, b) -> float:
@@ -2586,7 +2615,7 @@ def phase_family(dev, cfg, cpu_layers=2, tag="phase8") -> dict:
         f"{1e3 * decode_s / len(ticks):.2f} ms per tick; solo decode "
         f"{steps} steps, {steps / solo_s:.1f} tokens/s "
         f"({1e3 * solo_s / steps:.2f} ms per token; weight-read floor "
-        f"{n * 4 / HBM_BYTES_S * 1e3:.2f} ms); peak device memory "
+        f"{n * 4 / hbm_bytes_s() * 1e3:.2f} ms); peak device memory "
         f"{peak:.1f} GB")
     del run, rt, cache, served, solo, solo_res
     gc.collect()
@@ -2684,7 +2713,7 @@ def phase_deepseek(dev) -> dict:
         f"{min(pre):.1f} ms (best of 3, warm; "
         f"{', '.join(f'{t:.1f}' for t in pre)}); solo decode {steps} steps, "
         f"{steps / solo_s:.1f} tokens/s ({1e3 * solo_s / steps:.2f} ms per "
-        f"token; weight-read floor {read / HBM_BYTES_S * 1e3:.2f} ms: "
+        f"token; weight-read floor {read / hbm_bytes_s() * 1e3:.2f} ms: "
         f"{read / 1e9:.2f} GB a step, the embedding table and the MTP block "
         f"unread); latent cache {cache_floats} floats "
         f"({4 * cache_floats} B) a token and layer; peak device memory "
@@ -2699,6 +2728,253 @@ def phase_deepseek(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     return {"launches": launches,
             "shapes": {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}}
+
+
+# --------------------------------------------------------------------------
+# phase 10: the analysis passes against the card
+# --------------------------------------------------------------------------
+
+def _plans_agree(dev, cases, n_sm) -> None:
+    """The Python plans the kernel checker reads against the built
+    kernels' own: ``ops.flash_plan`` against ``flash_attention_plan`` at
+    every head dim and dtype (and both refusing D = 96), and each case's
+    SSD and sLSTM prefill plan against ``ssd_intra_chunk_info`` /
+    ``slstm_prefill_info`` (shared memory, threads; the blocks an SM the
+    SSD planner counts against the card's occupancy; clusters the card
+    holds at once against the heads)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.analysis import kernel_check as kc
+    from repro_torch.kernels import build, ops
+
+    out = (ctypes.c_int * 4)()
+    lib = build.load("flash_attention")
+    for D in ops.HEAD_DIMS:
+        if lib.flash_attention_plan(D, out) != 0:
+            fail(f"flash_attention_plan has no plan for D={D}")
+        for dt in (torch.float32, torch.bfloat16):
+            p = ops.flash_plan(D, dt)
+            if (p.bq, p.bk, p.threads, p.smem) != tuple(out):
+                fail(f"ops.flash_plan({D}, {dt}) = {p}, the kernel's "
+                     f"{tuple(out)}")
+    if lib.flash_attention_plan(96, out) == 0:
+        fail("flash_attention_plan has a plan for D=96; ops.flash_plan "
+             "has none")
+    log(f"[phase10] ops.flash_plan == flash_attention_plan at D in "
+        f"{ops.HEAD_DIMS}, float32 and bfloat16; both refuse D=96")
+    info = (ctypes.c_int * 3)()
+    n_ssd = n_sl = 0
+    for case in cases:
+        lp = kc.launch_plan(case, n_sm)
+        if lp.kernel == "ssd_tile_kernel":
+            p = lp.plan
+            L = case.shape("x")[2 if case.entry == "ssd_intra_chunk" else 1]
+            L = min(L, case.kwargs.get("chunk", L))
+            P, N = case.shape("x")[-1], case.shape("Bm")[-1]
+            if build.load("ssd_scan").ssd_intra_chunk_info(
+                    L, P, N, p.tr, p.ns, info) != 0:
+                fail(f"{case.name}: ssd_intra_chunk_info refuses the plan")
+            got = (info[0], info[1], info[2])
+            if got != (p.smem, p.threads, p.blocks_per_sm):
+                fail(f"{case.name}: SSD plan (smem, threads, blocks an SM) "
+                     f"{(p.smem, p.threads, p.blocks_per_sm)}, the card's "
+                     f"{got}")
+            n_ssd += 1
+        elif lp.kernel == "slstm_prefill_kernel":
+            p = lp.plan
+            H_, hd = case.shape("R")[1:3]
+            if build.load("slstm_scan").slstm_prefill_info(
+                    hd, p.cluster, p.reg_slots, p.rows, info) != 0:
+                fail(f"{case.name}: slstm_prefill_info refuses the plan")
+            if (info[0], info[1]) != (p.smem, p.threads):
+                fail(f"{case.name}: sLSTM plan (smem, threads) "
+                     f"{(p.smem, p.threads)}, the card's "
+                     f"{(info[0], info[1])}")
+            if info[2] < H_:
+                fail(f"{case.name}: the card holds {info[2]} clusters of "
+                     f"{p.cluster}, fewer than the {H_} heads")
+            n_sl += 1
+    log(f"[phase10] the checker's SSD plans at {n_ssd} cases equal "
+        f"ssd_intra_chunk_info (smem, threads, blocks an SM) and its sLSTM "
+        f"prefill plans at {n_sl} equal slstm_prefill_info")
+
+
+def _ssd_vs_f64(case, args, got) -> float:
+    """Hold an SSD case's kernel outputs to the plain version in float64:
+    max |kernel - f64| <= SSD_F64_MULTIPLE * max |plain f32 - f64| +
+    SSD_F64_FLOOR, output by output, where the float32 plain version is
+    the same chunked algorithm (``ssd_intra_chunk_ref``; for
+    ``ssd_chunked`` the wrapper's own CPU path on host copies, whose
+    intra-chunk part is the plain version).  Returns the worst share of
+    the bound."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    if case.entry == "ssd_intra_chunk":
+        f64 = ref.ssd_intra_chunk_ref(*args, dtype=torch.float64)
+        f32 = ref.ssd_intra_chunk_ref(*args)
+    else:
+        f64 = ref.ssd_scan_ref(*args, dtype=torch.float64)
+        f32 = ops.ssd_chunked(*(t.cpu() for t in args), **case.kwargs)
+    worst, parts = 0.0, []
+    for i, (k, p, t) in enumerate(zip(got, f32, f64)):
+        t = t.cpu()
+        if not bool(torch.isfinite(k).all()):
+            fail(f"{case.name}: output[{i}] is not finite")
+        e_k = (k.double().cpu() - t).abs().max().item()
+        e_p = (p.double().cpu() - t).abs().max().item()
+        limit = SSD_F64_MULTIPLE * e_p + SSD_F64_FLOOR
+        if e_k > limit:
+            fail(f"{case.name}: output[{i}] {e_k:.3e} from float64, above "
+                 f"{SSD_F64_MULTIPLE} x the float32 plain version's "
+                 f"{e_p:.3e} + {SSD_F64_FLOOR}")
+        worst = max(worst, e_k / limit)
+        parts.append(f"[{i}] kernel {e_k:.3e}, plain f32 {e_p:.3e}")
+    log(f"[phase10] {case.name}: {case.entry} "
+        f"{[tuple(t.shape) for t in got]} float32 launched, max |diff| from "
+        f"float64: {'; '.join(parts)}; {worst:.2f} of {SSD_F64_MULTIPLE} x "
+        f"plain + {SSD_F64_FLOOR} ok")
+    return worst
+
+
+def phase_analysis(dev) -> None:
+    """Phase 10: ``check_kernels(device=...)`` over the zoo's served
+    shapes (no ERROR; its plans equal the kernels' own); every case it
+    passes launched once at its full shape in float32 with seeded inputs
+    (the meta contract's shapes and dtypes; the plain version at
+    ``TOL["float32"]``, SSD by ``_ssd_vs_f64``); every case it marks ERROR
+    raised by its wrapper, with the error type of its code; phase 3's
+    deployment and phase 6's scenario verified with ``kernels=True,
+    model_check=True`` before they materialize (no ERROR, a complete
+    model check within ``mc_budget=10``); ``python -m
+    repro_torch.analysis --self`` exits 0."""
+    import gc
+    import os
+
+    import torch
+
+    from repro_torch.analysis import errors, format_report
+    from repro_torch.analysis import kernel_check as kc
+    from repro_torch.common.config import get_config
+    from repro_torch.examples import multi_task_serving as ex
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    n_sm = ops.sm_count(dev)
+    cases = kc.zoo_cases()
+    diags = kc.check_kernels(device=dev)
+    if errors(diags):
+        fail(f"check_kernels on the card:\n{format_report(errors(diags))}")
+    warned = [d.entity for d in diags if d.code == "kernel/occupancy"]
+    log(f"[phase10] check_kernels(device={dev}) at {n_sm} SMs: "
+        f"{len(cases)} cases, {len(diags)} findings, 0 errors, warnings "
+        f"{warned or 'none'}")
+    _plans_agree(dev, cases, n_sm)
+
+    # every clean case, once, at its full shape
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+    for case in cases:
+        args = case.inputs(g)
+        meta = kc.leaves(getattr(ops, case.entry)(*case.meta_args(),
+                                                   **case.kwargs))
+        got = kc.leaves(getattr(ops, case.entry)(*args, **case.kwargs))
+        torch.cuda.synchronize()
+        if len(got) != len(meta):
+            fail(f"{case.name}: {len(got)} outputs, the checker read "
+                 f"{len(meta)}")
+        for i, (a, m) in enumerate(zip(got, meta)):
+            if a.shape != m.shape or a.dtype != m.dtype:
+                fail(f"{case.name}: output[{i}] {tuple(a.shape)} {a.dtype}, "
+                     f"the checker read {tuple(m.shape)} {m.dtype}")
+        if case.entry in SSD_ENTRIES:
+            ratio = _ssd_vs_f64(case, args, got)
+        else:
+            want = kc.leaves(kc.plain(case, args))
+            if len(want) != len(got):
+                fail(f"{case.name}: the plain version gives {len(want)} "
+                     f"outputs, the kernel {len(got)}")
+            errs = [_within(a, b, "float32") for a, b in zip(got, want)]
+            err, ratio = max(e for e, _ in errs), max(r for _, r in errs)
+            if ratio > 1.0:
+                fail(f"{case.name}: max |diff| {err:.3e} vs the plain "
+                     f"version, {ratio:.2f} of (atol, rtol) "
+                     f"{TOL['float32']}")
+            log(f"[phase10] {case.name}: {case.entry} "
+                f"{[tuple(t.shape) for t in got]} float32 launched, max "
+                f"|diff| vs plain {err:.3e}, {ratio:.2f} of (atol, rtol) "
+                f"{TOL['float32']} ok")
+            del want
+        worst = max(worst, ratio)
+        del args, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase10] {len(cases)} clean cases launched at their full shapes: "
+        f"worst {worst:.2f} of its tolerance")
+
+    # every ERROR case raises in its wrapper
+    bad = kc.error_cases()
+    for case in bad:
+        codes = {d.code for d in errors(kc.check_case(case, n_sm=n_sm))}
+        if codes != {kc.ERROR_CODES[case.name]}:
+            fail(f"{case.name}: the checker gave {codes}, expected "
+                 f"{kc.ERROR_CODES[case.name]}")
+        args = case.inputs(g)
+        raised = None
+        try:
+            getattr(ops, case.entry)(*args, **case.kwargs)
+        except ops.KernelPlanError as err:
+            raised = err
+        torch.cuda.synchronize()
+        if raised is None:
+            fail(f"{case.name}: flagged {codes} but launched")
+        want = {c: cls for cls, c in kc.PLAN_CODES}[kc.ERROR_CODES[case.name]]
+        if type(raised) is not want:
+            fail(f"{case.name}: the checker gave {codes}, the wrapper "
+                 f"raised {type(raised).__name__}, not {want.__name__}")
+        log(f"[phase10] {case.name}: {sorted(codes)[0]}; the wrapper raised "
+            f"{type(raised).__name__}: {raised}")
+        del args
+
+    # phase 3's deployment and phase 6's scenario, before they materialize
+    for name, make in (
+            ("phase 3 internvl2-1b",
+             lambda: _deployment(dev, get_config("internvl2-1b"))[0]),
+            ("phase 6 scenario",
+             lambda: ex.build_deployment(dev, materialize=False)[0])):
+        dep = make()
+        if dep.materialized:
+            fail(f"{name}: materialized before verify")
+        t = time.perf_counter()
+        vd = dep.verify(kernels=True, model_check=True, mc_budget=10.0)
+        secs = time.perf_counter() - t
+        mc = [d for d in vd if d.code.startswith("modelcheck/")]
+        if errors(vd) or [d.code for d in mc] != ["modelcheck/clean"]:
+            fail(f"{name}: verify gave {format_report(vd)}")
+        log(f"[phase10] {name}: verify(kernels=True, model_check=True) "
+            f"{len(vd)} findings, 0 errors, in {secs:.2f} s; "
+            f"{mc[0].message}")
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--self", "--device",
+         "cuda", "--mc-budget", "10"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if out.returncode != 0:
+        fail(f"python -m repro_torch.analysis --self exited "
+             f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    log(f"[phase10] python -m repro_torch.analysis --self --device cuda: "
+        f"exit 0 in {time.perf_counter() - t:.1f} s; "
+        f"{out.stdout.strip().splitlines()[-1]}")
+    log(f"[phase10] {len(cases)} clean and {len(bad)} ERROR cases, two "
+        f"deployments verified, the CLI: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2744,6 +3020,7 @@ def main() -> int:
         cpu_layers=L405_CPU_LAYERS, tag="phase9")
     log(f"[phase9] {DS_ARCH} and {L405_ARCH} in "
         f"{time.perf_counter() - t9:.1f} s")
+    phase_analysis(dev)
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
     rows += rec_rows + slice_rows + fam_rows

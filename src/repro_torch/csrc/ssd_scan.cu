@@ -54,7 +54,11 @@
 // copies and used only after them, so no warp waits on them first.  cum
 // is kept in log2 units and the decay stays exp2(cum_t - cum_s) per
 // element: cum reaches -100s over a chunk, so exp(-cum_s) alone would
-// overflow.  Loads put consecutive threads on consecutive n or p with
+// overflow.  The scan sums in float64 and stores cum relative to the
+// block's last key: a float32 running sum at -100s carries an error of
+// a few of its ulps into every cum_t - cum_s, 2-4x the plain version's
+// distance from float64 in y_intra (tools/ssd_precision.py), while the
+// pairs that weigh in y (s near t) now subtract two small numbers.  Loads put consecutive threads on consecutive n or p with
 // 16-byte cp.async copies (f32) or 8-byte loads (bf16) where the rows
 // allow it; shared rows are padded so that the products read them
 // without bank conflicts.  The products are register tiles of 4 rows x
@@ -211,32 +215,35 @@ __device__ __forceinline__ void stage(float* dst, int ldd, int rows,
   }
 }
 
-// cum[i] = a * (dts[0] + ... + dts[i]) for i < n <= 128, by warp 0 (the
-// kernel passes a in log2 units, so cum is too)
-__device__ __forceinline__ void scan_cum(const float* dts, float* cum, int n,
-                                         float a) {
+// With c_i = a * (dts[0] + ... + dts[i]) summed in float64, cum[i] =
+// c_i - c_{n-1} for i < n <= 128 (so cum[n - 1] = 0), by warp 0; returns
+// c_{n-1} to warp 0 (the kernel passes a in log2 units, so cum is too)
+__device__ __forceinline__ float scan_cum(const float* dts, float* cum, int n,
+                                          double a) {
   const int lane = threadIdx.x;
-  if (lane >= 32) return;
+  if (lane >= 32) return 0.f;
   const int E = (n + 31) / 32;
-  float loc[4], run = 0.f;
+  double loc[4], run = 0.0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int i = lane * E + e;
-    run += (e < E && i < n) ? dts[i] * a : 0.f;
+    run += (e < E && i < n) ? (double)dts[i] * a : 0.0;
     loc[e] = run;
   }
-  float incl = run;
+  double incl = run;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    const double v = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += v;
   }
-  const float excl = incl - run;
+  const double total = __shfl_sync(0xffffffffu, incl, 31);
+  const double excl = incl - run - total;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int i = lane * E + e;
-    if (e < E && i < n) cum[i] = excl + loc[e];
+    if (e < E && i < n) cum[i] = (float)(excl + loc[e]);
   }
+  return (float)total;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -376,19 +383,22 @@ __device__ __forceinline__ DtRegs load_dt(const T* dt, size_t row0, int H,
   return d;
 }
 // a = -exp(A_log) in log2 units, so that cum is too
-__device__ __forceinline__ float dt_a(float a_log) {
-  return -expf(a_log) * 1.4426950408889634f;
+__device__ __forceinline__ double dt_a(float a_log) {
+  return -exp((double)a_log) * 1.4426950408889634;
 }
-__device__ __forceinline__ void scan_dt(const DtRegs& d, int n, float a,
-                                        float* dts, float* cum) {
+// dts[s] = dt_s and cum (see scan_cum) for s < n; returns the chunk's
+// sum of dt_s a to warp 0
+__device__ __forceinline__ float scan_dt(const DtRegs& d, int n, double a,
+                                         float* dts, float* cum) {
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int s = threadIdx.x + e * blockDim.x;
     if (s < n) dts[s] = d.v[e];
   }
   __syncthreads();
-  scan_cum(dts, cum, n, a);
+  const float total = scan_cum(dts, cum, n, a);
   __syncthreads();
+  return total;
 }
 
 // TR query rows a y tile (4 TR threads: a TR/4 x 16 grid); PV float4
@@ -442,10 +452,11 @@ ssd_tile_kernel(const T* __restrict__ x, const T* __restrict__ Bm,
     const DtRegs dv = load_dt(dt, row0, H, h, L);
     stage_s(0, 0);                     // both blocks of a 128-step chunk
     if (nblk > 1) stage_s(1, 1);       // at once
-    scan_dt(dv, L, dt_a(a_log), dts, cum);
+    // cum is relative to step L - 1: w_end = exp2(-cum_s) dt_s
+    const float total = scan_dt(dv, L, dt_a(a_log), dts, cum);
     for (int s = tid; s < L; s += blockDim.x)
-      dts[s] *= exp2f(cum[L - 1] - cum[s]);
-    if (n0 == 0 && tid == 0) lam[(size_t)bc * H + h] = exp2f(cum[L - 1]);
+      dts[s] *= exp2f(-cum[s]);
+    if (n0 == 0 && tid == 0) lam[(size_t)bc * H + h] = exp2f(total);
     // thread (ty, tx): state rows n0 + RMS ty + i, columns 4 tx + 64 q
     float acc[RMS][4 * PV];
 #pragma unroll

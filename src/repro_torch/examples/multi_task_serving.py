@@ -45,10 +45,11 @@ GB = 1024**3
 N_DEVICES = 4
 
 
-def build_deployment(device):
+def build_deployment(device, *, materialize: bool = True):
     """The three tasks' specs and builders on the mini-clip towers,
-    admitted, planned (greedy, paper routing) and materialized on
-    ``device``.  Returns (deployment, pool, clip params, clip config)."""
+    admitted, planned (greedy, paper routing) and — unless
+    ``materialize`` is false — materialized on ``device``.  Returns
+    (deployment, pool, clip params, clip config)."""
     ccfg = get_clip_config("mini-clip")
     gen = torch.Generator(device=device).manual_seed(0)
     params = C.init_clip(gen, ccfg, device)
@@ -94,8 +95,9 @@ def build_deployment(device):
            .add_model(retrieval, builders)
            .add_model(classify)
            .add_model(vqa)
-           .plan(placement="greedy", routing="paper")
-           .materialize(device=device))
+           .plan(placement="greedy", routing="paper"))
+    if materialize:
+        dep.materialize(device=device)
     return dep, pool, params, ccfg
 
 

@@ -4,10 +4,15 @@ SSD intra-chunk kernel and the sLSTM recurrence.
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream or — only for tensors that lie on the CPU — takes
 the plain version from ``kernels.ref``.  A CUDA tensor never falls back:
-a kernel that does not build or launch raises.  ``LAUNCHES`` counts the
+a kernel that does not build or launch raises.  On ``meta`` tensors a
+wrapper runs every check of the card path (head dim, plan, shared
+memory, cluster, grid) and returns its outputs unfilled, launching
+nothing: ``analysis.kernel_check`` reads the output contract that way.
+A shape with no launch on the card raises a ``KernelPlanError`` (a
+``ValueError``) naming the rule it breaks.  ``LAUNCHES`` counts the
 kernel launches of each wrapper, and ``SHAPE_LAUNCHES`` the same launches
-by call shape (the CPU path does not count), so a run can show that its
-work went through the kernels, and at which shapes.
+by call shape (the CPU and meta paths do not count), so a run can show
+that its work went through the kernels, and at which shapes.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.common.hw import H100_SXM
 from repro_torch.kernels import ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -65,22 +71,47 @@ DECODE_MAX_SPLITS = 256
 #: non-portable size that Hopper allows), the 32-row slots of R a lane
 #: keeps in registers, the batch rows one cluster carries, the largest
 #: head dim (both sLSTM kernels), and a block's shared-memory limit
-SLSTM_MAX_CLUSTER = 16
+SLSTM_MAX_CLUSTER = H100_SXM.max_cluster
 SLSTM_REG_SLOTS = 4
 SLSTM_MAX_ROWS = 4
 SLSTM_MAX_HEAD_DIM = 512
-SMEM_LIMIT = 232448
+SMEM_LIMIT = H100_SXM.smem_block
 #: an SM's shared memory (228 KiB), of which each resident block takes
 #: its dynamic bytes plus 1 KiB the system reserves
-SM_SMEM, SMEM_RESERVED = 233472, 1024
+SM_SMEM, SMEM_RESERVED = H100_SXM.smem_sm, H100_SXM.smem_reserved
 #: an SM's 32-bit registers
-SM_REGISTERS = 65536
+SM_REGISTERS = H100_SXM.registers_sm
+#: CUDA's grid extents x, y, z
+MAX_GRID = H100_SXM.max_grid
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class KernelLaunchError(RuntimeError):
     """A kernel launch returned a CUDA error."""
+
+
+class KernelPlanError(ValueError):
+    """A shape the kernels have no launch for on the card."""
+
+
+class NoPlanError(KernelPlanError):
+    """No kernel instance or tiling takes this shape (a head dim without
+    a plan, an SSD dimension above ``SSD_MAX_DIM``, an sLSTM head dim that
+    is not a multiple of 8 or is above ``SLSTM_MAX_HEAD_DIM``)."""
+
+
+class SharedMemoryError(KernelPlanError):
+    """A block would need more dynamic shared memory than ``SMEM_LIMIT``."""
+
+
+class ClusterError(KernelPlanError):
+    """No thread-block cluster of at most ``SLSTM_MAX_CLUSTER`` blocks
+    splits the sLSTM head dim."""
+
+
+class GridError(KernelPlanError):
+    """A grid extent above CUDA's ``MAX_GRID``."""
 
 
 def reset_launches() -> None:
@@ -98,12 +129,13 @@ def _count(name, key) -> None:
 
 
 def _check(name, tensors):
-    """One device (CPU or CUDA) and one float32/bfloat16 dtype for all."""
+    """One device (CPU, CUDA or meta) and one float32/bfloat16 dtype for
+    all."""
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {dev}")
     dts = {t.dtype for t in tensors.values()}
     if len(dts) != 1 or next(iter(dts)) not in _DTYPES:
@@ -121,7 +153,65 @@ def _contiguous(name, tensors):
 def _cuda_ready(name, tensors, D):
     _contiguous(name, tensors)
     if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+        raise NoPlanError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+
+
+def check_grid(name, grid) -> None:
+    """Raise ``GridError`` if an extent of ``grid`` (x, y, z) is above
+    CUDA's ``MAX_GRID``.  (An empty call, an extent of 0, launches
+    nothing: the C entries return at once.)"""
+    for axis, n, most in zip("xyz", grid, MAX_GRID):
+        if n > most:
+            raise GridError(f"{name}: grid {tuple(grid)} has {axis} extent "
+                            f"{n}, above CUDA's {most}")
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """The flash kernel's tiles at one head dim: the ``Tiles<D>`` and
+    ``Geom`` of ``csrc/flash_attention.cu``, which ``flash_attention_plan``
+    reports on the card.  bf16 inputs are widened to f32 as they are
+    staged, so the plan does not depend on the dtype."""
+
+    bq: int           # query rows a block
+    bk: int           # keys a tile
+    threads: int      # threads a block
+    smem: int         # dynamic shared-memory bytes a block
+
+
+#: ``Tiles<D>`` of ``csrc/flash_attention.cu``: (BQ, BK) by head dim
+FLASH_TILES = {16: (64, 64), 64: (16, 64), 112: (32, 64), 128: (64, 32),
+               256: (32, 32)}
+#: the flash kernel's threads a block (``NT``)
+FLASH_THREADS = 128
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(D, dtype=torch.float32) -> FlashPlan:
+    """The flash kernel's plan at head dim D for ``dtype`` inputs
+    (float32 or bfloat16; the plan is the same for both): the Python
+    mirror of ``flash_attention_plan``.  Shared memory holds Q, one K
+    tile, one V tile (rows padded to D + 4 floats) and P (BK rows of BQ
+    + 4).  Raises ``NoPlanError`` for a D without a plan, as the wrapper
+    does at launch."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype {dtype} is not float32 or "
+                        "bfloat16")
+    if D not in FLASH_TILES:
+        raise NoPlanError(f"flash_attention: head_dim {D} not in "
+                          f"{HEAD_DIMS}")
+    bq, bk = FLASH_TILES[D]
+    smem = 4 * (bq * (D + 4) + 2 * bk * (D + 4) + bk * (bq + 4))
+    if smem > SMEM_LIMIT:
+        raise SharedMemoryError(f"flash_attention: head_dim {D} needs "
+                                f"{smem} B of shared memory a block, above "
+                                f"{SMEM_LIMIT}")
+    return FlashPlan(bq=bq, bk=bk, threads=FLASH_THREADS, smem=smem)
+
+
+def flash_grid(B, S, H, D) -> tuple[int, int, int]:
+    """The flash kernel's grid: (H, B, q tiles), the q tile slowest."""
+    return H, B, -(-S // flash_plan(D).bq)
 
 
 def _aligned(name, tensors):
@@ -176,6 +266,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
     _cuda_ready("flash_attention", {"q": q, "k": k, "v": v}, D)
+    check_grid("flash_attention", flash_grid(B, S, H, D))
+    if dev.type == "meta":
+        return torch.empty_like(q)
     _aligned("flash_attention", {"q": q, "k": k, "v": v})
     from repro_torch.kernels.build import load
 
@@ -210,6 +303,19 @@ def decode_splits(T, B, K, G, n_sm, window=0):
     live = min(T, window) if window and window > 0 else T
     return max(1, min(2 * n_sm // blocks, live // DECODE_MIN_KEYS,
                       DECODE_MAX_SPLITS))
+
+
+def decode_grid(B, K, G, n_split) -> tuple[int, int, int]:
+    """The split-KV decode kernels' grid: (n_split, K, B * ceil(G / 8)),
+    ``DECODE_HEADS_PER_BLOCK`` q-heads (one warp each) a block."""
+    return n_split, K, B * -(-G // DECODE_HEADS_PER_BLOCK)
+
+
+def sm_count(dev) -> int:
+    """The SMs the decode and SSD planners fill: the card's for a CUDA
+    device, the H100's (``common.hw``) for any other (a meta tensor's, a
+    static check's)."""
+    return _sm_count(dev.index) if dev.type == "cuda" else H100_SXM.sms
 
 
 def split_range(n_keys, n_split, i, lo=0):
@@ -259,13 +365,16 @@ def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
                                         softcap=softcap)
     _cuda_ready("decode_attention",
                 {"q": q, "k": k, "v": v, "lengths": lengths}, D)
+    G = H // K
+    n_split = decode_splits(T, B, K, G, sm_count(dev), window)
+    check_grid("decode_attention", decode_grid(B, K, G, n_split))
+    if dev.type == "meta":
+        return torch.empty_like(q)
     _aligned("decode_attention", {"q": q, "k": k, "v": v})
     from repro_torch.kernels.build import load
 
     lib = load("decode_attention")
     o = torch.empty_like(q)
-    G = H // K
-    n_split = decode_splits(T, B, K, G, _sm_count(dev.index), window)
     # per (b, h, split): the partial max, sum and D-wide accumulator
     ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
                      device=dev)
@@ -314,16 +423,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _cuda_ready("paged_decode_attention",
                 {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                  "block_tables": block_tables, "lengths": lengths}, D)
+    n_max = block_tables.shape[1]
+    G = H // K
+    n_split = decode_splits(n_max * ps, B, K, G, sm_count(dev), window)
+    check_grid("paged_decode_attention", decode_grid(B, K, G, n_split))
+    if dev.type == "meta":
+        return torch.empty_like(q)
     _aligned("paged_decode_attention",
              {"q": q, "k_pages": k_pages, "v_pages": v_pages})
     from repro_torch.kernels.build import load
 
     lib = load("decode_attention")
     o = torch.empty_like(q)
-    n_max = block_tables.shape[1]
-    G = H // K
-    n_split = decode_splits(n_max * ps, B, K, G, _sm_count(dev.index),
-                            window)
     ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
                      device=dev)
     tickets = _ticket_counters(
@@ -357,6 +468,17 @@ class SsdPlan:
     blocks_per_sm: int  # blocks an SM holds by shared memory and threads
 
 
+def ssd_smem(L, P, N, tr, ns) -> int:
+    """The SSD kernel's dynamic shared memory a block at tr query rows a
+    y tile and ns state rows an S_loc tile: the larger of the two tiles'
+    layouts (see ``ssd_layout``)."""
+    KB, L16 = SSD_KEY_BLOCK, -(-L // 16) * 16
+    ldn, ldp = -(-N // 4) * 4 + 4, -(-P // 4) * 4 + 4
+    y_floats = tr * ldn + KB * ldn + KB * ldp + tr * (KB + 16) + 2 * L16
+    s_floats = 2 * (KB * (ns + 4) + KB * ldp) + 2 * L16
+    return 4 * max(y_floats, s_floats)
+
+
 def ssd_layout(L, P, N, tr, ns, H=1, BC=1, n_heavy=0):
     """The SSD kernel's plan with tr query rows a y tile and ns state rows
     an S_loc tile, for BC chunks of H heads: its shared memory (the
@@ -365,24 +487,23 @@ def ssd_layout(L, P, N, tr, ns, H=1, BC=1, n_heavy=0):
     [KB][ldn / ldp], M [tr][KB + 16], cum and dt [L16]; an S_loc tile B
     w_end [KB][ns + 4] and x [KB][ldp] in two stages, cum and dt [L16])
     and the blocks an SM holds (registers are capped at 128 a thread),
-    with n_heavy y tiles before the S_loc tiles in the grid.  Raises ValueError for a shape, split or
-    order the kernel does not take."""
+    with n_heavy y tiles before the S_loc tiles in the grid.  Raises
+    ``NoPlanError`` for a shape or split the kernel does not take,
+    ``SharedMemoryError`` above ``SMEM_LIMIT`` and ValueError for an
+    order outside the tiles."""
     if not (1 <= min(L, P, N) and max(L, P, N) <= SSD_MAX_DIM):
-        raise ValueError(f"ssd_intra_chunk: L={L}, P={P}, N={N}; the kernel "
-                         f"takes each from 1 to {SSD_MAX_DIM}")
+        raise NoPlanError(f"ssd_intra_chunk: L={L}, P={P}, N={N}; the "
+                          f"kernel takes each from 1 to {SSD_MAX_DIM}")
     if tr not in SSD_TILE_ROWS or ns % (tr // 4) or \
             ns // (tr // 4) not in SSD_STATE_ROWS_A_THREAD:
-        raise ValueError(f"ssd_intra_chunk: no kernel for tr={tr}, ns={ns} "
-                         f"(tr in {SSD_TILE_ROWS}, ns = tr / 4 times one "
-                         f"of {SSD_STATE_ROWS_A_THREAD})")
-    KB, L16 = SSD_KEY_BLOCK, -(-L // 16) * 16
-    ldn, ldp = -(-N // 4) * 4 + 4, -(-P // 4) * 4 + 4
-    y_floats = tr * ldn + KB * ldn + KB * ldp + tr * (KB + 16) + 2 * L16
-    s_floats = 2 * (KB * (ns + 4) + KB * ldp) + 2 * L16
-    smem = 4 * max(y_floats, s_floats)
+        raise NoPlanError(f"ssd_intra_chunk: no kernel for tr={tr}, ns={ns} "
+                          f"(tr in {SSD_TILE_ROWS}, ns = tr / 4 times one "
+                          f"of {SSD_STATE_ROWS_A_THREAD})")
+    smem = ssd_smem(L, P, N, tr, ns)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_intra_chunk: tr={tr} needs {smem} B of shared "
-                         f"memory a block, above {SMEM_LIMIT}")
+        raise SharedMemoryError(f"ssd_intra_chunk: tr={tr} needs {smem} B "
+                                f"of shared memory a block, above "
+                                f"{SMEM_LIMIT}")
     n_y, n_s = -(-L // tr), -(-N // ns)
     if not 0 <= n_heavy <= n_y:
         raise ValueError(f"ssd_intra_chunk: n_heavy={n_heavy} outside "
@@ -407,7 +528,7 @@ def ssd_plan(L, P, N, H, BC, n_sm):
     * past that, S_loc tiles of 32 state rows first (four blocks an SM),
       then the y tiles, heaviest first.
 
-    Raises ValueError for a shape the kernel does not take."""
+    Raises ``KernelPlanError`` for a shape the kernel does not take."""
     if N > 32:
         wide = ssd_layout(L, P, N, SSD_PLAN_ROWS, 64, H, BC,
                           n_heavy=min(2, -(-L // SSD_PLAN_ROWS)))
@@ -440,14 +561,17 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
     if dev.type == "cpu":
         return ref.ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log)
     _contiguous("ssd_intra_chunk", {"x": x, "Bm": Bm, "Cm": Cm, "dt": dt})
-    plan = ssd_plan(L, P, N, H, B * nc, _sm_count(dev.index))
+    plan = ssd_plan(L, P, N, H, B * nc, sm_count(dev))
+    check_grid("ssd_intra_chunk", (plan.blocks, 1, 1))
+    y = torch.empty((B, nc, L, H, P), dtype=torch.float32, device=dev)
+    s_loc = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
+    lam = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return y, s_loc, lam
     from repro_torch.kernels.build import load
 
     lib = load("ssd_scan")
     a_log = _f32(A_log)
-    y = torch.empty((B, nc, L, H, P), dtype=torch.float32, device=dev)
-    s_loc = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
-    lam = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
     err = lib.ssd_intra_chunk_fwd(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
         a_log.data_ptr(), y.data_ptr(), s_loc.data_ptr(), lam.data_ptr(),
@@ -521,16 +645,17 @@ def slstm_plan(B, H, hd):
     ``SLSTM_MAX_ROWS`` rows a cluster.  Raises ValueError for an hd that
     fits no plan: not a multiple of 8 (the one-step kernel's 8 units a
     block), above ``SLSTM_MAX_HEAD_DIM``, with no such cluster, or with
-    more shared memory than a block's ``SMEM_LIMIT``."""
+    more shared memory than a block's ``SMEM_LIMIT`` (``NoPlanError``,
+    ``ClusterError`` or ``SharedMemoryError``, all ``KernelPlanError``)."""
     if hd < 8 or hd % 8 or hd > SLSTM_MAX_HEAD_DIM or B < 1 or H < 1:
-        raise ValueError(
+        raise NoPlanError(
             f"slstm_scan: no kernel plan for head dim {hd} (the kernels "
             f"take multiples of 8 up to {SLSTM_MAX_HEAD_DIM}), B={B}, H={H}")
     C = next((c for c in (1, 2, 4, 8, 16) if c <= SLSTM_MAX_CLUSTER
               and hd % c == 0 and (hd // c) % 2 == 0 and hd // c <= 32),
              None)
     if C is None:
-        raise ValueError(
+        raise ClusterError(
             f"slstm_scan: head dim {hd} splits into no cluster of at most "
             f"{SLSTM_MAX_CLUSTER} blocks of an even count of at most 32 "
             "units")
@@ -542,11 +667,26 @@ def slstm_plan(B, H, hd):
             + 4 * (2 * rows * 32 * slots + 2 * rows * 4 * units
                    + 3 * rows * units))
     if smem > SMEM_LIMIT:
-        raise ValueError(f"slstm_scan: head dim {hd} needs {smem} B of "
+        raise SharedMemoryError(f"slstm_scan: head dim {hd} needs {smem} B of "
                          f"shared memory a block, above {SMEM_LIMIT}")
     return SlstmPlan(cluster=C, units=units, threads=16 * units,
                      smem_slots=slots - reg, reg_slots=reg, rows=rows,
                      smem=smem)
+
+
+#: the one-step sLSTM kernel: units of one head a block owns, batch rows
+#: a block carries, threads a block (``STEP_*`` in ``csrc/slstm_scan.cu``)
+SLSTM_STEP_UNITS, SLSTM_STEP_ROWS, SLSTM_STEP_THREADS = 8, 8, 256
+
+
+def slstm_grid(B, S, H, hd) -> tuple[int, int, int]:
+    """The grid the sLSTM wrapper launches for B rows of S steps: the
+    prefill kernel's (H * cluster, ceil(B / rows)) for S > 1, the one-step
+    kernel's (d / 8, ceil(B / 8)) for S = 1."""
+    if S == 1:
+        return (H * hd // SLSTM_STEP_UNITS, -(-B // SLSTM_STEP_ROWS), 1)
+    plan = slstm_plan(B, H, hd)
+    return H * plan.cluster, -(-B // plan.rows), 1
 
 
 def _slstm_gates(R):
@@ -596,6 +736,11 @@ def slstm_scan(pre, R, *, state=None):
         return ref.slstm_scan_ref(pre, R4, state)
     _contiguous("slstm_scan", {"pre": pre})
     plan = slstm_plan(B, H, hd)
+    check_grid("slstm_scan", slstm_grid(B, S, H, hd))
+    if dev.type == "meta":
+        out = torch.empty((4, B, d), dtype=torch.float32, device=dev)
+        return (torch.empty((B, S, d), dtype=pre.dtype, device=dev),
+                tuple(out.unbind(0)))
     r = [_f32(g) for g in gates]              # no copy when f32 already
     _aligned("slstm_scan", dict(zip(("r_i", "r_f", "r_z", "r_o"), r)))
     st = (None,) * 4 if state is None else [_f32(t) for t in state]

@@ -82,31 +82,57 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                 softcap=softcap)
 
 
-def ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log):
+def ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log, *, dtype=torch.float32):
     """Mamba2 SSD, the intra-chunk part.  x: (B,nc,L,H,P); Bm/Cm:
-    (B,nc,L,N); dt: (B,nc,L,H) post-softplus; A_log: (H,).
+    (B,nc,L,N); dt: (B,nc,L,H) post-softplus; A_log: (H,).  The math is
+    in ``dtype`` (float64 gives the yardstick the float32 results are
+    weighed against).
 
-    Returns, all float32: y_intra (B,nc,L,H,P) with
+    Returns, all in ``dtype``: y_intra (B,nc,L,H,P) with
     ``y[t] = sum_{s<=t} C_t.B_s exp(cum_t - cum_s) dt_s x_s``; S_loc
     (B,nc,H,N,P), the chunk's outgoing state
     ``sum_s exp(cum_L - cum_s) dt_s B_s (x) x_s``; Lam (B,nc,H), the
     chunk's decay ``exp(sum_s dt_s a)``, where ``a = -exp(A_log)`` and
     ``cum`` is the running sum of ``dt a`` within the chunk."""
-    x, Bm, Cm, dt = (t.float() for t in (x, Bm, Cm, dt))
+    x, Bm, Cm, dt = (t.to(dtype) for t in (x, Bm, Cm, dt))
     L = x.shape[2]
-    dA = dt * -torch.exp(A_log.float())                   # (B,nc,L,H)
+    dA = dt * -torch.exp(A_log.to(dtype))                 # (B,nc,L,H)
     cum = torch.cumsum(dA, dim=2)
     G = torch.einsum("bcln,bcmn->bclm", Cm, Bm)           # t=l, s=m
     decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     M = torch.where(causal[None, None, :, :, None],
                     G[..., None] * decay * dt[:, :, None, :, :],
-                    torch.zeros((), device=x.device))     # (B,nc,t,s,H)
+                    torch.zeros((), dtype=dtype, device=x.device))
     y = torch.einsum("bclmh,bcmhp->bclhp", M, x)
     w_end = torch.exp(cum[:, :, -1:, :] - cum) * dt       # (B,nc,L,H)
     S_loc = torch.einsum("bcln,bclh,bclhp->bchnp", Bm, w_end, x)
     Lam = torch.exp(dA.sum(dim=2))
     return y, S_loc, Lam
+
+
+def ssd_scan_ref(x, Bm, Cm, dt, A_log, *, initial_state=None,
+                 dtype=torch.float32):
+    """Mamba2 SSD (no D skip) as the plain step-by-step recurrence, the
+    function ``ops.ssd_chunked`` computes chunk by chunk: with a =
+    -exp(A_log), ``h_t = exp(dt_t a) h_{t-1} + dt_t B_t (x) x_t`` and
+    ``y_t = C_t . h_t``.  x: (B,S,H,P); Bm/Cm: (B,S,N); dt: (B,S,H)
+    post-softplus; initial_state: None (zeros) or (B,H,N,P).  The math is
+    in ``dtype``.  Returns (y (B,S,H,P) in x's dtype, or in ``dtype`` where
+    that is not float32; final state (B,H,N,P) in ``dtype``)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xs, Bs, Cs, dts = (t.to(dtype) for t in (x, Bm, Cm, dt))
+    decay = torch.exp(dts * -torch.exp(A_log.to(dtype)))  # (B,S,H)
+    h = (torch.zeros((B, H, N, P), dtype=dtype, device=x.device)
+         if initial_state is None else initial_state.to(dtype))
+    ys = []
+    for t in range(S):
+        h = (h * decay[:, t, :, None, None]
+             + torch.einsum("bn,bh,bhp->bhnp", Bs[:, t], dts[:, t], xs[:, t]))
+        ys.append(torch.einsum("bn,bhnp->bhp", Cs[:, t], h))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype if dtype == torch.float32 else dtype), h
 
 
 def slstm_initial_state(B, d, device):

@@ -223,22 +223,29 @@ class Deployment:
     def verify(self, *, kernels: bool = False,
                decode_pages: int | None = None,
                page_size: int | None = None,
-               model_check: bool = False) -> list:
+               model_check: bool = False,
+               mc_budget: float = 10.0) -> list:
         """Static pre-flight: run the ``repro_torch.analysis`` plan
         verifier against the current plan (memory ledgers, mapping
         completeness, acyclicity, reachability, refcounts, sharing
         legality, and — when decode knobs are given — generative heads'
-        paged-KV page budgets).  Returns the ``Diagnostic`` list;
+        paged-KV page budgets) and, with ``kernels=True``, the Hopper
+        launch-plan checker over the zoo's served shapes.
+        ``model_check=True`` additionally explores a bounded
+        schedule-space model of this deployment's serving state machine
+        (``repro_torch.analysis.modelcheck``) under an
+        ``mc_budget``-second wall-clock cap, reporting any invariant
+        counterexample as an ERROR with its transition script.  Returns
+        the ``Diagnostic`` list and raises nothing;
         ``materialize()``/``serve()`` call it and raise ``PlanError``
-        when it reports ERRORs.  The kernel checker (``kernels=True``)
-        and the schedule-space model checker (``model_check=True``) are
-        not ported yet and raise ``NotImplementedError``."""
+        when it reports ERRORs."""
         from repro_torch.analysis import verify_deployment
 
         return verify_deployment(self, kernels=kernels,
                                  decode_pages=decode_pages,
                                  page_size=page_size,
-                                 model_check=model_check)
+                                 model_check=model_check,
+                                 mc_budget=mc_budget)
 
     def _preflight(self, stage: str, **verify_kwargs) -> None:
         """Gate a device-touching stage on the static verifier: ERROR

@@ -195,6 +195,27 @@ def test_cuda_ssd_intra_chunk_matches_plain(cuda_device, dtype, atol, rtol,
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 128, 112, 64, 64),
+                                   (1, 1, 126, 112, 64, 64),
+                                   (1, 1, 128, 4, 128, 128)])
+def test_cuda_ssd_intra_chunk_no_further_from_float64_than_plain(
+        cuda_device, shape):
+    """The kernel's float32 outputs lie no further from the function in
+    float64 than the float32 plain version's do (its cum scan sums in
+    float64 and subtracts near keys' values, where the plain version's
+    float32 cumsum loses bits in exp(cum_t - cum_s)); 1e-6 absolute for
+    outputs float32 holds almost exactly (Lam near 0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    args = ssd_inputs(g, *shape, torch.float32)
+    f64 = ref.ssd_intra_chunk_ref(*args, dtype=torch.float64)
+    for got, plain, want in zip(ops.ssd_intra_chunk(*args),
+                                ref.ssd_intra_chunk_ref(*args), f64):
+        e_kernel = (got.double() - want).abs().max().item()
+        e_plain = (plain.double() - want).abs().max().item()
+        assert e_kernel <= e_plain + 1e-6, (e_kernel, e_plain)
+
+
 SLSTM_SHAPES = [(1, 383, 4, 512),    # xlstm-1.3b's longest prompt
                 (1, 1, 4, 512),      # its decode step (the one-step kernel)
                 (2, 9, 4, 16),       # smoke
@@ -546,3 +567,23 @@ def test_cuda_windowed_decode_reads_no_key_below_the_window(cuda_device):
     torch.testing.assert_close(ops.decode_attention(q, k2, v2, lens,
                                                     window=w),
                                want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+def test_cuda_flash_plan_equals_the_kernel_plan(cuda_device, D, dtype):
+    """``ops.flash_plan`` (what the kernel checker reads on the CPU) is the
+    plan ``flash_attention_plan`` reports from the built kernel; a head
+    dim without one is refused by both."""
+    import ctypes
+
+    from repro_torch.kernels.build import load
+
+    out = (ctypes.c_int * 4)()
+    assert load("flash_attention").flash_attention_plan(D, out) == 0
+    p = ops.flash_plan(D, dtype)
+    assert (p.bq, p.bk, p.threads, p.smem) == tuple(out)
+    assert load("flash_attention").flash_attention_plan(96, out) != 0
+    with pytest.raises(ops.NoPlanError):
+        ops.flash_plan(96, dtype)

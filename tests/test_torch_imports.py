@@ -107,12 +107,25 @@ def test_model_init_needs_cuda_unless_cpu_is_asked_for(monkeypatch, arch):
             b.init_paged_cache(4, 8)
 
 
-def test_unported_verify_passes_raise():
+@pytest.mark.parametrize("kw,code", [
+    ({"kernels": True}, "kernel/summary"),
+    ({"model_check": True, "mc_budget": 10.0}, "modelcheck/clean"),
+])
+def test_verify_passes_return_diagnostics(kw, code):
+    """verify(kernels=True) and verify(model_check=True) are ported: each
+    returns its findings as Diagnostics, without an ERROR here."""
+    from repro_torch.analysis import Diagnostic, errors
+
     dep = _tiny_deployment()
     assert dep.verify() == []
-    for kw in ({"kernels": True}, {"model_check": True}):
-        with pytest.raises(NotImplementedError):
-            dep.verify(**kw)
+    diags = dep.verify(**kw)
+    assert diags and all(isinstance(d, Diagnostic) for d in diags)
+    assert code in {d.code for d in diags} and errors(diags) == []
+
+
+def test_no_unported_pass_left_in_analysis():
+    for f in sorted((PORT / "analysis").glob("*.py")):
+        assert "NotImplementedError" not in f.read_text(), f.name
 
 
 def test_kernel_wrappers_take_plain_version_for_cpu_tensors(monkeypatch):

@@ -170,8 +170,8 @@ def test_serving_package_is_lint_clean():
     from pathlib import Path
 
     import repro_torch.serving
-    from repro.analysis.concurrency_lint import lint_paths
-    from repro.analysis.diagnostics import errors
+    from repro_torch.analysis.concurrency_lint import lint_paths
+    from repro_torch.analysis.diagnostics import errors
 
     diags = lint_paths([Path(repro_torch.serving.__file__).parent])
     assert errors(diags) == []
