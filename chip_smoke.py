@@ -125,7 +125,21 @@ Phases (any failure exits non-zero; nothing is caught):
    deployment and phase 6's scenario verify clean with ``kernels=True,
    model_check=True`` before they materialize; ``python -m
    repro_torch.analysis --self`` exits 0.
-11. Print the kernels line (JSON), the card line, and last
+11. Training: tinyllama-1.1b at full width and depth (22 layers, float32)
+   takes 20 steps of ``training.train_step.make_train_step`` on the
+   synthetic corpus (seq 128, batch 8, lr 1e-3, warmup 10) with remat
+   "none" and 5 with "full": each step's loss and grad norm, finite,
+   the loss falling by the margin the CPU rehearsal predicts; step ms,
+   tokens/s and peak GB of each policy beside the 6 N tokens floor.  The
+   trained weights' loss through the kernels under no_grad == the plain
+   path's, with one flash launch a layer at the training shape (this
+   phase's main path).  At full width cut to 2 layers: the loss and
+   every gradient leaf card == CPU, one AdamW update card == CPU, two
+   microbatches == one.  Each kernel wrapper raises ``NoBackwardError``
+   on a card input that requires grad and launches under no_grad.  A
+   checkpoint written by ``save_async`` mid-run, restored into fresh
+   weights, steps as the uninterrupted run does.
+12. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -229,6 +243,20 @@ DS_ARCH, DS_CUT, DS_CPU_EXPERTS = ("deepseek-v3-671b",
 L405_ARCH, L405_LAYERS, L405_CPU_LAYERS = "llama3-405b", 2, 1
 FAM_GEOM[L405_ARCH] = (128, 8, 128)
 FAM_CACHE[L405_ARCH] = 256
+
+# phase 11: tinyllama-1.1b trains at full width and depth in float32 for
+# 20 steps (the train launcher's seq 128 and batch 8, lr 1e-3, warmup
+# 10) with remat "none", then 5 with remat "full"; the mean of steps
+# 16-20's losses must lie TRAIN_MARGIN below step 1's: half the least
+# drop of the CPU rehearsals at full width cut to 2 and 6 layers (4.96,
+# 5.16 and 5.34; PERF.md §6, PR 21); card == CPU at 2 layers and batch 2;
+# the checkpoint restart at the smoke config, saved after 3 steps
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_FULL_STEPS = "tinyllama-1.1b", 20, 5
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP = 128, 8, 1e-3, 10
+TRAIN_TCFG = dict(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                  total_steps=TRAIN_STEPS)
+TRAIN_MARGIN = 2.5
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CKPT_STEP = 2, 2, 3
 
 
 def prompt_lens(bounds, n) -> list[int]:
@@ -1087,6 +1115,8 @@ def phase_kernels_slice(dev) -> tuple[list[dict], dict]:
     * flash D = 64, G = 1 at whisper-tiny's encoder, S = T = 1500,
       non-causal, and its cross-attention prefill, the longest prompt's
       queries against the 1500 encoder keys;
+    * flash D = 64, G = 8 at phase 11's training shape: tinyllama-1.1b's
+      kernel-path loss over a batch of 8 rows of 128 tokens (causal);
     * decode D = 64, G = 1 over whisper-tiny's 1500 cross keys (lengths
       = T), and D = 64, G = 8 over tinyllama-1.1b's solo cache of the
       longest prompt (and whisper-tiny's self-attention cache, checked);
@@ -1122,7 +1152,10 @@ def phase_kernels_slice(dev) -> tuple[list[dict], dict]:
              ("flash_attention_t1500", W_ARCH, 1, W_T, W_T, W_HEADS, W_HEADS,
               False, "whisper-tiny encoder"),
              ("flash_attention_cross", W_ARCH, 1, S_w, W_T, W_HEADS, W_HEADS,
-              False, "whisper-tiny cross-attention prefill"))
+              False, "whisper-tiny cross-attention prefill"),
+             ("flash_attention_train", "train", TRAIN_BATCH, TRAIN_SEQ,
+              TRAIN_SEQ, TL_H, TL_K, True,
+              "tinyllama-1.1b training loss (phase 11)"))
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         isz = torch.tensor([], dtype=dt).element_size()
@@ -2976,6 +3009,354 @@ def phase_analysis(dev) -> None:
     log(f"[phase10] {len(cases)} clean and {len(bad)} ERROR cases, two "
         f"deployments verified, the CLI: {time.perf_counter() - t0:.1f} s")
 
+# --------------------------------------------------------------------------
+# phase 11: training
+# --------------------------------------------------------------------------
+
+def _train_batches(cfg, seq, batch, dev, n):
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.train_step import batch_to_tensors
+
+    data = TokenStream(DataConfig(seq_len=seq, global_batch=batch,
+                                  vocab_size=cfg.vocab_size))
+    return [batch_to_tensors(b, dev) for _, b in zip(range(n), data)]
+
+
+def _train_steps(bundle, state, tcfg, batches, label):
+    """Run ``make_train_step`` over ``batches``, each step timed with CUDA
+    events; prints each step's loss and grad norm and fails on a value
+    that is not finite.  Returns (losses, step ms)."""
+    import math
+
+    import torch
+
+    from repro_torch.training.train_step import make_train_step
+
+    step = make_train_step(bundle, tcfg)
+    losses, ms = [], []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        log(f"[phase11] {label} step {int(state['step'])}: loss {loss:.4f}, "
+            f"grad norm {gnorm:.4f}, lr {float(m['lr']):.3e}, {ms[-1]:.1f} ms")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{label}: step {int(state['step'])} gave loss {loss}, "
+                 f"grad norm {gnorm}")
+        losses.append(loss)
+    return losses, ms
+
+
+def _rel_l2(got, want) -> float:
+    d = (got.float() - want.float()).norm().item()
+    n = want.float().norm().item()
+    return d / n if n else d
+
+
+def _guard_cases(dev):
+    """(wrapper name, call, floating inputs) for each of the six kernel
+    wrappers at a small shape every kernel has a plan for."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(SEED + 11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32).to(dev)
+
+    return [
+        ("flash_attention", ops.flash_attention,
+         [rnd(1, 8, 2, 16), rnd(1, 8, 2, 16), rnd(1, 8, 2, 16)]),
+        ("decode_attention", lambda q, k, v: ops.decode_attention(
+            q, k, v, i32(5)), [rnd(1, 2, 16), rnd(1, 8, 2, 16),
+                               rnd(1, 8, 2, 16)]),
+        ("paged_decode_attention", lambda q, kp, vp: ops.paged_decode_attention(
+            q, kp, vp, i32(0, 2).reshape(1, 2), i32(6)),
+         [rnd(1, 2, 16), rnd(4, 4, 2, 16), rnd(4, 4, 2, 16)]),
+        ("ssd_intra_chunk", ops.ssd_intra_chunk,
+         [rnd(1, 1, 8, 2, 16), rnd(1, 1, 8, 16), rnd(1, 1, 8, 16),
+          rnd(1, 1, 8, 2).abs(), rnd(2)]),
+        ("ssd_chunked", lambda *a: ops.ssd_chunked(*a, chunk=8),
+         [rnd(1, 8, 2, 16), rnd(1, 8, 16), rnd(1, 8, 16), rnd(1, 8, 2).abs(),
+          rnd(2)]),
+        ("slstm_scan", ops.slstm_scan, [rnd(1, 3, 4, 32),
+                                        0.1 * rnd(4, 2, 16, 16)]),
+    ]
+
+
+def _profile_train_step(bundle, state, tcfg, batch, step_ms) -> None:
+    """One more train step under ``torch.profiler``: its kernels' summed
+    device time beside the step's median time (the device's busy share),
+    and the kernels that take the most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.train_step import make_train_step
+
+    step = make_train_step(bundle, tcfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    by_name: dict[str, float] = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[phase11] profiled step: {len(ev)} device events, {busy:.1f} ms "
+        f"busy beside a {step_ms:.1f} ms step ({busy / step_ms:.1%}); top: "
+        + "; ".join(f"{n[:60]} {us / 1e3:.1f} ms" for n, us in top))
+
+
+def phase_training(dev) -> dict:
+    """Training on the card.  (a) tinyllama-1.1b at full width and depth
+    (float32) takes ``TRAIN_STEPS`` steps of ``make_train_step`` on the
+    synthetic ``TokenStream`` (the train launcher's seq and batch, lr and
+    warmup), remat "none", then ``TRAIN_FULL_STEPS`` more with remat
+    "full": each step's loss and grad norm, all finite, the mean of the
+    last 5 losses at least ``TRAIN_MARGIN`` below the first; step ms, tokens/s
+    and peak GB of each policy beside the 6 N tokens floor.  (c) The
+    trained weights' loss on the next batch through the kernels
+    (``attn_impl="kernel"``, under no_grad) == the plain path's, with
+    exactly one flash launch a layer, at the training shape: the main
+    path of this phase.  (b) At full width cut to 2 layers: the loss and
+    every gradient leaf card == CPU, one AdamW update from the same
+    gradients card == CPU, two microbatches == one on the card.  (d) Each
+    kernel wrapper raises on a card input that requires grad and
+    launches under no_grad.  (e) A checkpoint written by ``save_async``
+    while the run goes on, restored into fresh weights, steps as the
+    run does.  Returns the main-path launches of (c)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.common.config import TrainConfig, get_config
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import adamw_update, init_state
+    from repro_torch.training.train_step import (
+        loss_and_grads, make_train_step, microbatch_grads,
+    )
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the float32 checks need FMA units")
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(**TRAIN_TCFG)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batches = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, dev,
+                             TRAIN_STEPS + TRAIN_FULL_STEPS + 1)
+
+    # (a) full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = build_model(cfg, remat="none")
+    n_params = bundle.param_count()
+    state = init_state(bundle.init(torch.Generator(device=dev)
+                                   .manual_seed(SEED), device=dev), tcfg)
+    state_gb = 4 * 4 * n_params / 1e9          # params, grads, m, v in f32
+    floor_s = 6 * n_params * tokens / 67e12
+    rates = {}
+    losses = []
+    for remat, lo, hi in (("none", 0, TRAIN_STEPS),
+                          ("full", TRAIN_STEPS,
+                           TRAIN_STEPS + TRAIN_FULL_STEPS)):
+        b_r = build_model(cfg, remat=remat)
+        if remat != "none":
+            # the gradients alone (no optimizer), their time and peak
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            grads = loss_and_grads(b_r, state["params"], batches[lo])[2]
+            torch.cuda.synchronize()
+            log(f"[phase11] remat {remat}: loss and gradients alone "
+                f"{(time.perf_counter() - t) * 1e3:.1f} ms, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            del grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ls, ms = _train_steps(b_r, state, tcfg, batches[lo:hi],
+                              f"{TRAIN_ARCH} remat {remat}")
+        losses += ls
+        warm = sorted(ms[1:])
+        med = warm[len(warm) // 2]
+        rates[remat] = (med, tokens / med * 1e3,
+                        torch.cuda.max_memory_allocated() / 1e9)
+        log(f"[phase11] {TRAIN_ARCH} ({n_params:,} parameters, B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ}) remat {remat}: step {med:.1f} ms (median of "
+            f"steps 2-{len(ms)}; first {ms[0]:.1f} ms), {tokens / med * 1e3:,.0f} "
+            f"tokens/s, peak {rates[remat][2]:.2f} GB (state alone "
+            f"{state_gb:.2f} GB); floor 6 N tokens at 67 TFLOP/s "
+            f"{floor_s * 1e3:.1f} ms, the step {med / (floor_s * 1e3):.2f}x it")
+        if remat == "none":
+            # the gradients alone before the full-remat steps, and where
+            # one step's time goes (one more step, under the profiler)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            grads = loss_and_grads(b_r, state["params"], batches[hi])[2]
+            torch.cuda.synchronize()
+            log(f"[phase11] remat none: loss and gradients alone "
+                f"{(time.perf_counter() - t) * 1e3:.1f} ms, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            del grads
+            _profile_train_step(b_r, state, tcfg, batches[hi], med)
+    first, last5 = losses[0], sum(losses[TRAIN_STEPS - 5:TRAIN_STEPS]) / 5
+    log(f"[phase11] {TRAIN_ARCH} loss: first {first:.4f}, mean of steps "
+        f"{TRAIN_STEPS - 4}-{TRAIN_STEPS} {last5:.4f}, fell {first - last5:.4f} "
+        f"(needs at least {TRAIN_MARGIN})")
+    if not first - last5 >= TRAIN_MARGIN:
+        fail(f"{TRAIN_ARCH}: the loss fell {first - last5:.4f} in "
+             f"{TRAIN_STEPS} steps, less than {TRAIN_MARGIN}")
+
+    # (c) the kernels' path on the trained weights: the main path
+    batch = batches[-1]
+    with torch.no_grad():
+        l_xla, _ = bundle.loss_fn(state["params"], batch)
+        kbundle = build_model(cfg, attn_impl="kernel")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        l_ker, _ = kbundle.loss_fn(state["params"], batch)
+        torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    key = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, TL_H, TL_K, D, True, 0)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.n_layers
+    d = abs(float(l_ker) - float(l_xla))
+    log(f"[phase11] kernel-path loss {float(l_ker):.6f} vs plain "
+        f"{float(l_xla):.6f}: |diff| {d:.3e} (tolerance 2e-4 + 2e-4 |plain|); "
+        f"launches {launches}; flash at {key}: "
+        f"{shapes['flash_attention'].get(key, 0)} of {cfg.n_layers}")
+    if d > 2e-4 + 2e-4 * abs(float(l_xla)):
+        fail("the kernels' loss disagrees with the plain path's")
+    if launches != want or shapes["flash_attention"] != {key: cfg.n_layers}:
+        fail(f"kernel-path loss launches {launches} / {shapes} != {want} at "
+             f"{key}")
+    del state, bundle, kbundle, batches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) card == CPU at full width, 2 layers
+    cfg2 = cfg.with_overrides(n_layers=TRAIN_CPU_LAYERS)
+    b2 = build_model(cfg2, remat="none")
+    p_gpu = b2.init(torch.Generator(device=dev).manual_seed(SEED + 1),
+                    device=dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    (bg,) = _train_batches(cfg2, TRAIN_SEQ, TRAIN_CPU_BATCH, dev, 1)
+    bc = {k: v.cpu() for k, v in bg.items()}
+    lg, _, gg = loss_and_grads(b2, p_gpu, bg)
+    lc, _, gc_ = loss_and_grads(b2, p_cpu, bc)
+    d = abs(float(lg) - float(lc))
+    worst = max(_rel_l2(a.cpu(), b) for a, b in zip(tree_leaves(gg),
+                                                     tree_leaves(gc_)))
+    log(f"[phase11] {TRAIN_ARCH} at {TRAIN_CPU_LAYERS} layers, B="
+        f"{TRAIN_CPU_BATCH} S={TRAIN_SEQ}: loss card {float(lg):.6f} vs CPU "
+        f"{float(lc):.6f} (|diff| {d:.3e}); gradients' worst relative L2 "
+        f"{worst:.3e} over {len(tree_leaves(gg))} leaves (needs <= 1e-4)")
+    if d > 2e-4 + 2e-4 * abs(float(lc)) or not worst <= 1e-4:
+        fail("training at 2 layers: the card disagrees with the CPU")
+    st_g = adamw_update(init_state(tree_map(torch.clone, p_gpu), tcfg),
+                        tree_map(lambda t: t.to(dev), gc_), tcfg)[0]
+    st_c = adamw_update(init_state(tree_map(torch.clone, p_cpu), tcfg),
+                        gc_, tcfg)[0]
+    worst = max(_err(a.cpu(), b) for part in ("params", "m", "v")
+                for a, b in zip(tree_leaves(st_g[part]),
+                                tree_leaves(st_c[part])))
+    log(f"[phase11] one AdamW update from the same gradients: card vs CPU "
+        f"max |diff| {worst:.3e} over params, m and v (needs <= 2e-4)")
+    if not worst <= 2e-4:
+        fail("adamw_update: the card disagrees with the CPU")
+    del st_g, st_c, p_cpu, gc_
+    l2, _, g2 = microbatch_grads(b2, p_gpu, bg, 2)
+    worst = max(_rel_l2(a, b) for a, b in zip(tree_leaves(g2),
+                                              tree_leaves(gg)))
+    log(f"[phase11] microbatches=2 vs 1 on the card: loss {float(l2):.6f} vs "
+        f"{float(lg):.6f}; gradients' worst relative L2 {worst:.3e} (needs "
+        f"<= 1e-4)")
+    if abs(float(l2) - float(lg)) > 2e-4 * abs(float(lg)) or not worst <= 1e-4:
+        fail("microbatched gradients disagree with the full batch's")
+    st = init_state(p_gpu, TrainConfig(microbatches=2, **TRAIN_TCFG))
+    make_train_step(b2, TrainConfig(microbatches=2, **TRAIN_TCFG))(st, bg)
+    del b2, p_gpu, gg, g2, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the guard
+    for name, fn, inputs in _guard_cases(dev):
+        before = sum(ops.LAUNCHES.values())
+        for i in range(len(inputs)):
+            args = [t.clone().requires_grad_(j == i)
+                    for j, t in enumerate(inputs)]
+            try:
+                fn(*args)
+            except ops.NoBackwardError:
+                continue
+            fail(f"{name}: input {i} requires grad and the wrapper did not "
+                 "raise NoBackwardError")
+        with torch.no_grad():
+            fn(*[t.clone().requires_grad_(True) for t in inputs])
+        torch.cuda.synchronize()
+        n = sum(ops.LAUNCHES.values()) - before
+        log(f"[phase11] guard {name}: NoBackwardError for each of its "
+            f"{len(inputs)} floating inputs under grad; {n} launch under "
+            "no_grad")
+        if n != 1:
+            fail(f"{name}: {n} launches under no_grad, not 1")
+
+    # (e) a checkpoint written while the run goes on
+    scfg = get_config(TRAIN_ARCH, smoke=True)
+    sb = build_model(scfg)
+    stcfg = TrainConfig(**TRAIN_TCFG)
+    sbatches = _train_batches(scfg, 32, 4, dev, TRAIN_CKPT_STEP + 1)
+    step = make_train_step(sb, stcfg)
+    run = init_state(sb.init(torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev), stcfg)
+    for b in sbatches[:TRAIN_CKPT_STEP]:
+        run, _ = step(run, b)
+    tmp = Path(tempfile.mkdtemp(prefix="phase11_ckpt_"))
+    try:
+        writer = ckpt.save_async(run, tmp, step=TRAIN_CKPT_STEP)
+        run, m_run = step(run, sbatches[-1])   # in place, while it writes
+        writer.join()
+        fresh = init_state(sb.init(torch.Generator(device=dev)
+                                   .manual_seed(SEED + 99), device=dev),
+                           stcfg)
+        resumed = ckpt.restore(fresh, tmp)
+        resumed, m_res = step(resumed, sbatches[-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = max(_err(a, b) for a, b in zip(tree_leaves(resumed),
+                                           tree_leaves(run)))
+    log(f"[phase11] checkpoint at step {TRAIN_CKPT_STEP} (save_async), "
+        f"restored into fresh weights, one step: loss {float(m_res['loss']):.6f} "
+        f"vs the uninterrupted run's {float(m_run['loss']):.6f}; state max "
+        f"|diff| {worst:.3e} (needs <= 2e-4); step {int(resumed['step'])}")
+    if int(resumed["step"]) != TRAIN_CKPT_STEP + 1 or not worst <= 2e-4 or \
+            abs(float(m_res["loss"]) - float(m_run["loss"])) > 2e-4:
+        fail("the restarted run disagrees with the uninterrupted one")
+    if tmp.exists():
+        fail(f"phase 11 left {tmp} behind")
+    log(f"[phase11] training in {time.perf_counter() - t0:.1f} s; "
+        f"rates {rates}")
+    return {"launches": launches, "shapes": shapes, "rates": rates}
+
 
 def main() -> int:
     try:
@@ -3021,6 +3402,7 @@ def main() -> int:
     log(f"[phase9] {DS_ARCH} and {L405_ARCH} in "
         f"{time.perf_counter() - t9:.1f} s")
     phase_analysis(dev)
+    paths["train"] = phase_training(dev)
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
     rows += rec_rows + slice_rows + fam_rows

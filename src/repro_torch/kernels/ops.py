@@ -8,6 +8,10 @@ a kernel that does not build or launch raises.  On ``meta`` tensors a
 wrapper runs every check of the card path (head dim, plan, shared
 memory, cluster, grid) and returns its outputs unfilled, launching
 nothing: ``analysis.kernel_check`` reads the output contract that way.
+The kernels have no backward: on a CUDA or meta tensor, a wrapper
+raises ``NoBackwardError`` before any launch when grad mode is on and a
+floating input requires grad (the plain-torch path that differentiates
+is chosen by the caller: ``build_model(cfg, attn_impl="xla")``).
 A shape with no launch on the card raises a ``KernelPlanError`` (a
 ``ValueError``) naming the rule it breaks.  ``LAUNCHES`` counts the
 kernel launches of each wrapper, and ``SHAPE_LAUNCHES`` the same launches
@@ -91,6 +95,12 @@ class KernelLaunchError(RuntimeError):
     """A kernel launch returned a CUDA error."""
 
 
+class NoBackwardError(RuntimeError):
+    """A kernel input requires grad under grad mode on the card: the
+    hand-written kernels compute no backward, so their outputs would
+    leave autograd without one."""
+
+
 class KernelPlanError(ValueError):
     """A shape the kernels have no launch for on the card."""
 
@@ -142,6 +152,22 @@ def _check(name, tensors):
         raise TypeError(f"{name}: inputs must share one dtype of "
                         f"float32/bfloat16, got {sorted(map(str, dts))}")
     return dev
+
+
+def _no_backward(name, dev, tensors):
+    """Raise ``NoBackwardError`` on a CUDA or meta device when grad mode
+    is on and any floating tensor of ``tensors`` (``None`` entries
+    skipped) requires grad.  The CPU path's plain versions differentiate
+    and never raise."""
+    if dev.type == "cpu" or not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.is_floating_point() and t.requires_grad
+           for t in tensors):
+        raise NoBackwardError(
+            f"{name}: the kernel has no backward and an input requires "
+            "grad; differentiate through the plain-torch path "
+            "(build_model(cfg, attn_impl='xla'), or impl='xla' on the "
+            "layer), or call it under torch.no_grad()")
 
 
 def _contiguous(name, tensors):
@@ -261,6 +287,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         raise ValueError(f"flash_attention: q{tuple(q.shape)} does not "
                          f"match k/v{tuple(k.shape)}")
     dev = _check("flash_attention", {"q": q, "k": k, "v": v})
+    _no_backward("flash_attention", dev, (q, k, v))
     window = _window("flash_attention", window)
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -358,6 +385,7 @@ def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
         raise ValueError(f"decode_attention: q{tuple(q.shape)} does not "
                          f"match k/v{tuple(k.shape)}")
     dev = _check("decode_attention", {"q": q, "k": k, "v": v})
+    _no_backward("decode_attention", dev, (q, k, v))
     _lengths_ok("decode_attention", lengths, B, dev)
     window = _window("decode_attention", window)
     if dev.type == "cpu":
@@ -411,6 +439,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
             f"pages{tuple(k_pages.shape)} / tables{tuple(block_tables.shape)}")
     dev = _check("paged_decode_attention",
                  {"q": q, "k_pages": k_pages, "v_pages": v_pages})
+    _no_backward("paged_decode_attention", dev, (q, k_pages, v_pages))
     _lengths_ok("paged_decode_attention", lengths, B, dev)
     if block_tables.dtype != torch.int32 or block_tables.device != dev:
         raise ValueError("paged_decode_attention: block_tables must be "
@@ -558,6 +587,7 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
     if A_log.device != dev:
         raise ValueError(f"ssd_intra_chunk: A_log on {A_log.device}, "
                          f"inputs on {dev}")
+    _no_backward("ssd_intra_chunk", dev, (x, Bm, Cm, dt, A_log))
     if dev.type == "cpu":
         return ref.ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log)
     _contiguous("ssd_intra_chunk", {"x": x, "Bm": Bm, "Cm": Cm, "dt": dt})
@@ -589,6 +619,8 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, *, chunk=128, initial_state=None):
     Pallas call.  x: (B,S,H,P); Bm/Cm: (B,S,N); dt: (B,S,H); the chunk
     is L = min(chunk, S) and must divide S (callers pad).  Returns (y
     (B,S,H,P) in x's dtype, final state (B,H,N,P) float32)."""
+    _no_backward("ssd_chunked", x.device,
+                 (x, Bm, Cm, dt, A_log, initial_state))
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     L = min(chunk, S)
@@ -731,6 +763,7 @@ def slstm_scan(pre, R, *, state=None):
                                   for t in state):
             raise ValueError(f"slstm_scan: state must be 4 tensors of "
                              f"({B}, {d}) on {dev}")
+    _no_backward("slstm_scan", dev, (pre, *gates, *(state or ())))
     if dev.type == "cpu":
         R4 = R if isinstance(R, torch.Tensor) else torch.stack(gates)
         return ref.slstm_scan_ref(pre, R4, state)

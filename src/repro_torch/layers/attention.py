@@ -5,10 +5,12 @@ API:
   gqa_scores(q, k, v, ...)                 -> attention output (pre-wo),
                                               plain tensor ops
   attention_apply(params, x, ...)          -> full self-attention
-                                              (prefill), or cross-
-                                              attention over an
+                                              (train, prefill), or
+                                              cross-attention over an
                                               encoder's k/v, through
                                               the flash attention kernel
+                                              or (impl="xla")
+                                              gqa_scores
   cross_kv_project(params, enc_out, cfg)   -> cross-attention k, v
   cross_attention_decode(params, x, k, v, cfg)
                                            -> one query per row over
@@ -102,29 +104,43 @@ def gqa_scores(q, k, v, *, q_positions, kv_positions, causal: bool = True,
 
 
 def attention_apply(params, x, *, positions, cfg, local: bool = False,
-                    causal: bool = True, cross_kv=None, cross_positions=None):
-    """Self- (or cross-) attention over one segment (prefill), through
-    the flash attention kernel.  ``positions`` must be the trivial
-    arange — the kernel assumes it.  A ``local`` layer sees only the
-    ``cfg.sliding_window`` keys up to each query.  With ``cross_kv`` = (k, v) from an
-    encoder (B, T, K, D), the S queries attend to all T keys,
-    non-causally, so ``cross_positions`` (the encoder's arange) does not
-    enter.  Returns (out, (k, v)) — the freshly projected k/v for cache
-    insertion, or the cross k/v."""
+                    causal: bool = True, cross_kv=None, cross_positions=None,
+                    impl: str = "kernel"):
+    """Self- (or cross-) attention over one segment (train or prefill).
+    ``impl="kernel"`` runs the flash attention kernel, which assumes
+    ``positions`` is the trivial arange; ``impl="xla"`` runs
+    ``gqa_scores``, plain tensor ops that differentiate (the reference's
+    XLA path).  A ``local`` layer sees only the ``cfg.sliding_window``
+    keys up to each query.  With ``cross_kv`` = (k, v) from an encoder
+    (B, T, K, D), the S queries attend to all T keys, non-causally, at
+    ``cross_positions`` (the encoder's arange).  Returns (out, (k, v)) —
+    the freshly projected k/v for cache insertion, or the cross k/v."""
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"attention_apply: unknown impl {impl!r}")
     if cross_kv is not None:
         q = _proj(x, params["wq"])
         if cfg.use_rope:
             q = apply_rope(q, positions, cfg.rope_theta)
         k, v = cross_kv
-        out = kops.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
-            softcap=cfg.attn_logit_softcap)
+        if impl == "xla":
+            out = gqa_scores(q, k, v, q_positions=positions,
+                             kv_positions=cross_positions, causal=False,
+                             softcap=cfg.attn_logit_softcap)
+        else:
+            out = kops.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
+                softcap=cfg.attn_logit_softcap)
         return output_proj(params, out, x.dtype), (k, v)
     q, k, v = project_qkv(params, x, positions, cfg)
-    out = kops.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        window=cfg.sliding_window if local else 0,
-        softcap=cfg.attn_logit_softcap)
+    window = cfg.sliding_window if local else 0
+    if impl == "xla":
+        out = gqa_scores(q, k, v, q_positions=positions,
+                         kv_positions=positions, causal=causal, window=window,
+                         softcap=cfg.attn_logit_softcap)
+    else:
+        out = kops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, softcap=cfg.attn_logit_softcap)
     return output_proj(params, out, x.dtype), (k, v)
 
 

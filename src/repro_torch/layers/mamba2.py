@@ -1,10 +1,13 @@
 """Mamba2 (State-Space Duality) block.
 
-Chunkwise-parallel SSD for prefill (linear in sequence length), with
-the intra-chunk part in the hand-written SSD kernel
-(``kernels.ops.ssd_chunked``), and an O(1) recurrent step for decode
-(``S == 1``), in torch as in the reference.  ``ssd_recurrent_ref`` is
-the naive per-step oracle the tests use.
+Chunkwise-parallel SSD for a multi-token call (linear in sequence
+length): with ``impl="kernel"`` (prefill) the intra-chunk part runs in
+the hand-written SSD kernel (``kernels.ops.ssd_chunked``), which has no
+backward; with ``impl="xla"`` (the loss) the whole chunked form is
+plain torch that differentiates, a transcription of the reference's
+``_ssd_chunked``.  An O(1) recurrent step serves decode (``S == 1``),
+in torch as in the reference.  ``ssd_recurrent_ref`` is the naive
+per-step oracle the tests use.
 """
 
 from __future__ import annotations
@@ -80,6 +83,52 @@ def _ssd_chunked(xh, Bm, Cm, dt, A_log, D_skip, chunk: int,
     return y.to(xh.dtype), final
 
 
+def _ssd_chunked_plain(xh, Bm, Cm, dt, A_log, D_skip, chunk: int,
+                       initial_state=None):
+    """``_ssd_chunked`` in plain torch (no kernel), step for step the
+    reference's ``_ssd_chunked``: the intra-chunk scores, each chunk's
+    end state, the recurrence over chunks and the inter-chunk output,
+    all in float32, then the D skip."""
+    Bsz, S, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    if S % L:  # pad tail: dt = 0 -> decay 1, update 0 (state-neutral)
+        pad = L - S % L
+        out, final = _ssd_chunked_plain(
+            F.pad(xh, (0, 0, 0, 0, 0, pad)), F.pad(Bm, (0, 0, 0, pad)),
+            F.pad(Cm, (0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A_log,
+            D_skip, chunk, initial_state)
+        return out[:, :S], final
+    nc = S // L
+    a = -torch.exp(A_log.float())                        # (H,)
+    xc = xh.float().reshape(Bsz, nc, L, H, Pd)
+    Bc = Bm.float().reshape(Bsz, nc, L, N)
+    Cc = Cm.float().reshape(Bsz, nc, L, N)
+    dtc = dt.float().reshape(Bsz, nc, L, H)
+    cum = torch.cumsum(dtc * a, dim=2)                   # (B,nc,L,H)
+    # intra-chunk: scores[s->t] = C_t.B_s exp(cum_t - cum_s) dt_s, s <= t
+    G = torch.einsum("bcln,bcmn->bclm", Cc, Bc)
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    causal = torch.ones(L, L, dtype=torch.bool, device=xh.device).tril()
+    M = torch.where(causal[None, None, :, :, None], G[..., None] * decay,
+                    torch.zeros((), device=xh.device))
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", M, xc * dtc[..., None])
+    # each chunk's end state, then S_c = S_{c-1} Lam_c + S_loc_c
+    w_end = torch.exp(cum[:, :, -1:, :] - cum)
+    S_loc = torch.einsum("bcln,bclh,bclhp->bchnp", Bc, w_end * dtc, xc)
+    Lam = torch.exp(cum[:, :, -1, :])                    # (B,nc,H)
+    run = (torch.zeros((Bsz, H, N, Pd), device=xh.device)
+           if initial_state is None else initial_state.float())
+    before = []
+    for c in range(nc):
+        before.append(run)
+        run = run * Lam[:, c, :, None, None] + S_loc[:, c]
+    y_inter = torch.einsum("bcln,bchnp,bclh->bclhp", Cc,
+                           torch.stack(before, dim=1), torch.exp(cum))
+    y = y_intra + y_inter + xc * D_skip.float()[None, None, None, :, None]
+    return y.reshape(Bsz, S, H, Pd).to(xh.dtype), run
+
+
 def ssd_recurrent_ref(xh, Bm, Cm, dt, A_log, D_skip, initial_state=None):
     """Naive per-step SSD: s = s exp(dt a) + dt B (x) x; y = C.s + D x."""
     Bsz, S, H, Pd = xh.shape
@@ -98,12 +147,16 @@ def ssd_recurrent_ref(xh, Bm, Cm, dt, A_log, D_skip, initial_state=None):
     return torch.stack(ys, dim=1).to(xh.dtype), s
 
 
-def mamba2_apply(params, x, cfg, *, state=None):
+def mamba2_apply(params, x, cfg, *, state=None, impl: str = "kernel"):
     """Full block body.  x: (B, S, d_model).
 
     state: None (fresh) or dict(ssm=(B,H,N,P), conv_x/conv_B/conv_C).
-    A multi-token call (prefill) runs the chunked SSD through the kernel;
-    a one-token call (decode) the recurrent step.  Returns (y, new_state)."""
+    A multi-token call runs the chunked SSD, through the kernel
+    (``impl="kernel"``, prefill) or in plain torch (``impl="xla"``, the
+    loss); a one-token call (decode) the recurrent step.  Returns (y,
+    new_state)."""
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"mamba2_apply: unknown impl {impl!r}")
     d_in, H, N = mamba2_dims(cfg)
     dt_ = x.dtype
     z = x @ params["wz"].to(dt_)
@@ -126,9 +179,10 @@ def mamba2_apply(params, x, cfg, *, state=None):
         y, final = ssd_recurrent_ref(xh, Bc, Cc, dt_soft, params["A_log"],
                                      params["D_skip"], initial_state=init_ssm)
     else:
-        y, final = _ssd_chunked(xh, Bc, Cc, dt_soft, params["A_log"],
-                                params["D_skip"], cfg.mamba_chunk,
-                                initial_state=init_ssm)
+        chunked = _ssd_chunked if impl == "kernel" else _ssd_chunked_plain
+        y, final = chunked(xh, Bc, Cc, dt_soft, params["A_log"],
+                           params["D_skip"], cfg.mamba_chunk,
+                           initial_state=init_ssm)
 
     y = y.reshape(*x.shape[:2], d_in)
     y = apply_norm(params["out_norm"], y * F.silu(z), cfg.norm, cfg.norm_eps)

@@ -5,7 +5,10 @@ chunkwise form (linear in sequence length) for prefill and an O(1) step
 for decode, both in torch as in the reference (it has no kernel).
 sLSTM has memory mixing and cannot be parallelized over time: its whole
 recurrence, prefill and decode alike, runs in one launch of the
-hand-written sLSTM kernel (``kernels.ops.slstm_scan``).
+hand-written sLSTM kernel (``kernels.ops.slstm_scan``), which has no
+backward; ``impl="xla"`` (the loss) runs the same recurrence step by
+step in plain torch (``kernels.ref.slstm_scan_ref``, the reference's
+``lax.scan`` step), which differentiates.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.layers.initializers import WSpec
 from repro_torch.layers.mlp import activation
 from repro_torch.layers.norms import apply_norm, norm_specs
@@ -205,10 +209,14 @@ def slstm_specs(cfg):
     }
 
 
-def slstm_apply(params, x, cfg, *, state=None):
+def slstm_apply(params, x, cfg, *, state=None, impl: str = "kernel"):
     """x: (B,S,d). state: (c,n,h,m) each (B,d)-shaped (heads folded).
     The recurrence, from ``state`` or the fresh state, is one launch of
-    the sLSTM kernel; then the post-FFN.  Returns (y, (c,n,h,m))."""
+    the sLSTM kernel (``impl="kernel"``) or the plain step-by-step
+    recurrence (``impl="xla"``); then the post-FFN.  Returns (y,
+    (c,n,h,m))."""
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"slstm_apply: unknown impl {impl!r}")
     dt = x.dtype
     x = apply_norm(params["ln"], x, cfg.norm, cfg.norm_eps)
     xf = x.float()
@@ -216,7 +224,10 @@ def slstm_apply(params, x, cfg, *, state=None):
                        for g in GATES], dim=2)          # (B,S,4,d)
     # R as its four (H,hd,hd) gate tensors: no stacked copy per call
     R = tuple(params[f"r_{g}"] for g in GATES)
-    y, new_state = kops.slstm_scan(pre, R, state=state)
+    if impl == "xla":
+        y, new_state = kref.slstm_scan_ref(pre, torch.stack(R), state)
+    else:
+        y, new_state = kops.slstm_scan(pre, R, state=state)
     y = y.to(dt)
     # post-FFN (GeLU, tanh form as jax.nn.gelu's default; pf 4/3)
     yn = apply_norm(params["ffn_norm"], y, cfg.norm, cfg.norm_eps)

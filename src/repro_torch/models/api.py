@@ -1,25 +1,31 @@
 """Public model API: build_model(cfg) -> ModelBundle.
 
 A ModelBundle packages weight specs with the step functions of one
-architecture: ``prefill`` (batch prefill into a dense cache),
-``decode_step`` (one token per row against the dense cache) and
-``paged_decode_step`` (one token per row against a global page pool).
-Caches are updated in place and returned for symmetry with the JAX
-package, whose functions return new caches.  ``loss_fn`` is None until
-the training slice of the port.  A config with ``mtp_depth`` (deepseek)
-carries the reference's multi-token-prediction weights (``params["mtp"]``)
-so the trees match leaf for leaf; the reference runs them only in its
-loss, and serving reads none of them.
+architecture: ``loss_fn`` (the training loss and its metrics),
+``prefill`` (batch prefill into a dense cache), ``decode_step`` (one
+token per row against the dense cache) and ``paged_decode_step`` (one
+token per row against a global page pool).  Caches are updated in place
+and returned for symmetry with the JAX package, whose functions return
+new caches.  A config with ``mtp_depth`` (deepseek) carries the
+reference's multi-token-prediction weights (``params["mtp"]``); only the
+loss reads them (``_mtp_loss``), as in the reference.
 
-The port computes in float32, the dtype the JAX package serves in
-(``build_model(..., compute_dtype=jnp.float32)``); ``cfg.compute_dtype``
-is not read.
+``build_model(cfg, **opts)`` reads the reference's options that shape
+the loss: ``attn_impl`` ("xla", the default, differentiates through
+plain torch; "kernel" runs the hand-written kernels, which have no
+backward, so only under ``torch.no_grad()`` on the card), ``remat``
+("full" by default; "none", "dots": ``layers.remat``) and ``z_loss``.
+Serving runs the kernels whatever they say; the reference's other
+options (``compute_dtype``, the serving knobs) are accepted and not
+read.  The port computes in float32, the dtype the JAX package is held
+to (``build_model(..., compute_dtype=jnp.float32)``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Any, Callable
 
 import torch
@@ -31,9 +37,10 @@ from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mla as mla_lib
 from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply, head_specs
 from repro_torch.layers.initializers import WSpec, init_tree, spec_param_count, stack_specs
-from repro_torch.layers.mlp import mlp_specs
+from repro_torch.layers.mlp import mlp_apply, mlp_specs
 from repro_torch.layers.moe import padded_experts
 from repro_torch.layers.norms import apply_norm, norm_specs
+from repro_torch.layers.remat import REMATS, remat_call
 from repro_torch.models.lm import make_stages
 
 
@@ -45,13 +52,13 @@ def _is_ws(x):
 class ModelBundle:
     cfg: ArchConfig
     specs: Any                       # weights WSpec tree
+    loss_fn: Callable                # (params, batch) -> (loss, metrics)
     prefill: Callable                # (params, batch, cache) -> (logits_last, cache)
     decode_step: Callable            # (params, tokens, cache, lengths) -> (logits, cache)
     cache_specs: Callable            # (B, T, dtype) -> WSpec tree
     paged_decode_step: Callable | None = None   # (params, tokens, cache,
     #                                              block_tables, lengths)
     paged_cache_specs: Callable | None = None   # (n_pages, page_size, dtype)
-    loss_fn: Callable | None = None             # the training slice
 
     # ``device=None`` is the card (``common.device.resolve_device``):
     # with no CUDA device these raise unless the caller names "cpu"
@@ -156,33 +163,122 @@ def _logits(cfg, params, h):
                       tied_table=tied)
 
 
+def _block(fn, p, cache, ctx, h):
+    return fn(p, h, cache, ctx)
+
+
 def _run_backbone(stages, params, h, ctx, caches):
     """Run every stage's layers in order; layer i reads the i-th slice of
-    the stacked weights and writes the i-th slice of the stage cache.  A
-    stage's unstacked weights (zamba2's shared attention block) reach
-    every one of its layers as ``ctx["shared_attn"]``."""
+    the stacked weights and (``caches`` given) writes the i-th slice of
+    the stage cache.  A stage's unstacked weights (zamba2's shared
+    attention block) reach every one of its layers as
+    ``ctx["shared_attn"]``.  Each layer runs under ``ctx["remat"]``.
+    Returns (h, the layers' router losses summed, float32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = ctx.get("remat", "none")
     for st in stages:
         p_st = params["stages"][st.name]
         ctx_st = dict(ctx)
         if st.shared_specs is not None:
             ctx_st["shared_attn"] = p_st["shared"]
-        cache_st = caches[st.name]
+        cache_st = None if caches is None else caches[st.name]
         for i in range(st.n):
             lp = tree_map(lambda t, i=i: t[i], p_st["blocks"])
-            cl = tree_map(lambda t, i=i: t[i], cache_st)
-            h = st.block_fn(lp, h, cl, ctx_st)
-    return h
+            cl = (None if cache_st is None
+                  else tree_map(lambda t, i=i: t[i], cache_st))
+            h, a = remat_call(remat, partial(_block, st.block_fn, lp, cl,
+                                             ctx_st), h)
+            aux = aux + a
+    return h, aux
 
 
-def build_model(cfg: ArchConfig) -> ModelBundle:
+def cross_entropy(logits, targets, mask, z_loss=0.0):
+    """Masked mean token cross entropy in float32, plus ``z_loss`` times
+    the masked mean squared log-partition."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    mask = mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    loss = ((lse - tgt) * mask).sum() / denom
+    if z_loss:
+        loss = loss + z_loss * ((lse * mask) ** 2).sum() / denom
+    return loss
+
+
+def _mtp_loss(cfg, params, h, batch, positions, attn_impl):
+    """Simplified DeepSeek MTP, as the reference computes it: one extra
+    block over [norm(h_t), norm(embed(token_{t+1}))] predicting token
+    t + 2; the last position has no target."""
+    p = params["mtp"]
+    emb = embed_apply(params["embed"], batch["tokens"][:, 1:])
+    hh = apply_norm(p["norm_h"], h[:, :-1], cfg.norm, cfg.norm_eps)
+    ee = apply_norm(p["norm_e"], emb, cfg.norm, cfg.norm_eps)
+    x = torch.cat([hh, ee], dim=-1) @ p["proj"].float()
+    positions = positions[:, 1:]
+    blk = p["block"]
+    xn = apply_norm(blk["ln_attn"], x, cfg.norm, cfg.norm_eps)
+    if cfg.use_mla:
+        y, _ = mla_lib.mla_apply(blk["attn"], xn, positions=positions,
+                                 cfg=cfg)
+    else:
+        y, _ = attn_lib.attention_apply(blk["attn"], xn, positions=positions,
+                                        cfg=cfg, impl=attn_impl)
+    x = x + y
+    x = x + mlp_apply(blk["mlp"], apply_norm(blk["ln_mlp"], x, cfg.norm,
+                                             cfg.norm_eps), cfg.act_fn)
+    x = apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
+    tgt = batch["targets"][:, 1:]
+    n = tgt.shape[1]
+    msk = batch["mask"][:, 1:].float() * (
+        torch.arange(n, device=tgt.device) < n - 1)
+    return cross_entropy(_logits(cfg, params, x), tgt, msk)
+
+
+def train_options(opts) -> tuple[str, str, float]:
+    """(attn_impl, remat, z_loss) from ``build_model``'s options."""
+    attn_impl = opts.get("attn_impl", "xla")
+    if attn_impl not in ("kernel", "xla"):
+        raise ValueError(f"attn_impl {attn_impl!r} is not 'kernel' or 'xla'")
+    remat = opts.get("remat", "full")
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r} is not one of {REMATS}")
+    return attn_impl, remat, float(opts.get("z_loss", 0.0))
+
+
+def build_model(cfg: ArchConfig, **opts) -> ModelBundle:
     if cfg.is_encoder_decoder:
         # encoder-decoder families have no paged layout: the paged
         # fields stay None, as in the JAX package
         from repro_torch.models.encdec import build_encdec
 
-        return build_encdec(cfg)
+        return build_encdec(cfg, **opts)
     stages = make_stages(cfg)
     specs = _lm_specs(cfg, stages)
+    attn_impl, remat, z_loss = train_options(opts)
+
+    def loss_fn(params, batch):
+        h = _embed_inputs(cfg, params, batch)
+        n_prefix = h.shape[1] - batch["tokens"].shape[1]
+        B, S = h.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device).expand(B, S)
+        ctx = {"mode": "train", "positions": positions, "lengths": None,
+               "attn_impl": attn_impl, "remat": remat}
+        h, aux = _run_backbone(stages, params, h, ctx, None)
+        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        h = h[:, n_prefix:]
+        loss = cross_entropy(_logits(cfg, params, h), batch["targets"],
+                             batch["mask"], z_loss)
+        metrics = {"ce": loss, "aux": aux}
+        if cfg.router_aux_loss and cfg.n_experts:
+            loss = loss + cfg.router_aux_loss * aux
+        if cfg.mtp_depth:
+            mtp = _mtp_loss(cfg, params, h, batch, positions, attn_impl)
+            metrics["mtp"] = mtp
+            loss = loss + 0.3 * mtp
+        metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(params, batch, cache):
         h = _embed_inputs(cfg, params, batch)
@@ -193,7 +289,7 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
         ctx = {"mode": "prefill", "positions": positions, "lengths": lengths}
-        h = _run_backbone(stages, params, h, ctx, cache)
+        h, _ = _run_backbone(stages, params, h, ctx, cache)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         last = (lengths.long() - 1).clamp(0, S - 1)
         h_last = h[torch.arange(B, device=h.device), last][:, None, :]
@@ -203,7 +299,7 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         h = embed_apply(params["embed"], tokens, scale=_embed_scale(cfg))
         ctx = {"mode": "decode", "positions": lengths[:, None].to(torch.int32),
                "lengths": lengths, **extra}
-        h = _run_backbone(stages, params, h, ctx, cache)
+        h, _ = _run_backbone(stages, params, h, ctx, cache)
         h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         return _logits(cfg, params, h)[:, 0], cache
 
@@ -239,7 +335,7 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         return cache_specs(n_pages, page_size, dtype)
 
     return ModelBundle(
-        cfg=cfg, specs=specs, prefill=prefill, decode_step=decode_step,
-        cache_specs=cache_specs,
+        cfg=cfg, specs=specs, loss_fn=loss_fn, prefill=prefill,
+        decode_step=decode_step, cache_specs=cache_specs,
         paged_decode_step=paged_decode_step if paged_supported else None,
         paged_cache_specs=paged_cache_specs if paged_supported else None)

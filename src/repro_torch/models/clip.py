@@ -9,8 +9,9 @@ model's outputs must equal the monolithic one's (paper Q3).
 Where the JAX package scans a tower's stacked layers, the port loops
 over the layer index; each layer's attention goes through the flash
 kernel (``layers.attention.attention_apply``): non-causal in the vision
-tower, causal in the text tower.  ``contrastive_loss`` arrives with the
-training slice.
+tower, causal in the text tower.  The towers take ``impl``: "kernel"
+(serving) or "xla", plain torch that differentiates, which
+``contrastive_loss`` runs as the reference's towers run its XLA path.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_map
@@ -62,7 +64,7 @@ def _tower_specs(width: int, heads: int, layers: int):
     return stack_specs(block, layers)
 
 
-def _tower_apply(params, h, *, causal: bool, eps: float):
+def _tower_apply(params, h, *, causal: bool, eps: float, impl: str):
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
     tc = _TowerCfg()
@@ -70,7 +72,7 @@ def _tower_apply(params, h, *, causal: bool, eps: float):
         lp = tree_map(lambda t, i=i: t[i], params)
         x = apply_norm(lp["ln1"], h, "layernorm", eps)
         y, _ = attn_lib.attention_apply(lp["attn"], x, positions=positions,
-                                        cfg=tc, causal=causal)
+                                        cfg=tc, causal=causal, impl=impl)
         h = h + y
         x = apply_norm(lp["ln2"], h, "layernorm", eps)
         h = h + mlp_apply(lp["mlp"], x, "gelu")
@@ -101,23 +103,25 @@ def clip_specs(cfg: ClipConfig):
     }
 
 
-def encode_image(params, patches, cfg: ClipConfig):
+def encode_image(params, patches, cfg: ClipConfig, impl: str = "kernel"):
     """patches: (B, n_image_tokens, vision_width) stub embeddings."""
     h = patches.float() @ params["patch_proj"].float()
     h = h + params["pos"].float()[None]
-    h = _tower_apply(params["blocks"], h, causal=False, eps=cfg.norm_eps)
+    h = _tower_apply(params["blocks"], h, causal=False, eps=cfg.norm_eps,
+                     impl=impl)
     h = apply_norm(params["ln_post"], h.mean(dim=1, keepdim=True),
                    "layernorm", cfg.norm_eps)[:, 0]
     z = h @ params["proj"].float()
     return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
 
 
-def encode_text(params, ids, cfg: ClipConfig):
+def encode_text(params, ids, cfg: ClipConfig, impl: str = "kernel"):
     """ids: (B, S) int32; EOT = last token."""
     h = embed_apply(params["embed"], ids)
     S = ids.shape[1]
     h = h + params["pos"].float()[None, :S]
-    h = _tower_apply(params["blocks"], h, causal=True, eps=cfg.norm_eps)
+    h = _tower_apply(params["blocks"], h, causal=True, eps=cfg.norm_eps,
+                     impl=impl)
     h = apply_norm(params["ln_final"], h, "layernorm", cfg.norm_eps)
     z = h[:, -1] @ params["proj"].float()
     return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
@@ -128,11 +132,24 @@ def retrieval_logits(img_z, txt_z, logit_scale):
     return torch.exp(logit_scale) * img_z @ txt_z.T
 
 
-def clip_forward(params, patches, ids, cfg: ClipConfig):
+def clip_forward(params, patches, ids, cfg: ClipConfig, impl: str = "kernel"):
     """Monolithic forward — the oracle the split execution must match."""
-    zi = encode_image(params["vision"], patches, cfg)
-    zt = encode_text(params["text"], ids, cfg)
+    zi = encode_image(params["vision"], patches, cfg, impl)
+    zt = encode_text(params["text"], ids, cfg, impl)
     return retrieval_logits(zi, zt, params["logit_scale"])
+
+
+def contrastive_loss(params, patches, ids, cfg: ClipConfig,
+                     impl: str = "xla"):
+    """The symmetric InfoNCE loss over a batch of matching (image, text)
+    pairs: the mean of the image->text and text->image cross entropies
+    of ``clip_forward``'s logits, pair i's label being i."""
+    logits = clip_forward(params, patches, ids, cfg, impl)
+    n = logits.shape[0]
+    idx = torch.arange(n, device=logits.device)
+    li = -F.log_softmax(logits, dim=1)[idx, idx].mean()
+    lt = -F.log_softmax(logits, dim=0)[idx, idx].mean()
+    return 0.5 * (li + lt)
 
 
 def init_clip(generator: torch.Generator, cfg: ClipConfig, device=None):

@@ -16,13 +16,16 @@ the decoder's causal self-attention and non-causal cross-attention
 in prefill; in decode, the self-attention through the decode kernel
 over the dense cache up to ``lengths + 1`` and the cross-attention
 through the decode kernel over the cached cross K/V with lengths = T.
-The port computes in float32; ``loss_fn`` is None until the training
-slice.
+``loss_fn`` (train mode, no cache) runs all three attentions through
+``attn_impl`` (plain torch by default: the kernels have no backward)
+and each encoder and decoder layer under ``remat``.  The port computes
+in float32.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any
 
 import torch
@@ -34,6 +37,7 @@ from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply
 from repro_torch.layers.initializers import WSpec, stack_specs
 from repro_torch.layers.mlp import mlp_apply, mlp_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
+from repro_torch.layers.remat import remat_call
 
 
 def sinusoid(positions, d_model):
@@ -68,24 +72,29 @@ def _dec_block_specs(cfg):
     }
 
 
-def _enc_block(p, h, positions, cfg):
+def _enc_block(p, positions, cfg, impl, h):
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
     y, _ = attn_lib.attention_apply(p["attn"], x, positions=positions,
-                                    cfg=cfg, causal=False)
+                                    cfg=cfg, causal=False, impl=impl)
     h = h + y
     x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
     return h + mlp_apply(p["mlp"], x, cfg.act_fn)
 
 
-def _dec_block(p, h, cache, ctx, cfg, enc_out, enc_positions):
+def _dec_block(p, cache, ctx, cfg, enc_out, enc_positions, h):
     """cache: {self: {k,v}, cross: {k,v}}, this layer's views, written in
-    place (prefill fills both; decode appends one self k/v per row)."""
+    place (prefill fills both; decode appends one self k/v per row;
+    train has none)."""
     mode = ctx["mode"]
     positions = ctx["positions"]
 
     # --- self attention ---
     x = apply_norm(p["ln_self"], h, cfg.norm, cfg.norm_eps)
-    if mode == "prefill":
+    if mode == "train":
+        y, _ = attn_lib.attention_apply(p["self_attn"], x,
+                                        positions=positions, cfg=cfg,
+                                        impl=ctx["attn_impl"])
+    elif mode == "prefill":
         S = x.shape[1]
         y, (k, v) = attn_lib.attention_apply(p["self_attn"], x,
                                              positions=positions, cfg=cfg)
@@ -105,7 +114,12 @@ def _dec_block(p, h, cache, ctx, cfg, enc_out, enc_positions):
 
     # --- cross attention ---
     x = apply_norm(p["ln_cross"], h, cfg.norm, cfg.norm_eps)
-    if mode == "prefill":
+    if mode == "train":
+        y, _ = attn_lib.attention_apply(
+            p["cross_attn"], x, positions=positions, cfg=cfg,
+            cross_kv=attn_lib.cross_kv_project(p["cross_attn"], enc_out, cfg),
+            cross_positions=enc_positions, impl=ctx["attn_impl"])
+    elif mode == "prefill":
         ck, cv = attn_lib.cross_kv_project(p["cross_attn"], enc_out, cfg)
         cache["cross"]["k"].copy_(ck)
         cache["cross"]["v"].copy_(cv)
@@ -126,21 +140,25 @@ def _layer(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
-def _encode(cfg, params, frames):
+def _encode(cfg, params, frames, impl="kernel", remat="none"):
     B, S = frames.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=frames.device).expand(B, S)
     h = frames.float() @ params["audio_proj"]["w"].float()
     h = h + sinusoid(positions, cfg.d_model)
     for i in range(cfg.n_encoder_layers):
-        h = _enc_block(_layer(params["encoder"], i), h, positions, cfg)
+        h = remat_call(remat, partial(_enc_block, _layer(params["encoder"], i),
+                                      positions, cfg, impl), h)
     h = apply_norm(params["enc_norm"], h, cfg.norm, cfg.norm_eps)
     return h, positions
 
 
-def build_encdec(cfg):
-    from repro_torch.models.api import ModelBundle
+def build_encdec(cfg, **opts):
+    from repro_torch.models.api import ModelBundle, cross_entropy, train_options
 
+    # z_loss is not read: the reference's encoder-decoder loss is the
+    # plain cross entropy
+    attn_impl, remat, _ = train_options(opts)
     n_dec = cfg.n_layers
     specs: dict[str, Any] = {
         "audio_proj": {"w": WSpec((cfg.d_model, cfg.d_model), (None, "embed"))},
@@ -159,11 +177,30 @@ def build_encdec(cfg):
         # whisper ties the decoder embedding and the output head
         return head_apply(None, h, tied_table=params["embed"]["table"])
 
-    def _run_decoder(params, h, ctx, cache, enc_out, enc_positions):
+    def _run_decoder(params, h, ctx, cache, enc_out, enc_positions,
+                     remat="none"):
         for i in range(n_dec):
-            h = _dec_block(_layer(params["decoder"], i), h, _layer(cache, i),
-                           ctx, cfg, enc_out, enc_positions)
+            cl = None if cache is None else _layer(cache, i)
+            h = remat_call(remat, partial(
+                _dec_block, _layer(params["decoder"], i), cl, ctx, cfg,
+                enc_out, enc_positions), h)
         return h
+
+    def loss_fn(params, batch):
+        enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"],
+                                   attn_impl, remat)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        ctx = {"mode": "train", "positions": positions, "lengths": None,
+               "attn_impl": attn_impl}
+        h = _dec_embed(params, tokens, positions)
+        h = _run_decoder(params, h, ctx, None, enc_out, enc_pos, remat)
+        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        loss = cross_entropy(_head(params, h), batch["targets"],
+                             batch["mask"])
+        return loss, {"loss": loss, "ce": loss}
 
     def prefill(params, batch, cache):
         enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"])
@@ -206,5 +243,5 @@ def build_encdec(cfg):
 
         return {"self": kv(T), "cross": kv(cfg.encoder_seq)}
 
-    return ModelBundle(cfg=cfg, specs=specs, prefill=prefill,
+    return ModelBundle(cfg=cfg, specs=specs, loss_fn=loss_fn, prefill=prefill,
                        decode_step=decode_step, cache_specs=cache_specs)

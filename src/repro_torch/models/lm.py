@@ -24,15 +24,20 @@ package.  The port covers:
 
 Where the reference scans a stack, the port loops over the block index;
 each block's weights and cache are views into the stacked tensors, so
-cache writes land in place.
+cache writes land in place.  A block returns its residual stream and
+its router loss (0 but in a MoE block), which the backbone sums over
+layers as the reference's scan carry does.
 
-Modes: "prefill" (fills the caches: attention through the flash kernel,
-windowed for local layers, Mamba2 through the SSD kernel, sLSTM through
-its kernel) and "decode" (one token per row: attention against a dense
-cache through the decode kernel, or a paged pool through the paged
-kernel, both with the window of a local layer; MLA attends over its
-latent cache with plain products, as the reference does; the recurrent
-blocks step their state).
+Modes: "train" (no cache; attention, Mamba2's SSD and sLSTM through
+``ctx["attn_impl"]``: "xla" is plain torch that differentiates,
+"kernel" the kernels, which have no backward), "prefill" (fills the
+caches: attention through the flash kernel, windowed for local layers,
+Mamba2 through the SSD kernel, sLSTM through its kernel) and "decode"
+(one token per row: attention against a dense cache through the decode
+kernel, or a paged pool through the paged kernel, both with the window
+of a local layer; MLA attends over its latent cache with plain
+products, as the reference does; the recurrent blocks step their
+state).
 """
 
 from __future__ import annotations
@@ -88,11 +93,16 @@ def _mla_block_specs(cfg, use_moe: bool):
 
 def _apply_attn_sub(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
     """Norm + attention + residual (+post-norm); writes the layer's
-    cache in place.  Returns the new residual stream.  A local layer
-    attends to the ``cfg.sliding_window`` keys up to its query."""
+    cache in place (train has none).  Returns the new residual stream.
+    A local layer attends to the ``cfg.sliding_window`` keys up to its
+    query."""
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
     window = cfg.sliding_window if local else 0
-    if ctx["mode"] == "prefill":
+    if ctx["mode"] == "train":
+        y, _ = attn.attention_apply(p["attn"], x, positions=ctx["positions"],
+                                    cfg=cfg, local=local,
+                                    impl=ctx["attn_impl"])
+    elif ctx["mode"] == "prefill":
         S = x.shape[1]
         y, (k, v) = attn.attention_apply(p["attn"], x,
                                          positions=ctx["positions"], cfg=cfg,
@@ -140,16 +150,17 @@ def _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx, cfg, *,
 
 
 def _apply_ffn_sub(p, h, cfg, *, use_moe: bool, post_norm: bool):
-    """Norm + MLP (or MoE) + residual (+post-norm).  The MoE's router
-    loss is a training term; serving drops it."""
+    """Norm + MLP (or MoE) + residual (+post-norm).  Returns (h, the
+    MoE's router loss, 0.0 without one); serving drops the loss."""
     x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
+    aux = 0.0
     if use_moe:
-        y, _ = moe_lib.moe_apply(p["moe"], x, cfg)
+        y, aux = moe_lib.moe_apply(p["moe"], x, cfg)
     else:
         y = mlp_apply(p["mlp"], x, cfg.act_fn)
     if post_norm:
         y = apply_norm(p["ln_mlp_post"], y, cfg.norm, cfg.norm_eps)
-    return h + y
+    return h + y, aux
 
 
 def _attn_block(p, h, cache, ctx, cfg, *, local: bool, use_moe: bool,
@@ -161,11 +172,14 @@ def _attn_block(p, h, cache, ctx, cfg, *, local: bool, use_moe: bool,
 
 def _mla_block(p, h, cache, ctx, cfg, *, use_moe: bool):
     """Norm + MLA + residual, then norm + MLP (or MoE) + residual.
-    Prefill writes the latent cache's first S slots; decode inserts one
-    token per row at ``lengths`` and attends over the slots below
-    ``lengths + 1``."""
+    Train attends over the segment's own latents; prefill writes the
+    latent cache's first S slots; decode inserts one token per row at
+    ``lengths`` and attends over the slots below ``lengths + 1``."""
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
-    if ctx["mode"] == "prefill":
+    if ctx["mode"] == "train":
+        y, _ = mla_lib.mla_apply(p["attn"], x, positions=ctx["positions"],
+                                 cfg=cfg)
+    elif ctx["mode"] == "prefill":
         S = x.shape[1]
         y, (ckv, kr) = mla_lib.mla_apply(p["attn"], x,
                                          positions=ctx["positions"], cfg=cfg)
@@ -192,15 +206,27 @@ def _pair_block(p, h, cache, ctx, cfg, *, pat):
     sub-block i is an attention + MLP block, windowed where pat[i] is
     "local"; its cache is the i-th of the entry's list."""
     for i, kind in enumerate(pat):
-        h = _attn_block(p[f"sub{i}"], h, cache[i], ctx, cfg,
-                        local=kind == "local", use_moe=False,
-                        post_norm=cfg.post_norm)
-    return h
+        h, _ = _attn_block(p[f"sub{i}"], h, _field(cache, i), ctx, cfg,
+                           local=kind == "local", use_moe=False,
+                           post_norm=cfg.post_norm)
+    return h, 0.0
+
+
+def _sub(tree, i):
+    """The i-th slice of every leaf of a stacked tree (None stays None:
+    train mode has no cache)."""
+    return None if tree is None else tree_map(lambda t: t[i], tree)
+
+
+def _field(cache, key):
+    return None if cache is None else cache[key]
 
 
 def _write_state(cache, new):
-    """Copy a block's new recurrent state into its cache views."""
-    tree_map(lambda c, x: c.copy_(x), cache, new)
+    """Copy a block's new recurrent state into its cache views (train
+    mode has no cache)."""
+    if cache is not None:
+        tree_map(lambda c, x: c.copy_(x), cache, new)
 
 
 def _mamba_block_specs(cfg):
@@ -217,12 +243,19 @@ def _shared_attn_specs(cfg):
     }
 
 
+def _impl(ctx) -> str:
+    """The recurrent layers' path: train follows ``attn_impl``; prefill
+    and decode run the kernels."""
+    return ctx["attn_impl"] if ctx["mode"] == "train" else "kernel"
+
+
 def _mamba_block(p, h, cache, ctx, cfg):
     x = apply_norm(p["ln"], h, cfg.norm, cfg.norm_eps)
     state = cache if ctx["mode"] == "decode" else None
-    y, new_state = m2.mamba2_apply(p["mamba"], x, cfg, state=state)
+    y, new_state = m2.mamba2_apply(p["mamba"], x, cfg, state=state,
+                                   impl=_impl(ctx))
     _write_state(cache, new_state)
-    return h + y
+    return h + y, 0.0
 
 
 def _xlstm_block(apply, p, h, cache, ctx, cfg):
@@ -237,19 +270,19 @@ def _xlstm_block(apply, p, h, cache, ctx, cfg):
 def _super_block(p, h, cache, ctx, cfg, *, k: int):
     """k Mamba2 blocks, then the shared attention + MLP block."""
     for j in range(k):
-        h = _mamba_block(tree_map(lambda t: t[j], p["mamba"]), h,
-                         tree_map(lambda t: t[j], cache["mamba"]), ctx, cfg)
-    return _attn_block(ctx["shared_attn"], h, cache["attn"], ctx, cfg,
-                       local=False, use_moe=False, post_norm=False)
+        h, _ = _mamba_block(_sub(p["mamba"], j), h,
+                            _sub(_field(cache, "mamba"), j), ctx, cfg)
+    return _attn_block(ctx["shared_attn"], h, _field(cache, "attn"), ctx,
+                       cfg, local=False, use_moe=False, post_norm=False)
 
 
 def _xgroup_block(p, h, cache, ctx, cfg, *, m: int):
     """m mLSTM blocks, then one sLSTM block."""
     for j in range(m):
-        h = _xlstm_block(xl.mlstm_apply, tree_map(lambda t: t[j], p["mlstm"]),
-                         h, [t[j] for t in cache["mlstm"]], ctx, cfg)
-    return _xlstm_block(xl.slstm_apply, p["slstm"], h, cache["slstm"], ctx,
-                        cfg)
+        h = _xlstm_block(xl.mlstm_apply, _sub(p["mlstm"], j), h,
+                         _sub(_field(cache, "mlstm"), j), ctx, cfg)
+    return _xlstm_block(partial(xl.slstm_apply, impl=_impl(ctx)), p["slstm"],
+                        h, _field(cache, "slstm"), ctx, cfg), 0.0
 
 
 @dataclass
@@ -257,7 +290,7 @@ class StageDef:
     name: str
     n: int                                   # stacked length
     block_specs: Any                         # unstacked per-block spec tree
-    block_fn: Callable                       # (p, h, cache_l, ctx) -> h
+    block_fn: Callable                       # (p, h, cache_l, ctx) -> (h, aux)
     cache_specs: Callable                    # (cfg, B, T, dtype) -> per-layer WSpecs
     shared_specs: Any = None                 # unstacked weights (zamba2 shared attn)
 

@@ -8,6 +8,11 @@ K=8, D=256, windowed local layers and a softcap of 50; llama3-8b: H=32,
 K=8, D=128; granite-moe-3b-a800m: H=24, K=8, D=64; llama3-405b:
 H=128, K=8, D=128).
 
+Then the wrappers under autograd (each raises ``NoBackwardError`` on a
+card input that requires grad, and launches under ``torch.no_grad()``)
+and one train step of tinyllama-1.1b's smoke config on the card against
+the CPU.
+
 Marked ``cuda``: they skip where no CUDA device is visible.  This file
 imports no jax, so it runs on a machine with the card alone:
 
@@ -587,3 +592,67 @@ def test_cuda_flash_plan_equals_the_kernel_plan(cuda_device, D, dtype):
     assert load("flash_attention").flash_attention_plan(96, out) != 0
     with pytest.raises(ops.NoPlanError):
         ops.flash_plan(96, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(6))
+def test_cuda_wrapper_raises_under_grad_and_launches_under_no_grad(
+        cuda_device, case):
+    from test_torch_autograd_guard import guard_cases
+
+    name, fn, inputs = guard_cases(cuda_device)[case]
+    ops.reset_launches()
+    for i in range(len(inputs)):
+        args = [t.clone().requires_grad_(j == i) for j, t in enumerate(inputs)]
+        with pytest.raises(ops.NoBackwardError, match="no backward"):
+            fn(*args)
+    assert sum(ops.LAUNCHES.values()) == 0
+    args = [t.clone().requires_grad_(True) for t in inputs]
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """tinyllama-1.1b smoke: the loss and every gradient leaf on the card
+    (the differentiable path) == the CPU at 2e-4; the kernels' loss under
+    no_grad == the plain one; two microbatches == one on the card."""
+    from repro_torch.common.config import TrainConfig, get_config
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.models.api import build_model
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_step import (
+        batch_to_tensors, loss_and_grads, make_train_step,
+    )
+
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    bundle = build_model(cfg)
+    p_cpu = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    batch = next(TokenStream(DataConfig(seq_len=16, global_batch=4,
+                                        vocab_size=cfg.vocab_size)))
+    lc, _, gc = loss_and_grads(bundle, p_cpu, batch_to_tensors(batch, "cpu"))
+    bg = batch_to_tensors(batch, cuda_device)
+    lg, _, gg = loss_and_grads(bundle, p_gpu, bg)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-4, atol=2e-4)
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+    with torch.no_grad():
+        lk, _ = build_model(cfg, attn_impl="kernel").loss_fn(p_gpu, bg)
+    torch.testing.assert_close(lk, lg, rtol=2e-4, atol=2e-4)
+    tcfg = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    outs = []
+    for k in (1, 2):
+        state = init_state(tree_map(torch.clone, p_gpu),
+                           TrainConfig(microbatches=k, **tcfg))
+        state, m = make_train_step(
+            bundle, TrainConfig(microbatches=k, **tcfg))(state, bg)
+        outs.append((state, m))
+    torch.testing.assert_close(outs[0][1]["loss"], outs[1][1]["loss"],
+                               rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree_leaves(outs[0][0]["params"]),
+                    tree_leaves(outs[1][0]["params"])):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-5)
