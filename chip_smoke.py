@@ -139,7 +139,26 @@ Phases (any failure exits non-zero; nothing is caught):
    on a card input that requires grad and launches under no_grad.  A
    checkpoint written by ``save_async`` mid-run, restored into fresh
    weights, steps as the uninterrupted run does.
-12. Print the kernels line (JSON), the card line, and last
+12. The distributed path: granite-moe-3b-a800m at full width and depth
+   (random float32 weights, each leaf drawn whole from seed 0 on every
+   rank, each rank keeping its slice) through ``build_model(cfg,
+   mesh=..., rules=...)``, phase 8's 4 greedy requests served solo
+   (prefill, then 7 decode steps), in spawned ranks after phase 11 has
+   freed its memory: (a) one rank over NCCL on a (1, 1) mesh with the
+   reference's serving rules (its expert-parallel MoE routes with
+   capacity drops, prefill through the flash kernel, decode through the
+   decode kernel); (b) two ranks sharing the card over gloo on a (1, 2)
+   mesh with the serving rules plus replicated heads and the shardmap
+   decode over a sequence-sharded cache (24 experts a rank).  Checked:
+   (a) and (b) give equal tokens and every step's logits within 2e-4;
+   (b) issues only all_reduce (``CommDebugMode``), exactly one a layer at
+   a prefill and four a layer at a decode step; exact flash and decode
+   launches by call shape in each rank; (b)'s decode == a fresh prefill
+   (at the capacity factor that drops no token) within 5e-4; (b) cut to
+   2 layers == the mesh path on the CPU (a world of one, gloo) within
+   2e-4.  Prints each rank's held weight bytes and peak memory, prefill
+   ms, tokens/s and all_reduces beside the weight-read floor.
+13. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -257,6 +276,23 @@ TRAIN_TCFG = dict(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                   total_steps=TRAIN_STEPS)
 TRAIN_MARGIN = 2.5
 TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CKPT_STEP = 2, 2, 3
+
+# phase 12: granite-moe-3b-a800m at full width and depth through
+# build_model(cfg, mesh=..., rules=...), phase 8's 4 greedy requests served
+# solo (prefill, then FAM_NEW - 1 decode steps): (a) one rank over NCCL,
+# mesh (1, 1), the reference's serving rules (dryrun's serving profile) and
+# default options; (b) two ranks sharing the card over gloo (NCCL refuses
+# two ranks on one device), mesh (1, 2), the serving rules plus the
+# reference's attnrep profile and its smattn options: 24 experts a rank,
+# the KV cache sharded over the sequence, all_reduce the only collective.
+# (b)'s decode == a fresh prefill is held at the capacity factor that drops
+# no token (n_experts / top_k): at the default 1.25 a prefill of S + 1
+# tokens may drop other tokens than the prefill of S and the one-token step
+DIST_ARCH = "granite-moe-3b-a800m"
+DIST_SERVING = {"embed": None}
+DIST_ATTNREP = {"embed": None, "heads": None, "kv_heads": None}
+DIST_SMATTN = {"decode_attn": "shardmap", "cache_update": "shard"}
+DIST_CPU_LAYERS, DIST_TIMEOUT = 2, 900
 
 
 def prompt_lens(bounds, n) -> list[int]:
@@ -3358,6 +3394,312 @@ def phase_training(dev) -> dict:
     return {"launches": launches, "shapes": shapes, "rates": rates}
 
 
+def _dist_generate(bundle, params, prompt, new, dev):
+    """One greedy request solo on a sharded bundle: prefill, then new - 1
+    decode steps.  Returns (tokens, each step's logits on the host,
+    prefill s, each decode step's s)."""
+    import torch
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    T = dense_T(len(prompt), new)
+    cache = bundle.init_cache(1, T, torch.float32, dev)
+    sync()
+    t0 = time.perf_counter()
+    lg, cache = bundle.prefill(
+        params, {"tokens": torch.tensor([prompt], dtype=torch.int32,
+                                        device=dev)}, cache)
+    lg = lg.full_tensor()
+    sync()
+    pre_s = time.perf_counter() - t0
+    logits, toks, steps = [lg[0].cpu()], [int(lg[0].argmax())], []
+    for i in range(new - 1):
+        t0 = time.perf_counter()
+        lg, cache = bundle.decode_step(
+            params, torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev),
+            cache, torch.tensor([len(prompt) + i], dtype=torch.int32,
+                                device=dev))
+        lg = lg.full_tensor()
+        sync()
+        steps.append(time.perf_counter() - t0)
+        logits.append(lg[0].cpu())
+        toks.append(int(lg[0].argmax()))
+    return toks, logits, pre_s, steps
+
+
+def _dist_worker(rank, world, init, backend, dev_type, shape, cfg, rules,
+                 opts, extras, out):
+    """One rank of phase 12, in a spawned process: its process group
+    (``backend``, a file rendezvous), the mesh, the model (each weight
+    leaf drawn whole from seed 0 on the card, this rank's slice kept),
+    then the main path under ``CommDebugMode`` with the kernel counts
+    from 0: phase 8's requests served solo.  Then a warm prefill timed;
+    with ``extras`` also decode == a fresh prefill at the no-drop
+    capacity and the model cut to ``DIST_CPU_LAYERS`` layers.  Writes
+    its results to ``out``/rank<r>.pt."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import repro_torch  # noqa: F401  (sets the float32 matmul precision)
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.api import build_model
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = local_mesh(shape, device=dev.type)
+        b = build_model(cfg, mesh=mesh, rules=rules, **opts)
+        params = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        res = {"held": sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree_leaves(params))}
+        lens = fam_prompts(cfg.name)
+        reqs = make_requests(cfg, len(lens), FAM_NEW, prompt_lens=lens,
+                             seed=SEED)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm:
+            runs = [_dist_generate(b, params, list(r.prompt), FAM_NEW, dev)
+                    for r in reqs]
+        res["wall"] = time.perf_counter() - t0
+        res["launches"] = dict(ops.LAUNCHES)
+        res["shapes"] = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        res["comm"] = {str(k): int(v)
+                       for k, v in comm.get_comm_counts().items()}
+        res["tokens"] = [r[0] for r in runs]
+        res["logits"] = [torch.stack(r[1]) for r in runs]
+        res["prefill_s"] = [r[2] for r in runs]
+        res["step_s"] = [t for r in runs for t in r[3]]
+        longest = list(reqs[lens.index(max(lens))].prompt)
+        res["warm_prefill_s"] = [
+            _dist_generate(b, params, longest, 1, dev)[2] for _ in range(3)]
+        if dev.type == "cuda":
+            res["peak"] = torch.cuda.max_memory_allocated()
+        if extras:
+            # decode == a fresh prefill where no token is dropped
+            b5 = build_model(cfg, mesh=mesh, rules=rules,
+                             moe_capacity_factor=cfg.n_experts
+                             / cfg.experts_top_k, **opts)
+            for key, bb in (("decode_vs_prefill", b5),
+                            ("decode_vs_prefill_default_cf", b)):
+                toks, lg, _, _ = _dist_generate(bb, params, longest, 2, dev)
+                fresh = _dist_generate(bb, params, longest + toks[:1], 1,
+                                       dev)[1]
+                res[key] = _err(lg[1], fresh[0])
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            cfg2 = cfg.with_overrides(n_layers=DIST_CPU_LAYERS)
+            b2 = build_model(cfg2, mesh=mesh, rules=rules, **opts)
+            p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+            res["cut"] = _dist_generate(b2, p2, longest, FAM_NEW, dev)[:2]
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world, backend, dev, shape, cfg, rules, opts, extras,
+                 tmp, tag):
+    """Run ``_dist_worker`` on ``world`` spawned ranks, joined within
+    ``DIST_TIMEOUT`` (killed past it); returns each rank's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = Path(tmp) / tag
+    out.mkdir()
+    ctx = mp.start_processes(
+        _dist_worker, nprocs=world, join=False, start_method="spawn",
+        args=(world, str(Path(tmp) / f"{tag}.init"), backend, dev.type,
+              shape, cfg, rules, opts, extras, str(out)))
+    deadline = time.monotonic() + DIST_TIMEOUT
+    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"phase 12 ({tag}): the ranks did not end within "
+                 f"{DIST_TIMEOUT} s")
+    return [torch.load(out / f"rank{r}.pt") for r in range(world)]
+
+
+def _dist_expected(cfg, lens, with_decode):
+    """One rank's exact launches on phase 12's main path: one flash a
+    layer at each prompt's prefill (the whole q, k and v on every rank:
+    the heads are replicated), one decode launch a layer at each step
+    over the request's dense cache (none with the shardmap decode)."""
+    from repro_torch.kernels import ops
+
+    H_, K_, D_, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
+    for S_ in lens:
+        key = (1, S_, S_, H_, K_, D_, True, 0)
+        shapes["flash_attention"][key] = \
+            shapes["flash_attention"].get(key, 0) + L
+        want["flash_attention"] += L
+        if with_decode:
+            key = (1, dense_T(S_, FAM_NEW), H_, K_, D_, 0)
+            n = (FAM_NEW - 1) * L
+            shapes["decode_attention"][key] = \
+                shapes["decode_attention"].get(key, 0) + n
+            want["decode_attention"] += n
+    return want, shapes
+
+
+def phase_distributed(dev, cfg=None) -> None:
+    """Phase 12: granite-moe-3b-a800m at full width and depth on a mesh
+    (``cfg`` replaces it for a rehearsal on the CPU, where both runs use
+    gloo).  (a) one rank over NCCL, mesh (1, 1), serving rules; (b) two
+    ranks sharing the card over gloo, mesh (1, 2), the attnrep rules and
+    the smattn options.  Checked: (a) and (b) give equal tokens and every
+    step's logits within ``LOGIT_TOL``; (b) issues all_reduce and no other
+    collective, exactly one a layer at a prefill (the expert psum) and
+    four a layer at a decode step (the psum, then the max and two sums of
+    the partial softmax); exact launches by call shape in each rank;
+    (b)'s decode == a fresh prefill (no-drop capacity) within
+    ``DECODE_TOL``; (b) cut to ``DIST_CPU_LAYERS`` layers == the mesh
+    path on the CPU (a world of one, gloo) within ``LOGIT_TOL``.  Prints
+    each rank's held weight bytes and peak memory, prefill ms, tokens/s
+    and all_reduces a step beside the weight-read floor."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.config import get_config
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(DIST_ARCH)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lens = fam_prompts(cfg.name)
+    tmp = tempfile.mkdtemp(prefix="phase12_")
+    try:
+        runs = {
+            "a": _spawn_ranks(1, "nccl" if dev.type == "cuda" else "gloo",
+                              dev, (1, 1), cfg, DIST_SERVING, {}, False, tmp,
+                              "a"),
+            "b": _spawn_ranks(2, "gloo", dev, (1, 2), cfg, DIST_ATTNREP,
+                              DIST_SMATTN, True, tmp, "b")}
+        n = build_model(cfg).param_count()
+        steps = len(lens) * (FAM_NEW - 1)
+        for tag, ranks in runs.items():
+            held = sum(r["held"] for r in ranks)
+            floor_ms = held / hbm_bytes_s() * 1e3
+            for rank, r in enumerate(ranks):
+                comm = r["comm"]
+                reduces = sum(v for k, v in comm.items()
+                              if "allreduce" in k or "all_reduce" in k)
+                decode_s = sum(r["step_s"])
+                log(f"[phase12] ({tag}) rank {rank}/{len(ranks)}: "
+                    f"{cfg.name} {cfg.n_layers} layers, {n:,} parameters, "
+                    f"this rank holds {r['held'] / 1e9:.3f} GB of weights, "
+                    f"peak {r.get('peak', 0) / 1e9:.2f} GB; "
+                    f"main path {r['wall']:.2f} s: prefills "
+                    f"{', '.join(f'{1e3 * t:.1f}' for t in r['prefill_s'])} "
+                    f"ms (prompts {lens}), warm prefill of {max(lens)} "
+                    f"{1e3 * min(r['warm_prefill_s']):.1f} ms (best of 3); "
+                    f"{steps} decode steps {steps / decode_s:.2f} tokens/s "
+                    f"({1e3 * decode_s / steps:.2f} ms a step; weight-read "
+                    f"floor of the card {floor_ms:.2f} ms); collectives "
+                    f"{comm}, {reduces} all_reduce")
+                if tag == "b":
+                    odd = {k: v for k, v in comm.items()
+                           if "allreduce" not in k and "all_reduce" not in k}
+                    want = len(lens) * cfg.n_layers * (1 + 4 * (FAM_NEW - 1))
+                    log(f"[phase12] (b) rank {rank}: all_reduces "
+                        f"{reduces}, expected {want} ({cfg.n_layers} a "
+                        f"prefill, {4 * cfg.n_layers} a decode step)")
+                    if odd or reduces != want:
+                        fail(f"phase 12 (b) rank {rank}: collectives {comm}; "
+                             f"only {want} all_reduce expected")
+                want, want_shapes = _dist_expected(cfg, lens, tag == "a")
+                log(f"[phase12] ({tag}) rank {rank} kernel launches "
+                    f"{r['launches']}, expected {want}; by shape "
+                    f"{r['shapes']}, expected {want_shapes}")
+                if r["launches"] != want or r["shapes"] != want_shapes:
+                    fail(f"phase 12 ({tag}) rank {rank}: launches "
+                         f"{r['launches']} {r['shapes']} != {want} "
+                         f"{want_shapes}")
+        a, b0, b1 = runs["a"][0], runs["b"][0], runs["b"][1]
+        worst = 0.0
+        for i in range(len(lens)):
+            if not (a["tokens"][i] == b0["tokens"][i] == b1["tokens"][i]):
+                fail(f"phase 12 request {i}: tokens (a) {a['tokens'][i]} "
+                     f"(b) {b0['tokens'][i]} {b1['tokens'][i]}")
+            if not bool(torch.isfinite(a["logits"][i]).all()):
+                fail(f"phase 12 request {i}: non-finite logits")
+            worst = max(worst, _err(a["logits"][i], b0["logits"][i]),
+                        _err(b0["logits"][i], b1["logits"][i]))
+        log(f"[phase12] (a) == (b): {len(lens)} requests' tokens equal "
+            f"({a['tokens']}), every step's logits max |dlogit| "
+            f"{worst:.3e} (tol {LOGIT_TOL:g})")
+        if worst > LOGIT_TOL:
+            fail(f"phase 12: (a) and (b) logits differ by {worst:.3e}")
+        dvp = max(r["decode_vs_prefill"] for r in runs["b"])
+        log(f"[phase12] (b) decode step == fresh prefill of the longest "
+            f"prompt + its first token at capacity factor "
+            f"{cfg.n_experts / cfg.experts_top_k:g}: max |dlogit| {dvp:.3e} "
+            f"(tol {DECODE_TOL:g}); at the default 1.25 "
+            f"{max(r['decode_vs_prefill_default_cf'] for r in runs['b']):.3e}"
+            " (not checked: capacity drops differ)")
+        if dvp > DECODE_TOL:
+            fail(f"phase 12 (b): decode differs from a fresh prefill by "
+                 f"{dvp:.3e}")
+
+        # (b) cut to DIST_CPU_LAYERS layers == the mesh path on the CPU
+        cfg2 = cfg.with_overrides(n_layers=DIST_CPU_LAYERS)
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/cpu.init",
+                                rank=0, world_size=1)
+        try:
+            mesh = local_mesh((1, 1), device="cpu")
+            b2 = build_model(cfg2, mesh=mesh, rules=DIST_ATTNREP,
+                             **DIST_SMATTN)
+            p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
+                         device="cpu")
+            prompt = list(make_requests(cfg, len(lens), FAM_NEW,
+                                        prompt_lens=lens, seed=SEED)
+                          [lens.index(max(lens))].prompt)
+            toks, logits, _, _ = _dist_generate(b2, p2, prompt, FAM_NEW,
+                                                torch.device("cpu"))
+        finally:
+            dist.destroy_process_group()
+        cut = max(_err(torch.stack(r["cut"][1]), torch.stack(logits))
+                  for r in runs["b"])
+        same = all(r["cut"][0] == toks for r in runs["b"])
+        log(f"[phase12] (b) at {DIST_CPU_LAYERS} layers vs the CPU mesh path "
+            f"(world of 1, gloo), prompt {len(prompt)} + {FAM_NEW - 1} "
+            f"decode steps: tokens {'equal' if same else 'DIFFER'}, max "
+            f"|dlogit| {cut:.3e} (tol {LOGIT_TOL:g})")
+        if cut > LOGIT_TOL or not same:
+            fail("phase 12: (b) disagrees with the CPU at "
+                 f"{DIST_CPU_LAYERS} layers")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase12] done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3403,6 +3745,7 @@ def main() -> int:
         f"{time.perf_counter() - t9:.1f} s")
     phase_analysis(dev)
     paths["train"] = phase_training(dev)
+    phase_distributed(dev)
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
     rows += rec_rows + slice_rows + fam_rows

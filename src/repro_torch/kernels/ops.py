@@ -8,6 +8,10 @@ a kernel that does not build or launch raises.  On ``meta`` tensors a
 wrapper runs every check of the card path (head dim, plan, shared
 memory, cluster, grid) and returns its outputs unfilled, launching
 nothing: ``analysis.kernel_check`` reads the output contract that way.
+A wrapper reads raw pointers, so it takes local tensors only: it raises
+``TypeError`` on a ``DTensor`` argument before any launch (the sharded
+model calls it on each rank's local tensors, through
+``common.sharding.shard_map``).
 The kernels have no backward: on a CUDA or meta tensor, a wrapper
 raises ``NoBackwardError`` before any launch when grad mode is on and a
 floating input requires grad (the plain-torch path that differentiates
@@ -154,6 +158,20 @@ def _check(name, tensors):
     return dev
 
 
+def _no_dtensor(name, tensors):
+    """Raise ``TypeError`` when any of ``tensors`` (``None`` entries
+    skipped) is a ``DTensor``: the kernels read its local storage's raw
+    pointer, which is not the tensor it stands for."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{name}: a DTensor argument; call the kernel on each rank's "
+            "local tensors (common.sharding.shard_map)")
+
+
 def _no_backward(name, dev, tensors):
     """Raise ``NoBackwardError`` on a CUDA or meta device when grad mode
     is on and any floating tensor of ``tensors`` (``None`` entries
@@ -278,6 +296,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q: (B,S,H,D); k/v: (B,T,K,D) with H % K == 0.  Returns (B,S,H,D)
     in q's dtype.  Positions are the trivial arange on both sides; with
     ``window`` > 0 query i sees keys j > i - window."""
+    _no_dtensor("flash_attention", (q, k, v))
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -376,6 +395,7 @@ def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
     (keys at or past them are masked; with ``window`` > 0 so are keys
     below ``lengths - window``, which the kernel never reads).  Returns
     (B,H,D)."""
+    _no_dtensor("decode_attention", (q, k, v, lengths))
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -426,6 +446,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     read).  Returns (B,H,D).  The split count comes from static shapes
     (the table's span n_max * page_size, and the window), so nothing is
     read back from the device."""
+    _no_dtensor("paged_decode_attention",
+                (q, k_pages, v_pages, block_tables, lengths))
     if q.ndim != 3 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             f"paged_decode_attention: bad shapes q{tuple(q.shape)} "
@@ -572,6 +594,7 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
     (B,nc,L,H,P), S_loc (B,nc,H,N,P), Lam (B,nc,H)): see
     ``ref.ssd_intra_chunk_ref``.  On the card, one launch laid out by
     ``ssd_plan``."""
+    _no_dtensor("ssd_intra_chunk", (x, Bm, Cm, dt, A_log))
     if x.ndim != 5 or Bm.ndim != 4 or Bm.shape != Cm.shape or dt.ndim != 4:
         raise ValueError(f"ssd_intra_chunk: bad shapes x{tuple(x.shape)} "
                          f"B{tuple(Bm.shape)} C{tuple(Cm.shape)} "
@@ -619,6 +642,7 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, *, chunk=128, initial_state=None):
     Pallas call.  x: (B,S,H,P); Bm/Cm: (B,S,N); dt: (B,S,H); the chunk
     is L = min(chunk, S) and must divide S (callers pad).  Returns (y
     (B,S,H,P) in x's dtype, final state (B,H,N,P) float32)."""
+    _no_dtensor("ssd_chunked", (x, Bm, Cm, dt, A_log, initial_state))
     _no_backward("ssd_chunked", x.device,
                  (x, Bm, Cm, dt, A_log, initial_state))
     B, S, H, P = x.shape
@@ -746,6 +770,8 @@ def slstm_scan(pre, R, *, state=None):
     (B,d).  Returns (h over time (B,S,d) in pre's dtype, final (c, n, h,
     m) float32): see ``ref.slstm_scan_ref``.  On the card S = 1 launches
     the one-step kernel, S > 1 the cluster kernel (``slstm_plan``)."""
+    _no_dtensor("slstm_scan", (pre, *(R if isinstance(R, (tuple, list))
+                                     else (R,)), *(state or ())))
     gates = _slstm_gates(R)
     if pre.ndim != 4 or pre.shape[2] != 4:
         raise ValueError(f"slstm_scan: bad shape pre{tuple(pre.shape)}")

@@ -12,9 +12,21 @@ synthetic ``TokenStream`` corpus unless ``--data`` names a token file.
 The loss differentiates through plain torch (``attn_impl="xla"``): the
 hand-written kernels have no backward.
 
-It runs one process: multi-process training (``torch.distributed``,
-sharded state) arrives with the port's distributed slice, and a
-``WORLD_SIZE`` above 1 raises.
+Multi-process: launch it under ``torch.distributed.run`` (which sets
+``WORLD_SIZE``, ``RANK`` and the rendezvous), e.g.
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.train --smoke --steps 2 \
+        --device cpu
+
+With ``WORLD_SIZE`` above 1 it initialises the process group (NCCL on
+the card, one card a rank by ``LOCAL_RANK``; gloo with ``--device
+cpu``), as the reference calls ``jax.distributed.initialize()`` when
+``JAX_NUM_PROCESSES`` is set.  The data stream shards by process (rank r
+of n takes rows r·B/n .. (r+1)·B/n of each global batch) and each rank
+checkpoints under ``proc<rank>``.  Like the reference's launcher it
+builds no mesh, so each rank trains its own replica on its data shard:
+no gradient is averaged across ranks.
 """
 
 from __future__ import annotations
@@ -38,9 +50,9 @@ from repro_torch.training.train_step import batch_to_tensors, make_train_step
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Train one arch in one process (multi-process training "
-                    "arrives with the distributed slice; WORLD_SIZE > 1 "
-                    "raises).")
+        description="Train one arch; under torch.distributed.run each rank "
+                    "trains its own replica on its shard of the data "
+                    "(WORLD_SIZE ranks, no gradient averaged).")
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     help=f"one of {', '.join(list_archs())}")
     ap.add_argument("--smoke", action="store_true",
@@ -61,15 +73,30 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' runs on the "
                          "CPU)")
     args = ap.parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise RuntimeError(
-            "repro_torch.launch.train runs one process; multi-process "
-            "training arrives with the distributed slice")
-
     device = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = 0
+    if world > 1:
+        import torch.distributed as dist
+
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             "0")))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        rank = dist.get_rank()
+    try:
+        return _train(args, device, rank, world)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
+def _train(args, device, rank: int, world: int):
     cfg = get_config(args.arch, smoke=args.smoke)
     bundle = build_model(cfg, remat=args.remat)
-    print(f"[train] {cfg.name} params={bundle.param_count():,} on {device}")
+    print(f"[train] {cfg.name} params={bundle.param_count():,} on {device} "
+          f"procs={world} rank={rank}")
 
     tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=10,
                        total_steps=args.steps, remat=args.remat,
@@ -79,7 +106,7 @@ def main(argv=None):
     ckdir = pathlib.Path(args.ckpt or pathlib.Path(tempfile.gettempdir())
                          / "repro_torch_train" / cfg.name)
     if ckpt.latest_step(ckdir) is not None:
-        state = ckpt.restore(state, ckdir)
+        state = ckpt.restore(state, ckdir, process_index=rank)
         print(f"[train] resumed from step {int(state['step'])}")
 
     extra = {}
@@ -89,7 +116,8 @@ def main(argv=None):
         extra["audio_frames"] = ((cfg.encoder_seq, cfg.d_model), "float32")
     data = TokenStream(DataConfig(
         seq_len=args.seq, global_batch=args.batch, vocab_size=cfg.vocab_size,
-        path=args.data or None), extra_features=extra)
+        path=args.data or None, process_index=rank, process_count=world),
+        extra_features=extra)
     step_fn = make_train_step(bundle, tcfg)
     start = int(state["step"])
     pending = None
@@ -102,10 +130,11 @@ def main(argv=None):
         if (i + 1) % args.ckpt_every == 0:
             if pending is not None:
                 pending.join()
-            pending = ckpt.save_async(state, ckdir, step=i + 1)
+            pending = ckpt.save_async(state, ckdir, step=i + 1,
+                                      process_index=rank)
     if pending is not None:
         pending.join()
-    ckpt.save(state, ckdir, step=int(state["step"]))
+    ckpt.save(state, ckdir, step=int(state["step"]), process_index=rank)
     print(f"[train] done at step {int(state['step'])}; checkpoint in {ckdir}")
     return state
 

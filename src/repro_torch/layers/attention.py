@@ -16,9 +16,28 @@ API:
                                            -> one query per row over
                                               cached cross k/v, through
                                               the decode kernel
+  decode_attend(q, k_cache, v_cache, lengths, ...)
+                                           -> one query per row over a
+                                              dense cache, through the
+                                              decode kernel
+  decode_attention_shardmap(q, k_cache, v_cache, lengths, mesh=, rules=)
+                                           -> the same over a
+                                              sequence-sharded cache,
+                                              partial softmax per rank
+  cache_insert(cache, new, lengths, mode=, mesh=, rules=)
+  cache_write_prefix(cache, new)           -> prefill's cache[:, :S] = new
 
 Weights keep the JAX package's layouts: ``wq`` (d, H, hd), ``wk``/``wv``
 (d, K, hd), ``wo`` (H, hd, d).  Cache updates write in place.
+
+Under a mesh (``mesh``/``rules`` given, tensors ``DTensor``s placed by
+the logical-axis rules, see ``common.sharding``) the projections run as
+DTensor ops, and every attention core runs on each rank's local tensors
+through ``sharding.shard_map``: q with its heads over the axes the
+rules give "heads", k and v with theirs over "kv_heads".  The per-rank
+GQA grouping holds only when both resolve to the same axes; otherwise
+both are replicated for the call.  Cache writes land in place in each
+rank's local tile.
 """
 
 from __future__ import annotations
@@ -27,6 +46,7 @@ import math
 
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.layers.initializers import WSpec
 from repro_torch.layers.rope import apply_rope
@@ -103,9 +123,36 @@ def gqa_scores(q, k, v, *, q_positions, kv_positions, causal: bool = True,
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def _head_specs(q_shape, kv_shape, rules, mesh, batch="batch"):
+    """The specs the attention core runs at: q (B, S, H, D) heads over
+    "heads", k/v (B, T, K, D) over "kv_heads", both replicated when the
+    two do not resolve to the same axes (the per-rank GQA grouping would
+    not hold)."""
+    q_spec = sharding.spec_for(q_shape, (batch, None, "heads", None),
+                               rules, mesh)
+    kv_spec = sharding.spec_for(kv_shape, (batch, None, "kv_heads", None),
+                                rules, mesh)
+    if q_spec[2] != kv_spec[2] or q_spec[0] != kv_spec[0]:
+        q_spec = (q_spec[0], None, None, None)
+        kv_spec = (q_spec[0], None, None, None)
+    return q_spec, kv_spec
+
+
+def attention_core(fn, q, k, v, *, mesh=None, rules=None):
+    """``fn(q, k, v)`` on plain tensors; under a mesh on each rank's
+    local heads (``_head_specs``) and batch rows, the output placed as
+    q."""
+    if mesh is None:
+        return fn(q, k, v)
+    q_spec, kv_spec = _head_specs(q.shape, k.shape, rules, mesh)
+    return sharding.shard_map(fn, mesh, (q_spec, kv_spec, kv_spec),
+                              q_spec)(q, k, v)
+
+
 def attention_apply(params, x, *, positions, cfg, local: bool = False,
                     causal: bool = True, cross_kv=None, cross_positions=None,
-                    impl: str = "kernel"):
+                    impl: str = "kernel", mesh=None, rules=None,
+                    constrain_kv=None):
     """Self- (or cross-) attention over one segment (train or prefill).
     ``impl="kernel"`` runs the flash attention kernel, which assumes
     ``positions`` is the trivial arange; ``impl="xla"`` runs
@@ -113,8 +160,11 @@ def attention_apply(params, x, *, positions, cfg, local: bool = False,
     XLA path).  A ``local`` layer sees only the ``cfg.sliding_window``
     keys up to each query.  With ``cross_kv`` = (k, v) from an encoder
     (B, T, K, D), the S queries attend to all T keys, non-causally, at
-    ``cross_positions`` (the encoder's arange).  Returns (out, (k, v)) —
-    the freshly projected k/v for cache insertion, or the cross k/v."""
+    ``cross_positions`` (the encoder's arange).  Under ``mesh`` the core
+    runs per rank (``attention_core``); ``constrain_kv`` is applied to
+    the fresh k and v first (the reference's sequence-parallel pin).
+    Returns (out, (k, v)) — the freshly projected k/v for cache
+    insertion, or the cross k/v."""
     if impl not in ("kernel", "xla"):
         raise ValueError(f"attention_apply: unknown impl {impl!r}")
     if cross_kv is not None:
@@ -122,26 +172,36 @@ def attention_apply(params, x, *, positions, cfg, local: bool = False,
         if cfg.use_rope:
             q = apply_rope(q, positions, cfg.rope_theta)
         k, v = cross_kv
-        if impl == "xla":
-            out = gqa_scores(q, k, v, q_positions=positions,
-                             kv_positions=cross_positions, causal=False,
-                             softcap=cfg.attn_logit_softcap)
-        else:
-            out = kops.flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
-                softcap=cfg.attn_logit_softcap)
-        return output_proj(params, out, x.dtype), (k, v)
-    q, k, v = project_qkv(params, x, positions, cfg)
-    window = cfg.sliding_window if local else 0
-    if impl == "xla":
-        out = gqa_scores(q, k, v, q_positions=positions,
-                         kv_positions=positions, causal=causal, window=window,
-                         softcap=cfg.attn_logit_softcap)
+        causal, window, kv_positions = False, 0, cross_positions
     else:
-        out = kops.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            window=window, softcap=cfg.attn_logit_softcap)
+        q, k, v = project_qkv(params, x, positions, cfg)
+        if constrain_kv is not None:
+            k, v = constrain_kv(k), constrain_kv(v)
+        window = cfg.sliding_window if local else 0
+        kv_positions = positions
+
+    def fn(q_, k_, v_):
+        if impl == "kernel":
+            return kops.flash_attention(
+                q_.contiguous(), k_.contiguous(), v_.contiguous(),
+                causal=causal, window=window, softcap=cfg.attn_logit_softcap)
+        # the mask reads positions only through differences, so a rank's
+        # local rows take the arange
+        qp, kp = positions, kv_positions
+        if mesh is not None:
+            B = q_.shape[0]
+            qp, kp = _arange(q_.shape[1], B, q_.device), \
+                _arange(k_.shape[1], B, q_.device)
+        return gqa_scores(q_, k_, v_, q_positions=qp, kv_positions=kp,
+                          causal=causal, window=window,
+                          softcap=cfg.attn_logit_softcap)
+
+    out = attention_core(fn, q, k, v, mesh=mesh, rules=rules)
     return output_proj(params, out, x.dtype), (k, v)
+
+
+def _arange(n, B, device):
+    return torch.arange(n, dtype=torch.int32, device=device).expand(B, n)
 
 
 def cross_kv_project(params, enc_out, cfg):
@@ -149,7 +209,31 @@ def cross_kv_project(params, enc_out, cfg):
     return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
 
 
-def cross_attention_decode(params, x, k, v, cfg, positions=None):
+def decode_attend(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
+                  mesh=None, rules=None):
+    """q (B, 1, H, D) against a dense cache (B, T, K, D) up to
+    ``lengths`` (B,) valid keys, through the decode kernel.  Under a mesh
+    the kernel runs per rank on its cache rows with the whole sequence
+    and every head (q and the cache gathered over the rest, as GSPMD
+    gathers the reference's seq-sharded cache on this path)."""
+    def fn(q_, k_, v_, len_):
+        return kops.decode_attention(
+            q_[:, 0].contiguous(), k_.contiguous(), v_.contiguous(),
+            len_.to(torch.int32), window=window, softcap=softcap)[:, None]
+
+    if mesh is None:
+        return fn(q, k_cache, v_cache, lengths)
+    spec_q = sharding.spec_for(q.shape, ("cache_batch", None, None, None),
+                               rules, mesh)
+    spec_c = sharding.spec_for(k_cache.shape,
+                               ("cache_batch", None, None, None), rules, mesh)
+    spec_l = sharding.spec_for(lengths.shape, ("cache_batch",), rules, mesh)
+    return sharding.shard_map(fn, mesh, (spec_q, spec_c, spec_c, spec_l),
+                              spec_q)(q, k_cache, v_cache, lengths)
+
+
+def cross_attention_decode(params, x, k, v, cfg, positions=None, *,
+                           mesh=None, rules=None):
     """One decode step's cross-attention: x (B, 1, d) queries every one
     of the T cached encoder keys k/v (B, T, K, D), through the decode
     kernel with lengths = T."""
@@ -158,18 +242,171 @@ def cross_attention_decode(params, x, k, v, cfg, positions=None):
         q = apply_rope(q, positions, cfg.rope_theta)
     B, T = k.shape[:2]
     lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
-    out = kops.decode_attention(q[:, 0].contiguous(), k, v, lengths,
-                                softcap=cfg.attn_logit_softcap)[:, None]
+    out = decode_attend(q, k, v, lengths, softcap=cfg.attn_logit_softcap,
+                        mesh=mesh, rules=rules)
     return output_proj(params, out, x.dtype)
 
 
-def cache_insert(cache_arr, new_val, lengths):
+def decode_attention_shardmap(q, k_cache, v_cache, lengths, *, mesh, rules,
+                              window: int = 0, softcap: float = 0.0):
+    """Distributed partial-softmax decode attention, per rank.
+
+    q: (B, 1, H, D) batch-sharded; cache: (B, T, K, D) batch-sharded over
+    the data axes and seq-sharded over 'model'.  Each rank computes
+    logits/softmax partials over its local seq tile; an all_reduce MAX
+    and two SUMs (of s and o) combine them — the cache never moves.
+    Plain tensor ops, as the reference's are plain ``jnp``.
+    """
+    B, _, H, D = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    # q follows the CACHE's batch sharding
+    spec_q = sharding.spec_for(q.shape, ("cache_batch", None, None, None),
+                               rules, mesh)
+    spec_c = sharding.spec_for(k_cache.shape,
+                               ("cache_batch", "cache_seq", None, None),
+                               rules, mesh)
+    spec_l = sharding.spec_for(lengths.shape, ("cache_batch",), rules, mesh)
+    seq_axes = spec_c[1]
+
+    def f(q_l, k_l, v_l, len_l):
+        T_loc = k_l.shape[1]
+        t_off = sharding.axis_index(mesh, seq_axes) * T_loc
+        kv_pos = t_off + torch.arange(T_loc, dtype=torch.int32,
+                                      device=q_l.device)          # (T_loc,)
+        if G > 1:
+            k_rep = k_l.repeat_interleave(G, dim=2)
+            v_rep = v_l.repeat_interleave(G, dim=2)
+        else:
+            k_rep, v_rep = k_l, v_l
+        logits = torch.einsum("bshd,bthd->bhst", q_l,
+                              k_rep.to(q_l.dtype)).float() * scale
+        if softcap and softcap > 0.0:
+            logits = softcap * torch.tanh(logits / softcap)
+        len_l = len_l.to(torch.int32)
+        pos = len_l[:, None]                                       # (B,1)
+        valid = kv_pos[None, :] < (len_l + 1)[:, None]             # (B,T_loc)
+        if window and window > 0:
+            valid &= kv_pos[None, :] > pos - window
+        vmask = valid[:, None, None, :]
+        logits = torch.where(vmask, logits, torch.full_like(logits, NEG_INF))
+        m = sharding.all_reduce(logits.amax(dim=-1), mesh, seq_axes,
+                                "max")                             # (B,H,1)
+        safe_m = torch.where(m > NEG_INF / 2, m, torch.zeros_like(m))
+        p = torch.exp(logits - safe_m[..., None])
+        p = torch.where(vmask, p, torch.zeros_like(p))
+        s = sharding.all_reduce(p.sum(dim=-1), mesh, seq_axes)     # (B,H,1)
+        o = torch.einsum("bhst,bthd->bshd", p.to(q_l.dtype), v_rep)
+        o = sharding.all_reduce(o.float(), mesh, seq_axes)
+        out = o / s.clamp_min(1e-30).transpose(1, 2)[..., None]
+        return out.to(q_l.dtype)
+
+    return sharding.shard_map(f, mesh, (spec_q, spec_c, spec_c, spec_l),
+                              spec_q)(q, k_cache, v_cache, lengths)
+
+
+def _tile(cache):
+    """(this rank's local tile of a DTensor ``cache`` (B, T, ...), the
+    sequence offset of its first position): the row-major index over
+    the mesh dims that shard dim 1, times the tile's length."""
+    loc = cache.to_local()
+    mesh = cache.device_mesh
+    idx = 0
+    for i, pl in enumerate(cache.placements):
+        if pl.is_shard(1):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return loc, idx * loc.shape[1]
+
+
+def _like_cache(x, cache):
+    """``x`` (B, S, ...) or (B,) as this rank's local tensor laid out as
+    ``cache``'s tile along every dim but the sequence (dim 1), which
+    stays whole."""
+    from torch.distributed.tensor import Replicate
+
+    pl = [p if p.is_shard() and p.dim != 1 and p.dim < x.ndim
+          else Replicate() for p in cache.placements]
+    return sharding.to_placements(x, cache.device_mesh, pl).to_local()
+
+
+def cache_write_prefix(cache, new):
+    """Prefill's ``cache[:, :S] = new`` in place (new: (B, S, ...)); on a
+    sequence-sharded cache each rank writes the part of [0, S) that
+    falls in its tile, with no collective."""
+    if not sharding.is_dtensor(cache):
+        cache[:, :new.shape[1]] = new.to(cache.dtype)
+        return cache
+    new_l = _like_cache(new, cache)
+    c, t_off = _tile(cache)
+    hi = min(t_off + c.shape[1], new_l.shape[1])
+    if hi > t_off:
+        c[:, :hi - t_off] = new_l[:, t_off:hi].to(c.dtype)
+    return cache
+
+
+def cache_insert(cache_arr, new_val, lengths, *, mode: str = "scatter",
+                 mesh=None, rules=None):
     """Write new_val (B, 1, ...) into cache (B, T, ...) at per-row
-    position ``lengths``, in place.  Returns the cache."""
-    B = cache_arr.shape[0]
+    position ``lengths``, in place.  Returns the cache.
+
+    mode="scatter": an indexed write at (row, lengths).
+    mode="blend": a one-hot masked rewrite of the whole cache.
+    mode="shard" (with a mesh): the reference's ``shard_map`` update —
+    each rank writes into its local (batch, seq) tile only the rows whose
+    position falls inside it, with no collective.
+    A DTensor cache is written that way, in its local tile, whatever
+    the mode (blend still rewrites the tile).
+    """
+    if mode not in ("scatter", "blend", "shard"):
+        raise ValueError(f"cache_insert: unknown mode {mode!r}")
+    if mode == "shard" and mesh is not None:
+        return _cache_insert_shardmap(cache_arr, new_val, lengths, mesh,
+                                      rules)
+    if sharding.is_dtensor(cache_arr):
+        return _insert_tile(cache_arr, new_val, lengths, blend=mode == "blend")
+    B, T = cache_arr.shape[:2]
+    if mode == "blend":
+        onehot = (torch.arange(T, device=cache_arr.device)[None, :]
+                  == lengths[:, None])                        # (B, T)
+        oh = onehot.reshape(B, T, *([1] * (cache_arr.ndim - 2)))
+        cache_arr.copy_(torch.where(oh, new_val[:, :1].to(cache_arr.dtype),
+                                    cache_arr))
+        return cache_arr
     rows = torch.arange(B, device=cache_arr.device)
     cache_arr[rows, lengths.long()] = new_val[:, 0].to(cache_arr.dtype)
     return cache_arr
+
+
+def _cache_insert_shardmap(cache_arr, new_val, lengths, mesh, rules):
+    """A plain cache is placed at the reference's shard_map spec (batch
+    over "cache_batch", sequence over "cache_seq") first; a DTensor one
+    keeps its own placements, so the write stays in place."""
+    if not sharding.is_dtensor(cache_arr):
+        axes = ("cache_batch", "cache_seq") + (None,) * (cache_arr.ndim - 2)
+        cache_arr = sharding.constrain(cache_arr, axes, rules, mesh)
+    return _insert_tile(cache_arr, new_val, lengths, blend=False)
+
+
+def _insert_tile(cache, new_val, lengths, *, blend: bool):
+    """Each rank updates its tile of the DTensor ``cache`` in place: a
+    row whose position falls outside the tile keeps its old value (the
+    reference's clipped update), or with ``blend`` the tile is rewritten
+    through a one-hot mask."""
+    c, t_off = _tile(cache)
+    nv = _like_cache(new_val, cache)[:, 0].to(c.dtype)
+    pos = _like_cache(lengths, cache).long() - t_off       # (B_loc,)
+    B_loc, T_loc = c.shape[:2]
+    tail = [1] * (c.ndim - 2)
+    if blend:
+        oh = torch.arange(T_loc, device=c.device)[None, :] == pos[:, None]
+        c.copy_(torch.where(oh.reshape(B_loc, T_loc, *tail), nv[:, None], c))
+        return cache
+    inb = (pos >= 0) & (pos < T_loc)
+    posc = pos.clamp(0, T_loc - 1)
+    rows = torch.arange(B_loc, device=c.device)
+    c[rows, posc] = torch.where(inb.reshape(B_loc, *tail), nv, c[rows, posc])
+    return cache
 
 
 def paged_cache_insert(pages, new_val, block_tables, lengths):

@@ -3,7 +3,9 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.common.sharding import settle
 from repro_torch.layers.initializers import WSpec
 
 
@@ -13,7 +15,9 @@ def embed_specs(vocab: int, d_model: int):
 
 
 def embed_apply(params, ids, *, scale: float = 1.0):
-    out = params["table"][ids.long()].float()
+    # a row gather (``F.embedding``: a sharded table gathers as a DTensor,
+    # its masked partial rows summed before anything reshapes them)
+    out = settle(F.embedding(ids.long(), params["table"])).float()
     if scale != 1.0:
         out = out * scale
     return out

@@ -10,15 +10,33 @@ new caches.  A config with ``mtp_depth`` (deepseek) carries the
 reference's multi-token-prediction weights (``params["mtp"]``); only the
 loss reads them (``_mtp_loss``), as in the reference.
 
-``build_model(cfg, **opts)`` reads the reference's options that shape
-the loss: ``attn_impl`` ("xla", the default, differentiates through
-plain torch; "kernel" runs the hand-written kernels, which have no
-backward, so only under ``torch.no_grad()`` on the card), ``remat``
-("full" by default; "none", "dots": ``layers.remat``) and ``z_loss``.
-Serving runs the kernels whatever they say; the reference's other
-options (``compute_dtype``, the serving knobs) are accepted and not
-read.  The port computes in float32, the dtype the JAX package is held
-to (``build_model(..., compute_dtype=jnp.float32)``).
+``build_model(cfg, mesh=None, rules=None, **opts)`` reads the
+reference's options that shape the loss: ``attn_impl`` ("xla", the
+default, differentiates through plain torch; "kernel" runs the
+hand-written kernels, which have no backward, so only under
+``torch.no_grad()`` on the card), ``remat`` ("full" by default; "none",
+"dots": ``layers.remat``) and ``z_loss``.  Serving runs the kernels
+whatever they say.  The port computes in float32, the dtype the JAX
+package is held to (``build_model(..., compute_dtype=jnp.float32)``);
+``compute_dtype`` and the paged serving knobs are accepted and not
+read.
+
+With a ``mesh`` (a ``DeviceMesh`` named ("data", "model") or ("pod",
+"data", "model"), see ``common.sharding``) the bundle is the
+reference's sharded model: ``init``/``init_cache`` return DTensors
+placed by the logical-axis ``rules`` (``merge_rules(rules)``), each
+step runs as DTensor ops (plain tensors met inside count as replicated)
+with the residual stream constrained to ("batch", "seq", "act_embed")
+at every block, the attention cores, the decode kernels and the
+expert-parallel MoE run per rank on local tensors, and the logits come
+back as DTensors (``.full_tensor()``).  The reference's serving options
+are read under a mesh: ``moe_impl`` ("ep" by default there, "dense"),
+``cache_update`` ("scatter", "blend", "shard"), ``decode_attn``
+("default", "gatherq", "shardmap") and ``attn_sp``; and one the
+reference does not have, ``moe_capacity_factor`` (1.25, the capacity
+factor the reference's ``moe_apply_ep`` is called with: at
+``n_experts / experts_top_k`` no token is ever dropped).  Paged decode
+and the recurrent families (hybrid, ssm) have no mesh path.
 """
 
 from __future__ import annotations
@@ -30,13 +48,16 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_leaves, tree_map
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mla as mla_lib
 from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply, head_specs
-from repro_torch.layers.initializers import WSpec, init_tree, spec_param_count, stack_specs
+from repro_torch.layers.initializers import (
+    WSpec, init_leaf, init_tree, spec_param_count, stack_specs,
+)
 from repro_torch.layers.mlp import mlp_apply, mlp_specs
 from repro_torch.layers.moe import padded_experts
 from repro_torch.layers.norms import apply_norm, norm_specs
@@ -59,13 +80,24 @@ class ModelBundle:
     paged_decode_step: Callable | None = None   # (params, tokens, cache,
     #                                              block_tables, lengths)
     paged_cache_specs: Callable | None = None   # (n_pages, page_size, dtype)
+    mesh: Any = None                 # a DeviceMesh: the sharded model
+    rules: Any = None                # the merged logical-axis rules
 
     # ``device=None`` is the card (``common.device.resolve_device``):
-    # with no CUDA device these raise unless the caller names "cpu"
+    # with no CUDA device these raise unless the caller names "cpu".
+    # Under a mesh each leaf is drawn whole on every rank (the same
+    # seeded draws) and only this rank's slice is kept.
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
-        return init_tree(self.specs, generator, dtype,
-                         resolve_device(device))
+        return self._init(self.specs, generator, dtype, device)
+
+    def _init(self, specs, generator, dtype, device):
+        dev = resolve_device(device)
+        if self.mesh is None:
+            return init_tree(specs, generator, dtype, dev)
+        pl = sharding.tree_placements(specs, self.rules, self.mesh)
+        return tree_map(lambda ws, p: sharding.shard_leaf(
+            init_leaf(ws, generator, dtype, dev), self.mesh, p), specs, pl)
 
     def param_count(self) -> int:
         return spec_param_count(self.specs)
@@ -98,8 +130,7 @@ class ModelBundle:
                    tree_leaves(self.cache_specs(1, 1, torch.float32)))
 
     def init_cache(self, B: int, T: int, dtype=torch.float32, device=None):
-        return init_tree(self.cache_specs(B, T, dtype),
-                         device=resolve_device(device))
+        return self._init(self.cache_specs(B, T, dtype), None, dtype, device)
 
     def init_paged_cache(self, n_pages: int, page_size: int,
                          dtype=torch.float32, device=None):
@@ -246,62 +277,106 @@ def train_options(opts) -> tuple[str, str, float]:
     return attn_impl, remat, float(opts.get("z_loss", 0.0))
 
 
-def build_model(cfg: ArchConfig, **opts) -> ModelBundle:
+def _constrainer(mesh, rules):
+    """The residual stream's ``with_sharding_constraint`` at ("batch",
+    "seq", "act_embed"): a redistribute under a mesh, else identity."""
+    if mesh is None:
+        return lambda h: h
+    return lambda h: sharding.constrain(h, ("batch", "seq", "act_embed"),
+                                        rules, mesh)
+
+
+def _make_ctx(mesh, rules, mode, positions, lengths, opts):
+    """The per-call context every block reads: the reference's keys
+    (``_make_ctx`` there) that the port computes with."""
+    attn_impl, remat, _ = train_options(opts)
+    return {
+        "mode": mode,
+        "positions": positions,
+        "lengths": lengths,
+        "mesh": mesh,
+        "rules": rules,
+        "remat": remat if mode == "train" else "none",
+        "attn_impl": attn_impl,
+        "moe_impl": opts.get("moe_impl", "ep" if mesh is not None
+                             else "dense"),
+        "moe_capacity_factor": opts.get("moe_capacity_factor", 1.25),
+        "cache_update": opts.get("cache_update", "scatter"),
+        "decode_attn": opts.get("decode_attn", "default"),
+        "attn_sp": opts.get("attn_sp", False),
+        "constrain": _constrainer(mesh, rules),
+    }
+
+
+def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
+    rules = sharding.merge_rules(rules if isinstance(rules, dict) else None)
+    if mesh is not None and cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(
+            f"build_model: family {cfg.family!r} has no mesh path in the "
+            "port (its recurrent kernels run on whole tensors)")
     if cfg.is_encoder_decoder:
         # encoder-decoder families have no paged layout: the paged
         # fields stay None, as in the JAX package
         from repro_torch.models.encdec import build_encdec
 
-        return build_encdec(cfg, **opts)
+        return build_encdec(cfg, mesh=mesh, rules=rules, **opts)
     stages = make_stages(cfg)
     specs = _lm_specs(cfg, stages)
-    attn_impl, remat, z_loss = train_options(opts)
+    attn_impl, _, z_loss = train_options(opts)
+    scope = partial(sharding.mesh_scope, mesh)
 
     def loss_fn(params, batch):
-        h = _embed_inputs(cfg, params, batch)
-        n_prefix = h.shape[1] - batch["tokens"].shape[1]
-        B, S = h.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=h.device).expand(B, S)
-        ctx = {"mode": "train", "positions": positions, "lengths": None,
-               "attn_impl": attn_impl, "remat": remat}
-        h, aux = _run_backbone(stages, params, h, ctx, None)
-        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        h = h[:, n_prefix:]
-        loss = cross_entropy(_logits(cfg, params, h), batch["targets"],
-                             batch["mask"], z_loss)
-        metrics = {"ce": loss, "aux": aux}
-        if cfg.router_aux_loss and cfg.n_experts:
-            loss = loss + cfg.router_aux_loss * aux
-        if cfg.mtp_depth:
-            mtp = _mtp_loss(cfg, params, h, batch, positions, attn_impl)
-            metrics["mtp"] = mtp
-            loss = loss + 0.3 * mtp
-        metrics["loss"] = loss
-        return loss, metrics
+        with scope():
+            h = _embed_inputs(cfg, params, batch)
+            n_prefix = h.shape[1] - batch["tokens"].shape[1]
+            B, S = h.shape[:2]
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=h.device).expand(B, S)
+            ctx = _make_ctx(mesh, rules, "train", positions, None, opts)
+            h, aux = _run_backbone(stages, params, ctx["constrain"](h), ctx,
+                                   None)
+            h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+            h = h[:, n_prefix:]
+            loss = cross_entropy(_logits(cfg, params, h), batch["targets"],
+                                 batch["mask"], z_loss)
+            metrics = {"ce": loss, "aux": aux}
+            if cfg.router_aux_loss and cfg.n_experts:
+                loss = loss + cfg.router_aux_loss * aux
+            if cfg.mtp_depth:
+                mtp = _mtp_loss(cfg, params, h, batch, positions, attn_impl)
+                metrics["mtp"] = mtp
+                loss = loss + 0.3 * mtp
+            metrics["loss"] = loss
+            return loss, metrics
 
     def prefill(params, batch, cache):
-        h = _embed_inputs(cfg, params, batch)
-        B, S = h.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=h.device).expand(B, S)
-        lengths = batch.get("lengths")
-        if lengths is None:
-            lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
-        ctx = {"mode": "prefill", "positions": positions, "lengths": lengths}
-        h, _ = _run_backbone(stages, params, h, ctx, cache)
-        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        last = (lengths.long() - 1).clamp(0, S - 1)
-        h_last = h[torch.arange(B, device=h.device), last][:, None, :]
-        return _logits(cfg, params, h_last)[:, 0], cache
+        with scope():
+            h = _embed_inputs(cfg, params, batch)
+            B, S = h.shape[:2]
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=h.device).expand(B, S)
+            lengths = batch.get("lengths")
+            if lengths is None:
+                lengths = torch.full((B,), S, dtype=torch.int32,
+                                     device=h.device)
+            ctx = _make_ctx(mesh, rules, "prefill", positions, lengths, opts)
+            h, _ = _run_backbone(stages, params, ctx["constrain"](h), ctx,
+                                 cache)
+            h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+            last = (lengths.long() - 1).clamp(0, S - 1)
+            h_last = h[torch.arange(B, device=h.device), last][:, None, :]
+            return _logits(cfg, params, h_last)[:, 0], cache
 
     def _decode(params, tokens, cache, lengths, **extra):
-        h = embed_apply(params["embed"], tokens, scale=_embed_scale(cfg))
-        ctx = {"mode": "decode", "positions": lengths[:, None].to(torch.int32),
-               "lengths": lengths, **extra}
-        h, _ = _run_backbone(stages, params, h, ctx, cache)
-        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        return _logits(cfg, params, h)[:, 0], cache
+        with scope():
+            h = embed_apply(params["embed"], tokens, scale=_embed_scale(cfg))
+            ctx = _make_ctx(mesh, rules, "decode",
+                            lengths[:, None].to(torch.int32), lengths, opts)
+            ctx.update(extra)
+            h, _ = _run_backbone(stages, params, ctx["constrain"](h), ctx,
+                                 cache)
+            h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+            return _logits(cfg, params, h)[:, 0], cache
 
     def decode_step(params, tokens, cache, lengths):
         return _decode(params, tokens, cache, lengths)
@@ -338,4 +413,5 @@ def build_model(cfg: ArchConfig, **opts) -> ModelBundle:
         cfg=cfg, specs=specs, loss_fn=loss_fn, prefill=prefill,
         decode_step=decode_step, cache_specs=cache_specs,
         paged_decode_step=paged_decode_step if paged_supported else None,
-        paged_cache_specs=paged_cache_specs if paged_supported else None)
+        paged_cache_specs=paged_cache_specs if paged_supported else None,
+        mesh=mesh, rules=rules)

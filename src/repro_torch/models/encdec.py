@@ -20,6 +20,13 @@ through the decode kernel over the cached cross K/V with lengths = T.
 ``attn_impl`` (plain torch by default: the kernels have no backward)
 and each encoder and decoder layer under ``remat``.  The port computes
 in float32.
+
+Under a mesh (``build_encdec(cfg, mesh, rules)``) the weights and caches
+are DTensors placed by the rules, each decoder block constrains its
+residual stream as the reference's does, every attention core and
+decode kernel runs per rank on local tensors (``layers.attention``),
+and cache writes land in each rank's local tile.  As in the reference,
+the decoder's self-attention cache takes the "scatter" update.
 """
 
 from __future__ import annotations
@@ -30,8 +37,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.common.pytree import tree_map
-from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply
 from repro_torch.layers.initializers import WSpec, stack_specs
@@ -72,10 +79,11 @@ def _dec_block_specs(cfg):
     }
 
 
-def _enc_block(p, positions, cfg, impl, h):
+def _enc_block(p, positions, cfg, impl, mesh, rules, h):
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
     y, _ = attn_lib.attention_apply(p["attn"], x, positions=positions,
-                                    cfg=cfg, causal=False, impl=impl)
+                                    cfg=cfg, causal=False, impl=impl,
+                                    mesh=mesh, rules=rules)
     h = h + y
     x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
     return h + mlp_apply(p["mlp"], x, cfg.act_fn)
@@ -87,28 +95,32 @@ def _dec_block(p, cache, ctx, cfg, enc_out, enc_positions, h):
     train has none)."""
     mode = ctx["mode"]
     positions = ctx["positions"]
+    mesh, rules = ctx.get("mesh"), ctx.get("rules")
+    h = ctx["constrain"](h)
 
     # --- self attention ---
     x = apply_norm(p["ln_self"], h, cfg.norm, cfg.norm_eps)
     if mode == "train":
         y, _ = attn_lib.attention_apply(p["self_attn"], x,
                                         positions=positions, cfg=cfg,
-                                        impl=ctx["attn_impl"])
+                                        impl=ctx["attn_impl"], mesh=mesh,
+                                        rules=rules)
     elif mode == "prefill":
-        S = x.shape[1]
         y, (k, v) = attn_lib.attention_apply(p["self_attn"], x,
-                                             positions=positions, cfg=cfg)
-        cache["self"]["k"][:, :S] = k.to(cache["self"]["k"].dtype)
-        cache["self"]["v"][:, :S] = v.to(cache["self"]["v"].dtype)
+                                             positions=positions, cfg=cfg,
+                                             mesh=mesh, rules=rules)
+        attn_lib.cache_write_prefix(cache["self"]["k"], k)
+        attn_lib.cache_write_prefix(cache["self"]["v"], v)
     else:
         lengths = ctx["lengths"]
         q, k_new, v_new = attn_lib.project_qkv(p["self_attn"], x, positions, cfg)
-        attn_lib.cache_insert(cache["self"]["k"], k_new, lengths)
-        attn_lib.cache_insert(cache["self"]["v"], v_new, lengths)
-        out = kops.decode_attention(
-            q[:, 0].contiguous(), cache["self"]["k"], cache["self"]["v"],
-            (lengths + 1).to(torch.int32),
-            softcap=cfg.attn_logit_softcap)[:, None]
+        attn_lib.cache_insert(cache["self"]["k"], k_new, lengths, mesh=mesh,
+                              rules=rules)
+        attn_lib.cache_insert(cache["self"]["v"], v_new, lengths, mesh=mesh,
+                              rules=rules)
+        out = attn_lib.decode_attend(
+            q, cache["self"]["k"], cache["self"]["v"], lengths + 1,
+            softcap=cfg.attn_logit_softcap, mesh=mesh, rules=rules)
         y = attn_lib.output_proj(p["self_attn"], out, x.dtype)
     h = h + y
 
@@ -118,18 +130,20 @@ def _dec_block(p, cache, ctx, cfg, enc_out, enc_positions, h):
         y, _ = attn_lib.attention_apply(
             p["cross_attn"], x, positions=positions, cfg=cfg,
             cross_kv=attn_lib.cross_kv_project(p["cross_attn"], enc_out, cfg),
-            cross_positions=enc_positions, impl=ctx["attn_impl"])
+            cross_positions=enc_positions, impl=ctx["attn_impl"], mesh=mesh,
+            rules=rules)
     elif mode == "prefill":
         ck, cv = attn_lib.cross_kv_project(p["cross_attn"], enc_out, cfg)
-        cache["cross"]["k"].copy_(ck)
-        cache["cross"]["v"].copy_(cv)
+        attn_lib.cache_write_prefix(cache["cross"]["k"], ck)
+        attn_lib.cache_write_prefix(cache["cross"]["v"], cv)
         y, _ = attn_lib.attention_apply(
             p["cross_attn"], x, positions=positions, cfg=cfg,
-            cross_kv=(ck, cv), cross_positions=enc_positions)
+            cross_kv=(ck, cv), cross_positions=enc_positions, mesh=mesh,
+            rules=rules)
     else:
         y = attn_lib.cross_attention_decode(
             p["cross_attn"], x, cache["cross"]["k"], cache["cross"]["v"], cfg,
-            positions=positions)
+            positions=positions, mesh=mesh, rules=rules)
     h = h + y
 
     x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
@@ -140,7 +154,8 @@ def _layer(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
-def _encode(cfg, params, frames, impl="kernel", remat="none"):
+def _encode(cfg, params, frames, impl="kernel", remat="none", mesh=None,
+            rules=None):
     B, S = frames.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=frames.device).expand(B, S)
@@ -148,17 +163,26 @@ def _encode(cfg, params, frames, impl="kernel", remat="none"):
     h = h + sinusoid(positions, cfg.d_model)
     for i in range(cfg.n_encoder_layers):
         h = remat_call(remat, partial(_enc_block, _layer(params["encoder"], i),
-                                      positions, cfg, impl), h)
+                                      positions, cfg, impl, mesh, rules), h)
     h = apply_norm(params["enc_norm"], h, cfg.norm, cfg.norm_eps)
     return h, positions
 
 
-def build_encdec(cfg, **opts):
-    from repro_torch.models.api import ModelBundle, cross_entropy, train_options
+def build_encdec(cfg, mesh=None, rules=None, **opts):
+    from repro_torch.models.api import (
+        ModelBundle, _constrainer, cross_entropy, train_options,
+    )
 
     # z_loss is not read: the reference's encoder-decoder loss is the
     # plain cross entropy
     attn_impl, remat, _ = train_options(opts)
+    rules = sharding.merge_rules(rules if isinstance(rules, dict) else None)
+    scope = partial(sharding.mesh_scope, mesh)
+
+    def _ctx(mode, positions, lengths):
+        return {"mode": mode, "positions": positions, "lengths": lengths,
+                "attn_impl": attn_impl, "mesh": mesh, "rules": rules,
+                "constrain": _constrainer(mesh, rules)}
     n_dec = cfg.n_layers
     specs: dict[str, Any] = {
         "audio_proj": {"w": WSpec((cfg.d_model, cfg.d_model), (None, "embed"))},
@@ -187,46 +211,49 @@ def build_encdec(cfg, **opts):
         return h
 
     def loss_fn(params, batch):
-        enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"],
-                                   attn_impl, remat)
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
-        ctx = {"mode": "train", "positions": positions, "lengths": None,
-               "attn_impl": attn_impl}
-        h = _dec_embed(params, tokens, positions)
-        h = _run_decoder(params, h, ctx, None, enc_out, enc_pos, remat)
-        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        loss = cross_entropy(_head(params, h), batch["targets"],
-                             batch["mask"])
-        return loss, {"loss": loss, "ce": loss}
+        with scope():
+            enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"],
+                                       attn_impl, remat, mesh, rules)
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device).expand(B, S)
+            h = _dec_embed(params, tokens, positions)
+            h = _run_decoder(params, h, _ctx("train", positions, None), None,
+                             enc_out, enc_pos, remat)
+            h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+            loss = cross_entropy(_head(params, h), batch["targets"],
+                                 batch["mask"])
+            return loss, {"loss": loss, "ce": loss}
 
     def prefill(params, batch, cache):
-        enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"])
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
-        lengths = batch.get("lengths")
-        if lengths is None:
-            lengths = torch.full((B,), S, dtype=torch.int32,
-                                 device=tokens.device)
-        ctx = {"mode": "prefill", "positions": positions, "lengths": lengths}
-        h = _dec_embed(params, tokens, positions)
-        h = _run_decoder(params, h, ctx, cache, enc_out, enc_pos)
-        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        last = (lengths.long() - 1).clamp(0, S - 1)
-        h_last = h[torch.arange(B, device=h.device), last][:, None, :]
-        return _head(params, h_last)[:, 0], cache
+        with scope():
+            enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"],
+                                       mesh=mesh, rules=rules)
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device).expand(B, S)
+            lengths = batch.get("lengths")
+            if lengths is None:
+                lengths = torch.full((B,), S, dtype=torch.int32,
+                                     device=tokens.device)
+            h = _dec_embed(params, tokens, positions)
+            h = _run_decoder(params, h, _ctx("prefill", positions, lengths),
+                             cache, enc_out, enc_pos)
+            h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+            last = (lengths.long() - 1).clamp(0, S - 1)
+            h_last = h[torch.arange(B, device=h.device), last][:, None, :]
+            return _head(params, h_last)[:, 0], cache
 
     def decode_step(params, tokens, cache, lengths):
-        positions = lengths[:, None].to(torch.int32)
-        ctx = {"mode": "decode", "positions": positions, "lengths": lengths}
-        h = _dec_embed(params, tokens, positions)
-        h = _run_decoder(params, h, ctx, cache, None, None)
-        h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-        return _head(params, h)[:, 0], cache
+        with scope():
+            positions = lengths[:, None].to(torch.int32)
+            h = _dec_embed(params, tokens, positions)
+            h = _run_decoder(params, h, _ctx("decode", positions, lengths),
+                             cache, None, None)
+            h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+            return _head(params, h)[:, 0], cache
 
     def cache_specs(B, T, dtype=torch.float32):
         K, D = cfg.n_kv_heads, cfg.head_dim
@@ -244,4 +271,5 @@ def build_encdec(cfg, **opts):
         return {"self": kv(T), "cross": kv(cfg.encoder_seq)}
 
     return ModelBundle(cfg=cfg, specs=specs, loss_fn=loss_fn, prefill=prefill,
-                       decode_step=decode_step, cache_specs=cache_specs)
+                       decode_step=decode_step, cache_specs=cache_specs,
+                       mesh=mesh, rules=rules)

@@ -38,6 +38,15 @@ kernel, or a paged pool through the paged kernel, both with the window
 of a local layer; MLA attends over its latent cache with plain
 products, as the reference does; the recurrent blocks step their
 state).
+
+Under a mesh (``ctx["mesh"]``, see ``models.api``) every attention and
+MLA block constrains its residual stream first, as the reference's do;
+caches are DTensors written in each rank's local tile (``cache_update``
+picks the decode write: "scatter", "blend" or "shard"); decode attends
+through the decode kernel per rank, or with ``decode_attn="shardmap"``
+by the partial softmax over the sequence-sharded cache
+(``layers.attention.decode_attention_shardmap``); the MoE runs
+expert-parallel (``moe_impl="ep"``).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.common.pytree import tree_map
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn
@@ -91,36 +101,73 @@ def _mla_block_specs(cfg, use_moe: bool):
     return specs
 
 
+def _constrain(ctx, h):
+    """The reference's per-block ``with_sharding_constraint`` of the
+    residual stream (identity without a mesh)."""
+    return ctx["constrain"](h) if "constrain" in ctx else h
+
+
+def _constrain_kv_fn(ctx):
+    """Sequence parallelism (``attn_sp``): pin k/v replicated over the
+    model axis, as the reference constrains them (None otherwise)."""
+    if not ctx.get("attn_sp") or ctx.get("mesh") is None:
+        return None
+
+    def constrain(kv):
+        return sharding.constrain(kv, ("batch", None, None, None),
+                                  ctx["rules"], ctx["mesh"])
+
+    return constrain
+
+
 def _apply_attn_sub(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
     """Norm + attention + residual (+post-norm); writes the layer's
     cache in place (train has none).  Returns the new residual stream.
     A local layer attends to the ``cfg.sliding_window`` keys up to its
-    query."""
+    query.  Under a mesh the caches are DTensors written in each rank's
+    local tile; decode attends through the decode kernel over the
+    gathered cache, or with ``decode_attn="shardmap"`` by the per-rank
+    partial softmax over the sequence-sharded cache."""
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
     window = cfg.sliding_window if local else 0
+    mesh, rules = ctx.get("mesh"), ctx.get("rules")
     if ctx["mode"] == "train":
         y, _ = attn.attention_apply(p["attn"], x, positions=ctx["positions"],
                                     cfg=cfg, local=local,
-                                    impl=ctx["attn_impl"])
+                                    impl=ctx["attn_impl"], mesh=mesh,
+                                    rules=rules,
+                                    constrain_kv=_constrain_kv_fn(ctx))
     elif ctx["mode"] == "prefill":
-        S = x.shape[1]
         y, (k, v) = attn.attention_apply(p["attn"], x,
                                          positions=ctx["positions"], cfg=cfg,
-                                         local=local)
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+                                         local=local, mesh=mesh, rules=rules,
+                                         constrain_kv=_constrain_kv_fn(ctx))
+        attn.cache_write_prefix(cache["k"], k)
+        attn.cache_write_prefix(cache["v"], v)
     else:  # decode: one token per row at position `lengths`
         lengths = ctx["lengths"]
         q, k_new, v_new = attn.project_qkv(p["attn"], x, ctx["positions"], cfg)
+        if ctx.get("decode_attn") == "gatherq" and mesh is not None:
+            # release q's head sharding (the reference's constraint)
+            q = sharding.constrain(q, ("batch", None, None, None), rules,
+                                   mesh)
         if ctx.get("cache_layout") == "paged":
             return _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx,
                                       cfg, window=window, post_norm=post_norm)
-        attn.cache_insert(cache["k"], k_new, lengths)
-        attn.cache_insert(cache["v"], v_new, lengths)
-        out = kops.decode_attention(
-            q[:, 0].contiguous(), cache["k"], cache["v"],
-            (lengths + 1).to(torch.int32), window=window,
-            softcap=cfg.attn_logit_softcap)[:, None]
+        mode = ctx.get("cache_update", "scatter")
+        attn.cache_insert(cache["k"], k_new, lengths, mode=mode, mesh=mesh,
+                          rules=rules)
+        attn.cache_insert(cache["v"], v_new, lengths, mode=mode, mesh=mesh,
+                          rules=rules)
+        if ctx.get("decode_attn") == "shardmap" and mesh is not None:
+            out = attn.decode_attention_shardmap(
+                q, cache["k"], cache["v"], lengths, mesh=mesh, rules=rules,
+                window=window, softcap=cfg.attn_logit_softcap)
+        else:
+            out = attn.decode_attend(q, cache["k"], cache["v"], lengths + 1,
+                                     window=window,
+                                     softcap=cfg.attn_logit_softcap,
+                                     mesh=mesh, rules=rules)
         y = attn.output_proj(p["attn"], out, x.dtype)
     if post_norm:
         y = apply_norm(p["ln_attn_post"], y, cfg.norm, cfg.norm_eps)
@@ -135,6 +182,10 @@ def _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx, cfg, *,
     batched paged decode kernel launch serves every row, a local layer's
     within its ``window`` (the reference gathers the pages and masks
     instead: its kernel has no window)."""
+    if ctx.get("mesh") is not None:
+        raise NotImplementedError(
+            "paged decode under a mesh: the serving engine that pages "
+            "builds no mesh (as in the reference)")
     lengths = ctx["lengths"]
     tables = ctx["block_tables"]
     attn.paged_cache_insert(cache["k"], k_new, tables, lengths)
@@ -149,13 +200,18 @@ def _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx, cfg, *,
     return h + y
 
 
-def _apply_ffn_sub(p, h, cfg, *, use_moe: bool, post_norm: bool):
+def _apply_ffn_sub(p, h, ctx, cfg, *, use_moe: bool, post_norm: bool):
     """Norm + MLP (or MoE) + residual (+post-norm).  Returns (h, the
-    MoE's router loss, 0.0 without one); serving drops the loss."""
+    MoE's router loss, 0.0 without one); serving drops the loss.  The
+    MoE runs ``ctx["moe_impl"]`` ("dense" without a mesh, "ep" by default
+    under one, at ``ctx["moe_capacity_factor"]``)."""
     x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
     aux = 0.0
     if use_moe:
-        y, aux = moe_lib.moe_apply(p["moe"], x, cfg)
+        y, aux = moe_lib.moe_apply(
+            p["moe"], x, cfg, mesh=ctx.get("mesh"),
+            impl=ctx.get("moe_impl", "dense"),
+            capacity_factor=ctx.get("moe_capacity_factor", 1.25))
     else:
         y = mlp_apply(p["mlp"], x, cfg.act_fn)
     if post_norm:
@@ -165,32 +221,39 @@ def _apply_ffn_sub(p, h, cfg, *, use_moe: bool, post_norm: bool):
 
 def _attn_block(p, h, cache, ctx, cfg, *, local: bool, use_moe: bool,
                 post_norm: bool):
+    h = _constrain(ctx, h)
     h = _apply_attn_sub(p, h, cache, ctx, cfg, local=local,
                         post_norm=post_norm)
-    return _apply_ffn_sub(p, h, cfg, use_moe=use_moe, post_norm=post_norm)
+    return _apply_ffn_sub(p, h, ctx, cfg, use_moe=use_moe,
+                          post_norm=post_norm)
 
 
 def _mla_block(p, h, cache, ctx, cfg, *, use_moe: bool):
     """Norm + MLA + residual, then norm + MLP (or MoE) + residual.
     Train attends over the segment's own latents; prefill writes the
     latent cache's first S slots; decode inserts one token per row at
-    ``lengths`` and attends over the slots below ``lengths + 1``."""
+    ``lengths`` (``ctx["cache_update"]``'s mode) and attends over the
+    slots below ``lengths + 1``."""
+    h = _constrain(ctx, h)
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
     if ctx["mode"] == "train":
         y, _ = mla_lib.mla_apply(p["attn"], x, positions=ctx["positions"],
                                  cfg=cfg)
     elif ctx["mode"] == "prefill":
-        S = x.shape[1]
         y, (ckv, kr) = mla_lib.mla_apply(p["attn"], x,
                                          positions=ctx["positions"], cfg=cfg)
-        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
-        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+        attn.cache_write_prefix(cache["ckv"], ckv)
+        attn.cache_write_prefix(cache["kr"], kr)
     else:
         lengths = ctx["lengths"]
+        mesh, rules = ctx.get("mesh"), ctx.get("rules")
+        mode = ctx.get("cache_update", "scatter")
         ckv_new, kr_new = mla_lib.mla_project_kv(p["attn"], x,
                                                  ctx["positions"], cfg)
-        attn.cache_insert(cache["ckv"], ckv_new, lengths)
-        attn.cache_insert(cache["kr"], kr_new, lengths)
+        attn.cache_insert(cache["ckv"], ckv_new, lengths, mode=mode,
+                          mesh=mesh, rules=rules)
+        attn.cache_insert(cache["kr"], kr_new, lengths, mode=mode, mesh=mesh,
+                          rules=rules)
         B, T = cache["ckv"].shape[:2]
         kv_pos = torch.arange(T, dtype=torch.int32,
                               device=x.device).expand(B, T)
@@ -198,7 +261,8 @@ def _mla_block(p, h, cache, ctx, cfg, *, use_moe: bool):
             p["attn"], x, positions=ctx["positions"], cfg=cfg,
             ckv_all=cache["ckv"].to(x.dtype), kr_all=cache["kr"].to(x.dtype),
             kv_positions=kv_pos, kv_valid=kv_pos < (lengths + 1)[:, None])
-    return _apply_ffn_sub(p, h + y, cfg, use_moe=use_moe, post_norm=False)
+    return _apply_ffn_sub(p, h + y, ctx, cfg, use_moe=use_moe,
+                          post_norm=False)
 
 
 def _pair_block(p, h, cache, ctx, cfg, *, pat):

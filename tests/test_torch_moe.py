@@ -3,7 +3,8 @@ dense form) held to the JAX package's dense oracle on bridged weights:
 output at float32 rtol = atol = 2e-4 (another summation order) and the
 router's aux loss at 1e-5; padded experts never chosen; the
 shared-expert branch (a config override, as deepseek-v3 has one);
-``impl="ep"`` waits for the distributed slice.  Inputs come from numpy
+``impl="ep"`` with no mesh is the dense form (the expert-parallel path
+is ``tests/test_torch_moe_ep.py``'s).  Inputs come from numpy
 with a seed."""
 
 import dataclasses
@@ -122,9 +123,15 @@ def test_shared_expert_branch_matches_reference():
 
 
 def test_expert_parallel_path_waits_for_the_distributed_slice():
-    _, cfg = _cfgs()
-    p = {}
-    with pytest.raises(NotImplementedError, match="distributed"):
-        moe.moe_apply(p, torch.zeros(1, 2, cfg.d_model), cfg, impl="ep")
+    """``impl="ep"`` needs a mesh (``tests/test_torch_moe_ep.py``); with
+    none it is the dense form, as the reference's ``moe_apply`` is; an
+    unknown impl raises."""
+    ref_cfg, cfg = _cfgs()
+    _, tp = _params(ref_cfg)
+    x = torch.from_numpy(_x(cfg))
+    y_ep, aux_ep = moe.moe_apply(tp, x, cfg, impl="ep")
+    y_d, aux_d = moe.moe_apply(tp, x, cfg)
+    torch.testing.assert_close(y_ep, y_d, rtol=0, atol=0)
+    torch.testing.assert_close(aux_ep, aux_d, rtol=0, atol=0)
     with pytest.raises(ValueError, match="impl"):
-        moe.moe_apply(p, torch.zeros(1, 2, cfg.d_model), cfg, impl="sparse")
+        moe.moe_apply(tp, x, cfg, impl="sparse")

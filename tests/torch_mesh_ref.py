@@ -1,0 +1,238 @@
+"""The JAX package's sharded outputs for the port's multi-rank tests.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_mesh_ref.py <kind> <cases.json> <out.npz>
+
+Run as a child process by ``tests/test_torch_{moe_ep,shardmap_decode,
+sharded_model}.py``, which set ``XLA_FLAGS`` for the child only (the
+test process keeps the one CPU device).  ``kind`` is "model", "moe" or
+"decode"; each case of the JSON list names its mesh shape and inputs,
+and every output is stored in the npz under ``<case index>/<name>``.
+The inputs are rebuilt here from the same seeds the tests use
+(``model_tokens``, ``moe_x``, ``decode_inputs``; the weights from
+PRNGKey(0)), so only the case descriptions cross over.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, leaf) pairs of a tree of nested dicts and lists, the path
+    its keys and indices joined by "/" (the same in both packages)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def model_cfg(arch):
+    from repro.common.config import get_config
+
+    return get_config(arch, smoke=True)
+
+
+def model_tokens(cfg, B=2, S=5, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def model_params(arch):
+    """The reference's smoke weights, PRNGKey(0), as numpy."""
+    import jax
+
+    from repro.models.api import build_model
+
+    cfg = model_cfg(arch)
+    return jax.tree.map(np.asarray,
+                        build_model(cfg).init(jax.random.PRNGKey(0)))
+
+
+def moe_cfg(kind):
+    """The MoE configs of the EP tests: "granite" (the smoke granite,
+    5 experts padded to 6, top-2), "pad4" (6 experts padded to 8, top-2:
+    E divides a model axis of 4) and "shared" (pad4 with a shared
+    expert)."""
+    from repro.common.config import ArchConfig
+
+    if kind == "granite":
+        return model_cfg("granite-moe-3b-a800m")
+    base = dict(name="m", family="moe", n_layers=1, d_model=16, n_heads=2,
+                n_kv_heads=2, d_ff=32, vocab_size=32, n_experts=6,
+                experts_top_k=2, moe_d_ff=32, expert_pad_to=8)
+    if kind == "shared":
+        base["n_shared_experts"] = 1
+    return ArchConfig(**base)
+
+
+def moe_params(kind, seed=0):
+    import jax
+
+    from repro.layers.initializers import init_tree
+    from repro.layers.moe import moe_specs
+
+    return jax.tree.map(np.asarray, init_tree(jax.random.PRNGKey(seed),
+                                              moe_specs(moe_cfg(kind))))
+
+
+def moe_x(d_model, B, S, seed=1):
+    return np.random.default_rng(seed).standard_normal(
+        (B, S, d_model)).astype(np.float32)
+
+
+def decode_inputs(B, T, H, K, D, lengths, seed=0):
+    """q (B, 1, H, D), caches (B, T, K, D), lengths (B,) int32 and one
+    new token's k (B, 1, K, D)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return {"q": rng.standard_normal((B, 1, H, D)).astype(f),
+            "k": rng.standard_normal((B, T, K, D)).astype(f),
+            "v": rng.standard_normal((B, T, K, D)).astype(f),
+            "new": rng.standard_normal((B, 1, K, D)).astype(f),
+            "lengths": np.asarray(lengths, np.int32)}
+
+
+def _mesh(shape):
+    import jax
+    from jax.sharding import Mesh
+
+    devs = jax.devices()[:int(np.prod(shape))]
+    return Mesh(np.asarray(devs).reshape(shape), ("data", "model"))
+
+
+def run_model(case):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.common.sharding import merge_rules, tree_shardings
+    from repro.models.api import build_model
+
+    mesh = _mesh(case["mesh"])
+    cfg = model_cfg(case["arch"])
+    rules = merge_rules(case.get("rules"))
+    bundle = build_model(cfg, mesh=mesh, rules=rules,
+                         compute_dtype=jnp.float32, **case.get("opts", {}))
+    params = jax.device_put(model_params(case["arch"]),
+                            tree_shardings(bundle.specs, rules, mesh))
+    tokens = model_tokens(cfg)
+    B, S = tokens.shape
+    cache_specs = bundle.cache_specs(B, case["T"], jnp.float32)
+    cache = jax.device_put(bundle.init_cache(B, case["T"], jnp.float32),
+                           tree_shardings(cache_specs, rules, mesh))
+    with mesh:
+        prefill = jax.jit(bundle.prefill)
+        decode = jax.jit(bundle.decode_step)
+        lg, cache = prefill(params, {"tokens": jnp.asarray(tokens)}, cache)
+        logits = [np.asarray(lg)]
+        lengths = jnp.full((B,), S, jnp.int32)
+        for _ in range(case["steps"]):
+            tok = jnp.asarray(logits[-1].argmax(-1)[:, None].astype(np.int32))
+            lg, cache = decode(params, tok, cache, lengths)
+            logits.append(np.asarray(lg))
+            lengths = lengths + 1
+    out = {"logits": np.stack(logits)}
+    if case.get("local_shapes"):
+        # every leaf's first addressable shard, by its path
+        for path, leaf in leaf_paths(params):
+            out["shape/" + path] = np.asarray(
+                leaf.addressable_shards[0].data.shape)
+    return out
+
+
+def run_moe(case):
+    import jax
+
+    from repro.layers.moe import moe_apply_ep
+
+    mesh = _mesh(case["mesh"])
+    cfg = moe_cfg(case["cfg"])
+    y, aux = jax.jit(lambda p, x: moe_apply_ep(
+        p, x, cfg, mesh, capacity_factor=case["cf"]))(
+            moe_params(case["cfg"]), moe_x(cfg.d_model, *case["x"]))
+    return {"y": np.asarray(y), "aux": np.asarray(aux)}
+
+
+def run_decode(case):
+    import jax
+
+    from repro.common.sharding import merge_rules
+    from repro.layers.attention import cache_insert, decode_attention_shardmap
+
+    mesh = _mesh(case["mesh"])
+    rules = merge_rules(case.get("rules"))
+    g = case["geom"]
+    inp = decode_inputs(g["B"], g["T"], g["H"], g["K"], g["D"],
+                        g["lengths"], g.get("seed", 0))
+    with mesh:
+        out = jax.jit(lambda q, k, v, ln: decode_attention_shardmap(
+            q, k, v, ln, mesh=mesh, rules=rules, window=g.get("window", 0),
+            softcap=g.get("softcap", 0.0)))(
+                inp["q"], inp["k"], inp["v"], inp["lengths"])
+        res = {"out": np.asarray(out)}
+        for mode in ("scatter", "blend", "shard"):
+            res[f"insert/{mode}"] = np.asarray(jax.jit(
+                lambda c, n, ln, mode=mode: cache_insert(
+                    c, n, ln, mode=mode, mesh=mesh, rules=rules))(
+                        inp["k"], inp["new"], inp["lengths"]))
+    return res
+
+
+def start(kind, cases, tmp_path):
+    """Start this script in a child process over ``cases`` with four CPU
+    devices; returns (the process, the npz path it writes)."""
+    import os
+    import pathlib
+    import subprocess
+
+    cases_path = tmp_path / f"{kind}_cases.json"
+    cases_path.write_text(json.dumps(cases))
+    out = tmp_path / f"{kind}_ref.npz"
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [src, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen(
+        [sys.executable, __file__, kind, str(cases_path), str(out)],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    return proc, out
+
+
+def finish(proc, out, timeout=400):
+    """Wait for ``start``'s child (killed past ``timeout`` s) and load
+    its outputs."""
+    import subprocess
+
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode:
+        raise RuntimeError(f"the reference child failed:\n{err[-4000:]}")
+    return dict(np.load(out))
+
+
+def main(kind, cases_path, out_path):
+    cases = json.loads(open(cases_path).read())
+    run = {"model": run_model, "moe": run_moe, "decode": run_decode}[kind]
+    out = {}
+    for i, case in enumerate(cases):
+        for name, arr in run(case).items():
+            out[f"{i}/{name}"] = arr
+    np.savez(out_path, **out)
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

@@ -1,0 +1,185 @@
+"""The port's side of the multi-rank tests: gloo ranks on the CPU.
+
+``spawn`` starts ``world`` processes (the ``spawn`` start method), each
+with a gloo process group initialised through a file in the test's
+``tmp_path`` (no port: test files run side by side), runs ``fn(rank,
+*args)`` in each and joins them within a timeout of its own, so a hung
+collective fails one test.  The workers below compute what
+``tests/torch_mesh_ref.py`` computes for the JAX package and write it
+from rank 0 into an npz under the same keys (``run_cases`` runs both
+sides); ``world1`` is the in-process (1, 1) mesh the test files share.
+This module imports no jax: the ranks never load it.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import pytest
+
+import torch_mesh_ref as mref
+
+
+def _entry(rank, fn, world, init, args):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world, tmp_path, *args, timeout=300.0):
+    import torch.multiprocessing as mp
+
+    init = tmp_path / f"pg_{fn.__name__}_{world}_{time.monotonic_ns()}"
+    ctx = mp.start_processes(_entry, args=(fn, world, str(init), args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{fn.__name__} on {world} ranks did not end "
+                               f"within {timeout} s")
+
+
+def run_cases(kind, worker, cases, tmp, *args):
+    """The reference's child over ``cases`` (started first, so it
+    computes while the ranks run), then one spawn of ``worker`` per mesh
+    shape over that shape's cases.  Returns (the reference's outputs,
+    the port's)."""
+    proc, npz = mref.start(kind, cases, tmp)
+    try:
+        port = {}
+        for shape in sorted({tuple(c["mesh"]) for c in cases}):
+            mine = [(i, c) for i, c in enumerate(cases)
+                    if tuple(c["mesh"]) == shape]
+            out = tmp / f"port_{kind}_{shape[0]}x{shape[1]}.npz"
+            spawn(worker, math.prod(shape), tmp, shape, mine, *args, str(out))
+            port.update(np.load(out))
+    except BaseException:
+        proc.kill()
+        raise
+    return mref.finish(proc, npz), port
+
+
+@pytest.fixture(scope="module")
+def world1(tmp_path_factory):
+    """A (1, 1) CPU mesh over a gloo process group of one rank in the
+    test process (destroyed after the module)."""
+    import torch.distributed as dist
+
+    init = tmp_path_factory.mktemp("pg") / "init"
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    yield _mesh((1, 1))
+    dist.destroy_process_group()
+
+
+def _mesh(shape):
+    from repro_torch.common.sharding import local_mesh
+
+    return local_mesh(tuple(shape), device="cpu")
+
+
+def _save(rank, out, res):
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def model_worker(rank, shape, cases, params, out):
+    """Each case's prefill + decode logits (greedy tokens fed back) on
+    the mesh ``shape``; "local_shapes" adds every leaf's local shape."""
+    import torch
+
+    from repro_torch.common.bridge import params_from_numpy
+    from repro_torch.common.config import get_config
+    from repro_torch.common.sharding import shard_tree
+    from repro_torch.models.api import build_model
+
+    mesh = _mesh(shape)
+    res = {}
+    for i, case in cases:
+        cfg = get_config(case["arch"], smoke=True)
+        b = build_model(cfg, mesh=mesh, rules=case.get("rules"),
+                        **case.get("opts", {}))
+        p = shard_tree(params_from_numpy(params[case["arch"]], "cpu"),
+                       b.specs, b.rules, mesh)
+        tokens = torch.from_numpy(mref.model_tokens(cfg))
+        B, S = tokens.shape
+        cache = b.init_cache(B, case["T"], device="cpu")
+        with torch.no_grad():
+            lg, cache = b.prefill(p, {"tokens": tokens}, cache)
+            logits = [lg.full_tensor()]
+            lengths = torch.full((B,), S, dtype=torch.int32)
+            for _ in range(case["steps"]):
+                tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
+                lg, cache = b.decode_step(p, tok, cache, lengths)
+                logits.append(lg.full_tensor())
+                lengths = lengths + 1
+        res[f"{i}/logits"] = torch.stack(logits).numpy()
+        if case.get("local_shapes"):
+            for path, leaf in mref.leaf_paths(p):
+                res[f"{i}/shape/{path}"] = np.asarray(leaf.to_local().shape)
+    _save(rank, out, res)
+
+
+def moe_worker(rank, shape, cases, cfgs, params, out):
+    """``moe_apply_ep`` over each case on the mesh ``shape`` (``cfgs`` and
+    ``params`` by the case's config kind)."""
+    import torch
+
+    from repro_torch.common.bridge import params_from_numpy
+    from repro_torch.layers.moe import moe_apply_ep
+
+    mesh = _mesh(shape)
+    res = {}
+    for i, case in cases:
+        p = params_from_numpy(params[case["cfg"]], "cpu")
+        x = torch.from_numpy(mref.moe_x(cfgs[case["cfg"]].d_model,
+                                        *case["x"]))
+        y, aux = moe_apply_ep(p, x, cfgs[case["cfg"]], mesh,
+                              capacity_factor=case["cf"])
+        res[f"{i}/y"] = y.full_tensor().numpy()
+        res[f"{i}/aux"] = aux.full_tensor().numpy()
+    _save(rank, out, res)
+
+
+def decode_worker(rank, shape, cases, out):
+    """``decode_attention_shardmap`` and the three ``cache_insert``
+    modes over each case on the mesh ``shape``; the caches are placed
+    by the rules first, as the reference's arrays are."""
+    import torch
+
+    from repro_torch.common import sharding
+    from repro_torch.layers.attention import (
+        cache_insert, decode_attention_shardmap)
+
+    mesh = _mesh(shape)
+    res = {}
+    for i, case in cases:
+        rules = sharding.merge_rules(case.get("rules"))
+        g = case["geom"]
+        inp = {k: torch.from_numpy(v) for k, v in mref.decode_inputs(
+            g["B"], g["T"], g["H"], g["K"], g["D"], g["lengths"],
+            g.get("seed", 0)).items()}
+        axes = ("cache_batch", "cache_seq", None, None)
+        k = sharding.constrain(inp["k"], axes, rules, mesh)
+        v = sharding.constrain(inp["v"], axes, rules, mesh)
+        out_ = decode_attention_shardmap(
+            inp["q"], k, v, inp["lengths"], mesh=mesh, rules=rules,
+            window=g.get("window", 0), softcap=g.get("softcap", 0.0))
+        res[f"{i}/out"] = out_.full_tensor().numpy()
+        for mode in ("scatter", "blend", "shard"):
+            c = sharding.constrain(inp["k"].clone(), axes, rules, mesh)
+            c = cache_insert(c, inp["new"], inp["lengths"], mode=mode,
+                             mesh=mesh, rules=rules)
+            res[f"{i}/insert/{mode}"] = c.full_tensor().numpy()
+    _save(rank, out, res)
