@@ -158,7 +158,26 @@ Phases (any failure exits non-zero; nothing is caught):
    2 layers == the mesh path on the CPU (a world of one, gloo) within
    2e-4.  Prints each rank's held weight bytes and peak memory, prefill
    ms, tokens/s and all_reduces beside the weight-read floor.
-13. Print the kernels line (JSON), the card line, and last
+13. The dry run against the card (``repro_torch.launch.dryrun``: meta
+   tensors over a fake process group, counted by
+   ``common.profiling``): (a) phase 12 (b)'s granite on two gloo ranks
+   sharing the card, a prefill of phase 8's 11-token prompt and one
+   decode step counted on the card (after a warm-up) and laid out on
+   meta over a fake group of 2: argument bytes, dot FLOPs and
+   collectives by kind (count and bytes) equal, the predicted temp
+   within 10 % of the card's peak above the arguments, exact flash and
+   decode launches by shape in each rank; (b) phase 11's tinyllama-1.1b
+   step (B 8, S 128, remat "none", float32) as DTensors on one NCCL
+   rank, mesh (1, 1): the loss == the unsharded loss of the same weights
+   and batch (2e-4), argument bytes equal, the predicted peak within 10 %
+   of ``max_memory_allocated``; (c) meanwhile on the host, three
+   production cells through the dry-run CLI (tinyllama-1.1b train_4k and
+   granite-moe-3b-a800m decode_32k on 16 x 16, llama3-405b prefill_32k
+   on 2 x 16 x 16), each exiting 0 within 300 s with FLOPs and
+   collective bytes above 0; their HBM a card, roofline terms and
+   model/counted FLOPs are printed as predictions from the H100's
+   published figures.
+14. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -293,6 +312,19 @@ DIST_SERVING = {"embed": None}
 DIST_ATTNREP = {"embed": None, "heads": None, "kv_heads": None}
 DIST_SMATTN = {"decode_attn": "shardmap", "cache_update": "shard"}
 DIST_CPU_LAYERS, DIST_TIMEOUT = 2, 900
+
+# phase 13: the dry run (launch/dryrun.py on meta tensors over a fake
+# process group) held against the card.  (a) phase 12 (b)'s granite on two
+# gloo ranks: a prefill of phase 8's longest prompt and one decode step,
+# each counted by common.profiling on the card and laid out on meta over a
+# fake group of 2; (b) phase 11's tinyllama step (one NCCL rank, mesh
+# (1, 1)); the predicted peaks within DRY_MEM_TOL of the card's.  (c) three
+# production cells through the dry-run CLI, each within DRY_CELL_TIMEOUT s
+DRY_MEM_TOL = 0.10
+DRY_CELLS = (("tinyllama-1.1b", "train_4k", False),
+             ("granite-moe-3b-a800m", "decode_32k", False),
+             ("llama3-405b", "prefill_32k", True))
+DRY_CELL_TIMEOUT = 300
 
 
 def prompt_lens(bounds, n) -> list[int]:
@@ -3516,24 +3548,29 @@ def _dist_worker(rank, world, init, backend, dev_type, shape, cfg, rules,
 
 def _spawn_ranks(world, backend, dev, shape, cfg, rules, opts, extras,
                  tmp, tag):
-    """Run ``_dist_worker`` on ``world`` spawned ranks, joined within
-    ``DIST_TIMEOUT`` (killed past it); returns each rank's results."""
+    """Run ``_dist_worker`` on ``world`` spawned ranks (``_spawn``)."""
+    return _spawn(_dist_worker, world, tmp, tag, backend, dev.type, shape,
+                  cfg, rules, opts, extras)
+
+
+def _spawn(worker, world, tmp, tag, *args):
+    """Run ``worker(rank, world, init, *args, out)`` on ``world`` spawned
+    ranks, joined within ``DIST_TIMEOUT`` (killed past it); returns each
+    rank's results, which it saves to ``out``/rank<r>.pt."""
     import torch
     import torch.multiprocessing as mp
 
     out = Path(tmp) / tag
     out.mkdir()
     ctx = mp.start_processes(
-        _dist_worker, nprocs=world, join=False, start_method="spawn",
-        args=(world, str(Path(tmp) / f"{tag}.init"), backend, dev.type,
-              shape, cfg, rules, opts, extras, str(out)))
+        worker, nprocs=world, join=False, start_method="spawn",
+        args=(world, str(Path(tmp) / f"{tag}.init"), *args, str(out)))
     deadline = time.monotonic() + DIST_TIMEOUT
     while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
         if time.monotonic() > deadline:
             for proc in ctx.processes:
                 proc.kill()
-            fail(f"phase 12 ({tag}): the ranks did not end within "
-                 f"{DIST_TIMEOUT} s")
+            fail(f"{tag}: the ranks did not end within {DIST_TIMEOUT} s")
     return [torch.load(out / f"rank{r}.pt") for r in range(world)]
 
 
@@ -3599,9 +3636,9 @@ def phase_distributed(dev, cfg=None) -> None:
         runs = {
             "a": _spawn_ranks(1, "nccl" if dev.type == "cuda" else "gloo",
                               dev, (1, 1), cfg, DIST_SERVING, {}, False, tmp,
-                              "a"),
+                              "phase12a"),
             "b": _spawn_ranks(2, "gloo", dev, (1, 2), cfg, DIST_ATTNREP,
-                              DIST_SMATTN, True, tmp, "b")}
+                              DIST_SMATTN, True, tmp, "phase12b")}
         n = build_model(cfg).param_count()
         steps = len(lens) * (FAM_NEW - 1)
         for tag, ranks in runs.items():
@@ -3700,6 +3737,338 @@ def phase_distributed(dev, cfg=None) -> None:
     log(f"[phase12] done in {time.perf_counter() - t_phase:.1f} s")
 
 
+def _counted(fn, *args, dev):
+    """``fn(*args)`` under ``common.profiling.measure``; on the card also
+    the bytes allocated at the call's peak above what was allocated
+    before it (its arguments and the persistent buffers).  Returns
+    (result, the report as a dict, that peak or None)."""
+    import torch
+
+    from repro_torch.common.profiling import measure
+
+    base = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    out, rep = measure(fn, *args)
+    peak = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    return out, {"flops": rep.flops, "count_by_op": dict(rep.count_by_op),
+                 "bytes_by_op": dict(rep.bytes_by_op),
+                 "memory": dict(rep.memory),
+                 "kernel_flops": dict(rep.kernel_flops)}, peak
+
+
+def _dry_serve_calls(bundle, params, cache, prompt, dev):
+    """Phase 13 (a)'s two calls, each counted: a prefill of ``prompt``
+    (token ids, or its length on meta tensors) into ``cache``, then one
+    decode step of the greedy token.  The same code lays them out on
+    meta tensors and runs them on the card.  Returns their reports and
+    the card's peaks."""
+    import torch
+
+    S = prompt if isinstance(prompt, int) else len(prompt)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tokens = (torch.empty((1, S), **i32) if dev.type == "meta"
+              else torch.tensor([prompt], **i32))
+    lengths = torch.tensor([S], **i32) if dev.type != "meta" else \
+        torch.empty((1,), **i32)
+    with torch.no_grad():
+        (lg, cache), pre, pre_peak = _counted(
+            bundle.prefill, params, {"tokens": tokens}, cache, dev=dev)
+        tok = (torch.empty((1, 1), **i32) if dev.type == "meta" else
+               lg.full_tensor().argmax(-1)[:, None].to(torch.int32))
+        _, dec, dec_peak = _counted(bundle.decode_step, params, tok, cache,
+                                    lengths, dev=dev)
+    return {"prefill": pre, "decode": dec}, \
+        {"prefill": pre_peak, "decode": dec_peak}
+
+
+def _dry_serve_worker(rank, world, init, backend, dev_type, cfg, rules,
+                      opts, prompt, out):
+    """One rank of phase 13 (a): phase 12 (b)'s model on its mesh, the
+    weights drawn from seed 0, a warm-up of the two calls, then the two
+    calls counted with the kernel launches from 0."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets the float32 matmul precision)
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = local_mesh((1, world), device=dev.type)
+        b = build_model(cfg, mesh=mesh, rules=rules, **opts)
+        params = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        cache = b.init_cache(1, dense_T(len(prompt), FAM_NEW),
+                             torch.float32, dev)
+        _dry_serve_calls(b, params, cache, prompt, dev)     # warm-up
+        dist.barrier()
+        ops.reset_launches()
+        reps, peaks = _dry_serve_calls(b, params, cache, prompt, dev)
+        torch.save({"reps": reps, "peaks": peaks,
+                    "launches": dict(ops.LAUNCHES),
+                    "shapes": {k: dict(v)
+                               for k, v in ops.SHAPE_LAUNCHES.items()}},
+                   Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dry_train_worker(rank, world, init, backend, dev_type, cfg, out):
+    """Phase 13 (b) on one rank: phase 11's tinyllama step (remat "none",
+    the same weights from seed 0 and the same first batch) as DTensors on
+    a (1, 1) mesh, counted; and the unsharded loss of the same weights
+    and batch."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets the float32 matmul precision)
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_step import make_train_step
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = local_mesh((1, 1), device=dev.type)
+        b = build_model(cfg, mesh=mesh, remat="none")
+        params = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        batch = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, dev, 1)[0]
+        with torch.no_grad():
+            plain, _ = build_model(cfg, remat="none").loss_fn(
+                tree_map(lambda t: t.to_local(), params), batch)
+        tcfg = TrainConfig(**TRAIN_TCFG)
+        state = init_state(params, tcfg)
+        (_, metrics), rep, _ = _counted(make_train_step(b, tcfg), state,
+                                        batch, dev=dev)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+            else None
+        torch.save({"rep": rep, "peak": peak, "plain": float(plain),
+                    "loss": float(metrics["loss"].full_tensor()),
+                    "batch": {k: (tuple(v.shape), v.dtype)
+                              for k, v in batch.items()}},
+                   Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_dry_cells(tmp):
+    """Phase 13 (c)'s production cells, each in its own process through
+    the dry-run CLI, all at once.  Returns (cell, process, log path)."""
+    import os
+
+    procs = []
+    for arch, shape, multi_pod in DRY_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multi-pod"] if multi_pod else [])
+        log_path = Path(tmp) / f"dry_{arch}_{shape}.log"
+        with log_path.open("w") as fh:
+            procs.append(((arch, shape, multi_pod), subprocess.Popen(
+                cmd, cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src")}),
+                log_path))
+    return procs
+
+
+def _finish_dry_cells(procs, t_start) -> None:
+    """Wait for phase 13 (c)'s cells (killed past ``DRY_CELL_TIMEOUT`` s
+    from their start); each must exit 0 and write FLOPs and collective
+    bytes above zero.  Prints each cell's predicted HBM a card, roofline
+    terms and model/counted FLOPs."""
+    from repro_torch.launch.dryrun import OUT_DIR, cell_name
+
+    for (arch, shape, mp_), proc, log_path in procs:
+        left = DRY_CELL_TIMEOUT - (time.perf_counter() - t_start)
+        try:
+            rc = proc.wait(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            for _, p, _ in procs:
+                p.kill()
+                p.wait()
+            fail(f"phase 13 (c): {arch} {shape} did not end within "
+                 f"{DRY_CELL_TIMEOUT} s")
+        name = cell_name(arch, shape, mp_)
+        if rc != 0:
+            fail(f"phase 13 (c): {name} exited {rc}:\n"
+                 f"{log_path.read_text()[-3000:]}")
+        rec = json.loads((OUT_DIR / f"{name}.json").read_text())
+        flops, coll = rec["cost"]["flops"], rec["collectives"]["total_bytes"]
+        rf = rec["roofline"]
+        log(f"[phase13] (c) {name} in {time.perf_counter() - t_start:.1f} s "
+            f"(lay out {rec['lower_s']} s, step {rec['compile_s']} s), "
+            f"{rec['n_chips']} ranks; PREDICTED from the H100's published "
+            f"figures, not measured: HBM {rec['hbm_per_device_gib']} GiB a "
+            f"card (arguments {rec['memory']['argument_size_in_bytes']:,} "
+            f"B, temp {rec['memory']['temp_size_in_bytes']:,} B), dot FLOPs "
+            f"{flops:.4e} a card, bytes {rec['cost']['bytes']:.4e}, "
+            f"collectives {coll:.4e} B {rec['collectives']['count_by_op']}"
+            f" ({rec['collectives']['inter_node_bytes']:.4e} B across "
+            f"nodes); roofline compute at the {rf['peak_dtype']} peak "
+            f"{rf['t_compute_s']:.4e} s, memory "
+            f"{rf['t_memory_s']:.4e} s, collective {rf['t_collective_s']:.4e}"
+            f" s ({rf['dominant']}); model/counted FLOPs "
+            f"{rec['model_vs_hlo_flops']:.4f}")
+        if not (flops > 0 and coll > 0):
+            fail(f"phase 13 (c): {name} counted FLOPs {flops}, collective "
+                 f"bytes {coll}")
+
+
+def _mem_ok(tag, predicted, measured) -> None:
+    err = abs(predicted - measured) / measured
+    log(f"[phase13] {tag}: predicted {predicted:,} B, card {measured:,} B "
+        f"({100 * err:.2f} % apart, tol {100 * DRY_MEM_TOL:g} %)")
+    if err > DRY_MEM_TOL:
+        fail(f"phase 13 {tag}: predicted {predicted} B, card {measured} B")
+
+
+def phase_dryrun(dev, serve_cfg=None, train_cfg=None) -> None:
+    """Phase 13: the dry run (``launch.dryrun``: meta tensors over a fake
+    process group) against the card (``serve_cfg``/``train_cfg`` replace
+    the full configs for a rehearsal on the CPU, where the peaks are not
+    checked).  (a) Phase 12 (b)'s granite on two gloo ranks sharing the
+    card: a prefill of phase 8's longest prompt and one decode step, each
+    counted by ``common.profiling`` on the card and laid out on meta over
+    a fake group of 2: argument bytes, dot FLOPs and collectives by kind
+    (count and bytes) equal, the predicted temp within ``DRY_MEM_TOL`` of
+    the card's peak above its arguments; exact flash and decode launches
+    by shape in each rank.  (b) Phase 11's tinyllama step as DTensors on
+    one NCCL rank, mesh (1, 1): its loss == the unsharded loss of the
+    same weights and batch (``LOGIT_TOL``), argument bytes equal, the
+    predicted peak within ``DRY_MEM_TOL`` of ``max_memory_allocated``.
+    (c) ``DRY_CELLS`` through the dry-run CLI, run meanwhile on the host."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.common.config import TrainConfig, get_config
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model
+    from repro_torch.training.optimizer import state_specs
+    from repro_torch.training.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="phase13_")
+    cells = _start_dry_cells(tmp)
+    try:
+        # (a) granite on two gloo ranks against a fake group of 2
+        cfg = serve_cfg or get_config(DIST_ARCH)
+        lens = fam_prompts(DIST_ARCH)
+        from repro_torch.launch.serve import make_requests
+
+        prompt = list(make_requests(cfg, len(lens), FAM_NEW,
+                                    prompt_lens=lens, seed=SEED)
+                      [lens.index(max(lens))].prompt)
+        ranks = _spawn(_dry_serve_worker, 2, tmp, "phase13a", "gloo",
+                       dev.type, cfg, DIST_ATTNREP, DIST_SMATTN, prompt)
+        with dryrun.fake_group(2):
+            mesh = local_mesh((1, 2), device=dev.type)
+            b = build_model(cfg, mesh=mesh, rules=DIST_ATTNREP,
+                            **DIST_SMATTN)
+            meta = torch.device("meta")
+            dry, _ = _dry_serve_calls(
+                b, b.abstract_params(torch.float32),
+                b.abstract(b.cache_specs(1, dense_T(len(prompt), FAM_NEW),
+                                          torch.float32), torch.float32),
+                len(prompt), meta)
+        want, want_shapes = _dist_expected(cfg, [len(prompt)], False)
+        for rank, r in enumerate(ranks):
+            for call in ("prefill", "decode"):
+                got, pred = r["reps"][call], dry[call]
+                log(f"[phase13] (a) rank {rank} {call}: card dot FLOPs "
+                    f"{got['flops']:.6e} (dry run {pred['flops']:.6e}), "
+                    f"collectives {got['count_by_op']} {got['bytes_by_op']} "
+                    f"(dry run {pred['count_by_op']} {pred['bytes_by_op']}), "
+                    f"arguments {got['memory']['argument_size_in_bytes']:,} B "
+                    f"(dry run {pred['memory']['argument_size_in_bytes']:,})")
+                for key in ("flops", "count_by_op", "bytes_by_op"):
+                    if got[key] != pred[key]:
+                        fail(f"phase 13 (a) rank {rank} {call}: {key} "
+                             f"{got[key]} on the card, {pred[key]} dry")
+                if got["memory"]["argument_size_in_bytes"] != \
+                        pred["memory"]["argument_size_in_bytes"]:
+                    fail(f"phase 13 (a) rank {rank} {call}: arguments differ")
+                if r["peaks"][call] is not None:
+                    _mem_ok(f"(a) rank {rank} {call} temp",
+                            pred["memory"]["temp_size_in_bytes"],
+                            r["peaks"][call])
+            log(f"[phase13] (a) rank {rank} kernel launches {r['launches']}"
+                f", expected {want}; by shape {r['shapes']}, expected "
+                f"{want_shapes}")
+            if r["launches"] != want or r["shapes"] != want_shapes:
+                fail(f"phase 13 (a) rank {rank}: launches {r['launches']} "
+                     f"{r['shapes']} != {want} {want_shapes}")
+
+        # (b) tinyllama's train step on one NCCL rank, mesh (1, 1)
+        tcfg_ = train_cfg or get_config(TRAIN_ARCH)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        (t,) = _spawn(_dry_train_worker, 1, tmp, "phase13b",
+                      "nccl" if dev.type == "cuda" else "gloo", dev.type,
+                      tcfg_)
+        with dryrun.fake_group(1):
+            mesh = local_mesh((1, 1), device=dev.type)
+            b = build_model(tcfg_, mesh=mesh, remat="none")
+            tcfg = TrainConfig(**TRAIN_TCFG)
+            state = b.abstract(state_specs(b.specs, tcfg), torch.float32)
+            batch = {k: torch.empty(shape, dtype=dt, device="meta")
+                     for k, (shape, dt) in t["batch"].items()}
+            _, pred, _ = _counted(make_train_step(b, tcfg), state, batch,
+                                  dev=torch.device("meta"))
+        got = t["rep"]
+        d_loss = abs(t["loss"] - t["plain"])
+        log(f"[phase13] (b) {tcfg_.name} train step on a (1, 1) mesh: loss "
+            f"{t['loss']:.6f}, unsharded {t['plain']:.6f} (|d| {d_loss:.3e}, "
+            f"tol {LOGIT_TOL:g}); card dot FLOPs {got['flops']:.6e} (dry run "
+            f"{pred['flops']:.6e}); arguments "
+            f"{got['memory']['argument_size_in_bytes']:,} B (dry run "
+            f"{pred['memory']['argument_size_in_bytes']:,})")
+        if d_loss > LOGIT_TOL:
+            fail(f"phase 13 (b): loss {t['loss']} vs unsharded {t['plain']}")
+        if got["memory"]["argument_size_in_bytes"] != \
+                pred["memory"]["argument_size_in_bytes"]:
+            fail("phase 13 (b): argument bytes differ")
+        if t["peak"] is not None:
+            _mem_ok("(b) peak", pred["memory"]["total_bytes"], t["peak"])
+
+        _finish_dry_cells(cells, t_phase)
+    finally:
+        for _, proc, _ in cells:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase13] done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3746,6 +4115,7 @@ def main() -> int:
     phase_analysis(dev)
     paths["train"] = phase_training(dev)
     phase_distributed(dev)
+    phase_dryrun(dev)
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
     rows += rec_rows + slice_rows + fam_rows

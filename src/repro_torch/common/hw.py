@@ -1,8 +1,10 @@
 """The NVIDIA H100 SXM's figures that the port's planners and bounds use.
 
 These are published figures, not measurements: NVIDIA's H100 datasheet
-(dense peaks; the sparse tensor-core peaks are twice the dense) and the
-CUDA programming guide's limits for compute capability 9.0.  The
+(dense peaks; the sparse tensor-core peaks are twice the dense), the
+CUDA programming guide's limits for compute capability 9.0, and NVIDIA's
+DGX H100 datasheet for the node (eight GPUs on NVLink, one 400 Gb/s
+ConnectX-7 InfiniBand port a GPU for the cluster network).  The
 kernels' planners (``kernels.ops``) size their tiles against the
 shared-memory and register figures; ``analysis.kernel_check`` and
 ``chip_smoke.py`` compute each kernel's bound from the peaks.  The
@@ -30,6 +32,8 @@ class ChipSpec:
     max_grid: tuple            # grid extents x, y, z
     link_bandwidth: float      # bytes/s a link (NVLink 4, one direction)
     links: int                 # NVLink links a card
+    gpus_per_node: int         # cards a node joins by NVLink
+    nic_bandwidth: float       # bytes/s of the network a card, one direction
 
 
 H100_SXM = ChipSpec(
@@ -47,7 +51,12 @@ H100_SXM = ChipSpec(
     max_grid=(2**31 - 1, 65_535, 65_535),
     link_bandwidth=25e9,       # 18 links, 450 GB/s a direction in all
     links=18,
+    gpus_per_node=8,           # a DGX H100 / HGX H100 8-GPU node
+    nic_bandwidth=50e9,        # one 400 Gb/s NDR InfiniBand NIC a GPU
 )
+
+#: the card the pod model (``core.pod``) assumes
+DEFAULT_CHIP = H100_SXM
 
 #: peak FLOP/s by the inputs' dtype name: bf16 counts at the tensor-core
 #: rate, float32 at the FMA rate (the kernels hold f32 to 2e-4, which
@@ -68,14 +77,20 @@ def bound_s(nbytes: float, flops: float,
 
 
 def roofline_terms(flops: float, nbytes: float, collective_bytes: float,
-                   dtype: str = "bfloat16") -> dict:
+                   dtype: str = "bfloat16", *,
+                   inter_node_bytes: float = 0.0) -> dict:
     """The three roofline terms in seconds of one card's share of the
-    work.  Collective bytes are charged against the card's aggregate
-    NVLink bandwidth (all links, one direction): conservative for
+    work, compute at ``dtype``'s peak (recorded as ``peak_dtype``).  Of
+    the ``collective_bytes``, the ``inter_node_bytes`` (collectives over
+    a group that spans more than one node) are charged against the
+    card's InfiniBand NIC, the rest against its aggregate NVLink
+    bandwidth (all links, one direction): conservative for
     ring-scheduled collectives."""
     t_comp = flops / PEAK_FLOPS[dtype]
     t_mem = nbytes / H100_SXM.hbm_bandwidth
-    t_coll = collective_bytes / (H100_SXM.link_bandwidth * H100_SXM.links)
+    t_coll = ((collective_bytes - inter_node_bytes)
+              / (H100_SXM.link_bandwidth * H100_SXM.links)
+              + inter_node_bytes / H100_SXM.nic_bandwidth)
     dominant = max(
         (("compute", t_comp), ("memory", t_mem), ("collective", t_coll)),
         key=lambda kv: kv[1],
@@ -88,4 +103,5 @@ def roofline_terms(flops: float, nbytes: float, collective_bytes: float,
         "dominant": dominant,
         "roofline_s": bound,
         "compute_fraction": (t_comp / bound) if bound > 0 else 0.0,
+        "peak_dtype": dtype,
     }

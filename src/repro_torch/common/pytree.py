@@ -1,8 +1,11 @@
 """Tree helpers over nested dicts / lists / tuples of tensors — the
-port's stand-in for ``jax.tree`` on parameter and cache trees."""
+port's stand-in for ``jax.tree`` on parameter and cache trees — and the
+reference's counting, casting and comparison helpers over them (a
+DTensor leaf counts at its global shape)."""
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -51,3 +54,44 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
     ``tree_leaves`` order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def param_count(tree) -> int:
+    """Elements over every leaf."""
+    return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
+def param_bytes(tree) -> int:
+    """Bytes over every leaf, each at its own dtype."""
+    return sum(math.prod(x.shape) * x.dtype.itemsize
+               for x in tree_leaves(tree))
+
+
+def cast_tree(tree, dtype):
+    """Floating leaves cast to ``dtype``; other leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def tree_paths(tree) -> dict[str, Any]:
+    """``{"a/b/0": leaf}``: each leaf under its dict keys and list
+    indices joined by "/"."""
+    out: dict[str, Any] = {}
+    tree_map_with_path(
+        lambda path, x: out.__setitem__("/".join(map(str, path)), x), tree)
+    return out
+
+
+def tree_allclose(a, b, rtol=1e-5, atol=1e-5) -> bool:
+    """Two trees of as many leaves, each pair equal within the
+    tolerances (compared on the host in float64, whatever their dtypes,
+    as numpy compares the reference's)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+
+    def host(x):
+        return torch.as_tensor(x).detach().cpu().double()
+
+    return all(torch.allclose(host(x), host(y), rtol=rtol, atol=atol)
+               for x, y in zip(la, lb))

@@ -25,8 +25,16 @@ over it.
 placements, the function runs on the local tensors, and each result is
 wrapped back with its output spec.  The collectives it may call
 (``all_reduce``, ``all_gather``) run over the process groups of named
-mesh axes, are autograd-aware (their backward is the reference's
-transpose), and are skipped over a group of one rank.
+mesh axes, are autograd-aware, and are skipped over a group of one
+rank.  Gradients inside the function are *unreduced*: a rank's local
+cotangent is its share of the logical one.  So an output replicated
+over mesh dims of n ranks in all receives 1/n of its cotangent on each
+rank, the transpose of ``all_reduce`` is ``all_reduce`` and that of
+``all_gather`` a reduce-scatter, and an input replicated over a mesh
+dim hands its local gradient back as a ``Partial`` sum over that dim.
+This gives the gradient of the logical function whatever mixes
+replicated and rank-varying values inside (the expert-parallel MoE
+routes replicated tokens through each rank's own experts).
 
 Meshes are resolved from their axis sizes alone: ``spec_for`` takes a
 ``DeviceMesh`` or a ``{axis: size}`` mapping, so specs resolve with no
@@ -36,6 +44,7 @@ repeated-device mesh).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Mapping, Sequence
 
@@ -214,7 +223,8 @@ def local_mesh(shape: tuple[int, ...] = (1, 1),
                axes: tuple[str, ...] = ("data", "model"), device=None):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the ranks of the
     process group that is up: on CUDA unless ``device="cpu"`` is asked
-    for.  Raises if no process group of ``prod(shape)`` ranks is up."""
+    for (CUDA needs a card, but over a fake group).  Raises if no
+    process group of ``prod(shape)`` ranks is up."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -229,7 +239,10 @@ def local_mesh(shape: tuple[int, ...] = (1, 1),
             f"local_mesh{tuple(shape)} needs {n} ranks, the process group "
             f"has {dist.get_world_size()}")
     kind = torch.device(device).type if device is not None else "cuda"
-    if kind == "cuda" and not torch.cuda.is_available():
+    # a fake group (the dry run's) runs no collective: a CUDA mesh over
+    # it, which picks the collectives the card's would, needs no card
+    if kind == "cuda" and not torch.cuda.is_available() and \
+            dist.get_backend() != "fake":
         raise RuntimeError("local_mesh: no CUDA device is available; pass "
                            "device='cpu' to build the mesh on the CPU")
     return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))
@@ -241,15 +254,26 @@ def local_mesh(shape: tuple[int, ...] = (1, 1),
 
 def mesh_scope(mesh):
     """The context a sharded model's step runs in: plain tensors that
-    meet DTensors (positions, lengths, masks) count as replicated
-    (``implicit_replication``); no mesh, no context."""
-    import contextlib
-
+    meet DTensors (positions, lengths, masks) count as replicated (what
+    ``implicit_replication`` switches on); no mesh, no context.  Scopes
+    nest: leaving one restores the setting it found (torch's own context
+    switches it off, also inside an outer one)."""
     if mesh is None:
         return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
+    return _implicit_replication()
 
-    return implicit_replication()
+
+@contextlib.contextmanager
+def _implicit_replication():
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
 
 
 def is_dtensor(x) -> bool:
@@ -302,8 +326,8 @@ def axis_size(mesh, axes) -> int:
 
 class _AllReduce(torch.autograd.Function):
     """An out-of-place ``all_reduce`` whose backward all-reduces the
-    gradient (the transpose of ``psum`` is ``psum``); MAX has no
-    backward."""
+    gradient (the transpose of ``psum`` on unreduced cotangents is
+    ``psum``); MAX has no backward."""
 
     @staticmethod
     def forward(ctx, x, group, op):
@@ -390,12 +414,75 @@ def settle(x):
         Replicate() if p.is_partial() else p for p in x.placements])
 
 
+def spec_of(x) -> tuple:
+    """The spec of a DTensor's placements: per tensor dim, None, the
+    mesh axis that shards it, or a tuple of axes in mesh order (the
+    inverse of ``placements_for``).  Raises on a pending partial sum
+    (``settle`` it first)."""
+    names = tuple(x.device_mesh.mesh_dim_names)
+    per: list[list[str]] = [[] for _ in range(x.ndim)]
+    for name, p in zip(names, x.placements):
+        if p.is_partial():
+            raise ValueError("spec_of: a Partial placement has no spec")
+        if p.is_shard():
+            per[p.dim % x.ndim].append(name)
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in per)
+
+
+def lead_spec(x):
+    """(``x`` with its partial sums reduced, the spec of every dim of it
+    but the last): how an activation's rows are laid out, which a
+    per-rank product keeps (all None for a plain tensor)."""
+    x = settle(x)
+    if not is_dtensor(x):
+        return x, (None,) * (x.ndim - 1)
+    return x, spec_of(x)[:-1]
+
+
+def unless_used(entry, lead):
+    """A weight dim's spec ``entry``, or None where one of its axes
+    already lays out ``lead`` (a mesh axis shards one dim of a tensor)."""
+    used = {a for e in lead for a in _axis_tuple(e)}
+    return None if used & set(_axis_tuple(entry)) else entry
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the gradient by ``c``."""
+
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def _replicated_ranks(placements, mesh) -> int:
+    """The ranks over which ``placements`` replicate a tensor."""
+    return math.prod(mesh.shape[i] for i, p in enumerate(placements)
+                     if not p.is_shard())
+
+
+def _unreduced(placements, mesh) -> tuple:
+    """A local input's gradient placements: ``Partial`` on each mesh dim
+    of more than one rank that replicates it (its ranks' local
+    gradients are shares of one sum), else its own placement."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if not p.is_shard() and mesh.shape[i] > 1 else p
+                 for i, p in enumerate(placements))
+
+
 def shard_map(f, mesh, in_specs, out_specs):
     """Run ``f`` on each rank's local tensors: every argument whose spec
     is not None is redistributed to that spec's placements and handed in
     as its local tensor (other arguments pass through); each output is
     wrapped back as a DTensor with its out spec.  ``out_specs`` is one
-    spec, or a list of specs for a tuple of outputs."""
+    spec, or a list of specs for a tuple of outputs.  Gradients follow
+    the unreduced convention of the module docstring."""
     from torch.distributed.tensor import DTensor
 
     def run(*args):
@@ -404,16 +491,20 @@ def shard_map(f, mesh, in_specs, out_specs):
             if spec is None:
                 locs.append(x)
             else:
-                locs.append(to_placements(x, mesh,
-                                          placements_for(spec, mesh))
-                            .to_local())
+                pl = placements_for(spec, mesh)
+                locs.append(to_placements(x, mesh, pl).to_local(
+                    grad_placements=_unreduced(pl, mesh)))
         out = f(*locs)
         single = not isinstance(out_specs, list)
         outs = (out,) if single else out
         specs = (out_specs,) if single else out_specs
-        wrapped = tuple(DTensor.from_local(o, mesh, placements_for(s, mesh),
-                                           run_check=False)
-                        for o, s in zip(outs, specs, strict=True))
-        return wrapped[0] if single else wrapped
+        wrapped = []
+        for o, s in zip(outs, specs, strict=True):
+            pl = placements_for(s, mesh)
+            n = _replicated_ranks(pl, mesh)
+            if n > 1 and o.requires_grad and torch.is_grad_enabled():
+                o = _ScaleGrad.apply(o, 1.0 / n)
+            wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
+        return wrapped[0] if single else tuple(wrapped)
 
     return run

@@ -1,7 +1,7 @@
 """Device pool and link model.
 
 A ``DeviceSpec`` is anything that can host modules: an edge device from
-the paper's testbed (Table III) or a TPU sub-mesh (core/tpu.py).
+the paper's testbed (Table III) or a GPU sub-mesh (core/pod.py).
 ``t_comp(module, device)`` resolution order: explicit measured table
 (paper calibration) -> flops/effective-speed fallback.
 """

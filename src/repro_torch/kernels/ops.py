@@ -21,6 +21,14 @@ A shape with no launch on the card raises a ``KernelPlanError`` (a
 kernel launches of each wrapper, and ``SHAPE_LAUNCHES`` the same launches
 by call shape (the CPU and meta paths do not count), so a run can show
 that its work went through the kernels, and at which shapes.
+On the card and on meta tensors each wrapper also tells the callables
+in ``WORK_HOOKS`` of its work, which torch's dispatch cannot see inside
+a launch: its FLOPs, counted as the reference's einsum form of the
+function (the full S x T score product of attention), the bytes it
+reads and writes (each input once, each output once), and the bytes
+the call holds at its peak beyond what was live when it began (its
+outputs and workspace).  ``common.profiling`` counts a step that way;
+on the CPU the plain versions' own ops are counted instead.
 """
 
 from __future__ import annotations
@@ -93,6 +101,24 @@ SM_REGISTERS = H100_SXM.registers_sm
 MAX_GRID = H100_SXM.max_grid
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: callables ``hook(kernel name, flops, bytes moved, peak bytes)`` each
+#: wrapper calls on the card and on meta tensors (see the module
+#: docstring)
+WORK_HOOKS: list = []
+
+
+def _work(name, flops, inputs, out_bytes, scratch=0) -> None:
+    moved = sum(t.numel() * t.element_size() for t in inputs) + out_bytes
+    for hook in WORK_HOOKS:
+        hook(name, float(flops), moved, out_bytes + scratch)
+
+
+def _nbytes(shape, dtype) -> int:
+    n = dtype.itemsize
+    for d in shape:
+        n *= d
+    return n
 
 
 class KernelLaunchError(RuntimeError):
@@ -313,6 +339,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                                        softcap=softcap)
     _cuda_ready("flash_attention", {"q": q, "k": k, "v": v}, D)
     check_grid("flash_attention", flash_grid(B, S, H, D))
+    _work("flash_attention", 4 * B * H * S * T * D, (q, k, v),
+          _nbytes(q.shape, q.dtype))
     if dev.type == "meta":
         return torch.empty_like(q)
     _aligned("flash_attention", {"q": q, "k": k, "v": v})
@@ -349,6 +377,12 @@ def decode_splits(T, B, K, G, n_sm, window=0):
     live = min(T, window) if window and window > 0 else T
     return max(1, min(2 * n_sm // blocks, live // DECODE_MIN_KEYS,
                       DECODE_MAX_SPLITS))
+
+
+def _decode_ws_bytes(B, H, D, n_split) -> int:
+    """The split-KV decode kernels' float32 workspace: per (row, head,
+    split) the partial max, sum and D-wide accumulator."""
+    return 4 * B * H * n_split * (D + 2)
 
 
 def decode_grid(B, K, G, n_split) -> tuple[int, int, int]:
@@ -416,6 +450,8 @@ def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
     G = H // K
     n_split = decode_splits(T, B, K, G, sm_count(dev), window)
     check_grid("decode_attention", decode_grid(B, K, G, n_split))
+    _work("decode_attention", 4 * B * H * T * D, (q, k, v, lengths),
+          _nbytes(q.shape, q.dtype), _decode_ws_bytes(B, H, D, n_split))
     if dev.type == "meta":
         return torch.empty_like(q)
     _aligned("decode_attention", {"q": q, "k": k, "v": v})
@@ -423,9 +459,8 @@ def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
 
     lib = load("decode_attention")
     o = torch.empty_like(q)
-    # per (b, h, split): the partial max, sum and D-wide accumulator
-    ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
-                     device=dev)
+    ws = torch.empty(_decode_ws_bytes(B, H, D, n_split) // 4,
+                     dtype=torch.float32, device=dev)
     tickets = _ticket_counters(
         dev, B * K * -(-G // DECODE_HEADS_PER_BLOCK))
     err = lib.decode_attention_fwd(
@@ -478,6 +513,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     G = H // K
     n_split = decode_splits(n_max * ps, B, K, G, sm_count(dev), window)
     check_grid("paged_decode_attention", decode_grid(B, K, G, n_split))
+    _work("paged_decode_attention", 4 * B * H * n_max * ps * D,
+          (q, k_pages, v_pages, block_tables, lengths),
+          _nbytes(q.shape, q.dtype), _decode_ws_bytes(B, H, D, n_split))
     if dev.type == "meta":
         return torch.empty_like(q)
     _aligned("paged_decode_attention",
@@ -486,8 +524,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
 
     lib = load("decode_attention")
     o = torch.empty_like(q)
-    ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
-                     device=dev)
+    ws = torch.empty(_decode_ws_bytes(B, H, D, n_split) // 4,
+                     dtype=torch.float32, device=dev)
     tickets = _ticket_counters(
         dev, B * K * -(-G // DECODE_HEADS_PER_BLOCK))
     err = lib.paged_decode_attention_fwd(
@@ -616,6 +654,8 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
     _contiguous("ssd_intra_chunk", {"x": x, "Bm": Bm, "Cm": Cm, "dt": dt})
     plan = ssd_plan(L, P, N, H, B * nc, sm_count(dev))
     check_grid("ssd_intra_chunk", (plan.blocks, 1, 1))
+    _work("ssd_intra_chunk", 2 * B * nc * L * (L * N + L * H * P + H * N * P),
+          (x, Bm, Cm, dt, A_log), 4 * B * nc * H * (L * P + N * P + 1))
     y = torch.empty((B, nc, L, H, P), dtype=torch.float32, device=dev)
     s_loc = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
     lam = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
@@ -796,6 +836,8 @@ def slstm_scan(pre, R, *, state=None):
     _contiguous("slstm_scan", {"pre": pre})
     plan = slstm_plan(B, H, hd)
     check_grid("slstm_scan", slstm_grid(B, S, H, hd))
+    _work("slstm_scan", 8 * B * S * H * hd * hd, (pre, *gates, *(state or ())),
+          _nbytes((B, S, d), pre.dtype) + 16 * B * d)
     if dev.type == "meta":
         out = torch.empty((4, B, d), dtype=torch.float32, device=dev)
         return (torch.empty((B, S, d), dtype=pre.dtype, device=dev),

@@ -64,10 +64,36 @@ def attention_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int):
 
 
 def _proj(x, w):
-    """x (B,S,d) @ w (d, n, hd) -> (B,S,n,hd)."""
+    """x (B,S,d) @ w (d, n, hd) -> (B,S,n,hd).  Under a mesh it runs
+    per rank (``_proj_sharded``)."""
+    if sharding.is_dtensor(w):
+        return _proj_sharded(x, w)
     d, n, hd = w.shape
     return (x @ w.to(x.dtype).reshape(d, n * hd)).reshape(
         *x.shape[:-1], n, hd)
+
+
+def _proj_sharded(x, w):
+    """``_proj`` on each rank's local tensors, as GSPMD lays it out: x
+    keeps its batch and sequence sharding with the embed dim whole, the
+    weight is gathered over its embed (FSDP) axes and keeps its heads
+    sharding, so the output's heads are the weight's.  DTensor's own
+    matmul may instead shard a replicated weight's columns over any
+    mesh dim (a free local slice), and the view to (n, hd) then fails
+    where that dim's size does not divide n (four kv heads over a model
+    axis of 16), forward or backward."""
+    x, lead = sharding.lead_spec(x)
+    heads = sharding.unless_used(sharding.spec_of(w)[1], lead)
+    d, _, hd = w.shape
+
+    def f(xl, wl):
+        n = wl.shape[1]
+        return (xl @ wl.to(xl.dtype).reshape(d, n * hd)).reshape(
+            *xl.shape[:-1], n, hd)
+
+    return sharding.shard_map(f, w.device_mesh,
+                              ((*lead, None), (None, heads, None)),
+                              (*lead, heads, None))(x, w)
 
 
 def project_qkv(params, x, positions, cfg):
@@ -83,20 +109,50 @@ def project_qkv(params, x, positions, cfg):
 
 
 def output_proj(params, out, dtype):
-    """out (B,S,H,hd) @ wo (H,hd,d) -> (B,S,d)."""
+    """out (B,S,H,hd) @ wo (H,hd,d) -> (B,S,d).  Under a mesh it runs
+    per rank (``_output_proj_sharded``)."""
+    if sharding.is_dtensor(params["wo"]):
+        return _output_proj_sharded(out, params["wo"], dtype)
     H, hd, d = params["wo"].shape
     return out.reshape(*out.shape[:-2], H * hd).to(dtype) @ \
         params["wo"].to(dtype).reshape(H * hd, d)
 
 
+def _output_proj_sharded(out, wo, dtype):
+    """``output_proj`` on each rank's local tensors, as GSPMD lays it
+    out: ``out`` keeps its batch and sequence sharding, both it and
+    ``wo`` keep their heads sharding with ``wo`` gathered over its embed
+    (FSDP) axes, and an all_reduce over the heads axes sums the partial
+    products.  DTensor's own product computes the forward so, but its
+    backward gathered both operands' heads whole and ran the gradient
+    products at their global size on every rank of the model axis."""
+    out = sharding.settle(out)
+    lead = sharding.spec_of(out)[:-2] if sharding.is_dtensor(out) \
+        else (None,) * (out.ndim - 2)
+    heads = sharding.unless_used(sharding.spec_of(wo)[0], lead)
+    mesh = wo.device_mesh
+
+    def f(ol, wl):
+        h, hd, d = wl.shape
+        y = ol.reshape(*ol.shape[:-2], h * hd).to(dtype) @ \
+            wl.to(dtype).reshape(h * hd, d)
+        return sharding.all_reduce(y, mesh, heads)
+
+    return sharding.shard_map(f, mesh, ((*lead, heads, None),
+                                        (heads, None, None)),
+                              (*lead, None))(out, wo)
+
+
 def gqa_scores(q, k, v, *, q_positions, kv_positions, causal: bool = True,
                window: int = 0, softcap: float = 0.0, kv_valid=None,
-               scale: float | None = None):
+               scale: float | None = None, softmax_dtype=torch.float32):
     """Grouped-query attention core with plain tensor ops.
 
     q: (B, S, H, D); k, v: (B, T, K, D) with H = K * G; positions
     (B, S) / (B, T); ``kv_valid`` (B, T) bool masks cache slots.
-    Softmax in float32.
+    The masked softmax runs in ``softmax_dtype`` (float32 by default;
+    the reference's ``bf16sm`` dry-run variant asks for bfloat16, masked
+    at that dtype's most negative value).
     """
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -105,7 +161,7 @@ def gqa_scores(q, k, v, *, q_positions, kv_positions, causal: bool = True,
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    logits = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+    logits = torch.einsum("bshd,bthd->bhst", q, k).to(softmax_dtype) * scale
     if softcap and softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     qp = q_positions[:, :, None]                      # (B, S, 1)
@@ -117,25 +173,53 @@ def gqa_scores(q, k, v, *, q_positions, kv_positions, causal: bool = True,
         mask &= kp > qp - window
     if kv_valid is not None:
         mask &= kv_valid[:, None, :]
-    logits = torch.where(mask[:, None], logits,
-                         torch.full_like(logits, NEG_INF))
+    neg = NEG_INF if softmax_dtype == torch.float32 else \
+        torch.finfo(softmax_dtype).min
+    logits = torch.where(mask[:, None], logits, torch.full_like(logits, neg))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
 def _head_specs(q_shape, kv_shape, rules, mesh, batch="batch"):
     """The specs the attention core runs at: q (B, S, H, D) heads over
-    "heads", k/v (B, T, K, D) over "kv_heads", both replicated when the
-    two do not resolve to the same axes (the per-rank GQA grouping would
-    not hold)."""
+    "heads", k/v (B, T, K, D) over "kv_heads".  Where the kv heads do not
+    shard as the q heads do (four kv heads over a model axis of 16), k/v
+    keep their heads whole and each rank slices the groups its q heads
+    read, as the reference's k/v repeated to H heads shard with q's
+    (``_kv_slicer``); where no slice fits, or the batch rows differ,
+    both are replicated."""
     q_spec = sharding.spec_for(q_shape, (batch, None, "heads", None),
                                rules, mesh)
     kv_spec = sharding.spec_for(kv_shape, (batch, None, "kv_heads", None),
                                 rules, mesh)
-    if q_spec[2] != kv_spec[2] or q_spec[0] != kv_spec[0]:
-        q_spec = (q_spec[0], None, None, None)
+    if q_spec[0] != kv_spec[0]:
+        whole = (q_spec[0], None, None, None)
+        return whole, whole
+    if q_spec[2] != kv_spec[2]:
+        H, K = q_shape[2], kv_shape[2]
+        n = sharding.axis_size(mesh, q_spec[2]) if q_spec[2] else 1
+        h_loc, G = H // n, H // K
         kv_spec = (q_spec[0], None, None, None)
+        if not q_spec[2] or (h_loc % G and G % h_loc):
+            q_spec = kv_spec
     return q_spec, kv_spec
+
+
+def _kv_slicer(fn, q_spec, kv_spec, H, K, mesh):
+    """``fn`` with k/v cut to the kv heads of this rank's q heads, when q
+    shards its heads and k/v do not: H_loc q heads from h0 read kv heads
+    h0 // G on, H_loc // G of them (one when H_loc divides G)."""
+    if q_spec[2] is None or kv_spec[2] is not None:
+        return fn
+    G = H // K
+
+    def sliced(q_, k_, v_):
+        h_loc = q_.shape[2]
+        g0 = sharding.axis_index(mesh, q_spec[2]) * h_loc // G
+        sl = slice(g0, g0 + max(1, h_loc // G))
+        return fn(q_, k_[:, :, sl], v_[:, :, sl])
+
+    return sliced
 
 
 def attention_core(fn, q, k, v, *, mesh=None, rules=None):
@@ -145,6 +229,7 @@ def attention_core(fn, q, k, v, *, mesh=None, rules=None):
     if mesh is None:
         return fn(q, k, v)
     q_spec, kv_spec = _head_specs(q.shape, k.shape, rules, mesh)
+    fn = _kv_slicer(fn, q_spec, kv_spec, q.shape[2], k.shape[2], mesh)
     return sharding.shard_map(fn, mesh, (q_spec, kv_spec, kv_spec),
                               q_spec)(q, k, v)
 
@@ -152,7 +237,7 @@ def attention_core(fn, q, k, v, *, mesh=None, rules=None):
 def attention_apply(params, x, *, positions, cfg, local: bool = False,
                     causal: bool = True, cross_kv=None, cross_positions=None,
                     impl: str = "kernel", mesh=None, rules=None,
-                    constrain_kv=None):
+                    constrain_kv=None, softmax_dtype=torch.float32):
     """Self- (or cross-) attention over one segment (train or prefill).
     ``impl="kernel"`` runs the flash attention kernel, which assumes
     ``positions`` is the trivial arange; ``impl="xla"`` runs
@@ -164,7 +249,8 @@ def attention_apply(params, x, *, positions, cfg, local: bool = False,
     runs per rank (``attention_core``); ``constrain_kv`` is applied to
     the fresh k and v first (the reference's sequence-parallel pin).
     Returns (out, (k, v)) — the freshly projected k/v for cache
-    insertion, or the cross k/v."""
+    insertion, or the cross k/v.  ``softmax_dtype`` is ``gqa_scores``'s
+    (the kernel's softmax is float32)."""
     if impl not in ("kernel", "xla"):
         raise ValueError(f"attention_apply: unknown impl {impl!r}")
     if cross_kv is not None:
@@ -194,7 +280,8 @@ def attention_apply(params, x, *, positions, cfg, local: bool = False,
                 _arange(k_.shape[1], B, q_.device)
         return gqa_scores(q_, k_, v_, q_positions=qp, kv_positions=kp,
                           causal=causal, window=window,
-                          softcap=cfg.attn_logit_softcap)
+                          softcap=cfg.attn_logit_softcap,
+                          softmax_dtype=softmax_dtype)
 
     out = attention_core(fn, q, k, v, mesh=mesh, rules=rules)
     return output_proj(params, out, x.dtype), (k, v)
@@ -213,23 +300,28 @@ def decode_attend(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
                   mesh=None, rules=None):
     """q (B, 1, H, D) against a dense cache (B, T, K, D) up to
     ``lengths`` (B,) valid keys, through the decode kernel.  Under a mesh
-    the kernel runs per rank on its cache rows with the whole sequence
-    and every head (q and the cache gathered over the rest, as GSPMD
-    gathers the reference's seq-sharded cache on this path)."""
+    the kernel runs per rank on its cache rows and its heads
+    (``_head_specs``) with the whole sequence (the cache gathered over
+    the rest, as GSPMD gathers the reference's seq-sharded cache on this
+    path).  A cache narrower than q (bfloat16, the reference's serving
+    dtype) is widened to q's dtype first, as the reference widens it to
+    the activations'."""
     def fn(q_, k_, v_, len_):
         return kops.decode_attention(
-            q_[:, 0].contiguous(), k_.contiguous(), v_.contiguous(),
-            len_.to(torch.int32), window=window, softcap=softcap)[:, None]
+            q_[:, 0].contiguous(), k_.to(q_.dtype).contiguous(),
+            v_.to(q_.dtype).contiguous(), len_.to(torch.int32),
+            window=window, softcap=softcap)[:, None]
 
     if mesh is None:
         return fn(q, k_cache, v_cache, lengths)
-    spec_q = sharding.spec_for(q.shape, ("cache_batch", None, None, None),
-                               rules, mesh)
-    spec_c = sharding.spec_for(k_cache.shape,
-                               ("cache_batch", None, None, None), rules, mesh)
+    spec_q, spec_c = _head_specs(q.shape, k_cache.shape, rules, mesh,
+                                 batch="cache_batch")
     spec_l = sharding.spec_for(lengths.shape, ("cache_batch",), rules, mesh)
-    return sharding.shard_map(fn, mesh, (spec_q, spec_c, spec_c, spec_l),
-                              spec_q)(q, k_cache, v_cache, lengths)
+    sliced = _kv_slicer(lambda q_, k_, v_: (q_, k_, v_), spec_q, spec_c,
+                        q.shape[2], k_cache.shape[2], mesh)
+    return sharding.shard_map(lambda q_, k_, v_, len_: fn(
+        *sliced(q_, k_, v_), len_), mesh, (spec_q, spec_c, spec_c, spec_l),
+        spec_q)(q, k_cache, v_cache, lengths)
 
 
 def cross_attention_decode(params, x, k, v, cfg, positions=None, *,
@@ -297,7 +389,8 @@ def decode_attention_shardmap(q, k_cache, v_cache, lengths, *, mesh, rules,
         p = torch.exp(logits - safe_m[..., None])
         p = torch.where(vmask, p, torch.zeros_like(p))
         s = sharding.all_reduce(p.sum(dim=-1), mesh, seq_axes)     # (B,H,1)
-        o = torch.einsum("bhst,bthd->bshd", p.to(q_l.dtype), v_rep)
+        o = torch.einsum("bhst,bthd->bshd", p.to(q_l.dtype),
+                         v_rep.to(q_l.dtype))
         o = sharding.all_reduce(o.float(), mesh, seq_axes)
         out = o / s.clamp_min(1e-30).transpose(1, 2)[..., None]
         return out.to(q_l.dtype)

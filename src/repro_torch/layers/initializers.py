@@ -1,7 +1,9 @@
 """Declarative weight specs.
 
 A layer declares its weights once as a tree of ``WSpec``; the same tree
-drives initialization (``init_tree``) and the parameter count.  The
+drives initialization (``init_tree``), abstract evaluation
+(``abstract_tree``: meta tensors for the dry run) and the parameter
+count and bytes.  The
 port keeps the JAX package's shapes and nesting, so a tree built here
 and one bridged from the reference (``common.bridge``) are
 interchangeable.  ``init_tree`` draws from a seeded ``torch.Generator``:
@@ -84,3 +86,51 @@ def stack_specs(spec_tree, n: int):
 def spec_param_count(spec_tree) -> int:
     return sum(int(np.prod(ws.shape)) for ws in tree_leaves(spec_tree)
                if isinstance(ws, WSpec))
+
+
+def spec_param_bytes(spec_tree, param_dtype=torch.bfloat16) -> int:
+    """Bytes of the spec tree's leaves, each in its own dtype or
+    ``param_dtype``."""
+    return sum(int(np.prod(ws.shape)) * (ws.dtype or param_dtype).itemsize
+               for ws in tree_leaves(spec_tree) if isinstance(ws, WSpec))
+
+
+def _local_shape(shape, mesh, placements) -> tuple[int, ...]:
+    """This rank's shape of a tensor of ``shape`` placed by
+    ``placements``: torch's chunking of each sharded dim (a dim sharded
+    over several mesh dims is chunked by each in mesh order)."""
+    local = list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            n, d = mesh.size(i), p.dim % len(shape)
+            chunk = -(-local[d] // n)
+            local[d] = max(0, min(chunk, local[d] - coord[i] * chunk))
+    return tuple(local)
+
+
+def abstract_tree(spec_tree, param_dtype=torch.float32, placements=None,
+                  mesh=None):
+    """The spec tree as tensors on the ``meta`` device, which hold no
+    memory: each leaf in its own dtype or ``param_dtype``.  With
+    ``placements`` (a tree of DTensor placements, as
+    ``common.sharding.tree_placements`` gives) and ``mesh``, each leaf is
+    a DTensor of the spec's global shape whose local tensor has the shape
+    ``shard_tree`` would give this rank.  The dry run's counterpart of
+    the reference's ``ShapeDtypeStruct`` trees."""
+    def one(ws, pl=None):
+        dt = ws.dtype or param_dtype
+        if pl is None:
+            return torch.empty(ws.shape, dtype=dt, device="meta")
+        from torch.distributed.tensor import DTensor
+
+        loc = torch.empty(_local_shape(ws.shape, mesh, pl), dtype=dt,
+                          device="meta")
+        return DTensor.from_local(loc, mesh, pl, run_check=False,
+                                  shape=torch.Size(ws.shape),
+                                  stride=torch.empty(ws.shape,
+                                                     device="meta").stride())
+
+    if placements is None:
+        return _map_specs(one, spec_tree)
+    return tree_map(one, spec_tree, placements)

@@ -15,7 +15,8 @@ reference's options that shape the loss: ``attn_impl`` ("xla", the
 default, differentiates through plain torch; "kernel" runs the
 hand-written kernels, which have no backward, so only under
 ``torch.no_grad()`` on the card), ``remat`` ("full" by default; "none",
-"dots": ``layers.remat``) and ``z_loss``.  Serving runs the kernels
+"dots": ``layers.remat``), ``z_loss`` and ``softmax_dtype`` (the plain
+attention's softmax, float32 by default).  Serving runs the kernels
 whatever they say.  The port computes in float32, the dtype the JAX
 package is held to (``build_model(..., compute_dtype=jnp.float32)``);
 ``compute_dtype`` and the paged serving knobs are accepted and not
@@ -56,7 +57,7 @@ from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mla as mla_lib
 from repro_torch.layers.embedding import embed_apply, embed_specs, head_apply, head_specs
 from repro_torch.layers.initializers import (
-    WSpec, init_leaf, init_tree, spec_param_count, stack_specs,
+    WSpec, abstract_tree, init_leaf, init_tree, spec_param_count, stack_specs,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_specs
 from repro_torch.layers.moe import padded_experts
@@ -82,6 +83,7 @@ class ModelBundle:
     paged_cache_specs: Callable | None = None   # (n_pages, page_size, dtype)
     mesh: Any = None                 # a DeviceMesh: the sharded model
     rules: Any = None                # the merged logical-axis rules
+    batch_specs: Callable | None = None  # (ShapeConfig) -> WSpec tree
 
     # ``device=None`` is the card (``common.device.resolve_device``):
     # with no CUDA device these raise unless the caller names "cpu".
@@ -98,6 +100,20 @@ class ModelBundle:
         pl = sharding.tree_placements(specs, self.rules, self.mesh)
         return tree_map(lambda ws, p: sharding.shard_leaf(
             init_leaf(ws, generator, dtype, dev), self.mesh, p), specs, pl)
+
+    def abstract_params(self, param_dtype=torch.bfloat16):
+        """The weights as ``meta`` tensors (``abstract``)."""
+        return self.abstract(self.specs, param_dtype)
+
+    def abstract(self, specs, dtype):
+        """Any spec tree of this model (weights, cache, batch, optimizer
+        state) as ``meta`` tensors (``layers.initializers.abstract_tree``):
+        under a mesh, DTensors placed by the rules, with this rank's local
+        shapes."""
+        if self.mesh is None:
+            return abstract_tree(specs, dtype)
+        return abstract_tree(specs, dtype, sharding.tree_placements(
+            specs, self.rules, self.mesh), self.mesh)
 
     def param_count(self) -> int:
         return spec_param_count(self.specs)
@@ -175,6 +191,40 @@ def _lm_specs(cfg, stages):
     return sp
 
 
+#: the dtype of a batch's float inputs (image embeddings, audio frames)
+#: in ``batch_specs``: the reference's default compute dtype, so a dry
+#: run's batch holds the reference's bytes (the port computes in float32)
+BATCH_FLOAT = torch.bfloat16
+
+
+def lm_batch_specs(cfg, shape):
+    """The reference's batch WSpec tree for a ``ShapeConfig``: train
+    (tokens, targets, mask), prefill (tokens, lengths) or decode (one
+    token a row, lengths); a VLM's text is shorter by its image tokens,
+    whose embeddings come first."""
+    B, S = shape.global_batch, shape.seq_len
+    text, extra = S, {}
+    if cfg.has_vision_stub:
+        text = S - cfg.n_image_tokens
+        extra["image_embeds"] = WSpec((B, cfg.n_image_tokens, cfg.d_model),
+                                      ("batch", None, None), dtype=BATCH_FLOAT)
+    return _token_batch(shape, B, text, extra)
+
+
+def _token_batch(shape, B, S, extra):
+    i32 = torch.int32
+    if shape.kind == "train":
+        return {"tokens": WSpec((B, S), ("batch", "seq"), dtype=i32),
+                "targets": WSpec((B, S), ("batch", "seq"), dtype=i32),
+                "mask": WSpec((B, S), ("batch", "seq"), dtype=torch.float32),
+                **extra}
+    if shape.kind == "prefill":
+        return {"tokens": WSpec((B, S), ("batch", "seq"), dtype=i32),
+                "lengths": WSpec((B,), ("batch",), dtype=i32), **extra}
+    return {"tokens": WSpec((B, 1), ("batch", None), dtype=i32),
+            "lengths": WSpec((B,), ("batch",), dtype=i32)}
+
+
 def _embed_scale(cfg) -> float:
     return math.sqrt(cfg.d_model) if cfg.embed_scale_by_dim else 1.0
 
@@ -223,12 +273,59 @@ def _run_backbone(stages, params, h, ctx, caches):
     return h, aux
 
 
+def last_rows(h, lengths):
+    """(B, 1, d): each row's hidden state at its last valid position,
+    ``lengths - 1`` (clamped into the sequence).  Under a mesh on each
+    rank's own rows: DTensor's index over a batch sharded on two mesh
+    dims (pod and data) is a strategy torch 2.11 does not have."""
+    def pick(hl, ln):
+        last = (ln.long() - 1).clamp(0, hl.shape[1] - 1)
+        return hl[torch.arange(hl.shape[0], device=hl.device), last][:, None]
+
+    if not sharding.is_dtensor(h):
+        return pick(h, lengths)
+    h = sharding.settle(h)
+    rows, _, emb = sharding.spec_of(h)
+    return sharding.shard_map(pick, h.device_mesh,
+                              ((rows, None, emb), (rows,)),
+                              (rows, None, emb))(h, lengths)
+
+
+def _lse_and_target(logits, targets):
+    """(log-partition, target logit) over the last dim.  DTensor logits
+    are reduced on each rank's local tensors: over a sharded vocabulary
+    all_reduces combine the slices' max (held constant, as the gradient
+    does not depend on it), sum of exponentials and target logit, a
+    masked sum.  DTensor's own gather is a ``_MaskPartial``, which has
+    no backward from a partial sum, and its backward over a whole
+    vocabulary scatters into a zero tensor of the *global* logits'
+    shape on every rank."""
+    if not sharding.is_dtensor(logits):
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(-1, targets.long()[..., None])[..., 0])
+    logits = sharding.settle(logits)
+    spec = sharding.spec_of(logits)
+    mesh, vocab = logits.device_mesh, spec[-1]
+
+    def f(lg, t):
+        n = lg.shape[-1]
+        m = sharding.all_reduce(lg.detach().amax(-1), mesh, vocab, "max")
+        s = sharding.all_reduce((lg - m[..., None]).exp().sum(-1), mesh,
+                                vocab)
+        rel = t.long() - sharding.axis_index(mesh, vocab) * n
+        hit = (rel >= 0) & (rel < n)
+        tgt = lg.gather(-1, rel.clamp(0, n - 1)[..., None])[..., 0]
+        return m + s.log(), sharding.all_reduce(tgt * hit, mesh, vocab)
+
+    rows = spec[:-1]
+    return sharding.shard_map(f, mesh, (spec, rows), [rows, rows])(
+        logits, targets)
+
+
 def cross_entropy(logits, targets, mask, z_loss=0.0):
     """Masked mean token cross entropy in float32, plus ``z_loss`` times
     the masked mean squared log-partition."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    lse, tgt = _lse_and_target(logits.float(), targets)
     mask = mask.float()
     denom = mask.sum().clamp_min(1.0)
     loss = ((lse - tgt) * mask).sum() / denom
@@ -304,8 +401,17 @@ def _make_ctx(mesh, rules, mode, positions, lengths, opts):
         "cache_update": opts.get("cache_update", "scatter"),
         "decode_attn": opts.get("decode_attn", "default"),
         "attn_sp": opts.get("attn_sp", False),
+        "softmax_dtype": softmax_dtype(opts),
         "constrain": _constrainer(mesh, rules),
     }
+
+
+def softmax_dtype(opts) -> torch.dtype:
+    """The ``softmax_dtype`` option (a torch dtype or its name, as the
+    dry run's ``bf16sm`` variant passes "bfloat16"): the dtype of the
+    plain-torch attention's masked softmax, float32 by default."""
+    dt = opts.get("softmax_dtype", torch.float32)
+    return getattr(torch, dt) if isinstance(dt, str) else dt
 
 
 def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
@@ -363,9 +469,7 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
             h, _ = _run_backbone(stages, params, ctx["constrain"](h), ctx,
                                  cache)
             h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-            last = (lengths.long() - 1).clamp(0, S - 1)
-            h_last = h[torch.arange(B, device=h.device), last][:, None, :]
-            return _logits(cfg, params, h_last)[:, 0], cache
+            return _logits(cfg, params, last_rows(h, lengths))[:, 0], cache
 
     def _decode(params, tokens, cache, lengths, **extra):
         with scope():
@@ -414,4 +518,4 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
         decode_step=decode_step, cache_specs=cache_specs,
         paged_decode_step=paged_decode_step if paged_supported else None,
         paged_cache_specs=paged_cache_specs if paged_supported else None,
-        mesh=mesh, rules=rules)
+        mesh=mesh, rules=rules, batch_specs=partial(lm_batch_specs, cfg))

@@ -170,7 +170,8 @@ def _encode(cfg, params, frames, impl="kernel", remat="none", mesh=None,
 
 def build_encdec(cfg, mesh=None, rules=None, **opts):
     from repro_torch.models.api import (
-        ModelBundle, _constrainer, cross_entropy, train_options,
+        BATCH_FLOAT, ModelBundle, _constrainer, _token_batch, cross_entropy,
+        last_rows, train_options,
     )
 
     # z_loss is not read: the reference's encoder-decoder loss is the
@@ -242,9 +243,7 @@ def build_encdec(cfg, mesh=None, rules=None, **opts):
             h = _run_decoder(params, h, _ctx("prefill", positions, lengths),
                              cache, enc_out, enc_pos)
             h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-            last = (lengths.long() - 1).clamp(0, S - 1)
-            h_last = h[torch.arange(B, device=h.device), last][:, None, :]
-            return _head(params, h_last)[:, 0], cache
+            return _head(params, last_rows(h, lengths))[:, 0], cache
 
     def decode_step(params, tokens, cache, lengths):
         with scope():
@@ -270,6 +269,15 @@ def build_encdec(cfg, mesh=None, rules=None, **opts):
 
         return {"self": kv(T), "cross": kv(cfg.encoder_seq)}
 
+    def batch_specs(shape):
+        """The reference's: the decoder's tokens and the encoder's audio
+        frames (none at decode, which reads the cached cross k/v)."""
+        B, S = shape.global_batch, shape.seq_len
+        frames = {} if shape.kind == "decode" else {"audio_frames": WSpec(
+            (B, cfg.encoder_seq, cfg.d_model), ("batch", None, None),
+            dtype=BATCH_FLOAT)}
+        return _token_batch(shape, B, S, frames)
+
     return ModelBundle(cfg=cfg, specs=specs, loss_fn=loss_fn, prefill=prefill,
                        decode_step=decode_step, cache_specs=cache_specs,
-                       mesh=mesh, rules=rules)
+                       mesh=mesh, rules=rules, batch_specs=batch_specs)

@@ -136,7 +136,8 @@ def _apply_attn_sub(p, h, cache, ctx, cfg, *, local: bool, post_norm: bool):
                                     cfg=cfg, local=local,
                                     impl=ctx["attn_impl"], mesh=mesh,
                                     rules=rules,
-                                    constrain_kv=_constrain_kv_fn(ctx))
+                                    constrain_kv=_constrain_kv_fn(ctx),
+                                    softmax_dtype=ctx["softmax_dtype"])
     elif ctx["mode"] == "prefill":
         y, (k, v) = attn.attention_apply(p["attn"], x,
                                          positions=ctx["positions"], cfg=cfg,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.common.config import TrainConfig
 from repro_torch.common.pytree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.training.optimizer import adamw_update
@@ -33,7 +34,9 @@ def loss_and_grads(bundle, params, batch):
     read)."""
     leaves = [p.detach().requires_grad_(p.is_floating_point())
               for p in tree_leaves(params)]
-    with torch.enable_grad():
+    # the backward meets the plain tensors the forward saved (masks,
+    # positions) as the forward did: replicated under the bundle's mesh
+    with torch.enable_grad(), sharding.mesh_scope(bundle.mesh):
         loss, metrics = bundle.loss_fn(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
@@ -51,8 +54,8 @@ def microbatch_grads(bundle, params, batch, k: int):
     if b % k:
         raise ValueError(f"batch of {b} rows does not split into {k} "
                          "microbatches")
-    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                           device=p.device), params)
+    # zeros laid out as each leaf is (a DTensor leaf's accumulator too)
+    grads = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
     loss = 0.0
     for i in range(k):
         mb = {n: x[i * (b // k):(i + 1) * (b // k)] for n, x in batch.items()}

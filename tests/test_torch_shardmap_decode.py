@@ -6,7 +6,9 @@ the JAX package's on the same inputs: float32 rtol = atol = 2e-4 for
 the attention, exact for the caches, at meshes (1, 1) in this process
 and (1, 2), (2, 2), (1, 4) on gloo ranks.  Geometries: GQA (G = 2),
 G = 1, a window, a logit softcap, and rows with no live key in some
-ranks' tiles (lengths 0 and 1 over a cache of 16 cut in four).
+ranks' tiles (lengths 0 and 1 over a cache of 16 cut in four).  A
+bfloat16 cache (the dry run's serving dtype) under a float32 q: both
+decode paths against the reference, which widens the cache to q's dtype.
 """
 
 import jax
@@ -22,6 +24,7 @@ from repro.common.sharding import merge_rules as ref_merge_rules
 from repro.layers.attention import cache_insert as ref_cache_insert
 from repro.layers.attention import (
     decode_attention_shardmap as ref_decode_attention_shardmap)
+from repro.layers.attention import gqa_scores as ref_gqa_scores
 from repro_torch.common import sharding
 from repro_torch.kernels import ref as kref
 from repro_torch.layers import attention as attn
@@ -77,6 +80,50 @@ def test_shardmap_decode_is_the_decode_kernels_function(world1, name):
                                      t["lengths"] + 1,
                                      window=g.get("window", 0))
     torch.testing.assert_close(got.full_tensor()[:, 0], want, **TOL)
+
+
+def _ref_dense_decode(q, k, v, lengths, window=0, softcap=0.0):
+    """The reference's dense decode attention (``models/lm.py``): the
+    cache widened to q's dtype, keys below lengths + 1 valid."""
+    jnp = jax.numpy
+    B, T = k.shape[:2]
+    kv_pos = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32), (B, T))
+    return ref_gqa_scores(
+        q, k.astype(q.dtype), v.astype(q.dtype), q_positions=lengths[:, None],
+        kv_positions=kv_pos, causal=True, window=window, softcap=softcap,
+        kv_valid=kv_pos < (lengths + 1)[:, None])
+
+
+@pytest.mark.parametrize("path", ["dense", "dense-mesh", "shardmap"])
+@pytest.mark.parametrize("name", ["gqa", "softcap-empty-tiles"])
+def test_bfloat16_cache_decode_matches_reference(world1, path, name):
+    """A bfloat16 cache under a float32 q: the port computes from the
+    same bfloat16 values widened to float32, as the reference does, so
+    it keeps float32's tolerance (q rounded to bfloat16 would not)."""
+    g = GEOMS[name]
+    inp = _inputs(g)
+    jnp = jax.numpy
+    kw = dict(window=g.get("window", 0), softcap=g.get("softcap", 0.0))
+    q, ln = jnp.asarray(inp["q"]), jnp.asarray(inp["lengths"])
+    k, v = (jnp.asarray(inp[n], jnp.bfloat16) for n in ("k", "v"))
+    tq, tln = torch.from_numpy(inp["q"]), torch.from_numpy(inp["lengths"])
+    tk, tv = (torch.from_numpy(inp[n]).to(torch.bfloat16)
+              for n in ("k", "v"))
+    rules = sharding.merge_rules()
+    if path == "shardmap":
+        want = ref_decode_attention_shardmap(
+            q, k, v, ln, mesh=ref_local_mesh((1, 1)),
+            rules=ref_merge_rules(None), **kw)
+        got = attn.decode_attention_shardmap(tq, tk, tv, tln, mesh=world1,
+                                             rules=rules, **kw)
+    else:
+        want = _ref_dense_decode(q, k, v, ln, **kw)
+        mesh = world1 if path == "dense-mesh" else None
+        got = attn.decode_attend(tq, tk, tv, tln + 1, mesh=mesh,
+                                 rules=rules, **kw)
+    got = got.full_tensor() if sharding.is_dtensor(got) else got
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("mode", ["scatter", "blend", "shard"])

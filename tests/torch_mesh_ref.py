@@ -4,12 +4,14 @@
         python tests/torch_mesh_ref.py <kind> <cases.json> <out.npz>
 
 Run as a child process by ``tests/test_torch_{moe_ep,shardmap_decode,
-sharded_model}.py``, which set ``XLA_FLAGS`` for the child only (the
-test process keeps the one CPU device).  ``kind`` is "model", "moe" or
-"decode"; each case of the JSON list names its mesh shape and inputs,
+sharded_model,sharded_loss}.py``, which set ``XLA_FLAGS`` for the child
+only (the test process keeps the one CPU device).  ``kind`` is "model",
+"moe", "decode", "loss" or "dryrun"; each case of the JSON list names its mesh
+shape and inputs,
 and every output is stored in the npz under ``<case index>/<name>``.
 The inputs are rebuilt here from the same seeds the tests use
-(``model_tokens``, ``moe_x``, ``decode_inputs``; the weights from
+(``model_tokens``, ``loss_batch``, ``moe_x``, ``decode_inputs``; the
+weights from
 PRNGKey(0)), so only the case descriptions cross over.
 """
 
@@ -43,6 +45,21 @@ def model_cfg(arch):
 def model_tokens(cfg, B=2, S=5, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def loss_batch(cfg, B=4, S=8, seed=2):
+    """A training batch: tokens, next-token targets and a mask with a
+    few zeros (every row keeps most of its positions); an
+    encoder-decoder's audio frames too."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    mask = (rng.random((B, S)) > 0.2).astype(np.float32)
+    mask[:, 0] = 1.0
+    batch = {"tokens": ids[:, :-1], "targets": ids[:, 1:], "mask": mask}
+    if cfg.is_encoder_decoder:
+        batch["audio_frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def model_params(arch):
@@ -147,6 +164,85 @@ def run_model(case):
     return out
 
 
+def run_loss(case):
+    """The sharded model's training loss on ``loss_batch``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.common.sharding import merge_rules, tree_shardings
+    from repro.models.api import build_model
+
+    mesh = _mesh(case["mesh"])
+    cfg = model_cfg(case["arch"])
+    rules = merge_rules(case.get("rules"))
+    bundle = build_model(cfg, mesh=mesh, rules=rules,
+                         compute_dtype=jnp.float32)
+    params = jax.device_put(model_params(case["arch"]),
+                            tree_shardings(bundle.specs, rules, mesh))
+    batch = {k: jnp.asarray(v) for k, v in loss_batch(cfg).items()}
+    with mesh:
+        loss, _ = jax.jit(bundle.loss_fn)(params, batch)
+    return {"loss": np.asarray(loss)}
+
+
+def run_dryrun(case):
+    """The reference dry run's per-device figures for one small cell:
+    the smoke config lowered and compiled for ``case["mesh"]`` (axes
+    ("data", "model"), or ("pod", "data", "model") for three dims) as
+    ``repro.launch.dryrun.run_cell`` lowers a production cell, with the
+    mesh built by ``jax.sharding.Mesh``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro.common.config import ShapeConfig, TrainConfig
+    from repro.common.hlo_cost import analyze
+    from repro.common.profiling import memory_summary
+    from repro.common.sharding import merge_rules, tree_shardings
+    from repro.launch.dryrun import _sharding_profile
+    from repro.layers.initializers import abstract_tree
+    from repro.models.api import build_model
+    from repro.training.optimizer import state_specs
+    from repro.training.train_step import make_train_step
+
+    shape_ = tuple(case["mesh"])
+    axes = ("pod", "data", "model")[-len(shape_):]
+    devs = jax.devices()[:int(np.prod(shape_))]
+    mesh = Mesh(np.asarray(devs).reshape(shape_), axes)
+    cfg = model_cfg(case["arch"])
+    shape = ShapeConfig(*case["shape"])
+    rules = merge_rules(_sharding_profile(cfg, shape, "baseline"))
+    bundle = build_model(cfg, mesh=mesh, rules=rules)
+
+    def sds(specs, dtype):
+        return abstract_tree(specs, dtype, tree_shardings(specs, rules, mesh))
+
+    with mesh:
+        bspecs = bundle.batch_specs(shape)
+        batch = sds(bspecs, jnp.bfloat16)
+        if shape.kind == "train":
+            tcfg = TrainConfig(moment_dtype="float32", remat="full")
+            state = sds(state_specs(bundle.specs, tcfg), jnp.float32)
+            lowered = jax.jit(make_train_step(bundle, tcfg),
+                              donate_argnums=(0,)).lower(state, batch)
+        else:
+            params = sds(bundle.specs, jnp.bfloat16)
+            cache = sds(bundle.cache_specs(shape.global_batch, shape.seq_len,
+                                           jnp.bfloat16), jnp.bfloat16)
+            if shape.kind == "prefill":
+                lowered = jax.jit(bundle.prefill).lower(params, batch, cache)
+            else:
+                lowered = jax.jit(bundle.decode_step,
+                                  donate_argnums=(2,)).lower(
+                    params, batch["tokens"], cache, batch["lengths"])
+        compiled = lowered.compile()
+    rep = analyze(compiled.as_text())
+    mem = memory_summary(compiled)
+    return {"argument": np.asarray(mem["argument_size_in_bytes"]),
+            "flops": np.asarray(rep.flops),
+            "collective_bytes": np.asarray(rep.collective_bytes)}
+
+
 def run_moe(case):
     import jax
 
@@ -185,9 +281,10 @@ def run_decode(case):
     return res
 
 
-def start(kind, cases, tmp_path):
-    """Start this script in a child process over ``cases`` with four CPU
-    devices; returns (the process, the npz path it writes)."""
+def start(kind, cases, tmp_path, devices=4):
+    """Start this script in a child process over ``cases`` with
+    ``devices`` CPU devices; returns (the process, the npz path it
+    writes)."""
     import os
     import pathlib
     import subprocess
@@ -197,7 +294,7 @@ def start(kind, cases, tmp_path):
     out = tmp_path / f"{kind}_ref.npz"
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}",
                JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [src, os.environ.get("PYTHONPATH", "")]))
@@ -226,7 +323,8 @@ def finish(proc, out, timeout=400):
 
 def main(kind, cases_path, out_path):
     cases = json.loads(open(cases_path).read())
-    run = {"model": run_model, "moe": run_moe, "decode": run_decode}[kind]
+    run = {"model": run_model, "moe": run_moe, "decode": run_decode,
+           "loss": run_loss, "dryrun": run_dryrun}[kind]
     out = {}
     for i, case in enumerate(cases):
         for name, arr in run(case).items():

@@ -131,6 +131,91 @@ def model_worker(rank, shape, cases, params, out):
     _save(rank, out, res)
 
 
+def loss_worker(rank, shape, cases, params, out):
+    """Each case's training loss on ``loss_batch`` and (``grads``) every
+    gradient leaf, gathered, on the mesh ``shape``; ``cfg`` overrides
+    the smoke config and ``opts`` are build options."""
+    import torch
+
+    from repro_torch.common.bridge import params_from_numpy
+    from repro_torch.common.config import get_config
+    from repro_torch.common.sharding import shard_tree
+    from repro_torch.models.api import build_model
+    from repro_torch.training.train_step import loss_and_grads
+
+    mesh = _mesh(shape)
+    res = {}
+    for i, case in cases:
+        cfg = get_config(case["arch"], smoke=True).with_overrides(
+            **case.get("cfg", {}))
+        b = build_model(cfg, mesh=mesh, rules=case.get("rules"),
+                        **case.get("opts", {}))
+        p = shard_tree(params_from_numpy(params[case["arch"]], "cpu"),
+                       b.specs, b.rules, mesh)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in mref.loss_batch(cfg).items()}
+        loss, _, grads = loss_and_grads(b, p, batch)
+        res[f"{i}/loss"] = loss.full_tensor().numpy()
+        if case.get("grads"):
+            for path, g in mref.leaf_paths(grads):
+                res[f"{i}/grad/{path}"] = g.full_tensor().numpy()
+    _save(rank, out, res)
+
+
+def dryrun_worker(rank, shape, cells, out):
+    """Each dry-run cell's step on real tensors on the mesh ``shape``,
+    counted by ``common.profiling`` as ``launch.dryrun`` counts it on
+    meta tensors: the weights drawn at the dry run's dtypes (float32
+    train state, bfloat16 serving weights and cache), random tokens, a
+    prefill of the whole sequence and a decode at half of it.  Writes
+    each cell's FLOPs, collectives by kind and argument bytes as JSON
+    from rank 0."""
+    import json
+
+    import torch
+
+    from repro_torch.common.config import ShapeConfig, get_config
+    from repro_torch.common.sharding import merge_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model
+    from repro_torch.training.optimizer import init_state
+
+    mesh = _mesh(shape)
+    res = {}
+    for i, cell in cells:
+        variant = cell.get("variant", "baseline")
+        cfg = get_config(cell["arch"], smoke=True)
+        shp = ShapeConfig(*cell["shape"])
+        v = dryrun.VARIANTS[variant]
+        b = build_model(cfg, mesh=mesh, rules=merge_rules(
+            dryrun._sharding_profile(cfg, shp, variant)), **v.get("opts", {}))
+        gen = torch.Generator().manual_seed(i)
+        B, S = shp.global_batch, shp.seq_len
+        tok = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32)
+        tcfg = None
+        if shp.kind == "train":
+            tcfg = dryrun.train_config(b.param_count(), v)
+            inputs = {"state": init_state(b.init(gen, device="cpu"), tcfg),
+                      "batch": {"tokens": tok, "targets": tok.roll(-1, 1),
+                                "mask": torch.ones(B, S)}}
+        else:
+            bf16 = torch.bfloat16
+            lengths = torch.full((B,), S if shp.kind == "prefill" else S // 2,
+                                 dtype=torch.int32)
+            inputs = {"params": b.init(gen, bf16, device="cpu"),
+                      "cache": b.init_cache(B, S, bf16, device="cpu"),
+                      "batch": {"tokens": tok if shp.kind == "prefill"
+                                else tok[:, :1].clone(), "lengths": lengths}}
+        _, rep = dryrun.measure_step(b, shp, inputs, tcfg)
+        res[str(i)] = {"flops": rep.flops, "count_by_op": rep.count_by_op,
+                       "bytes_by_op": rep.bytes_by_op,
+                       "argument": rep.memory["argument_size_in_bytes"]}
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(res, fh)
+
+
 def moe_worker(rank, shape, cases, cfgs, params, out):
     """``moe_apply_ep`` over each case on the mesh ``shape`` (``cfgs`` and
     ``params`` by the case's config kind)."""
