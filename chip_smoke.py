@@ -27,10 +27,12 @@ Phases (any failure exits non-zero; nothing is caught):
    in one batch, G = 1 and 7, B = 4, softcap; for the paged kernel also
    ps - 1, ps, ps + 1 and the full span, at D = 16, 64 and 112); the
    Mamba2 SSD intra-chunk kernel at zamba2-7b's three prefill shapes (one
-   chunk of 126, two and three of 128) and the smoke shape, and the
-   sLSTM kernels at xlstm-1.3b's (S = 383 and 1000, two rows of two
-   steps, one decode step) and the smoke shape (fresh and random state;
-   R as four gate tensors against R stacked); then
+   chunk of 126, two and three of 128), phase 14's rank (two chunks on
+   56 of the 112 heads) and the smoke shape, and the sLSTM kernels at
+   xlstm-1.3b's (S = 383 and 1000, two rows of two steps, one decode
+   step), phase 14's rank (2 of the 4 heads: S = 200 and a decode step)
+   and the smoke shape (fresh and random state; R as four gate tensors
+   against R stacked); then
    time each kernel (CUDA events over back-to-back calls; its own
    device time under ``torch.profiler``; the wrapper's host enqueue
    time), its plain version and, where one PyTorch call computes the
@@ -81,10 +83,11 @@ Phases (any failure exits non-zero; nothing is caught):
    times the attention kernels at these phases' shapes (D = 16 towers,
    G = 8, S = T = 1500, the cross-attention prefill, T = 1500 cross
    decode, the paged G = 8 tick).
-8. gemma2-9b (42 layers, local layers windowed to 4,096 keys, softcaps
-   50 and 30, head dim 256), llama3-8b (32 layers, head dim 128) and
-   granite-moe-3b-a800m (32 layers, 40 experts padded to 48, top-8, G =
-   3) at their published widths and depths, one after the other
+8. gemma2-9b (local layers windowed to 4,096 keys, softcaps 50 and 30,
+   head dim 256), llama3-8b (head dim 128) and granite-moe-3b-a800m (40
+   experts padded to 48, top-8, G = 3) at their published widths, depth
+   cut to 8 layers each (of 42, 32 and 32; phase 14 carries the
+   script's full-depth time), one after the other
    (random float32 weights from a seed; each freed before the next, its
    peak device memory printed), through ``launch.serve.serve_arch``:
    4 greedy requests of 4-12 prompt tokens each, and for gemma2 a fifth
@@ -139,7 +142,8 @@ Phases (any failure exits non-zero; nothing is caught):
    on a card input that requires grad and launches under no_grad.  A
    checkpoint written by ``save_async`` mid-run, restored into fresh
    weights, steps as the uninterrupted run does.
-12. The distributed path: granite-moe-3b-a800m at full width and depth
+12. The distributed path: granite-moe-3b-a800m at full width, depth cut
+   to 8 of its 32 layers (phase 14 carries a mesh path at full depth)
    (random float32 weights, each leaf drawn whole from seed 0 on every
    rank, each rank keeping its slice) through ``build_model(cfg,
    mesh=..., rules=...)``, phase 8's 4 greedy requests served solo
@@ -170,14 +174,31 @@ Phases (any failure exits non-zero; nothing is caught):
    step (B 8, S 128, remat "none", float32) as DTensors on one NCCL
    rank, mesh (1, 1): the loss == the unsharded loss of the same weights
    and batch (2e-4), argument bytes equal, the predicted peak within 10 %
-   of ``max_memory_allocated``; (c) meanwhile on the host, three
-   production cells through the dry-run CLI (tinyllama-1.1b train_4k and
-   granite-moe-3b-a800m decode_32k on 16 x 16, llama3-405b prefill_32k
+   of ``max_memory_allocated``; (c) meanwhile on the host, four
+   production cells through the dry-run CLI (tinyllama-1.1b train_4k,
+   granite-moe-3b-a800m decode_32k and zamba2-7b long_500k, the
+   reference's long-context cell, on 16 x 16, llama3-405b prefill_32k
    on 2 x 16 x 16), each exiting 0 within 300 s with FLOPs and
    collective bytes above 0; their HBM a card, roofline terms and
    model/counted FLOPs are printed as predictions from the H100's
    published figures.
-14. Print the kernels line (JSON), the card line, and last
+14. The recurrent families on a mesh: zamba2-7b (81 Mamba2 blocks, 13
+   shared-attention calls) and xlstm-1.3b (48 blocks) at full width and
+   depth (random float32 weights from a seed), each on two gloo ranks
+   sharing the card, mesh (1, 2), the reference's serving rules: every
+   Mamba2, mLSTM and sLSTM block on its rank's heads (``shard_map``), the
+   SSD kernel on 56 of 112 heads, flash and decode on 16 of 32, the sLSTM
+   kernels on 2 of 4; prompts of 126 and 200 tokens, 4 decode steps
+   each.  The unsharded bundle of the same weights runs first in the
+   main process and is freed.  Checked: tokens equal to it and every
+   step's logits within 2e-4; decode == a fresh prefill within 5e-4;
+   exact launches by call shape in each rank; collectives by kind over
+   the path and at one prefill and one decode step equal to the count
+   derived from the code; the two ranks' peaks below the card's 80 GB;
+   each arch cut to the fewest layers that hold every block kind (7 and
+   8) == the mesh path on the CPU within 2e-4.  Prints each rank's held
+   weights, peak memory, prefill ms and ms a decode step.
+15. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -185,7 +206,8 @@ Phases (any failure exits non-zero; nothing is caught):
    whose shape its path never ran fails.
 
 It exits non-zero, printing no result, when no CUDA device is visible
-or when run outside a checkout of the repository.
+or when run outside a checkout of the repository.  Every phase prints
+``[phaseN] done in X s``.
 """
 
 from __future__ import annotations
@@ -237,11 +259,17 @@ SSD_ROWS = {"ssd_intra_chunk": SSD_SHAPE,
             "ssd_intra_chunk_nc2": (1, 2, 128, 112, 64, 64),
             "ssd_intra_chunk_l126": (1, 1, 126, 112, 64, 64)}
 SSD_SMOKE = (2, 2, 8, 8, 16, 16)                          # the smoke config
+# phase 14's per-rank shapes: zamba2-7b's 200-token prefill (two chunks of
+# 128) on one rank's 56 of 112 heads; xlstm-1.3b's sLSTM on 2 of its 4
+# heads (hd 512) at the 200-token prefill and a decode step
+SSD_MESH_ROWS = {"ssd_intra_chunk_h56": (1, 2, 128, 56, 64, 64)}
+SL_MESH = (1, 200, 2, 512)
 SL_D, SL_H = 2048, 4
 # the sLSTM kernels' checks (B, S, H, hd): xlstm-1.3b's longest prompt,
 # its decode step, a long prefill, two rows of two steps, and smoke
 SLSTM_CHECKS = ((1, S_REC, SL_H, 512), (1, 1, SL_H, 512),
-                (1, 1000, SL_H, 512), (2, 2, SL_H, 512), (2, 9, 4, 16))
+                (1, 1000, SL_H, 512), (2, 2, SL_H, 512), (2, 9, 4, 16),
+                SL_MESH)
 
 # the multi-task scenario (phase 6): the mini-clip towers, H = K = 4
 # heads of 16; a request carries 4 images of 16 patches and 4 token rows
@@ -265,6 +293,9 @@ W_HEADS, W_T = 6, 1500
 # a fifth request whose 4,100-token prompt passes the window, in a pool
 # whose rows hold 4,112 tokens
 FAM_ARCHS = ("gemma2-9b", "llama3-8b", "granite-moe-3b-a800m")
+# phase 8 cuts each to FAM_LAYERS layers (of 42, 32 and 32) since phase 14
+# came: the script's time (gemma2's stay local / global pairs)
+FAM_LAYERS = 8
 FAM_GEOM = {"gemma2-9b": (16, 8, 256), "llama3-8b": (32, 8, 128),
             "granite-moe-3b-a800m": (24, 8, 64)}
 FAM_REQS, FAM_NEW, FAM_PROMPTS, FAM_ROWS = 4, 8, (4, 12), 4
@@ -296,8 +327,8 @@ TRAIN_TCFG = dict(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
 TRAIN_MARGIN = 2.5
 TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CKPT_STEP = 2, 2, 3
 
-# phase 12: granite-moe-3b-a800m at full width and depth through
-# build_model(cfg, mesh=..., rules=...), phase 8's 4 greedy requests served
+# phase 12: granite-moe-3b-a800m at full width, depth cut to DIST_LAYERS,
+# through build_model(cfg, mesh=..., rules=...), phase 8's 4 greedy requests served
 # solo (prefill, then FAM_NEW - 1 decode steps): (a) one rank over NCCL,
 # mesh (1, 1), the reference's serving rules (dryrun's serving profile) and
 # default options; (b) two ranks sharing the card over gloo (NCCL refuses
@@ -312,6 +343,9 @@ DIST_SERVING = {"embed": None}
 DIST_ATTNREP = {"embed": None, "heads": None, "kv_heads": None}
 DIST_SMATTN = {"decode_attn": "shardmap", "cache_update": "shard"}
 DIST_CPU_LAYERS, DIST_TIMEOUT = 2, 900
+# phases 12 and 13 (a) cut granite's depth from 32 layers to DIST_LAYERS:
+# phase 14 carries a mesh path at full depth, and the script's time
+DIST_LAYERS = 8
 
 # phase 13: the dry run (launch/dryrun.py on meta tensors over a fake
 # process group) held against the card.  (a) phase 12 (b)'s granite on two
@@ -323,8 +357,27 @@ DIST_CPU_LAYERS, DIST_TIMEOUT = 2, 900
 DRY_MEM_TOL = 0.10
 DRY_CELLS = (("tinyllama-1.1b", "train_4k", False),
              ("granite-moe-3b-a800m", "decode_32k", False),
-             ("llama3-405b", "prefill_32k", True))
+             ("llama3-405b", "prefill_32k", True),
+             ("zamba2-7b", "long_500k", False))
 DRY_CELL_TIMEOUT = 300
+
+# phase 14: the recurrent families on a mesh.  zamba2-7b (81 Mamba2
+# blocks, 13 shared-attention calls) and xlstm-1.3b (6 groups of 7 mLSTM
+# + 1 sLSTM) at full width and depth, random float32 weights from a seed,
+# on two gloo ranks sharing the card, mesh (1, 2), the reference's
+# serving rules: zamba2's SSD on 56 of 112 heads a rank and its attention
+# on 16 of 32, xlstm's mLSTM and sLSTM on 2 of 4 heads (sLSTM hd 512).
+# Prompts of 126 and 200 tokens (one chunk of 126; two of 128, the
+# inter-chunk carry on each rank's heads), MESH_STEPS decode steps each,
+# against the unsharded bundle of the same weights in the main process;
+# then each arch cut to MESH_CUT layers (the fewest that hold every block
+# kind: one superblock and a tail block; one group) against the mesh path
+# on the CPU (a world of one, gloo)
+MESH_ARCHS = ("zamba2-7b", "xlstm-1.3b")
+MESH_PROMPTS, MESH_STEPS = (126, 200), 4
+MESH_RULES = {"zamba2-7b": {"embed": None}, "xlstm-1.3b": {"embed": None}}
+MESH_CUT = {"zamba2-7b": 7, "xlstm-1.3b": 8}
+CARD_BYTES = 80e9
 
 
 def prompt_lens(bounds, n) -> list[int]:
@@ -558,8 +611,9 @@ def device_ms(fn, kernel: str, iters=50):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's events only: tracing every host op as well costs the
+    # script seconds a row and changes no device duration
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1008,9 +1062,11 @@ def _ssd_work(shape, args) -> tuple[int, float]:
 def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
     """The recurrent paths' kernels against their plain versions: the
     attention kernels at zamba2-7b's D = 112, the SSD intra-chunk kernel
-    and the sLSTM kernel.  The SSD and sLSTM kernels have no one-call
-    PyTorch equivalent (``library_ms`` null).  Returns the rows and, for
-    each row, (path, kernel, call shape)."""
+    and the sLSTM kernel, each also at the shapes one rank of phase 14
+    gives it (the ``_h16``, ``_h56`` and ``_h2`` rows, whose launches
+    are read off that phase's rank 0).  The SSD and sLSTM kernels have
+    no one-call PyTorch equivalent (``library_ms`` null).  Returns the
+    rows and, for each row, (path, kernel, call shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1018,13 +1074,28 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = []
+    # phase 14's rank: 16 of the shared block's 32 heads at the longer
+    # prompt, and the decode kernel over that request's whole cache
+    S_m = max(MESH_PROMPTS)
+    T_m = dense_T(S_m, MESH_STEPS + 1)
     keys = {"flash_attention_d112": (
                 "zamba2-7b", "flash_attention",
                 (1, S_REC, S_REC, Z_HEADS, Z_HEADS, Z_D, True, 0)),
             "decode_attention_d112": ("zamba2-7b", "decode_attention",
                                       (1, T_REC, Z_HEADS, Z_HEADS, Z_D, 0)),
-            **{name: ("zamba2-7b", "ssd_intra_chunk", shape[:3])
+            **{name: ("zamba2-7b", "ssd_intra_chunk", shape[:4])
                for name, shape in SSD_ROWS.items()},
+            **{name: ("zamba2-7b-mesh", "ssd_intra_chunk", shape[:4])
+               for name, shape in SSD_MESH_ROWS.items()},
+            "flash_attention_d112_h16": (
+                "zamba2-7b-mesh", "flash_attention",
+                (1, S_m, S_m, Z_HEADS // 2, Z_HEADS // 2, Z_D, True, 0)),
+            "decode_attention_d112_h16": (
+                "zamba2-7b-mesh", "decode_attention",
+                (1, T_m, Z_HEADS // 2, Z_HEADS // 2, Z_D, 0)),
+            "slstm_scan_h2": ("xlstm-1.3b-mesh", "slstm_scan", SL_MESH),
+            "slstm_scan_s1_h2": ("xlstm-1.3b-mesh", "slstm_scan_s1",
+                                 (1, 1, *SL_MESH[2:])),
             "slstm_scan": ("xlstm-1.3b", "slstm_scan",
                            (1, S_REC, SL_H, SL_D // SL_H)),
             "slstm_scan_s1": ("xlstm-1.3b", "slstm_scan_s1",
@@ -1066,10 +1137,24 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
                ref.decode_attention_ref(qb, kb, vb, lens_b, softcap=30.0))
         _decode_edges(lambda *sh: rnd(*sh).to(dt), dname, dev, 4, 4, Z_D,
                       T_REC)
+        qm, km, vm = (rnd(1, S_m, Z_HEADS // 2, Z_D).to(dt) for _ in range(3))
+        err_fm = _check("flash_attention", dname,
+                        f"D=112 H=16 S={S_m} causal (a rank's heads)",
+                        ops.flash_attention(qm, km, vm),
+                        ref.flash_attention_ref(qm, km, vm))
+        qdm = rnd(1, Z_HEADS // 2, Z_D).to(dt)
+        kdm, vdm = (rnd(1, T_m, Z_HEADS // 2, Z_D).to(dt) for _ in range(2))
+        lens_m = torch.tensor([S_m + MESH_STEPS], dtype=torch.int32,
+                              device=dev)
+        err_dm = _check("decode_attention", dname,
+                        f"D=112 H=16 T={T_m} len={lens_m.item()} (a rank's "
+                        "heads)", ops.decode_attention(qdm, kdm, vdm, lens_m),
+                        ref.decode_attention_ref(qdm, kdm, vdm, lens_m))
 
         # -- SSD intra-chunk at zamba2-7b's three prefill shapes, smoke ---
         ssd_args, ssd_err = {}, {}
-        for name, shape in (*SSD_ROWS.items(), ("smoke", SSD_SMOKE)):
+        for name, shape in (*SSD_ROWS.items(), *SSD_MESH_ROWS.items(),
+                            ("smoke", SSD_SMOKE)):
             args_ = _ssd_inputs(g, dt, shape)
             ssd_args[name] = args_
             ssd_err[name] = max(
@@ -1079,7 +1164,7 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
                     ref.ssd_intra_chunk_ref(*args_)))
 
         # -- sLSTM at xlstm-1.3b: fresh state, random state, decode -------
-        errs, errs1 = [], []
+        errs, errs1, errs_m, errs1_m = [], [], [], []
         for B_, S_, H_, hd_ in SLSTM_CHECKS:
             d_ = H_ * hd_
             R_ = 0.02 * rnd(4, H_, hd_, hd_)
@@ -1097,7 +1182,9 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
                 (y, fin), (y_r, fin_r) = (ops.slstm_scan(p, R_, state=st),
                                           ref.slstm_scan_ref(p, R_, st))
                 err = _check("slstm_scan", dname, f"{what}: h", y, y_r)
-                if hd_ == SL_D // SL_H:       # the rows' path shapes
+                if (B_, S_, H_, hd_) == SL_MESH:     # phase 14's rows
+                    (errs1_m if p.shape[1] == 1 else errs_m).append(err)
+                elif hd_ == SL_D // SL_H:     # the rows' path shapes
                     (errs1 if p.shape[1] == 1 else errs).append(err)
                 for part, a, b in zip("cnhm", fin, fin_r):  # float32 state
                     _check("slstm_scan", "float32", f"{what}: final {part}",
@@ -1110,9 +1197,12 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
                          "differ from the stacked R")
             if (B_, S_, H_) == (1, S_REC, SL_H):
                 pre, state, R, gates = pre_s, state_s, R_, gates_
+            if (B_, S_, H_, hd_) == SL_MESH:
+                pre_m, state_m, R_m, gates_m = pre_s, state_s, R_, gates_
         log(f"[kernels] slstm_scan {dname}: R as four gate tensors gives "
             "the stacked R's bits in every case")
         pre1 = pre[:, :1].contiguous()
+        pre1_m = pre_m[:, :1].contiguous()
         if dt is not torch.float32:
             continue
 
@@ -1120,12 +1210,22 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
         mask = (torch.arange(T_REC, device=dev)[None] < lens[:, None])[
             :, None, None, :]
         qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
+        mask_m = (torch.arange(T_m, device=dev)[None] < lens_m[:, None])[
+            :, None, None, :]
+        qmh, kmh, vmh = (x.transpose(1, 2) for x in (qm, km, vm))
         hd = SL_D // SL_H
         sl_bytes = (pre.numel() + R.numel() + S_REC * SL_D + 8 * SL_D) * 4
         sl_flops = 2 * 4 * SL_D * hd * S_REC
         # the decode step: R read once, pre, the state in and out, y
         sl1_bytes = (R.numel() + pre1.numel() + 9 * SL_D) * 4
         sl1_flops = 2 * 4 * SL_D * hd
+        # phase 14's rank: 2 of the 4 heads
+        _, S_m, H_m, hd_m = SL_MESH
+        d_m = H_m * hd_m
+        slm_bytes = (pre_m.numel() + R_m.numel() + S_m * d_m + 8 * d_m) * 4
+        slm_flops = 2 * 4 * d_m * hd_m * S_m
+        slm1_bytes = (R_m.numel() + pre1_m.numel() + 9 * d_m) * 4
+        slm1_flops = 2 * 4 * d_m * hd_m
         rows += [
             _row("flash_attention_d112", "csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:93", "flash_fwd",
@@ -1145,13 +1245,32 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
                      qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
                      attn_mask=mask),
                  *_decode_work(qd, kd, lens, isz)),
+            _row("flash_attention_d112_h16", "csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:93", "flash_fwd",
+                 err_fm,
+                 lambda: ops.flash_attention(qm, km, vm),
+                 lambda: ref.flash_attention_ref(qm, km, vm),
+                 lambda: F.scaled_dot_product_attention(qmh, kmh, vmh,
+                                                        is_causal=True),
+                 *_flash_work(1, S_m, S_m, Z_HEADS // 2, Z_HEADS // 2, Z_D,
+                              True, isz)),
+            _row("decode_attention_d112_h16", "csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention.py:70", "decode_fwd",
+                 err_dm,
+                 lambda: ops.decode_attention(qdm, kdm, vdm, lens_m),
+                 lambda: ref.decode_attention_ref(qdm, kdm, vdm, lens_m),
+                 lambda: F.scaled_dot_product_attention(
+                     qdm[:, :, None], kdm.transpose(1, 2),
+                     vdm.transpose(1, 2), attn_mask=mask_m),
+                 *_decode_work(qdm, kdm, lens_m, isz)),
             *(_row(name, "csrc/ssd_scan.cu",
                    "src/repro/kernels/ssd_scan.py:51", "ssd_tile_kernel",
                    ssd_err[name],
                    lambda a=ssd_args[name]: ops.ssd_intra_chunk(*a),
                    lambda a=ssd_args[name]: ref.ssd_intra_chunk_ref(*a), None,
-                   *_ssd_work(SSD_ROWS[name], ssd_args[name]))
-              for name in SSD_ROWS),
+                   *_ssd_work({**SSD_ROWS, **SSD_MESH_ROWS}[name],
+                              ssd_args[name]))
+              for name in (*SSD_ROWS, *SSD_MESH_ROWS)),
             _row("slstm_scan", "csrc/slstm_scan.cu",
                  "src/repro/kernels/slstm_scan.py:91", "slstm_prefill_kernel",
                  max(errs),
@@ -1166,6 +1285,18 @@ def phase_kernels_recurrent(dev) -> tuple[list[dict], dict]:
                  lambda: ops.slstm_scan(pre1, gates, state=state),
                  lambda: ref.slstm_scan_ref(pre1, R, state), None,
                  sl1_bytes, sl1_flops),
+            _row("slstm_scan_h2", "csrc/slstm_scan.cu",
+                 "src/repro/kernels/slstm_scan.py:91", "slstm_prefill_kernel",
+                 max(errs_m),
+                 lambda: ops.slstm_scan(pre_m, gates_m),
+                 lambda: ref.slstm_scan_ref(pre_m, R_m), None,
+                 slm_bytes, slm_flops, iters=20),
+            _row("slstm_scan_s1_h2", "csrc/slstm_scan.cu",
+                 "src/repro/kernels/slstm_scan.py:91", "slstm_step_kernel",
+                 max(errs1_m),
+                 lambda: ops.slstm_scan(pre1_m, gates_m, state=state_m),
+                 lambda: ref.slstm_scan_ref(pre1_m, R_m, state_m), None,
+                 slm1_bytes, slm1_flops),
         ]
     return rows, keys
 
@@ -1945,16 +2076,18 @@ def expected_launches(cfg, n_prefills: int, n_steps: int) -> dict:
     return want
 
 
-def expected_ssd_shapes(cfg, prompts) -> dict:
-    """SSD launches by call shape (batch, chunks, L) of one prefill of each
-    prompt: a prompt of S tokens runs as chunks of L = min(chunk, S),
-    padded to a multiple of L; one launch per Mamba2 block."""
+def expected_ssd_shapes(cfg, prompts, ranks: int = 1) -> dict:
+    """SSD launches by call shape (batch, chunks, L, heads) of one prefill
+    of each prompt: a prompt of S tokens runs as chunks of L = min(chunk,
+    S), padded to a multiple of L; one launch per Mamba2 block, on a
+    rank's 1 / ``ranks`` of the heads."""
     want: dict = {}
     if cfg.family == "ssm":
         return want
+    H = cfg.mamba_expand * cfg.d_model // cfg.mamba_head_dim // ranks
     for S in prompts:
         L = min(cfg.mamba_chunk, S)
-        key = (1, -(-S // L), L)
+        key = (1, -(-S // L), L, H)
         want[key] = want.get(key, 0) + cfg.n_layers
     return want
 
@@ -2150,7 +2283,7 @@ def phase_recurrent(dev) -> dict[str, dict]:
         if launches != want:
             fail(f"{arch}: kernel launches {launches} != expected {want}")
         want_ssd = expected_ssd_shapes(cfg, REC_PROMPTS)
-        log(f"[recurrent] {arch} SSD launches by (B, nc, L) {ssd_shapes}, "
+        log(f"[recurrent] {arch} SSD launches by (B, nc, L, H) {ssd_shapes}, "
             f"expected {want_ssd}")
         if ssd_shapes != want_ssd:
             fail(f"{arch}: SSD launches {ssd_shapes} != expected {want_ssd}")
@@ -2599,8 +2732,8 @@ def _family_expected(cfg, lens, req_steps, ticks, cache_len):
 def phase_family(dev, cfg, cpu_layers=2, tag="phase8") -> dict:
     """An attention family at its published width (random float32
     weights from seed 0) through ``launch.serve.serve_arch``: phase 8's
-    gemma2-9b, llama3-8b and granite-moe-3b-a800m at their depths, phase
-    9's llama3-405b at a cut depth (``cfg``'s).  Its requests go through
+    gemma2-9b, llama3-8b and granite-moe-3b-a800m and phase 9's
+    llama3-405b at a cut depth (``cfg``'s).  Its requests go through
     the paged scheduler (serve()), then each through the solo path
     (submit()).  Checked: tokens and every step's logits serve ==
     submit, decode == a fresh prefill (gemma2's long request at
@@ -3426,34 +3559,63 @@ def phase_training(dev) -> dict:
     return {"launches": launches, "shapes": shapes, "rates": rates}
 
 
-def _dist_generate(bundle, params, prompt, new, dev):
-    """One greedy request solo on a sharded bundle: prefill, then new - 1
+def _whole(x):
+    """A DTensor gathered whole on every rank (``sharding.local_as``: the
+    c10d all-gather, which gloo takes on CUDA tensors, where DTensor's own
+    ``full_tensor`` crashes the process); a plain tensor as it is."""
+    if not hasattr(x, "full_tensor"):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.common.sharding import local_as
+
+    return local_as(x, x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _dist_generate(bundle, params, prompt, new, dev, calls=None):
+    """One greedy request solo on a (sharded) bundle: prefill, then new - 1
     decode steps.  Returns (tokens, each step's logits on the host,
-    prefill s, each decode step's s)."""
+    prefill s, each decode step's s).  With a list ``calls``, each call
+    (its logits gathered included) runs under ``CommDebugMode`` and its
+    collectives by kind are appended as ("prefill" | "decode", counts)."""
     import torch
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    @contextlib.contextmanager
+    def counted(kind):
+        if calls is None:
+            yield
+            return
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        with CommDebugMode() as comm:
+            yield
+        calls.append((kind, _comm_kinds(comm)))
+
     T = dense_T(len(prompt), new)
     cache = bundle.init_cache(1, T, torch.float32, dev)
     sync()
     t0 = time.perf_counter()
-    lg, cache = bundle.prefill(
-        params, {"tokens": torch.tensor([prompt], dtype=torch.int32,
-                                        device=dev)}, cache)
-    lg = lg.full_tensor()
+    with counted("prefill"):
+        lg, cache = bundle.prefill(
+            params, {"tokens": torch.tensor([prompt], dtype=torch.int32,
+                                            device=dev)}, cache)
+        lg = _whole(lg)
     sync()
     pre_s = time.perf_counter() - t0
     logits, toks, steps = [lg[0].cpu()], [int(lg[0].argmax())], []
     for i in range(new - 1):
         t0 = time.perf_counter()
-        lg, cache = bundle.decode_step(
-            params, torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev),
-            cache, torch.tensor([len(prompt) + i], dtype=torch.int32,
-                                device=dev))
-        lg = lg.full_tensor()
+        with counted("decode"):
+            lg, cache = bundle.decode_step(
+                params, torch.tensor([[toks[-1]]], dtype=torch.int32,
+                                     device=dev),
+                cache, torch.tensor([len(prompt) + i], dtype=torch.int32,
+                                    device=dev))
+            lg = _whole(lg)
         sync()
         steps.append(time.perf_counter() - t0)
         logits.append(lg[0].cpu())
@@ -3546,10 +3708,10 @@ def _dist_worker(rank, world, init, backend, dev_type, shape, cfg, rules,
         dist.destroy_process_group()
 
 
-def _spawn_ranks(world, backend, dev, shape, cfg, rules, opts, extras,
+def _start_ranks(world, backend, dev, shape, cfg, rules, opts, extras,
                  tmp, tag):
-    """Run ``_dist_worker`` on ``world`` spawned ranks (``_spawn``)."""
-    return _spawn(_dist_worker, world, tmp, tag, backend, dev.type, shape,
+    """Start ``_dist_worker`` on ``world`` spawned ranks (``_start``)."""
+    return _start(_dist_worker, world, tmp, tag, backend, dev.type, shape,
                   cfg, rules, opts, extras)
 
 
@@ -3557,6 +3719,13 @@ def _spawn(worker, world, tmp, tag, *args):
     """Run ``worker(rank, world, init, *args, out)`` on ``world`` spawned
     ranks, joined within ``DIST_TIMEOUT`` (killed past it); returns each
     rank's results, which it saves to ``out``/rank<r>.pt."""
+    return _start(worker, world, tmp, tag, *args)()
+
+
+def _start(worker, world, tmp, tag, *args):
+    """``_spawn``'s ranks started; returns the function that joins them
+    (within ``DIST_TIMEOUT`` from their start) and loads their results,
+    so the caller can work meanwhile."""
     import torch
     import torch.multiprocessing as mp
 
@@ -3566,12 +3735,16 @@ def _spawn(worker, world, tmp, tag, *args):
         worker, nprocs=world, join=False, start_method="spawn",
         args=(world, str(Path(tmp) / f"{tag}.init"), *args, str(out)))
     deadline = time.monotonic() + DIST_TIMEOUT
-    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            fail(f"{tag}: the ranks did not end within {DIST_TIMEOUT} s")
-    return [torch.load(out / f"rank{r}.pt") for r in range(world)]
+
+    def join():
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"{tag}: the ranks did not end within {DIST_TIMEOUT} s")
+        return [torch.load(out / f"rank{r}.pt") for r in range(world)]
+
+    return join
 
 
 def _dist_expected(cfg, lens, with_decode):
@@ -3599,7 +3772,8 @@ def _dist_expected(cfg, lens, with_decode):
 
 
 def phase_distributed(dev, cfg=None) -> None:
-    """Phase 12: granite-moe-3b-a800m at full width and depth on a mesh
+    """Phase 12: granite-moe-3b-a800m at full width, depth cut to
+    ``DIST_LAYERS``, on a mesh
     (``cfg`` replaces it for a rehearsal on the CPU, where both runs use
     gloo).  (a) one rank over NCCL, mesh (1, 1), serving rules; (b) two
     ranks sharing the card over gloo, mesh (1, 2), the attnrep rules and
@@ -3625,20 +3799,22 @@ def phase_distributed(dev, cfg=None) -> None:
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.api import build_model
 
-    t_phase = time.perf_counter()
-    cfg = cfg or get_config(DIST_ARCH)
+    cfg = cfg or get_config(DIST_ARCH).with_overrides(n_layers=DIST_LAYERS)
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     lens = fam_prompts(cfg.name)
     tmp = tempfile.mkdtemp(prefix="phase12_")
     try:
-        runs = {
-            "a": _spawn_ranks(1, "nccl" if dev.type == "cuda" else "gloo",
+        # (a) and (b) side by side on the card (their rates are printed,
+        # not checked)
+        joins = {
+            "a": _start_ranks(1, "nccl" if dev.type == "cuda" else "gloo",
                               dev, (1, 1), cfg, DIST_SERVING, {}, False, tmp,
                               "phase12a"),
-            "b": _spawn_ranks(2, "gloo", dev, (1, 2), cfg, DIST_ATTNREP,
+            "b": _start_ranks(2, "gloo", dev, (1, 2), cfg, DIST_ATTNREP,
                               DIST_SMATTN, True, tmp, "phase12b")}
+        runs = {tag: join() for tag, join in joins.items()}
         n = build_model(cfg).param_count()
         steps = len(lens) * (FAM_NEW - 1)
         for tag, ranks in runs.items():
@@ -3734,7 +3910,6 @@ def phase_distributed(dev, cfg=None) -> None:
                  f"{DIST_CPU_LAYERS} layers")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[phase12] done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def _counted(fn, *args, dev):
@@ -3979,7 +4154,8 @@ def phase_dryrun(dev, serve_cfg=None, train_cfg=None) -> None:
     cells = _start_dry_cells(tmp)
     try:
         # (a) granite on two gloo ranks against a fake group of 2
-        cfg = serve_cfg or get_config(DIST_ARCH)
+        cfg = serve_cfg or get_config(DIST_ARCH).with_overrides(
+            n_layers=DIST_LAYERS)
         lens = fam_prompts(DIST_ARCH)
         from repro_torch.launch.serve import make_requests
 
@@ -4066,7 +4242,341 @@ def phase_dryrun(dev, serve_cfg=None, train_cfg=None) -> None:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[phase13] done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# phase 14: the recurrent families on a mesh
+# --------------------------------------------------------------------------
+
+def _comm_kinds(comm) -> dict:
+    """``CommDebugMode``'s counts by kind: all_reduce, all_gather and
+    all_to_all, the c10d and functional ops alike."""
+    out = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
+    for op, n in comm.get_comm_counts().items():
+        name = str(op).replace("_", "")
+        kind = next((k for k in out if k.replace("_", "") in name), None)
+        if kind is None:
+            fail(f"phase 14: a collective of no expected kind: {op}")
+        out[kind] += int(n)
+    return out
+
+
+def _mesh_comms(cfg, rules, dev_type) -> dict:
+    """One rank's collectives by kind at a prefill and at a decode step of
+    phase 14's layout (mesh (1, 2), ``rules``), derived from the code: the
+    vocab-sharded embedding's psum; a Mamba2 block's two (``out_norm``'s
+    sums, ``w_out``'s partial products); a shared-attention call's o-proj
+    and MLP psums, k and v gathered over the heads into the sequence-
+    sharded cache, and at a decode step the cache moved from sequence- to
+    head-sharded for the decode kernel (an all_to_all on a CUDA mesh, an
+    all-gather on the CPU's); an mLSTM block's three (q|k|v|i|f, the
+    norm, ``w_down``); an sLSTM block's output and new state gathered over
+    the heads where they split, its FFN's hidden psum where "mlp" splits
+    it, else its norm's and ``ffn_up``'s psums over the heads' columns."""
+    from repro_torch.common.sharding import merge_rules, spec_for
+
+    rules = merge_rules(rules)
+    sizes = {"data": 1, "model": 2}
+
+    def split(shape, axes):
+        return any(e is not None for e in spec_for(shape, axes, rules, sizes))
+
+    d = cfg.d_model
+    n = {"all_reduce": int(split((cfg.vocab_size, d), ("vocab", "embed"))),
+         "all_gather": 0, "all_to_all": 0}
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.n_mamba_per_super
+        d_in = cfg.mamba_expand * d
+        if not (split((d, d_in), (None, "ssm_inner"))
+                and split((d, cfg.n_heads, cfg.head_dim), (None, "heads", None))
+                and split((1, 8, 1, 1), (None, "cache_seq", None, None))):
+            fail(f"phase 14: {rules} is not the layout _mesh_comms counts")
+        n["all_reduce"] += 2 * cfg.n_layers + 2 * n_attn
+        n["all_gather"] += 2 * n_attn
+        pre, dec = dict(n), dict(n)
+        dec["all_gather" if dev_type == "cpu" else "all_to_all"] += 2 * n_attn
+        return {"prefill": pre, "decode": dec}
+    groups = cfg.n_layers // (cfg.mlstm_to_slstm + 1)
+    d_ff = int(cfg.slstm_proj_factor * d)
+    heads = split((cfg.n_heads,), ("ssm_heads",))
+    mlp = split((d, d_ff), (None, "mlp"))
+    n["all_reduce"] += 3 * groups * cfg.mlstm_to_slstm
+    n["all_reduce"] += groups * (1 if mlp or not heads else 2)
+    n["all_gather"] += 2 * groups * heads
+    return {"prefill": n, "decode": dict(n)}
+
+
+def _mesh_expected(cfg, dev_type, T_of) -> tuple[dict, dict]:
+    """One rank's exact kernel launches on phase 14's main path, by
+    kernel and by call shape: zamba2's SSD once a Mamba2 block a prefill
+    on 56 of 112 heads, flash once a shared-attention call a prefill and
+    the decode kernel once a call a step, on 16 of 32 heads over the
+    request's whole cache (``T_of(prompt)``); xlstm's sLSTM prefill and
+    one-step kernels once an sLSTM block a call, on 2 of 4 heads.  None
+    on the CPU, where the wrappers take their plain versions."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
+    if dev_type != "cuda":
+        return want, shapes
+
+    def add(kernel, key, n):
+        want[kernel] += n
+        shapes[kernel][key] = shapes[kernel].get(key, 0) + n
+
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.n_mamba_per_super
+        H_, D_ = cfg.n_heads // 2, cfg.head_dim
+        for key, n in expected_ssd_shapes(cfg, MESH_PROMPTS, ranks=2).items():
+            add("ssd_intra_chunk", key, n)
+        for S_ in MESH_PROMPTS:
+            add("flash_attention", (1, S_, S_, H_, H_, D_, True, 0), n_attn)
+            add("decode_attention", (1, T_of(S_), H_, H_, D_, 0),
+                n_attn * MESH_STEPS)
+    else:
+        groups = cfg.n_layers // (cfg.mlstm_to_slstm + 1)
+        H_ = cfg.n_heads // 2
+        hd = cfg.d_model // cfg.n_heads
+        for S_ in MESH_PROMPTS:
+            add("slstm_scan", (1, S_, H_, hd), groups)
+            add("slstm_scan_s1", (1, 1, H_, hd), groups * MESH_STEPS)
+    return want, shapes
+
+
+def _mesh_prompts(cfg) -> list[list[int]]:
+    from repro_torch.launch.serve import make_requests
+
+    return [list(r.prompt) for r in make_requests(
+        cfg, len(MESH_PROMPTS), MESH_STEPS + 1,
+        prompt_lens=list(MESH_PROMPTS), seed=SEED)]
+
+
+def _rec_mesh_worker(rank, world, init, dev_type, cfg, rules, out):
+    """One rank of phase 14 (a) or (b), in a spawned process: its gloo
+    group (a file rendezvous), the (1, world) mesh, the model (each
+    weight leaf drawn whole from seed 0 on the card, this rank's slice
+    kept), then the main path with the kernel counts from 0, each call
+    under ``CommDebugMode``: each prompt prefilled and stepped
+    ``MESH_STEPS`` times.  Then the longest prompt's first step against a
+    fresh prefill, and the model cut to ``MESH_CUT`` layers over the
+    first prompt.  Writes its results to ``out``/rank<r>.pt."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets the float32 matmul precision)
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        mesh = local_mesh((1, world), device=dev.type)
+        b = build_model(cfg, mesh=mesh, rules=rules)
+        params = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        res = {"held": sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree_leaves(params))}
+        prompts = _mesh_prompts(cfg)
+        sync()
+        dist.barrier()
+        ops.reset_launches()
+        calls = []
+        t0 = time.perf_counter()
+        runs = [_dist_generate(b, params, p, MESH_STEPS + 1, dev, calls)
+                for p in prompts]
+        res["wall"] = time.perf_counter() - t0
+        res["launches"] = dict(ops.LAUNCHES)
+        res["shapes"] = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        res["calls"] = calls
+        res["tokens"] = [r[0] for r in runs]
+        res["logits"] = [torch.stack(r[1]) for r in runs]
+        res["prefill_s"] = [r[2] for r in runs]
+        res["step_s"] = [t for r in runs for t in r[3]]
+        # the longest prompt's first decode step == a fresh prefill of
+        # the prompt and its first token
+        longest, toks = prompts[-1], runs[-1][0]
+        fresh = _dist_generate(b, params, longest + toks[:1], 1, dev)[1][0]
+        res["decode_vs_prefill"] = _err(runs[-1][1][1], fresh)
+        sync()
+        if dev.type == "cuda":
+            res["peak"] = torch.cuda.max_memory_allocated()
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cfg2 = cfg.with_overrides(n_layers=MESH_CUT[cfg.name])
+        b2 = build_model(cfg2, mesh=mesh, rules=rules)
+        p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+        res["cut"] = _dist_generate(b2, p2, prompts[0], 2, dev)[:2]
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_recurrent_mesh(dev, cfgs=None) -> dict:
+    """Phase 14: zamba2-7b and xlstm-1.3b at full width and depth on two
+    gloo ranks sharing the card, mesh (1, 2), the serving rules (``cfgs``
+    replaces the full configs for a rehearsal on the CPU).  For each: the
+    unsharded bundle of the same weights in the main process first (then
+    freed); the ranks' tokens equal to it and every step's logits within
+    ``LOGIT_TOL``; decode == a fresh prefill within ``DECODE_TOL``; exact
+    kernel launches by call shape in each rank; every prefill's and every
+    decode step's collectives by kind equal to ``_mesh_comms`` (and the
+    gather of its logits); the cut to ``MESH_CUT`` layers == the mesh
+    path on the CPU (a world of one, gloo) within ``LOGIT_TOL``.  Prints each
+    rank's held weights, peak memory, prefill ms and ms a decode step.
+    Returns each arch's rank-0 launches by kernel and shape (the kernels
+    line's per-rank rows)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.config import get_config
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.models.api import build_model
+
+    cfgs = cfgs or [get_config(a) for a in MESH_ARCHS]
+    tmp = tempfile.mkdtemp(prefix="phase14_")
+    paths = {}
+    try:
+        for cfg in cfgs:
+            rules = MESH_RULES[cfg.name]
+            prompts = _mesh_prompts(cfg)
+            # the unsharded bundle on the same weights, then freed
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            b = build_model(cfg)
+            params = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+            plain = [_dist_generate(b, params, p, MESH_STEPS + 1, dev)[:2]
+                     for p in prompts]
+            n_params = b.param_count()
+            del b, params
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            join = _start(_rec_mesh_worker, 2, tmp, f"phase14_{cfg.name}",
+                          dev.type, cfg, rules)
+            # meanwhile on the host: the cut through the mesh path on the
+            # CPU (a world of one, gloo)
+            cfg2 = cfg.with_overrides(n_layers=MESH_CUT[cfg.name])
+            dist.init_process_group(
+                "gloo", init_method=f"file://{tmp}/{cfg.name}_cpu.init",
+                rank=0, world_size=1)
+            try:
+                mesh = local_mesh((1, 1), device="cpu")
+                b2 = build_model(cfg2, mesh=mesh, rules=rules)
+                p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
+                             device="cpu")
+                cpu_toks, cpu_logits, _, _ = _dist_generate(
+                    b2, p2, prompts[0], 2, torch.device("cpu"))
+                del b2, p2
+            finally:
+                dist.destroy_process_group()
+            ranks = join()
+            comms = _mesh_comms(cfg, rules, dev.type)
+            # each call of the main path also gathers its logits once
+            per_call = {kind: {k: v + (k == "all_gather")
+                               for k, v in want_.items()}
+                        for kind, want_ in comms.items()}
+            want, want_shapes = _mesh_expected(
+                cfg, dev.type, lambda S_: dense_T(S_, MESH_STEPS + 1))
+            peak_sum = 0
+            for rank, r in enumerate(ranks):
+                steps = len(r["step_s"])
+                peak_sum += r.get("peak", 0)
+                log(f"[phase14] {cfg.name} rank {rank}/2 (rules {rules}): "
+                    f"{cfg.n_layers} layers, {n_params:,} parameters, this "
+                    f"rank holds {r['held'] / 1e9:.3f} GB of weights, peak "
+                    f"{r.get('peak', 0) / 1e9:.2f} GB (the weights' draw "
+                    f"included); main path {r['wall']:.2f} s: prefills "
+                    f"{', '.join(f'{1e3 * t:.1f}' for t in r['prefill_s'])} "
+                    f"ms (prompts {list(MESH_PROMPTS)}), {steps} decode "
+                    f"steps {1e3 * sum(r['step_s']) / steps:.1f} ms a step")
+                total = {k: sum(c[k] for _, c in r["calls"])
+                         for k in per_call["prefill"]}
+                odd = [(kind, c) for kind, c in r["calls"]
+                       if c != per_call[kind]]
+                log(f"[phase14] {cfg.name} rank {rank} collectives over "
+                    f"{len(r['calls'])} calls {total}; each prefill "
+                    f"{comms['prefill']} and each decode step "
+                    f"{comms['decode']} expected, + its logits' gather: "
+                    f"{'every call as expected' if not odd else odd}")
+                if odd:
+                    fail(f"phase 14 {cfg.name} rank {rank}: calls' "
+                         f"collectives {odd} != {per_call}")
+                log(f"[phase14] {cfg.name} rank {rank} kernel launches "
+                    f"{r['launches']}, expected {want}; by shape "
+                    f"{ {k: v for k, v in r['shapes'].items() if v} }, "
+                    f"expected { {k: v for k, v in want_shapes.items() if v} }")
+                if r["launches"] != want or r["shapes"] != want_shapes:
+                    fail(f"phase 14 {cfg.name} rank {rank}: launches "
+                         f"{r['launches']} {r['shapes']} != {want} "
+                         f"{want_shapes}")
+            worst = 0.0
+            for i, (toks, lg) in enumerate(plain):
+                for rank, r in enumerate(ranks):
+                    if r["tokens"][i] != toks:
+                        fail(f"phase 14 {cfg.name} prompt {i} rank {rank}: "
+                             f"tokens {r['tokens'][i]}, unsharded {toks}")
+                    if not bool(torch.isfinite(r["logits"][i]).all()):
+                        fail(f"phase 14 {cfg.name}: non-finite logits")
+                    worst = max(worst, _err(r["logits"][i],
+                                            torch.stack(lg)))
+            log(f"[phase14] {cfg.name} mesh (1, 2) == unsharded: "
+                f"{len(prompts)} prompts' tokens equal "
+                f"({[t for t, _ in plain]}), every step's logits max "
+                f"|dlogit| {worst:.3e} (tol {LOGIT_TOL:g})")
+            if worst > LOGIT_TOL:
+                fail(f"phase 14 {cfg.name}: mesh logits differ by {worst:.3e}")
+            dvp = max(r["decode_vs_prefill"] for r in ranks)
+            log(f"[phase14] {cfg.name} the {len(prompts[-1])}-token prompt's "
+                f"first decode step == a fresh prefill of it + its token: max "
+                f"|dlogit| {dvp:.3e} (tol {DECODE_TOL:g})")
+            if dvp > DECODE_TOL:
+                fail(f"phase 14 {cfg.name}: decode differs from a fresh "
+                     f"prefill by {dvp:.3e}")
+            log(f"[phase14] {cfg.name}: the two ranks' peaks sum to "
+                f"{peak_sum / 1e9:.2f} GB (card {CARD_BYTES / 1e9:g} GB)")
+            if peak_sum > CARD_BYTES:
+                fail(f"phase 14 {cfg.name}: peaks sum to {peak_sum} B")
+
+            # the cut against the mesh path on the CPU
+            cut = max(_err(torch.stack(r["cut"][1]), torch.stack(cpu_logits))
+                      for r in ranks)
+            same = all(r["cut"][0] == cpu_toks for r in ranks)
+            log(f"[phase14] {cfg.name} at {MESH_CUT[cfg.name]} layers, mesh "
+                f"(1, 2) on the card vs the mesh path on the CPU (a world of "
+                f"1), prompt {len(prompts[0])} + 1 decode step: tokens "
+                f"{'equal' if same else 'DIFFER'}, max |dlogit| {cut:.3e} "
+                f"(tol {LOGIT_TOL:g})")
+            if cut > LOGIT_TOL or not same:
+                fail(f"phase 14 {cfg.name}: the card disagrees with the CPU "
+                     f"at {MESH_CUT[cfg.name]} layers")
+            paths[f"{cfg.name}-mesh"] = {"launches": ranks[0]["launches"],
+                                         "shapes": ranks[0]["shapes"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
 
 
 def main() -> int:
@@ -4090,32 +4600,40 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    phase_build()
-    rows, keys = phase_kernels(dev)
-    rec_rows, rec_keys = phase_kernels_recurrent(dev)
-    slice_rows, slice_keys = phase_kernels_slice(dev)
-    fam_rows, fam_keys = phase_kernels_families(dev)
-    serve, dep, gen_reqs = phase_serve(dev)
-    phase_profile(dep, gen_reqs)
+
+    def timed(n, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase{n}] done in {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed(1, phase_build)
+    (rows, keys), (rec_rows, rec_keys), (slice_rows, slice_keys), \
+        (fam_rows, fam_keys) = timed(2, lambda: [
+            f(dev) for f in (phase_kernels, phase_kernels_recurrent,
+                             phase_kernels_slice, phase_kernels_families)])
+    serve, dep, gen_reqs = timed(3, phase_serve, dev)
+    timed(4, phase_profile, dep, gen_reqs)
     del dep, gen_reqs
-    paths = {"serve": serve, **phase_recurrent(dev),
-             "scenario": phase_scenario(dev), TL_ARCH: phase_tinyllama(dev),
-             W_ARCH: phase_whisper(dev)}
+    paths = {"serve": serve, **timed(5, phase_recurrent, dev),
+             "scenario": timed(6, phase_scenario, dev)}
+    paths.update(timed(7, lambda: {TL_ARCH: phase_tinyllama(dev),
+                                   W_ARCH: phase_whisper(dev)}))
     from repro_torch.common.config import get_config
 
-    for arch in FAM_ARCHS:
-        paths[arch] = phase_family(dev, get_config(arch))
-    t9 = time.perf_counter()
-    paths[DS_ARCH] = phase_deepseek(dev)
-    paths[L405_ARCH] = phase_family(
-        dev, get_config(L405_ARCH).with_overrides(n_layers=L405_LAYERS),
-        cpu_layers=L405_CPU_LAYERS, tag="phase9")
-    log(f"[phase9] {DS_ARCH} and {L405_ARCH} in "
-        f"{time.perf_counter() - t9:.1f} s")
-    phase_analysis(dev)
-    paths["train"] = phase_training(dev)
-    phase_distributed(dev)
-    phase_dryrun(dev)
+    paths.update(timed(8, lambda: {arch: phase_family(
+        dev, get_config(arch).with_overrides(n_layers=FAM_LAYERS))
+        for arch in FAM_ARCHS}))
+    paths.update(timed(9, lambda: {
+        DS_ARCH: phase_deepseek(dev),
+        L405_ARCH: phase_family(
+            dev, get_config(L405_ARCH).with_overrides(n_layers=L405_LAYERS),
+            cpu_layers=L405_CPU_LAYERS, tag="phase9")}))
+    timed(10, phase_analysis, dev)
+    paths["train"] = timed(11, phase_training, dev)
+    timed(12, phase_distributed, dev)
+    timed(13, phase_dryrun, dev)
+    paths.update(timed(14, phase_recurrent_mesh, dev))
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
     rows += rec_rows + slice_rows + fam_rows

@@ -18,7 +18,9 @@ group (``launch.dryrun``), and counts, per rank:
   launch is opaque to dispatch, so each reports its own FLOPs, bytes and
   peak through ``kernels.ops.WORK_HOOKS`` (the reference's einsum form:
   the full S x T score product), on the card and on meta tensors; on
-  the CPU the plain versions' ops are counted instead.
+  the CPU the plain versions' ops are counted instead.  ``dots_by_shape``
+  breaks the products down by (output elements, contracted elements),
+  as the reference's HLO dots can be (``tools/dryrun_parity.py``).
 * ``bytes``: operand plus output bytes of each op that computes (views
   and uninitialised allocations move nothing).  This is a pre-fusion
   model: every intermediate goes to memory and back, where the
@@ -90,6 +92,7 @@ class CostReport:
     bytes_by_op: dict = field(default_factory=dict)
     count_by_op: dict = field(default_factory=dict)
     kernel_flops: dict = field(default_factory=dict)
+    dots_by_shape: dict = field(default_factory=dict)
     memory: dict = field(default_factory=dict)
 
 
@@ -230,6 +233,10 @@ class _Counter(TorchDispatchMode):
         with self._lock:
             rep.flops += flops
             rep.bytes += moved
+            if flops and outs:
+                n_out = outs[0].numel()
+                key = (n_out, int(flops // (2 * n_out)))
+                rep.dots_by_shape[key] = rep.dots_by_shape.get(key, 0) + 1
 
 
 def measure(fn, *args, **kwargs):
@@ -276,5 +283,9 @@ def collective_stats(report: CostReport) -> dict:
 
 
 def cost_summary(report: CostReport) -> dict:
+    """The FLOPs, bytes and each kernel's FLOPs; ``dots_by_shape`` as
+    [output elements, contracted elements, times run] rows."""
     return {"flops": report.flops, "bytes": report.bytes,
-            "kernel_flops": dict(report.kernel_flops)}
+            "kernel_flops": dict(report.kernel_flops),
+            "dots_by_shape": sorted([a, b, n] for (a, b), n in
+                                    report.dots_by_shape.items())}

@@ -297,6 +297,37 @@ def to_placements(x, mesh, placements):
     return x.redistribute(mesh, placements)
 
 
+def local_as(x, mesh, placements):
+    """This rank's local tensor of ``x`` (a DTensor, or a plain tensor
+    every rank holds whole) at ``placements``: ``to_placements(...)
+    .to_local()``, except in the one case two gloo ranks sharing one card
+    need.  Where ``x`` lies on a CUDA device and the only change, over
+    mesh dims of more than one rank, is one such dim of a gloo group
+    going from Shard to Replicate (evenly, the tensor dim split over no
+    other), the gather goes through the c10d all-gather
+    (``all_gather``): there DTensor's own all-gather, a functional
+    collective, kills the process (torch 2.11), and NCCL refuses two
+    ranks on one device.  To be removed, leaving ``to_placements``, once
+    ``chip_smoke.py``'s phases 12 to 14 run over NCCL on two cards."""
+    import torch.distributed as dist
+
+    if is_dtensor(x) and x.device.type == "cuda":
+        moved = [i for i, (a, b) in enumerate(zip(x.placements, placements))
+                 if a != b and mesh.shape[i] > 1]
+        if len(moved) == 1:
+            i = moved[0]
+            a, b = x.placements[i], placements[i]
+            alone = not any(p.is_shard(a.dim) for j, p in
+                            enumerate(x.placements)
+                            if j != i and mesh.shape[j] > 1)
+            if (a.is_shard() and b.is_replicate() and alone
+                    and x.shape[a.dim] % mesh.shape[i] == 0
+                    and dist.get_backend(mesh.get_group(i)) == "gloo"):
+                return all_gather(x.to_local(), mesh,
+                                  mesh.mesh_dim_names[i], a.dim)
+    return to_placements(x, mesh, placements).to_local()
+
+
 def constrain(x, logical_axes, rules, mesh):
     """The reference's ``with_sharding_constraint`` at the spec of
     ``logical_axes``: ``x`` redistributed to those placements."""
@@ -401,6 +432,37 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int):
         if mesh_shape(mesh)[a] > 1:
             x = _AllGather.apply(x, mesh.get_group(a), dim)
     return x
+
+
+class Split:
+    """One rank's share of a dim split over the mesh ``axes`` (None, or
+    no mesh: the dim is whole), inside ``shard_map``: ``sum`` is the psum
+    over those axes, ``gather`` their tiled all_gather, ``offset`` where
+    this rank's share of ``n`` starts.  ``WHOLE`` is the split of no
+    axes, whose collectives are the identity."""
+
+    def __init__(self, mesh=None, axes=None):
+        self.mesh = mesh
+        self.axes = axes if mesh is not None else None
+
+    def __bool__(self) -> bool:
+        return bool(_axis_tuple(self.axes))
+
+    def sum(self, x):
+        return all_reduce(x, self.mesh, self.axes) if self else x
+
+    def gather(self, x, dim: int):
+        return all_gather(x, self.mesh, self.axes, dim) if self else x
+
+    def offset(self, n: int) -> int:
+        return axis_index(self.mesh, self.axes) * n if self else 0
+
+    @property
+    def size(self) -> int:
+        return axis_size(self.mesh, self.axes) if self else 1
+
+
+WHOLE = Split()
 
 
 def settle(x):

@@ -52,8 +52,8 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
 #: shape, which sum to the kernel's ``LAUNCHES`` entry: flash (B, S, T,
 #: H, K, D, causal, window), decode (B, T, H, K, D, window), paged
 #: decode (B, n_max, page_size, H, K, D, window), SSD (B, chunks, chunk
-#: length L) and both sLSTM kernels (B, S, H, hd); window 0 is none, so
-#: a local layer's launches count apart from a global one's
+#: length L, heads H) and both sLSTM kernels (B, S, H, hd); window 0 is
+#: none, so a local layer's launches count apart from a global one's
 SHAPE_LAUNCHES: dict[str, dict[tuple, int]] = {name: {} for name in LAUNCHES}
 
 #: head dims the attention kernels are instantiated for: the smoke
@@ -671,7 +671,7 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
         B * nc, L, H, P, N, plan.tr, plan.ns, plan.n_heavy, plan.threads,
         plan.smem, _DTYPES[x.dtype], _stream(x))
     _raise_on("ssd_intra_chunk", err)
-    _count("ssd_intra_chunk", (B, nc, L))
+    _count("ssd_intra_chunk", (B, nc, L, H))
     return y, s_loc, lam
 
 
@@ -833,7 +833,8 @@ def slstm_scan(pre, R, *, state=None):
     if dev.type == "cpu":
         R4 = R if isinstance(R, torch.Tensor) else torch.stack(gates)
         return ref.slstm_scan_ref(pre, R4, state)
-    _contiguous("slstm_scan", {"pre": pre})
+    _contiguous("slstm_scan", {"pre": pre, **{
+        f"state[{i}]": t for i, t in enumerate(state or ())}})
     plan = slstm_plan(B, H, hd)
     check_grid("slstm_scan", slstm_grid(B, S, H, hd))
     _work("slstm_scan", 8 * B * S * H * hd * hd, (pre, *gates, *(state or ())),

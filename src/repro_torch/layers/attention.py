@@ -415,12 +415,14 @@ def _tile(cache):
 def _like_cache(x, cache):
     """``x`` (B, S, ...) or (B,) as this rank's local tensor laid out as
     ``cache``'s tile along every dim but the sequence (dim 1), which
-    stays whole."""
+    stays whole (``sharding.local_as``: over gloo on a card, k and v
+    sharded by heads are gathered for a cache that holds the heads whole
+    by the c10d all-gather)."""
     from torch.distributed.tensor import Replicate
 
     pl = [p if p.is_shard() and p.dim != 1 and p.dim < x.ndim
           else Replicate() for p in cache.placements]
-    return sharding.to_placements(x, cache.device_mesh, pl).to_local()
+    return sharding.local_as(x, cache.device_mesh, pl)
 
 
 def cache_write_prefix(cache, new):

@@ -8,6 +8,18 @@ plain torch that differentiates, a transcription of the reference's
 ``_ssd_chunked``.  An O(1) recurrent step serves decode (``S == 1``),
 in torch as in the reference.  ``ssd_recurrent_ref`` is the naive
 per-step oracle the tests use.
+
+Under a mesh the block runs on each rank's heads (``mamba2_apply`` with
+``inner``, inside ``common.sharding.shard_map``): a head is a
+contiguous block of ``mamba_head_dim`` columns of d_in, so the rank's
+``wz``/``wx``/``conv_x`` columns ("ssm_inner") are its heads' and its
+``wdt``, ``A_log``, ``dt_bias``, ``D_skip`` entries ("ssm_heads") the
+same heads, while ``wB``/``wC`` and their convs ("ssm_state") are
+whole.  The SSD kernel runs on (B, S, H / m, P).  ``out_norm``
+normalises over the whole d_in (its sums are all-reduced over the
+heads' axes) and ``w_out``'s partial products are summed by an
+all_reduce.  ``rank_layout`` gives the per-rank specs and raises where
+"ssm_inner" and "ssm_heads" resolve to different mesh axes.
 """
 
 from __future__ import annotations
@@ -15,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.layers.initializers import WSpec
 from repro_torch.layers.norms import apply_norm, norm_specs
@@ -147,17 +160,20 @@ def ssd_recurrent_ref(xh, Bm, Cm, dt, A_log, D_skip, initial_state=None):
     return torch.stack(ys, dim=1).to(xh.dtype), s
 
 
-def mamba2_apply(params, x, cfg, *, state=None, impl: str = "kernel"):
+def mamba2_apply(params, x, cfg, *, state=None, impl: str = "kernel",
+                 inner=sharding.WHOLE):
     """Full block body.  x: (B, S, d_model).
 
     state: None (fresh) or dict(ssm=(B,H,N,P), conv_x/conv_B/conv_C).
     A multi-token call runs the chunked SSD, through the kernel
     (``impl="kernel"``, prefill) or in plain torch (``impl="xla"``, the
-    loss); a one-token call (decode) the recurrent step.  Returns (y,
-    new_state)."""
+    loss); a one-token call (decode) the recurrent step.  With ``inner``
+    (a ``common.sharding.Split``, inside ``shard_map``) the weights and
+    state hold this rank's heads (``rank_layout``) and the output is
+    summed over them.  Returns (y, new_state)."""
     if impl not in ("kernel", "xla"):
         raise ValueError(f"mamba2_apply: unknown impl {impl!r}")
-    d_in, H, N = mamba2_dims(cfg)
+    d_in, H = params["wz"].shape[1], params["A_log"].shape[0]
     dt_ = x.dtype
     z = x @ params["wz"].to(dt_)
     xr = x @ params["wx"].to(dt_)
@@ -185,7 +201,35 @@ def mamba2_apply(params, x, cfg, *, state=None, impl: str = "kernel"):
                            initial_state=init_ssm)
 
     y = y.reshape(*x.shape[:2], d_in)
-    y = apply_norm(params["out_norm"], y * F.silu(z), cfg.norm, cfg.norm_eps)
-    out = y @ params["w_out"].to(dt_)
+    y = apply_norm(params["out_norm"], y * F.silu(z), cfg.norm, cfg.norm_eps,
+                   split=inner)
+    out = inner.sum(y @ params["w_out"].to(dt_))
     new_state = {"ssm": final, "conv_x": ns_x, "conv_B": ns_B, "conv_C": ns_C}
     return out, new_state
+
+
+def rank_layout(params, lead):
+    """The per-rank layout of a sharded block's weights (DTensors):
+    ({"inner": the axes its heads are split over}, a function of a
+    leaf's path within ``params`` giving the spec ``shard_map`` hands it
+    in at).
+    ``lead`` is the activations' batch spec, whose axes no weight dim
+    may take.  The heads follow ``wz``'s "ssm_inner" columns and
+    ``A_log``'s "ssm_heads"; raises ``ValueError`` when the two resolve
+    to different axes (a rank's columns would not be whole heads)."""
+    inner = sharding.unless_used(sharding.spec_of(params["wz"])[1], lead)
+    heads = sharding.unless_used(sharding.spec_of(params["A_log"])[0], lead)
+    if inner != heads:
+        raise ValueError(
+            f"mamba2: 'ssm_inner' resolves to {inner!r} and 'ssm_heads' to "
+            f"{heads!r}; a head is a contiguous block of d_in, so both must "
+            "be split over the same mesh axes")
+    by_leaf = {"wz": (None, inner), "wx": (None, inner),
+               "wdt": (None, inner), "conv_x": (None, inner),
+               "A_log": (inner,), "dt_bias": (inner,), "D_skip": (inner,),
+               "out_norm": (inner,), "w_out": (inner, None)}
+
+    def spec(path, leaf):
+        return by_leaf.get(path[0], (None,) * leaf.ndim)
+
+    return {"inner": inner}, spec

@@ -9,6 +9,27 @@ hand-written sLSTM kernel (``kernels.ops.slstm_scan``), which has no
 backward; ``impl="xla"`` (the loss) runs the same recurrence step by
 step in plain torch (``kernels.ref.slstm_scan_ref``, the reference's
 ``lax.scan`` step), which differentiates.
+
+Under a mesh each block runs on each rank's local tensors (inside
+``common.sharding.shard_map``; ``mlstm_layout`` and ``slstm_layout``
+give the per-rank specs), as GSPMD lays the reference out:
+
+* mLSTM: ``w_up``/``w_gate`` columns and ``wq``/``wk``/``wv``/``wi``/
+  ``wf`` rows are the rank's share of d_in ("ssm_inner"), so q, k, v and
+  the gates are partial sums, reduced by one all_reduce; the cell runs
+  on the rank's heads ("ssm_heads"), whose h columns are its d_in
+  columns when both resolve to the same axes (or all heads, sliced to
+  its columns, when the heads are whole); ``out_norm`` normalises over
+  the whole d_in (all-reduced sums) and ``w_down``'s partial products
+  are summed by an all_reduce.
+* sLSTM: the gate projections' columns, the biases and R are the rank's
+  heads (R gathered over "slstm_rec", once a call, before the kernel:
+  its cluster plan needs a head whole); the kernel runs on them, from
+  the state's columns of those heads, and the new state is gathered
+  over the heads.  The post-FFN runs tensor-parallel over its hidden
+  dim where "mlp" splits it (after gathering the output over the
+  heads), else on the rank's columns of the output (its norm's sums
+  all-reduced, ``ffn_up``'s partial products summed) before the gather.
 """
 
 from __future__ import annotations
@@ -18,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.layers.initializers import WSpec
@@ -154,31 +176,65 @@ def mlstm_recurrent_ref(q, k, v, i_log, f_log, state=None):
     return torch.stack(hs, dim=1).to(q.dtype), (C, n, m)
 
 
-def mlstm_apply(params, x, cfg, *, state=None):
+def mlstm_apply(params, x, cfg, *, state=None, inner=sharding.WHOLE,
+                heads=sharding.WHOLE):
     """x: (B,S,d). state: None (fresh) or (C, n, m).  Chunkwise for a
-    multi-token call, the recurrent step for one token.  Returns (y,
-    state')."""
+    multi-token call, the recurrent step for one token.  With ``inner``
+    and ``heads`` (``common.sharding.Split``s, inside ``shard_map``) the
+    weights are this rank's share of d_in and the state its heads (see
+    the module docstring).  Returns (y, state')."""
     d_in, H, hd = mlstm_dims(cfg)
     dt = x.dtype
     B, S = x.shape[:2]
     x = apply_norm(params["ln"], x, cfg.norm, cfg.norm_eps)
     xu = x @ params["w_up"].to(dt)
     z = x @ params["w_gate"].to(dt)
-    q = (xu @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (xu @ params["wk"].to(dt)).reshape(B, S, H, hd)
-    v = (xu @ params["wv"].to(dt)).reshape(B, S, H, hd)
-    i_log = (xu @ params["wi"].to(dt)).float() + params["b_i"].float()
-    f_log = F.logsigmoid((xu @ params["wf"].to(dt)).float()
-                         + params["b_f"].float())
+    # q, k, v and the gates' pre-activations: partial sums over the
+    # rank's rows of d_in, reduced at once
+    qkvif = inner.sum(torch.cat([xu @ params[w].to(dt) for w in
+                                 ("wq", "wk", "wv", "wi", "wf")], dim=-1))
+    q, k, v, gi, gf = qkvif.split([d_in, d_in, d_in, H, H], dim=-1)
+    h0, n_h = heads.offset(H // heads.size), H // heads.size
+    q, k, v = (t.reshape(B, S, H, hd)[:, :, h0:h0 + n_h] for t in (q, k, v))
+    i_log = gi[..., h0:h0 + n_h].float() + params["b_i"].float()
+    f_log = F.logsigmoid(gf[..., h0:h0 + n_h].float() + params["b_f"].float())
     if S == 1:
         h, new_state = mlstm_recurrent_ref(q, k, v, i_log, f_log, state=state)
     else:
         h, new_state = _mlstm_chunked(q, k, v, i_log, f_log, cfg.xlstm_chunk,
                                       state=state)
-    h = h.reshape(B, S, d_in)
-    h = apply_norm(params["out_norm"], h, cfg.norm, cfg.norm_eps)
+    h = h.reshape(B, S, n_h * hd)
+    if inner and not heads:          # every head here: keep this rank's d_in
+        c0 = inner.offset(z.shape[-1])
+        h = h[..., c0:c0 + z.shape[-1]]
+    h = apply_norm(params["out_norm"], h, cfg.norm, cfg.norm_eps, split=inner)
     h = h * F.silu(z)
-    return h @ params["w_down"].to(dt), new_state
+    return inner.sum(h @ params["w_down"].to(dt)), new_state
+
+
+def mlstm_layout(params, lead):
+    """({"inner": the inner split's axes, "heads": the heads split's},
+    the spec of a leaf by its path) of a sharded mLSTM block's weights
+    (DTensors), the activations' batch spec ``lead`` taking its axes
+    first.  Raises ``ValueError`` when the heads are split over other
+    axes than d_in."""
+    inner = sharding.unless_used(sharding.spec_of(params["w_up"])[1], lead)
+    heads = sharding.unless_used(sharding.spec_of(params["b_i"])[0], lead)
+    if heads is not None and heads != inner:
+        raise ValueError(
+            f"mlstm: 'ssm_heads' resolves to {heads!r} and 'ssm_inner' to "
+            f"{inner!r}; a head's h columns are a block of d_in, so the "
+            "heads split as d_in or not at all")
+    rows = (inner, None)
+    by_leaf = {"w_up": (None, inner), "w_gate": (None, inner), "wq": rows,
+               "wk": rows, "wv": rows, "wi": rows, "wf": rows,
+               "b_i": (heads,), "b_f": (heads,), "out_norm": (inner,),
+               "w_down": rows}
+
+    def spec(path, leaf):
+        return by_leaf.get(path[0], (None,) * leaf.ndim)
+
+    return {"inner": inner, "heads": heads}, spec
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +265,16 @@ def slstm_specs(cfg):
     }
 
 
-def slstm_apply(params, x, cfg, *, state=None, impl: str = "kernel"):
+def slstm_apply(params, x, cfg, *, state=None, impl: str = "kernel",
+                heads=sharding.WHOLE, mlp=sharding.WHOLE):
     """x: (B,S,d). state: (c,n,h,m) each (B,d)-shaped (heads folded).
     The recurrence, from ``state`` or the fresh state, is one launch of
     the sLSTM kernel (``impl="kernel"``) or the plain step-by-step
-    recurrence (``impl="xla"``); then the post-FFN.  Returns (y,
-    (c,n,h,m))."""
+    recurrence (``impl="xla"``); then the post-FFN.  With ``heads`` and
+    ``mlp`` (``common.sharding.Split``s, inside ``shard_map``) the
+    weights are this rank's heads and FFN share (``slstm_layout``) and
+    the recurrence runs on its heads' columns of ``state``; the output
+    and the new state come back whole.  Returns (y, (c,n,h,m))."""
     if impl not in ("kernel", "xla"):
         raise ValueError(f"slstm_apply: unknown impl {impl!r}")
     dt = x.dtype
@@ -222,6 +282,9 @@ def slstm_apply(params, x, cfg, *, state=None, impl: str = "kernel"):
     xf = x.float()
     pre = torch.stack([xf @ params[f"w_{g}"].float() + params[f"b_{g}"].float()
                        for g in GATES], dim=2)          # (B,S,4,d)
+    if state is not None and heads:
+        c0, n = heads.offset(pre.shape[-1]), pre.shape[-1]
+        state = tuple(t[:, c0:c0 + n].contiguous() for t in state)
     # R as its four (H,hd,hd) gate tensors: no stacked copy per call
     R = tuple(params[f"r_{g}"] for g in GATES)
     if impl == "xla":
@@ -229,8 +292,41 @@ def slstm_apply(params, x, cfg, *, state=None, impl: str = "kernel"):
     else:
         y, new_state = kops.slstm_scan(pre, R, state=state)
     y = y.to(dt)
-    # post-FFN (GeLU, tanh form as jax.nn.gelu's default; pf 4/3)
-    yn = apply_norm(params["ffn_norm"], y, cfg.norm, cfg.norm_eps)
-    ff = activation("gelu")(yn @ params["ffn_up"].to(dt))
-    y = y + ff @ params["ffn_down"].to(dt)
+    # post-FFN (GeLU, tanh form as jax.nn.gelu's default; pf 4/3) on the
+    # heads' columns of y, or tensor-parallel over its hidden dim where
+    # "mlp" splits it (y gathered first)
+    cols = sharding.WHOLE if mlp else heads
+    if heads and not cols:
+        y = heads.gather(y, -1)
+    yn = apply_norm(params["ffn_norm"], y, cfg.norm, cfg.norm_eps,
+                    split=cols)
+    ff = activation("gelu")(cols.sum(yn @ params["ffn_up"].to(dt)))
+    y = cols.gather(y + mlp.sum(ff @ params["ffn_down"].to(dt)), -1)
+    if heads:
+        new_state = tuple(heads.gather(torch.stack(new_state), -1).unbind(0))
     return y, new_state
+
+
+def slstm_layout(params, lead):
+    """({"heads": the heads split's axes, "mlp": the FFN's hidden
+    split's}, the spec of a leaf by its path) of a sharded sLSTM block's
+    weights (DTensors), the activations' batch spec ``lead`` taking its
+    axes first.  R comes in whole over "slstm_rec" (the kernel needs a
+    head whole).  The FFN keeps its weights where they lie:
+    tensor-parallel over its hidden dim where "mlp" splits it (the output
+    gathered over the heads first), else on the rank's columns of the
+    output, with the weights' rows or columns for those columns (a free
+    slice of a replicated weight)."""
+    heads = sharding.unless_used(sharding.spec_of(params["r_i"])[0], lead)
+    mlp = sharding.unless_used(sharding.spec_of(params["ffn_up"])[1], lead)
+    cols = heads if mlp is None else None    # the FFN on the heads' columns
+    by_leaf = {"ffn_norm": (cols,), "ffn_up": (cols, mlp),
+               "ffn_down": (mlp, cols)}
+    for g in GATES:
+        by_leaf.update({f"w_{g}": (None, heads), f"b_{g}": (heads,),
+                        f"r_{g}": (heads, None, None)})
+
+    def spec(path, leaf):
+        return by_leaf.get(path[0], (None,) * leaf.ndim)
+
+    return {"heads": heads, "mlp": mlp}, spec

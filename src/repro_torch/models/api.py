@@ -36,8 +36,10 @@ are read under a mesh: ``moe_impl`` ("ep" by default there, "dense"),
 ("default", "gatherq", "shardmap") and ``attn_sp``; and one the
 reference does not have, ``moe_capacity_factor`` (1.25, the capacity
 factor the reference's ``moe_apply_ep`` is called with: at
-``n_experts / experts_top_k`` no token is ever dropped).  Paged decode
-and the recurrent families (hybrid, ssm) have no mesh path.
+``n_experts / experts_top_k`` no token is ever dropped).  The recurrent
+families (hybrid, ssm) run each Mamba2, mLSTM and sLSTM block on its
+rank's heads (``models.lm``), their state caches DTensors placed by the
+same rules.  Paged decode has no mesh path.
 """
 
 from __future__ import annotations
@@ -416,10 +418,6 @@ def softmax_dtype(opts) -> torch.dtype:
 
 def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
     rules = sharding.merge_rules(rules if isinstance(rules, dict) else None)
-    if mesh is not None and cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"build_model: family {cfg.family!r} has no mesh path in the "
-            "port (its recurrent kernels run on whole tensors)")
     if cfg.is_encoder_decoder:
         # encoder-decoder families have no paged layout: the paged
         # fields stay None, as in the JAX package

@@ -46,7 +46,14 @@ picks the decode write: "scatter", "blend" or "shard"); decode attends
 through the decode kernel per rank, or with ``decode_attn="shardmap"``
 by the partial softmax over the sequence-sharded cache
 (``layers.attention.decode_attention_shardmap``); the MoE runs
-expert-parallel (``moe_impl="ep"``).
+expert-parallel (``moe_impl="ep"``).  A recurrent block (Mamba2, mLSTM,
+sLSTM) runs whole in one ``sharding.shard_map`` on its rank's heads
+(``_on_ranks``): the layer module's layout gives each weight's per-rank
+spec, the state caches come in at their own placements and are written
+in the rank's tile, and the block's collectives are the layer's own
+(``common.sharding.Split``).  Inside a superblock or an xLSTM group the
+blocks are rematerialised one by one inside the layer's own
+rematerialisation, as the reference scans them (``_inner_stack``).
 """
 
 from __future__ import annotations
@@ -58,7 +65,9 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.common import sharding
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import (
+    tree_leaves, tree_map, tree_map_with_path, tree_unflatten,
+)
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mamba2 as m2
@@ -68,6 +77,7 @@ from repro_torch.layers import xlstm as xl
 from repro_torch.layers.initializers import WSpec, stack_specs
 from repro_torch.layers.mlp import mlp_apply, mlp_specs
 from repro_torch.layers.norms import apply_norm, norm_specs
+from repro_torch.layers.remat import remat_call
 
 
 def _attn_block_specs(cfg, use_moe: bool, post_norm: bool):
@@ -289,9 +299,45 @@ def _field(cache, key):
 
 def _write_state(cache, new):
     """Copy a block's new recurrent state into its cache views (train
-    mode has no cache)."""
+    mode has no cache); under a mesh, into the rank's local tiles."""
     if cache is not None:
-        tree_map(lambda c, x: c.copy_(x), cache, new)
+        def write(c, x):
+            if c.shape != x.shape:
+                raise ValueError(f"a state of shape {tuple(x.shape)} for a "
+                                 f"cache tile of {tuple(c.shape)}")
+            c.copy_(x)
+
+        tree_map(write, cache, new)
+
+
+def _on_ranks(run, layout, p, h, cache, ctx):
+    """A recurrent block under a mesh, on each rank's local tensors
+    (``sharding.shard_map``): ``run(p, h, cache, **splits)`` gets the
+    rank's weights, laid out by ``layout(p, lead)`` (the block's split
+    axes by name, and each weight's spec by its path), its rows of the
+    constrained residual stream with the sequence whole, and its tiles of
+    the cache leaves at their own placements (the views it writes in
+    place); it returns the new residual stream's rows, replicated over
+    every other axis.  The rows follow the cache's batch spec where
+    there is a cache."""
+    mesh = ctx["mesh"]
+    h, lead = sharding.lead_spec(_constrain(ctx, h))
+    c_leaves = [] if cache is None else tree_leaves(cache)
+    rows = sharding.spec_of(c_leaves[0])[0] if c_leaves else lead[0]
+    axes, spec = layout(p, (rows,))
+    splits = {k: sharding.Split(mesh, a) for k, a in axes.items()}
+    p_leaves, p_specs = tree_leaves(p), []
+    tree_map_with_path(lambda path, t: p_specs.append(spec(path, t)), p)
+    n = len(p_leaves)
+
+    def f(hl, *locs):
+        cl = None if cache is None else tree_unflatten(cache, list(locs[n:]))
+        return run(tree_unflatten(p, list(locs[:n])), hl, cl, **splits)
+
+    io = (rows, None, None)
+    return sharding.shard_map(
+        f, mesh, (io, *p_specs, *map(sharding.spec_of, c_leaves)), io)(
+            h, *p_leaves, *c_leaves)
 
 
 def _mamba_block_specs(cfg):
@@ -314,40 +360,73 @@ def _impl(ctx) -> str:
     return ctx["attn_impl"] if ctx["mode"] == "train" else "kernel"
 
 
-def _mamba_block(p, h, cache, ctx, cfg):
+def _mamba_run(p, h, cache, *, cfg, read, impl, inner=sharding.WHOLE):
     x = apply_norm(p["ln"], h, cfg.norm, cfg.norm_eps)
-    state = cache if ctx["mode"] == "decode" else None
-    y, new_state = m2.mamba2_apply(p["mamba"], x, cfg, state=state,
-                                   impl=_impl(ctx))
-    _write_state(cache, new_state)
-    return h + y, 0.0
-
-
-def _xlstm_block(apply, p, h, cache, ctx, cfg):
-    """An mLSTM or sLSTM block (``apply`` norms its own input); its cache
-    is the state list, written in place."""
-    state = tuple(cache) if ctx["mode"] == "decode" else None
-    y, new_state = apply(p, h, cfg, state=state)
+    y, new_state = m2.mamba2_apply(p["mamba"], x, cfg,
+                                   state=cache if read else None, impl=impl,
+                                   inner=inner)
     _write_state(cache, new_state)
     return h + y
 
 
+def _mamba_layout(p, lead):
+    """``m2.rank_layout`` for the block's mixer; its norm whole."""
+    axes, spec = m2.rank_layout(p["mamba"], lead)
+    return axes, lambda path, t: (
+        spec(path[1:], t) if path[0] == "mamba" else (None,) * t.ndim)
+
+
+def _mamba_block(p, h, cache, ctx, cfg):
+    run = partial(_mamba_run, cfg=cfg, read=ctx["mode"] == "decode",
+                  impl=_impl(ctx))
+    if ctx.get("mesh") is not None:
+        return _on_ranks(run, _mamba_layout, p, h, cache, ctx), 0.0
+    return run(p, h, cache), 0.0
+
+
+def _xlstm_run(apply, p, h, cache, *, cfg, read, **splits):
+    """An mLSTM or sLSTM block (``apply`` norms its own input); its cache
+    is the state list, written in place."""
+    y, new_state = apply(p, h, cfg, state=tuple(cache) if read else None,
+                         **splits)
+    _write_state(cache, new_state)
+    return h + y
+
+
+def _xlstm_block(apply, layout, p, h, cache, ctx, cfg):
+    run = partial(_xlstm_run, apply, cfg=cfg, read=ctx["mode"] == "decode")
+    if ctx.get("mesh") is not None:
+        return _on_ranks(run, layout, p, h, cache, ctx)
+    return run(p, h, cache)
+
+
+def _inner_stack(block, p, h, cache, ctx, k: int):
+    """``block(p_j, h, cache_j)`` over the k blocks of a stacked group,
+    each under ``ctx["remat"]`` inside the group's own (the reference
+    scans them as a stack of its own, rematerialised per block)."""
+    for j in range(k):
+        h = remat_call(ctx.get("remat", "none"),
+                       partial(block, _sub(p, j), cache=_sub(cache, j)), h)
+    return h
+
+
 def _super_block(p, h, cache, ctx, cfg, *, k: int):
     """k Mamba2 blocks, then the shared attention + MLP block."""
-    for j in range(k):
-        h, _ = _mamba_block(_sub(p["mamba"], j), h,
-                            _sub(_field(cache, "mamba"), j), ctx, cfg)
+    h = _inner_stack(lambda pj, hj, cache: _mamba_block(pj, hj, cache, ctx,
+                                                        cfg)[0],
+                     p["mamba"], h, _field(cache, "mamba"), ctx, k)
     return _attn_block(ctx["shared_attn"], h, _field(cache, "attn"), ctx,
                        cfg, local=False, use_moe=False, post_norm=False)
 
 
 def _xgroup_block(p, h, cache, ctx, cfg, *, m: int):
     """m mLSTM blocks, then one sLSTM block."""
-    for j in range(m):
-        h = _xlstm_block(xl.mlstm_apply, _sub(p["mlstm"], j), h,
-                         _sub(_field(cache, "mlstm"), j), ctx, cfg)
-    return _xlstm_block(partial(xl.slstm_apply, impl=_impl(ctx)), p["slstm"],
-                        h, _field(cache, "slstm"), ctx, cfg), 0.0
+    h = _inner_stack(lambda pj, hj, cache: _xlstm_block(
+        xl.mlstm_apply, xl.mlstm_layout, pj, hj, cache, ctx, cfg),
+        p["mlstm"], h, _field(cache, "mlstm"), ctx, m)
+    return _xlstm_block(partial(xl.slstm_apply, impl=_impl(ctx)),
+                        xl.slstm_layout, p["slstm"], h, _field(cache, "slstm"),
+                        ctx, cfg), 0.0
 
 
 @dataclass

@@ -24,6 +24,9 @@ sides); at the default factor 1.25 it is held to the reference's
 sharded loss.  One tinyllama case adds ``z_loss``; deepseek-v3-671b
 (the MTP loss, MLA, a shared expert; at its no-drop capacity) and
 whisper-tiny (the encoder-decoder loss) add one case each at (1, 2).
+zamba2-7b and xlstm-1.3b (the recurrent families: Mamba2's plain SSD and
+the sLSTM's plain recurrence per rank on its heads, the mLSTM's cell on
+its heads, their gradients through ``shard_map``) at (1, 2) and (2, 2).
 """
 
 import functools
@@ -39,7 +42,7 @@ from repro.models.api import build_model as ref_build_model
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 GRAD_RTOL = 1e-4
-ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m")
+ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "zamba2-7b", "xlstm-1.3b")
 NO_DROP = {"moe_capacity_factor": 2.5}     # smoke granite: 5 experts, top-2
 
 # the port's cases: with ``grads`` held to the unsharded reference
@@ -57,6 +60,10 @@ CASES = [
     dict(arch="deepseek-v3-671b", mesh=[1, 2], grads=True,
          opts={"moe_capacity_factor": 4.0}),      # smoke: 8 experts, top-2
     dict(arch="whisper-tiny", mesh=[1, 2], grads=True),
+    dict(arch="zamba2-7b", mesh=[1, 2], grads=True),
+    dict(arch="zamba2-7b", mesh=[2, 2], grads=True),
+    dict(arch="xlstm-1.3b", mesh=[1, 2], grads=True),
+    dict(arch="xlstm-1.3b", mesh=[2, 2], grads=True),
 ]
 # the reference's sharded losses: each (arch, mesh) at the defaults
 REF_CASES = [dict(arch=a, mesh=m) for a in ARCHS for m in ([1, 2], [2, 2])]

@@ -152,8 +152,14 @@ def test_bundle_under_a_mesh_holds_dtensors(world1):
     for leaf in [params["stages"]["moe"]["blocks"]["moe"]["wi_gate"],
                  cache["moe"]["k"]]:
         assert sharding.is_dtensor(leaf)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        build_model(get_config("zamba2-7b", smoke=True), mesh=world1)
+    # the hybrid family too: its weights and its state caches
+    hb = build_model(get_config("zamba2-7b", smoke=True), mesh=world1)
+    hp = hb.init(torch.Generator().manual_seed(0), device="cpu")
+    hc = hb.init_cache(1, 8, device="cpu")
+    for leaf in [hp["stages"]["super"]["blocks"]["mamba"]["mamba"]["wz"],
+                 hc["super"]["mamba"]["ssm"], hc["super"]["mamba"]["conv_x"],
+                 hc["tail"]["ssm"]]:
+        assert sharding.is_dtensor(leaf)
 
 
 def test_whisper_on_a_mesh_matches_reference(world1):

@@ -62,13 +62,14 @@ def loss_batch(cfg, B=4, S=8, seed=2):
     return batch
 
 
-def model_params(arch):
-    """The reference's smoke weights, PRNGKey(0), as numpy."""
+def model_params(arch, cfg=None):
+    """The reference's smoke weights, PRNGKey(0), as numpy (of the smoke
+    config with the ``cfg`` overrides, where given)."""
     import jax
 
     from repro.models.api import build_model
 
-    cfg = model_cfg(arch)
+    cfg = model_cfg(arch).with_overrides(**(cfg or {}))
     return jax.tree.map(np.asarray,
                         build_model(cfg).init(jax.random.PRNGKey(0)))
 
@@ -133,11 +134,11 @@ def run_model(case):
     from repro.models.api import build_model
 
     mesh = _mesh(case["mesh"])
-    cfg = model_cfg(case["arch"])
+    cfg = model_cfg(case["arch"]).with_overrides(**case.get("cfg", {}))
     rules = merge_rules(case.get("rules"))
     bundle = build_model(cfg, mesh=mesh, rules=rules,
                          compute_dtype=jnp.float32, **case.get("opts", {}))
-    params = jax.device_put(model_params(case["arch"]),
+    params = jax.device_put(model_params(case["arch"], case.get("cfg")),
                             tree_shardings(bundle.specs, rules, mesh))
     tokens = model_tokens(cfg)
     B, S = tokens.shape
@@ -185,12 +186,45 @@ def run_loss(case):
     return {"loss": np.asarray(loss)}
 
 
+def dots_by_shape(hlo_text):
+    """The reference's dot FLOPs by product: (output elements, contracted
+    elements, times run) for each distinct pair, each dot instruction
+    counted along every call edge with its loop trip counts, as
+    ``hlo_cost.HloCost.flops`` counts them; as an (n, 3) float64 array
+    sorted by FLOPs."""
+    from repro.common.hlo_cost import HloCost, _shape_list
+
+    hc = HloCost(hlo_text)
+    out: dict = {}
+
+    def walk(comp, mult):
+        shapes = hc._shape_map(comp)
+        for ins in hc.comps.get(comp, []):
+            if ins.op == "dot":
+                n_out = int(np.prod([d for _, dims in _shape_list(
+                    ins.out_text) for d in dims]))
+                key = (n_out, hc._dot_flops(ins, shapes) / (2 * n_out))
+                out[key] = out.get(key, 0.0) + mult
+            for callee, m in hc._callees(ins):
+                walk(callee, mult * m)
+
+    walk(hc.entry, 1.0)
+    rows = sorted(([a, b, n] for (a, b), n in out.items()),
+                  key=lambda r: -r[0] * r[1] * r[2])
+    return np.asarray(rows, dtype=np.float64).reshape(-1, 3)
+
+
 def run_dryrun(case):
     """The reference dry run's per-device figures for one small cell:
     the smoke config lowered and compiled for ``case["mesh"]`` (axes
     ("data", "model"), or ("pod", "data", "model") for three dims) as
     ``repro.launch.dryrun.run_cell`` lowers a production cell, with the
-    mesh built by ``jax.sharding.Mesh``."""
+    mesh built by ``jax.sharding.Mesh``.  Each step is jitted with
+    ``keep_unused=True``, so its argument bytes count every argument as
+    the port's do: by default jit drops the ones the step never reads
+    (the recurrent state caches of a prefill, which starts from the
+    fresh state; the lengths of an xLSTM decode, which has no
+    attention), which the port, writing the caches in place, holds."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -224,22 +258,25 @@ def run_dryrun(case):
             tcfg = TrainConfig(moment_dtype="float32", remat="full")
             state = sds(state_specs(bundle.specs, tcfg), jnp.float32)
             lowered = jax.jit(make_train_step(bundle, tcfg),
-                              donate_argnums=(0,)).lower(state, batch)
+                              donate_argnums=(0,),
+                              keep_unused=True).lower(state, batch)
         else:
             params = sds(bundle.specs, jnp.bfloat16)
             cache = sds(bundle.cache_specs(shape.global_batch, shape.seq_len,
                                            jnp.bfloat16), jnp.bfloat16)
             if shape.kind == "prefill":
-                lowered = jax.jit(bundle.prefill).lower(params, batch, cache)
+                lowered = jax.jit(bundle.prefill, keep_unused=True).lower(
+                    params, batch, cache)
             else:
-                lowered = jax.jit(bundle.decode_step,
-                                  donate_argnums=(2,)).lower(
+                lowered = jax.jit(bundle.decode_step, donate_argnums=(2,),
+                                  keep_unused=True).lower(
                     params, batch["tokens"], cache, batch["lengths"])
         compiled = lowered.compile()
     rep = analyze(compiled.as_text())
     mem = memory_summary(compiled)
     return {"argument": np.asarray(mem["argument_size_in_bytes"]),
             "flops": np.asarray(rep.flops),
+            "dots": dots_by_shape(compiled.as_text()),
             "collective_bytes": np.asarray(rep.collective_bytes)}
 
 

@@ -96,7 +96,9 @@ def _save(rank, out, res):
 
 def model_worker(rank, shape, cases, params, out):
     """Each case's prefill + decode logits (greedy tokens fed back) on
-    the mesh ``shape``; "local_shapes" adds every leaf's local shape."""
+    the mesh ``shape``; "local_shapes" adds every leaf's local shape.  A
+    case's "cfg" overrides the smoke config, its weights then under the
+    key "params" of ``params`` (else its arch)."""
     import torch
 
     from repro_torch.common.bridge import params_from_numpy
@@ -107,11 +109,13 @@ def model_worker(rank, shape, cases, params, out):
     mesh = _mesh(shape)
     res = {}
     for i, case in cases:
-        cfg = get_config(case["arch"], smoke=True)
+        cfg = get_config(case["arch"], smoke=True).with_overrides(
+            **case.get("cfg", {}))
         b = build_model(cfg, mesh=mesh, rules=case.get("rules"),
                         **case.get("opts", {}))
-        p = shard_tree(params_from_numpy(params[case["arch"]], "cpu"),
-                       b.specs, b.rules, mesh)
+        p = shard_tree(params_from_numpy(
+            params[case.get("params", case["arch"])], "cpu"),
+            b.specs, b.rules, mesh)
         tokens = torch.from_numpy(mref.model_tokens(cfg))
         B, S = tokens.shape
         cache = b.init_cache(B, case["T"], device="cpu")
