@@ -32,7 +32,10 @@ Phases (any failure exits non-zero; nothing is caught):
    xlstm-1.3b's (S = 383 and 1000, two rows of two steps, one decode
    step), phase 14's rank (2 of the 4 heads: S = 200 and a decode step)
    and the smoke shape (fresh and random state; R as four gate tensors
-   against R stacked); then
+   against R stacked), and the paged kernel's tile mode at phase 15's
+   rank tiles (internvl2-1b's tick on 8 of 16 slots, gemma2-9b's local
+   layer, and a page range with 4 of 16 slots as a (2, 4) mesh lays the
+   pool out: o and the log-sum-exp); then
    time each kernel (CUDA events over back-to-back calls; its own
    device time under ``torch.profiler``; the wrapper's host enqueue
    time), its plain version and, where one PyTorch call computes the
@@ -124,7 +127,11 @@ Phases (any failure exits non-zero; nothing is caught):
    and matches its plain version at the tests' f32 tolerance (rtol =
    atol = 2e-4); every case it marks ERROR
    (head dim 96, sLSTM head dims 1024 and 136, SSD states of 256 and
-   1024, grid extents above CUDA's) raises in its wrapper; phase 3's
+   1024, grid extents above CUDA's, a paged tile past its page) raises in
+   its wrapper; the checker's tile plans (threads, blocks an SM) against
+   the built kernel's ``paged_decode_tile_info``, and each split-KV
+   case's outputs and workspace as the wrapper reports them against the
+   plan's; phase 3's
    deployment and phase 6's scenario verify clean with ``kernels=True,
    model_check=True`` before they materialize; ``python -m
    repro_torch.analysis --self`` exits 0.
@@ -198,7 +205,28 @@ Phases (any failure exits non-zero; nothing is caught):
    each arch cut to the fewest layers that hold every block kind (7 and
    8) == the mesh path on the CPU within 2e-4.  Prints each rank's held
    weights, peak memory, prefill ms and ms a decode step.
-15. Print the kernels line (JSON), the card line, and last
+15. Paged decode under a mesh: internvl2-1b at full width and depth (24
+   layers) and gemma2-9b at full width cut to 2 layers (one local/global
+   pair), random float32 weights from a seed, each on two gloo ranks
+   sharing the card, mesh (1, 2), the reference's serving rules, through
+   ``build_model(cfg, mesh=, rules=)``'s ``init_paged_cache`` and
+   ``paged_decode_step``: the page pool laid out as the reference lays it
+   out (pages over "cache_batch", each page's 16 slots over "cache_seq":
+   8 a rank), the paged kernel's tile mode once a layer a tick on each
+   rank's tile and the ranks' partial softmaxes combined.  Four requests
+   (phase 8's prompts; gemma2's fourth the 4,100-token one, whose window
+   starts mid-page), each prefilled alone into a one-row dense cache and
+   copied into the pool (``insert_pages``), then 7 batched ticks.  The
+   unsharded bundle's paged step of the same weights runs first in the
+   main process.  Checked: tokens equal to it and every step's logits
+   within 2e-4; the longest request's first tick == a fresh prefill
+   within 5e-4; exact launches by call shape in each rank (the tile mode
+   at the kernel checker's case's shape, flash on 7 of 14 / 8 of 16
+   heads); every tick's collectives by kind equal to the count derived
+   from the code; the ranks' peaks below the card's 80 GB; internvl2-1b
+   cut to 2 layers == the mesh path on the CPU within 2e-4.  Prints each
+   rank's held and peak GB, prefill ms and ms a tick.
+16. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -378,6 +406,26 @@ MESH_PROMPTS, MESH_STEPS = (126, 200), 4
 MESH_RULES = {"zamba2-7b": {"embed": None}, "xlstm-1.3b": {"embed": None}}
 MESH_CUT = {"zamba2-7b": 7, "xlstm-1.3b": 8}
 CARD_BYTES = 80e9
+
+# phase 15: paged decode under a mesh.  internvl2-1b at full width and
+# depth and gemma2-9b at full width cut to PM_LAYERS (one local/global
+# pair), random float32 weights from a seed, on two gloo ranks sharing
+# the card, mesh (1, 2), the reference's serving rules: the page pool laid
+# out as the reference lays it out (pages over "cache_batch", each page's
+# slots over "cache_seq": 8 of 16 a rank), the paged kernel's tile mode
+# once a layer a tick on each rank's tile.  Four requests (phase 8's
+# prompts; for gemma2 the first three and the 4,100-token one, whose
+# window starts mid-page), each prefilled alone into a one-row dense cache
+# and copied into the pool (insert_pages), then FAM_NEW - 1 batched ticks
+# of all four rows; against the unsharded bundle's paged step of the same
+# weights in the main process; internvl2-1b cut to PM_CPU_LAYERS against
+# the mesh path on the CPU.  The ranks' tiles are the kernel checker's
+# cases of TILE_ROWS (phase 2 times them and fails where phase 15's pool
+# is not theirs; phase 10 launches them)
+PM_ARCHS = ("internvl2-1b", "gemma2-9b")
+PM_LAYERS = {"gemma2-9b": 2}
+PM_RULES = {"embed": None}
+PM_CPU_LAYERS = 2
 
 
 def prompt_lens(bounds, n) -> list[int]:
@@ -1683,6 +1731,142 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
         if dt is torch.float32:
             rows += [_row(*spec) for spec in specs]
         del specs
+    return rows, keys
+
+
+def _tile_work(q, tables, lens, tile, ps_loc, P_loc, K_, D_, isz,
+               window=0) -> tuple[int, float]:
+    """A tile-mode call's bytes (q, o, the lse, the k and v of the live keys
+    the tile holds, the table entries of the rows' live spans, the
+    lengths) and FLOPs over those keys: key t < lengths[b] (>= lengths[b]
+    - window under a window) is the tile's where its page (clamped into
+    the pool) lies in [p0, p0 + P_loc) and its slot in [s0, s0 +
+    ps_loc)."""
+    import torch
+
+    p0, n_pages, s0, ps = tile
+    B, H_, _ = q.shape
+    n_max = tables.shape[1]
+    t = torch.arange(n_max * ps, device=q.device)
+    n = lens.long()[:, None]
+    live = t[None] < n
+    if window:
+        live &= t[None] >= n - window
+    page = tables.long().clamp(0, n_pages - 1).repeat_interleave(ps, dim=1)
+    slot = (t % ps)[None]
+    held = live & (page >= p0) & (page < p0 + P_loc) & (slot >= s0) & \
+        (slot < s0 + ps_loc)
+    keys = int(held.sum())
+    spans = int(live.reshape(B, n_max, ps).any(-1).sum())
+    nbytes = (2 * q.numel() * isz + 4 * B * H_ + 2 * keys * K_ * D_ * isz
+              + 4 * spans + 4 * B)
+    return nbytes, 4 * D_ * H_ * keys
+
+
+#: phase 2's tile-mode rows: (row, the kernel checker's case, the phase 15
+#: path whose launches it reads; None: no path on one card runs it)
+TILE_ROWS = (("paged_decode_attention_tile_h14",
+              "internvl2-1b/paged-tile-rank", "internvl2-1b"),
+             ("paged_decode_attention_tile_d256_local",
+              "gemma2-9b/paged-tile-local-rank", "gemma2-9b"),
+             ("paged_decode_attention_tile_page_range",
+              "internvl2-1b/paged-tile-page-range", None))
+
+
+def phase_kernels_paged_tile(dev) -> tuple[list[dict], dict]:
+    """The paged kernel's tile mode at phase 15's rank tiles, float32 and
+    bfloat16 against its plain version (o, and the log-sum-exp where the
+    tile holds a live key: -inf on the same rows), one kernels-line row
+    each (float32), timed at phase 15's first tick (its tables and
+    lengths): (a) internvl2-1b's tick on a rank of (1, 2), 4 rows, H = 14,
+    K = 2, D = 64, slots 8-15 of every page; (b) gemma2-9b's local layer,
+    D = 256, window 4,096 from mid-page, softcap 50, slots 0-7; (c)
+    internvl2-1b's tick on a page range, pages 35-69 and slots 4-7 of 16,
+    as a (2, 4) mesh lays the pool out: no path on one card runs it, so
+    this row is what holds the page-ownership path on the card.  The
+    tiles are the kernel checker's cases.  No one call computes the tile
+    function; SDPA over the tile's pre-gathered live keys is logged as a
+    yardstick where there is no softcap.  Returns the rows and each row's
+    (path, kernel, call shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.analysis import kernel_check as kc
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows, keys = [], {}
+    zoo = {c.name: c for c in kc.zoo_cases()}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        isz = torch.tensor([], dtype=dt).element_size()
+        for name, case_name, arch in TILE_ROWS:
+            case = zoo[case_name]
+            kw = dict(case.kwargs)
+            tile = kw["tile"]
+            cfg = _pm_cfg("internvl2-1b" if arch is None else arch)
+            n_pages, _, tables, lens = _pm_layout(cfg, _pm_requests(cfg))
+            B_, H_, D_ = case.shape("q")
+            P_loc, ps_loc, K_, _ = case.shape("k_pages")
+            if (n_pages, tables.shape) != (tile[1], case.shape(
+                    "block_tables")):
+                fail(f"{name}: phase 15's pool ({n_pages} pages, tables "
+                     f"{tables.shape}) is not the checker's {case_name}")
+            tables = torch.from_numpy(tables).to(dev)
+            lens = torch.tensor(lens, dtype=torch.int32, device=dev) + 1
+            q = torch.randn(B_, H_, D_, generator=g, device=dev).to(dt)
+            kp, vp = (torch.randn(P_loc, ps_loc, K_, D_, generator=g,
+                                  device=dev).to(dt) for _ in range(2))
+            o, lse = ops.paged_decode_attention(q, kp, vp, tables, lens,
+                                                **kw)
+            wo, wl = ref.paged_decode_attention_ref(q, kp, vp, tables, lens,
+                                                    **kw)
+            torch.cuda.synchronize()
+            live = torch.isfinite(wl)
+            if not torch.equal(torch.isfinite(lse), live):
+                fail(f"{name} {dname}: the kernel's -inf log-sum-exps "
+                     f"{(~torch.isfinite(lse)).nonzero().tolist()} are not "
+                     f"the plain version's {(~live).nonzero().tolist()}")
+            what = (f"tile {tile} of {P_loc} pages x {ps_loc} slots, H={H_} "
+                    f"K={K_} D={D_}, lengths {lens.tolist()} window "
+                    f"{kw['window']} softcap {kw['softcap']}; rows with no "
+                    f"live key {(~live).all(-1).nonzero()[:, 0].tolist()}")
+            err = _check("paged_decode_attention", dname, f"{what}: o", o, wo)
+            _check("paged_decode_attention", dname, f"{what}: lse",
+                   torch.where(live, lse, 0.0), torch.where(live, wl, 0.0))
+            if arch is not None:
+                keys[name] = (f"{arch}-paged-mesh", "paged_decode_attention",
+                              (B_, tables.shape[1], ps_loc, H_, K_, D_,
+                               kw["window"], P_loc, tile[3]))
+            else:
+                keys[name] = (None, "paged_decode_attention", None)
+            if dt is not torch.float32:
+                continue
+            rows.append(_row(
+                name, "csrc/decode_attention.cu",
+                "src/repro/kernels/paged_decode_attention.py:77",
+                "paged_decode_fwd", err,
+                lambda q=q, k=kp, v=vp, t=tables, l_=lens, kw=kw:
+                    ops.paged_decode_attention(q, k, v, t, l_, **kw),
+                lambda q=q, k=kp, v=vp, t=tables, l_=lens, kw=kw:
+                    ref.paged_decode_attention_ref(q, k, v, t, l_, **kw),
+                None, *_tile_work(q, tables, lens, tile, ps_loc, P_loc, K_,
+                                  D_, isz, kw["window"])))
+            if kw["softcap"]:
+                continue
+            # a yardstick: SDPA over the tile's keys gathered beforehand
+            p0, n_max = tile[0], tables.shape[1]
+            pg = tables.long().clamp(0, tile[1] - 1) - p0
+            held = ((pg >= 0) & (pg < P_loc)).repeat_interleave(ps_loc, 1)
+            t_ = (torch.arange(n_max, device=dev)[:, None] * tile[3] + tile[2]
+                  + torch.arange(ps_loc, device=dev)[None]).reshape(-1)
+            mask = (held & (t_[None] < lens[:, None].long()))[:, None, None]
+            loc = pg.clamp(0, P_loc - 1)
+            kg, vg = (x[loc].reshape(B_, n_max * ps_loc, K_, D_).transpose(
+                1, 2) for x in (kp, vp))
+            log(f"[kernels] {name} float32: SDPA over the tile's pre-gathered "
+                "keys (gather not timed) "
+                f"{time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)):.4f} ms")
     return rows, keys
 
 
@@ -2999,7 +3183,7 @@ def _plans_agree(dev, cases, n_sm) -> None:
     log(f"[phase10] ops.flash_plan == flash_attention_plan at D in "
         f"{ops.HEAD_DIMS}, float32 and bfloat16; both refuse D=96")
     info = (ctypes.c_int * 3)()
-    n_ssd = n_sl = 0
+    n_ssd = n_sl = n_tile = 0
     for case in cases:
         lp = kc.launch_plan(case, n_sm)
         if lp.kernel == "ssd_tile_kernel":
@@ -3030,9 +3214,25 @@ def _plans_agree(dev, cases, n_sm) -> None:
                 fail(f"{case.name}: the card holds {info[2]} clusters of "
                      f"{p.cluster}, fewer than the {H_} heads")
             n_sl += 1
+        elif lp.tile is not None:
+            D_ = case.shape("q")[2]
+            if build.load("decode_attention").paged_decode_tile_info(
+                    D_, 0, info) != 0:
+                fail(f"{case.name}: paged_decode_tile_info refuses D={D_}")
+            if info[0] != lp.threads or info[1] < lp.blocks_per_sm:
+                fail(f"{case.name}: the tile plan's {lp.threads} threads "
+                     f"and {lp.blocks_per_sm} blocks an SM, the card's "
+                     f"{info[0]} and {info[1]}")
+            log(f"[phase10] {case.name}: the tile plan (grid {lp.grid}, "
+                f"{lp.threads} threads, {lp.blocks_per_sm} blocks an SM, "
+                f"{lp.workspace} B workspace, tile {lp.tile}) against "
+                f"paged_decode_tile_info: {info[0]} threads, {info[1]} "
+                f"blocks an SM, {info[2]} B static shared memory")
+            n_tile += 1
     log(f"[phase10] the checker's SSD plans at {n_ssd} cases equal "
-        f"ssd_intra_chunk_info (smem, threads, blocks an SM) and its sLSTM "
-        f"prefill plans at {n_sl} equal slstm_prefill_info")
+        f"ssd_intra_chunk_info (smem, threads, blocks an SM), its sLSTM "
+        f"prefill plans at {n_sl} equal slstm_prefill_info, its paged "
+        f"tile plans at {n_tile} agree with paged_decode_tile_info")
 
 
 def _ssd_vs_f64(case, args, got) -> float:
@@ -3111,12 +3311,24 @@ def phase_analysis(dev) -> None:
     # every clean case, once, at its full shape
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
+    held = []
+    ops.WORK_HOOKS.append(lambda name, flops, moved, peak: held.append(peak))
     for case in cases:
         args = case.inputs(g)
         meta = kc.leaves(getattr(ops, case.entry)(*case.meta_args(),
                                                    **case.kwargs))
+        held.clear()
         got = kc.leaves(getattr(ops, case.entry)(*args, **case.kwargs))
         torch.cuda.synchronize()
+        lp = kc.launch_plan(case, n_sm)
+        if lp.workspace:
+            # the split-KV kernels: the wrapper's outputs and workspace as
+            # it reports them, against the plan's workspace
+            want_b = sum(t.numel() * t.element_size() for t in got) + \
+                lp.workspace
+            if held != [want_b]:
+                fail(f"{case.name}: the wrapper held {held} B, the plan's "
+                     f"outputs and workspace {want_b}")
         if len(got) != len(meta):
             fail(f"{case.name}: {len(got)} outputs, the checker read "
                  f"{len(meta)}")
@@ -3144,6 +3356,7 @@ def phase_analysis(dev) -> None:
             del want
         worst = max(worst, ratio)
         del args, got
+    ops.WORK_HOOKS.pop()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[phase10] {len(cases)} clean cases launched at their full shapes: "
@@ -3572,6 +3785,20 @@ def _whole(x):
     return local_as(x, x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
+@contextlib.contextmanager
+def _comm_counted(calls, kind):
+    """With a list ``calls``, the block under ``CommDebugMode``, its
+    collectives by kind appended as (``kind``, counts); else nothing."""
+    if calls is None:
+        yield
+        return
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    with CommDebugMode() as comm:
+        yield
+    calls.append((kind, _comm_kinds(comm)))
+
+
 def _dist_generate(bundle, params, prompt, new, dev, calls=None):
     """One greedy request solo on a (sharded) bundle: prefill, then new - 1
     decode steps.  Returns (tokens, each step's logits on the host,
@@ -3584,22 +3811,11 @@ def _dist_generate(bundle, params, prompt, new, dev, calls=None):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    @contextlib.contextmanager
-    def counted(kind):
-        if calls is None:
-            yield
-            return
-        from torch.distributed.tensor.debug import CommDebugMode
-
-        with CommDebugMode() as comm:
-            yield
-        calls.append((kind, _comm_kinds(comm)))
-
     T = dense_T(len(prompt), new)
     cache = bundle.init_cache(1, T, torch.float32, dev)
     sync()
     t0 = time.perf_counter()
-    with counted("prefill"):
+    with _comm_counted(calls, "prefill"):
         lg, cache = bundle.prefill(
             params, {"tokens": torch.tensor([prompt], dtype=torch.int32,
                                             device=dev)}, cache)
@@ -3609,7 +3825,7 @@ def _dist_generate(bundle, params, prompt, new, dev, calls=None):
     logits, toks, steps = [lg[0].cpu()], [int(lg[0].argmax())], []
     for i in range(new - 1):
         t0 = time.perf_counter()
-        with counted("decode"):
+        with _comm_counted(calls, "decode"):
             lg, cache = bundle.decode_step(
                 params, torch.tensor([[toks[-1]]], dtype=torch.int32,
                                      device=dev),
@@ -4579,6 +4795,393 @@ def phase_recurrent_mesh(dev, cfgs=None) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 15: paged decode under a mesh
+# --------------------------------------------------------------------------
+
+def _pm_cfg(arch):
+    from repro_torch.common.config import get_config
+
+    cfg = get_config(arch)
+    return cfg.with_overrides(n_layers=PM_LAYERS[arch]) \
+        if arch in PM_LAYERS else cfg
+
+
+def _pm_requests(cfg):
+    """Phase 15's four requests: phase 8's prompts, gemma2-9b's fourth
+    the 4,100-token one; a VLM's with its image prefix."""
+    from repro_torch.launch.serve import make_requests
+
+    lens = prompt_lens(FAM_PROMPTS, FAM_REQS)
+    if cfg.name == "gemma2-9b":
+        lens = lens[:3] + [G2_LONG]
+    return make_requests(cfg, len(lens), FAM_NEW, prompt_lens=lens,
+                         seed=SEED)
+
+
+def _pm_layout(cfg, reqs):
+    """The pool of phase 15 from ``serving.kvcache.PagePool``: page 0 the
+    dead rows' dummy (as ``DecodeStream`` reserves it), then each
+    request's pages for its sequence and the FAM_NEW - 1 tokens its ticks
+    write.  Returns (n_pages, each request's pages, the (B, n_max) int32
+    tables, each sequence's length)."""
+    from repro_torch.serving.kvcache import PagePool
+
+    n_img = cfg.n_image_tokens if cfg.has_vision_stub else 0
+    lens = [n_img + len(r.prompt) for r in reqs]
+    need = [-(-(n + FAM_NEW - 1) // PAGE) for n in lens]
+    pool = PagePool(1 + sum(need), PAGE)
+    pool.alloc("<dummy>", 1)
+    pages = [pool.alloc(r.rid, n + FAM_NEW - 1) for r, n in zip(reqs, lens)]
+    tables = pool.table_array([r.rid for r in reqs], max(need))
+    return pool.n_pages, pages, tables, lens
+
+
+def _pm_batch(cfg, req, dev, extra=()):
+    """A request's one-row prefill batch (``extra`` tokens appended)."""
+    import torch
+
+    batch = {"tokens": torch.tensor([list(req.prompt) + list(extra)],
+                                    dtype=torch.int32, device=dev)}
+    if cfg.has_vision_stub:
+        batch["image_embeds"] = torch.from_numpy(
+            req.inputs["vision"][None]).to(dev)
+    return batch
+
+
+def _pm_generate(bundle, params, cfg, reqs, dev, calls=None):
+    """Phase 15's path on a (sharded) bundle: each request prefilled alone
+    into a one-row dense cache and copied into the page pool
+    (``insert_pages``), then FAM_NEW - 1 batched paged ticks of every row,
+    greedy.  Returns (each row's tokens, the logits (B, V) on the host:
+    the prefills', then each tick's, each prefill's s, each tick's s).
+    With a list ``calls`` each tick (its logits gathered included) runs
+    under ``CommDebugMode``."""
+    import torch
+
+    from repro_torch.serving.kvcache import insert_pages
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    n_pages, pages, tables, lens = _pm_layout(cfg, reqs)
+    pool = bundle.init_paged_cache(n_pages, PAGE, torch.float32, dev)
+    first, pre_s = [], []
+    for r, pg, n in zip(reqs, pages, lens):
+        one = bundle.init_cache(1, len(pg) * PAGE, torch.float32, dev)
+        sync()
+        t0 = time.perf_counter()
+        lg, one = bundle.prefill(params, _pm_batch(cfg, r, dev), one)
+        insert_pages(pool, one, pg, n)
+        lg = _whole(lg)
+        sync()
+        pre_s.append(time.perf_counter() - t0)
+        first.append(lg[0].cpu())
+        del one
+    logits = [torch.stack(first)]
+    toks = [[int(x.argmax())] for x in first]
+    tables = torch.from_numpy(tables).to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tick_s = []
+    for _ in range(FAM_NEW - 1):
+        tok = torch.tensor([[t[-1]] for t in toks], dtype=torch.int32,
+                           device=dev)
+        t0 = time.perf_counter()
+        with _comm_counted(calls, "tick"):
+            lg, pool = bundle.paged_decode_step(params, tok, pool, tables,
+                                                lengths)
+            lg = _whole(lg)
+        sync()
+        tick_s.append(time.perf_counter() - t0)
+        logits.append(lg.cpu())
+        for t, x in zip(toks, lg):
+            t.append(int(x.argmax()))
+        lengths = lengths + 1
+    return toks, logits, pre_s, tick_s
+
+
+def _pm_comms(cfg, rules) -> dict:
+    """One rank's collectives by kind at a paged tick of phase 15's layout
+    (mesh (1, 2), ``rules``), derived from the code: the vocab-sharded
+    embedding's psum and the logits' gather where the vocabulary splits;
+    per attention layer q, k and v gathered to every row and head
+    (``_whole``: the pool holds every row's keys and every kv head), the
+    combine's max and two sums (``paged_decode_attention_shardmap``), the
+    o-proj's and the MLP's psums."""
+    from repro_torch.common.sharding import merge_rules, spec_for
+
+    rules = merge_rules(rules)
+    sizes = {"data": 1, "model": 2}
+
+    def split(shape, axes):
+        return any(e is not None for e in spec_for(shape, axes, rules, sizes))
+
+    d, L = cfg.d_model, cfg.n_layers
+    if not (split((d, cfg.n_heads, cfg.head_dim), (None, "heads", None))
+            and split((d, cfg.n_kv_heads, cfg.head_dim),
+                      (None, "kv_heads", None))
+            and split((d, cfg.d_ff), (None, "mlp"))
+            and split((8, PAGE, 1, 1), (None, "cache_seq", None, None))):
+        fail(f"phase 15: {rules} is not the layout _pm_comms counts")
+    vocab = int(split((cfg.vocab_size, d), ("vocab", "embed")))
+    return {"all_reduce": vocab + 5 * L, "all_gather": vocab + 3 * L,
+            "all_to_all": 0}
+
+
+def _pm_expected(cfg, reqs, n_pages, n_max, dev_type) -> tuple[dict, dict]:
+    """One rank's exact launches on phase 15's main path, by kernel and by
+    call shape: flash once a layer a prefill on the rank's heads (H / 2
+    and K / 2; a local layer's with its window), the tile mode once a
+    layer a tick over the rank's tile (every row, every head, 8 of 16
+    slots of every page).  None on the CPU."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
+    if dev_type != "cuda":
+        return want, shapes
+
+    def add(kernel, key, n):
+        want[kernel] += n
+        shapes[kernel][key] = shapes[kernel].get(key, 0) + n
+
+    H_, K_, D_ = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_img = cfg.n_image_tokens if cfg.has_vision_stub else 0
+    pat = cfg.attn_pattern or ("global",)
+    for kind in pat:
+        w = cfg.sliding_window if kind == "local" else 0
+        n = cfg.n_layers // len(pat)
+        for r in reqs:
+            S_ = n_img + len(r.prompt)
+            add("flash_attention", (1, S_, S_, H_ // 2, K_ // 2, D_, True, w),
+                n)
+        add("paged_decode_attention",
+            (len(reqs), n_max, PAGE // 2, H_, K_, D_, w, n_pages, PAGE),
+            n * (FAM_NEW - 1))
+    return want, shapes
+
+
+def _pm_worker(rank, world, init, dev_type, cfg, reqs, out):
+    """One rank of phase 15, in a spawned process: its gloo group (a file
+    rendezvous), the (1, world) mesh, the model (each weight leaf drawn
+    whole from seed 0 on the card, this rank's slice kept), the main path
+    with the kernel counts from 0 (each tick under ``CommDebugMode``), then
+    the longest request's first tick against a fresh prefill of it and
+    its token, and internvl2-1b cut to PM_CPU_LAYERS.  Writes its results
+    to ``out``/rank<r>.pt."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (sets the float32 matmul precision)
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        mesh = local_mesh((1, world), device=dev.type)
+        b = build_model(cfg, mesh=mesh, rules=PM_RULES)
+        params = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        res = {"held": sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree_leaves(params))}
+        # this rank's tile of a layer's pool leaf: (pages, slots, K, D)
+        pool = b.init_paged_cache(_pm_layout(cfg, reqs)[0], PAGE,
+                                  device=dev)
+        res["tile"] = tuple(tree_leaves(pool)[0].to_local().shape[1:])
+        del pool
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        calls = []
+        t0 = time.perf_counter()
+        toks, logits, pre_s, tick_s = _pm_generate(b, params, cfg, reqs, dev,
+                                                   calls)
+        res["wall"] = time.perf_counter() - t0
+        res["launches"] = dict(ops.LAUNCHES)
+        res["shapes"] = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        res.update(calls=calls, tokens=toks, logits=logits, prefill_s=pre_s,
+                   tick_s=tick_s)
+        # the longest request's first tick == a fresh prefill of its prompt
+        # and its first token
+        i = max(range(len(reqs)), key=lambda j: len(reqs[j].prompt))
+        n_img = cfg.n_image_tokens if cfg.has_vision_stub else 0
+        T = dense_T(n_img + len(reqs[i].prompt) + 1, 0)
+        fresh, _ = b.prefill(params, _pm_batch(cfg, reqs[i], dev,
+                                               toks[i][:1]),
+                             b.init_cache(1, T, torch.float32, dev))
+        res["decode_vs_prefill"] = _err(logits[1][i], _whole(fresh)[0].cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            res["peak"] = torch.cuda.max_memory_allocated()
+        del params, fresh
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if cfg.name == "internvl2-1b":
+            cfg2 = cfg.with_overrides(n_layers=PM_CPU_LAYERS)
+            b2 = build_model(cfg2, mesh=mesh, rules=PM_RULES)
+            p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+            res["cut"] = _pm_generate(b2, p2, cfg2, reqs, dev)[:2]
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_paged_mesh(dev, cfgs=None) -> dict:
+    """Phase 15: internvl2-1b (full width and depth) and gemma2-9b (full
+    width, PM_LAYERS) on two gloo ranks sharing the card, mesh (1, 2), the
+    serving rules, through ``build_model(cfg, mesh=, rules=)``'s
+    ``init_paged_cache`` and ``paged_decode_step`` and ``insert_pages``
+    (``cfgs`` replaces the configs for a rehearsal on the CPU).  For each:
+    the unsharded bundle of the same weights runs phase 15's path in the
+    main process first (then freed); the ranks' tokens equal to it and
+    every step's logits within ``LOGIT_TOL``; the first tick == a fresh
+    prefill within ``DECODE_TOL``; exact launches by call shape in each
+    rank (the tile mode at its tile's shape, the checker's case of
+    TILE_ROWS); every tick's collectives by kind == ``_pm_comms``; the ranks' peaks below
+    the card's 80 GB; internvl2-1b cut to PM_CPU_LAYERS == the mesh path
+    on the CPU (a world of one, gloo) within ``LOGIT_TOL``.  Prints each
+    rank's held and peak GB, prefill ms and ms a tick.  Returns each
+    arch's rank-0 launches by kernel and shape."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.sharding import local_mesh
+    from repro_torch.models.api import build_model
+
+    cfgs = cfgs or [_pm_cfg(a) for a in PM_ARCHS]
+    tmp = tempfile.mkdtemp(prefix="phase15_")
+    paths = {}
+    try:
+        for cfg in cfgs:
+            reqs = _pm_requests(cfg)
+            n_pages, pages, tables, lens = _pm_layout(cfg, reqs)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            b = build_model(cfg)
+            params = b.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+            plain = _pm_generate(b, params, cfg, reqs, dev)
+            n_params = b.param_count()
+            del b, params
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            join = _start(_pm_worker, 2, tmp, f"phase15_{cfg.name}",
+                          dev.type, cfg, reqs)
+            cpu = None
+            if cfg.name == "internvl2-1b":
+                # meanwhile on the host: the cut through the mesh path on
+                # the CPU (a world of one, gloo)
+                cfg2 = cfg.with_overrides(n_layers=PM_CPU_LAYERS)
+                dist.init_process_group(
+                    "gloo", init_method=f"file://{tmp}/{cfg.name}_cpu.init",
+                    rank=0, world_size=1)
+                try:
+                    b2 = build_model(cfg2, mesh=local_mesh((1, 1),
+                                                           device="cpu"),
+                                     rules=PM_RULES)
+                    p2 = b2.init(torch.Generator(device=dev).manual_seed(
+                        SEED), device="cpu")
+                    cpu = _pm_generate(b2, p2, cfg2, reqs,
+                                       torch.device("cpu"))[:2]
+                    del b2, p2
+                finally:
+                    dist.destroy_process_group()
+            ranks = join()
+            per_tick = _pm_comms(cfg, PM_RULES)
+            want, want_shapes = _pm_expected(cfg, reqs, n_pages,
+                                             tables.shape[1], dev.type)
+            peak_sum = 0
+            for rank, r in enumerate(ranks):
+                peak_sum += r.get("peak", 0)
+                ticks = len(r["tick_s"])
+                log(f"[phase15] {cfg.name} rank {rank}/2 (rules {PM_RULES}): "
+                    f"{cfg.n_layers} layers, {n_params:,} parameters, this "
+                    f"rank holds {r['held'] / 1e9:.3f} GB of weights, peak "
+                    f"{r.get('peak', 0) / 1e9:.2f} GB; a pool of {n_pages} "
+                    f"pages of {PAGE}, its tile {r['tile']} a layer; main "
+                    f"path {r['wall']:.2f} s: prefills "
+                    f"{', '.join(f'{1e3 * t:.1f}' for t in r['prefill_s'])} "
+                    f"ms (sequences {lens}), {ticks} ticks of {len(reqs)} "
+                    f"rows {1e3 * sum(r['tick_s']) / ticks:.1f} ms a tick")
+                odd = [c for kind, c in r["calls"] if c != per_tick]
+                log(f"[phase15] {cfg.name} rank {rank} collectives over "
+                    f"{len(r['calls'])} ticks: each {per_tick} expected: "
+                    f"{'every tick as expected' if not odd else odd}")
+                if odd or len(r["calls"]) != FAM_NEW - 1:
+                    fail(f"phase 15 {cfg.name} rank {rank}: ticks' "
+                         f"collectives {r['calls']} != {per_tick}")
+                log(f"[phase15] {cfg.name} rank {rank} kernel launches "
+                    f"{r['launches']}, expected {want}; by shape "
+                    f"{ {k: v for k, v in r['shapes'].items() if v} }, "
+                    f"expected { {k: v for k, v in want_shapes.items() if v} }")
+                if r["launches"] != want or r["shapes"] != want_shapes:
+                    fail(f"phase 15 {cfg.name} rank {rank}: launches "
+                         f"{r['launches']} {r['shapes']} != {want} "
+                         f"{want_shapes}")
+            worst = 0.0
+            for rank, r in enumerate(ranks):
+                if r["tokens"] != plain[0]:
+                    fail(f"phase 15 {cfg.name} rank {rank}: tokens "
+                         f"{r['tokens']}, unsharded {plain[0]}")
+                for got, ref_ in zip(r["logits"], plain[1], strict=True):
+                    if not bool(torch.isfinite(got).all()):
+                        fail(f"phase 15 {cfg.name}: non-finite logits")
+                    worst = max(worst, _err(got, ref_))
+            log(f"[phase15] {cfg.name} mesh (1, 2) paged == the unsharded "
+                f"paged step: {len(reqs)} rows' tokens equal "
+                f"({plain[0]}), every step's logits max |dlogit| "
+                f"{worst:.3e} (tol {LOGIT_TOL:g})")
+            if worst > LOGIT_TOL:
+                fail(f"phase 15 {cfg.name}: mesh logits differ by "
+                     f"{worst:.3e}")
+            dvp = max(r["decode_vs_prefill"] for r in ranks)
+            log(f"[phase15] {cfg.name} the longest request's first paged "
+                f"tick == a fresh prefill of it + its token: max |dlogit| "
+                f"{dvp:.3e} (tol {DECODE_TOL:g})")
+            if dvp > DECODE_TOL:
+                fail(f"phase 15 {cfg.name}: a tick differs from a fresh "
+                     f"prefill by {dvp:.3e}")
+            log(f"[phase15] {cfg.name}: the two ranks' peaks sum to "
+                f"{peak_sum / 1e9:.2f} GB (card {CARD_BYTES / 1e9:g} GB)")
+            if peak_sum > CARD_BYTES:
+                fail(f"phase 15 {cfg.name}: peaks sum to {peak_sum} B")
+            if cpu is not None:
+                cut = max(_err(g_, c_) for r in ranks
+                          for g_, c_ in zip(r["cut"][1], cpu[1], strict=True))
+                same = all(r["cut"][0] == cpu[0] for r in ranks)
+                log(f"[phase15] {cfg.name} at {PM_CPU_LAYERS} layers, mesh "
+                    f"(1, 2) on the card vs the mesh path on the CPU (a "
+                    f"world of 1): tokens {'equal' if same else 'DIFFER'}, "
+                    f"max |dlogit| {cut:.3e} (tol {LOGIT_TOL:g})")
+                if cut > LOGIT_TOL or not same:
+                    fail(f"phase 15 {cfg.name}: the card disagrees with the "
+                         f"CPU at {PM_CPU_LAYERS} layers")
+            paths[f"{cfg.name}-paged-mesh"] = {
+                "launches": ranks[0]["launches"], "shapes": ranks[0]["shapes"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -4609,9 +5212,10 @@ def main() -> int:
 
     timed(1, phase_build)
     (rows, keys), (rec_rows, rec_keys), (slice_rows, slice_keys), \
-        (fam_rows, fam_keys) = timed(2, lambda: [
+        (fam_rows, fam_keys), (tile_rows, tile_keys) = timed(2, lambda: [
             f(dev) for f in (phase_kernels, phase_kernels_recurrent,
-                             phase_kernels_slice, phase_kernels_families)])
+                             phase_kernels_slice, phase_kernels_families,
+                             phase_kernels_paged_tile)])
     serve, dep, gen_reqs = timed(3, phase_serve, dev)
     timed(4, phase_profile, dep, gen_reqs)
     del dep, gen_reqs
@@ -4634,12 +5238,24 @@ def main() -> int:
     timed(12, phase_distributed, dev)
     timed(13, phase_dryrun, dev)
     paths.update(timed(14, phase_recurrent_mesh, dev))
+    paths.update(timed(15, phase_paged_mesh, dev))
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
-    rows += rec_rows + slice_rows + fam_rows
-    keys.update(rec_keys, **slice_keys, **fam_keys)
+    rows += rec_rows + slice_rows + fam_rows + tile_rows
+    keys.update(rec_keys, **slice_keys, **fam_keys, **tile_keys)
     for row in rows:
         path, kernel, key = keys[row["name"]]
+        if path is None:
+            # phase 2's page-range tile: a (2, ·) mesh's, which one card
+            # does not run; its kernel's launches are phase 15's
+            row["launches"] = 0
+            row["launches_of_kernel"] = sum(
+                paths[f"{a}-paged-mesh"]["launches"][kernel]
+                for a in PM_ARCHS)
+            log(f"[launches] {row['name']}: 0: no path on one card runs "
+                f"a page-range tile (phase 15's ranks ran "
+                f"{row['launches_of_kernel']} {kernel} launches on theirs)")
+            continue
         row["launches"] = paths[path]["shapes"][kernel].get(key, 0)
         row["launches_of_kernel"] = paths[path]["launches"][kernel]
         log(f"[launches] {row['name']}: {row['launches']} of {path}'s "

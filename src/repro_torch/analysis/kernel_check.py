@@ -15,8 +15,10 @@ zamba2-7b — and the shapes ``chip_smoke.py`` serves), this pass:
   or tiling takes the shape) is a ``kernel/no-plan`` ERROR,
   ``ops.SharedMemoryError`` ``kernel/smem-limit``, ``ops.ClusterError``
   (an sLSTM head dim with no cluster of at most 16 blocks)
-  ``kernel/cluster``, ``ops.GridError`` ``kernel/grid-limit``, another
-  ValueError ``kernel/invalid-shape`` and anything else
+  ``kernel/cluster``, ``ops.GridError`` ``kernel/grid-limit``,
+  ``ops.TileError`` (a paged decode tile outside its pool or its page)
+  ``kernel/tile-range``, another ValueError ``kernel/invalid-shape`` and
+  anything else
   ``kernel/meta-eval``.  So the checker and the card share one rule;
 * diffs the outputs with the plain version's in ``kernels/ref.py`` on
   the same meta tensors: ``kernel/shape-drift`` / ``kernel/dtype-drift``
@@ -25,7 +27,8 @@ zamba2-7b — and the shapes ``chip_smoke.py`` serves), this pass:
   wrapper's own planners (``launch_plan``), warns where an SSD plan holds
   fewer than two blocks an SM (``kernel/occupancy``) and summarises the
   case (``kernel/summary`` INFO): grid, threads, dynamic shared memory,
-  cluster, and its bound from ``common.hw`` — each input read once and
+  cluster, the split-KV decode kernels' workspace and the paged kernel's
+  tile, and its bound from ``common.hw`` — each input read once and
   each output written once at the card's memory rate, or the operations
   at its peak for the input type, whichever is larger.
 
@@ -69,6 +72,7 @@ RENAMED = {"whisper-tiny/audio-prefill-padded": "whisper-tiny/audio-prefill"}
 PLAN_CODES = ((ops.SharedMemoryError, "kernel/smem-limit"),
                (ops.ClusterError, "kernel/cluster"),
                (ops.GridError, "kernel/grid-limit"),
+               (ops.TileError, "kernel/tile-range"),
                (ops.NoPlanError, "kernel/no-plan"))
 
 
@@ -83,6 +87,9 @@ class LaunchPlan:
     cluster: int = 1                 # blocks a thread-block cluster
     blocks_per_sm: int | None = None  # the planner's, where it has one
     plan: Any = None                 # FlashPlan, SsdPlan or SlstmPlan
+    workspace: int = 0               # the split-KV kernels' float32 bytes
+    tile: tuple | None = None        # the paged kernel's (p0, n_pages, s0,
+    #                                  page_size) in its tile mode
 
 
 # operand kinds: how ``KernelCase.inputs`` draws each one
@@ -116,20 +123,27 @@ class KernelCase:
         """The operands at the case's full shape, drawn from
         ``generator`` on its device at the served paths' scales: lengths
         in [1, T] with the last row full, each row's own pages in a
-        shuffled pool, SSD's dt through softplus, sLSTM's R at 0.02."""
+        shuffled pool (its pages again where the tables need more than
+        a tile's pool has), SSD's dt through softplus, sLSTM's R at
+        0.02."""
         dev = generator.device
+        # a paged tile's tables hold its pool's page ids, its rows the
+        # pool's pages of page_size slots
+        tile = self.kwargs.get("tile")
         out = []
         for name, s, kind in self.operands:
             if kind == _LENGTHS:
                 T = (self.shape("k")[1] if self.entry == "decode_attention"
                      else self.shape("block_tables")[1]
-                     * self.shape("k_pages")[1])
+                     * (tile[3] if tile else self.shape("k_pages")[1]))
                 t = torch.randint(1, T + 1, s, generator=generator,
                                   device=dev, dtype=torch.int32)
                 t[-1] = T
             elif kind == _TABLES:
-                n_pages = self.shape("k_pages")[0]
+                n_pages = tile[1] if tile else self.shape("k_pages")[0]
                 t = torch.randperm(n_pages, generator=generator, device=dev)
+                if t.numel() < s[0] * s[1]:     # a pool of fewer pages
+                    t = t.repeat(-(-s[0] * s[1] // n_pages))
                 t = t[:s[0] * s[1]].reshape(s).to(torch.int32)
             else:
                 t = torch.randn(s, generator=generator, device=dev)
@@ -176,6 +190,24 @@ def _paged_decode_case(name, *, B, H, D, T, K, page_size=16, window=0,
          ("block_tables", (B, n_max), _TABLES),
          ("lengths", (B,), _LENGTHS)),
         dict(window=window, softcap=softcap), dtype)
+
+
+def _paged_tile_case(name, *, B, H, D, K, n_max, n_pages, pages, p0=0,
+                     page_size=16, slots=8, s0=0, window=0, softcap=0.0,
+                     dtype=torch.float32):
+    """The paged kernel's tile mode on one rank of a sharded pool: B rows
+    of up to n_max pages over a pool of n_pages pages of page_size slots,
+    of which the rank holds ``pages`` pages from p0 and ``slots`` slots
+    from s0 (``layers.attention.paged_decode_attention_shardmap``)."""
+    return KernelCase(
+        name, "paged_decode_attention",
+        (("q", (B, H, D), _FLOAT),
+         ("k_pages", (pages, slots, K, D), _FLOAT),
+         ("v_pages", (pages, slots, K, D), _FLOAT),
+         ("block_tables", (B, n_max), _TABLES),
+         ("lengths", (B,), _LENGTHS)),
+        dict(window=window, softcap=softcap,
+             tile=(p0, n_pages, s0, page_size)), dtype)
 
 
 def _ssd_intra_case(name, *, B, nc, L, H, P, N, dtype=torch.float32):
@@ -277,6 +309,20 @@ def zoo_cases(dtype=torch.float32) -> list[KernelCase]:
                     causal=False, **dt),
         _decode_case("whisper-tiny/cross-decode", B=1, T=wt.encoder_seq,
                      H=wt.n_heads, D=wt.head_dim, K=wt.n_kv_heads, **dt),
+        # chip_smoke.py phase 15's rank tiles on a (1, 2) mesh, pages of 16
+        # split in two by slots: internvl2-1b's tick (4 rows of up to 18
+        # pages in a pool of 70), gemma2-9b's local layer (up to 257 pages
+        # in a pool of 262, the 4,100-token row's window from mid-page);
+        # and a page range with 4 of 16 slots, as a (2, 4) mesh lays it
+        _paged_tile_case("internvl2-1b/paged-tile-rank", B=4, n_max=18,
+                         n_pages=70, pages=70, s0=8, H=vl.n_heads,
+                         D=vl.head_dim, K=vl.n_kv_heads, **dt),
+        _paged_tile_case("gemma2-9b/paged-tile-local-rank", B=4, n_max=257,
+                         n_pages=262, pages=262, window=g.sliding_window,
+                         **gkw),
+        _paged_tile_case("internvl2-1b/paged-tile-page-range", B=4, n_max=18,
+                         n_pages=70, pages=35, p0=35, slots=4, s0=4,
+                         H=vl.n_heads, D=vl.head_dim, K=vl.n_kv_heads, **dt),
         # xlstm-1.3b's decode step (the one-step kernel)
         _slstm_case("xlstm-1.3b/step", B=1, S=1, H=xl.n_heads, hd=xl_hd,
                     **dt),
@@ -323,6 +369,9 @@ def error_cases(dtype=torch.float32) -> list[KernelCase]:
                      dtype=dtype),
         _flash_case("bad/flash-grid", B=65536, S=1, T=1, H=1, K=1, D=16,
                     dtype=dtype),
+        _paged_tile_case("bad/paged-tile-slots", B=1, H=4, K=2, D=16,
+                         n_max=2, n_pages=8, pages=8, slots=8, s0=12,
+                         dtype=dtype),
     ]
 
 
@@ -336,6 +385,7 @@ ERROR_CODES = {
     "bad/ssd-tile-oversized": "kernel/no-plan",
     "bad/decode-grid": "kernel/grid-limit",
     "bad/flash-grid": "kernel/grid-limit",
+    "bad/paged-tile-slots": "kernel/tile-range",
 }
 
 
@@ -356,12 +406,16 @@ def launch_plan(case: KernelCase, n_sm: int) -> LaunchPlan:
         else:
             ps, K = case.shape("k_pages")[1:3]
             T = case.shape("block_tables")[1] * ps
+        # a tile's splits share its n_max * (its slots) candidate keys
         G = H // K
         n_split = ops.decode_splits(T, B, K, G, n_sm, kw.get("window", 0))
         grid = ops.decode_grid(B, K, G, n_split)
         kernel = "decode_fwd" if e == "decode_attention" else \
             "paged_decode_fwd"
-        return LaunchPlan(kernel, grid, 32 * ops.DECODE_HEADS_PER_BLOCK, 0)
+        return LaunchPlan(kernel, grid, 32 * ops.DECODE_HEADS_PER_BLOCK, 0,
+                          blocks_per_sm=ops.DECODE_BLOCKS_PER_SM,
+                          workspace=ops._decode_ws_bytes(B, H, D, n_split),
+                          tile=kw.get("tile"))
     if e in ("ssd_intra_chunk", "ssd_chunked"):
         if e == "ssd_intra_chunk":
             B, nc, L, H, P = case.shape("x")
@@ -510,7 +564,9 @@ def check_case(case: KernelCase, *, n_sm: int | None = None
     nbytes, flops = _work(case, args, got)
     t, by = hw.bound_s(nbytes, flops, _dtype_name(case.dtype))
     extra = (f", clusters of {lp.cluster}" if lp.cluster > 1 else "") + (
-        f", {lp.blocks_per_sm} blocks an SM" if lp.blocks_per_sm else "")
+        f", {lp.blocks_per_sm} blocks an SM" if lp.blocks_per_sm else "") + (
+        f", {lp.workspace} B workspace" if lp.workspace else "") + (
+        f", tile (p0, n_pages, s0, page_size) {lp.tile}" if lp.tile else "")
     diags.append(Diagnostic(
         Severity.INFO, "kernel/summary",
         f"{case.entry} -> {lp.kernel}: grid={lp.grid}, {lp.threads} "

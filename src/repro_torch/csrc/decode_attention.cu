@@ -80,6 +80,26 @@
 // lanes fetch it, so no page past a row's length is read and no table
 // entry past its pages is looked at.  Same workspace, tickets and
 // last-block merge as decode_fwd.
+//
+// Its tile mode (paged_decode_fwd<T, D, true>, C entry
+// paged_decode_attention_tile_fwd): under a mesh the pool is sharded as
+// the reference lays it out, pages over the data axes and each page's
+// slots over "model" (layers/attention.py::paged_decode_attention_
+// shardmap), so a rank holds a tile (P, ps_loc, K, D): pages [p0, p0 +
+// P) and slots [s0, s0 + ps_loc) of a pool of n_pages pages of ps.  The
+// block walks the tile's candidates u of a row, key t = (u / ps_loc) ps
+// + s0 + u % ps_loc, between the candidates below the row's live span's
+// ends (tile_candidates: the identity for the whole pool), so the splits
+// share the rank's keys, not the pool's; a key's page is tested against
+// the tile before its address is formed (tables hold the pool's ids),
+// and a key the rank does not hold is masked like one past the length.
+// The last block's merge also writes each q-head's log-sum-exp (-inf,
+// and o = 0, where the rank holds no live key of the row), which the
+// ranks combine with a max and two sums.  The whole-pool launch stays the
+// <T, D, false> instance, as before the tile mode.  ptxas (sm_90a, CUDA
+// 12.8): at most 128 registers, no spill; the tile's address carries
+// K * D and kh * D precomputed and no D, without which <bf16, 256, true>
+// spilled.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,6 +129,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Contiguous cache: key t of row b, kv-head kh starts at this element.
 struct ContigAddr {
+  static constexpr bool kMasks = false;
   int b, Tk, K, kh, D;
   __device__ int64_t operator()(int t) const {
     return ((int64_t)(b * Tk + t) * K + kh) * D;
@@ -117,6 +138,7 @@ struct ContigAddr {
 
 // Paged cache: key t lives in page tables[b, t / ps] (clamped), slot t % ps.
 struct PagedAddr {
+  static constexpr bool kMasks = false;
   const int* table;  // this row's block-table entries
   int P, ps, K, kh, D;
   __device__ int64_t operator()(int t) const {
@@ -125,6 +147,35 @@ struct PagedAddr {
     return ((int64_t)page * ps + t % ps) * K * D + (int64_t)kh * D;
   }
 };
+
+// A rank's tile of a page pool: pages [p0, p0 + P) of the pool's
+// n_pages, slots [s0, s0 + ps_loc) of each page of ps, held as (P,
+// ps_loc, K, D).  The block walks candidate u of the row's n_max *
+// ps_loc, key t = (u / ps_loc) * ps + s0 + u % ps_loc of the row; its
+// page tables[b, u / ps_loc] (a global id, clamped into [0, n_pages - 1])
+// is tested against the tile before any address is formed: -1 where the
+// rank holds no such page.
+template <int D>
+struct TileAddr {
+  static constexpr bool kMasks = true;
+  const int* table;  // this row's block-table entries
+  int last, p0, P, ps_loc, KD, head;  // n_pages - 1, ..., K * D, kh * D
+  __device__ int64_t operator()(int u) const {
+    const int j = u / ps_loc;
+    const int page = min(max(table[j], 0), last) - p0;
+    if ((unsigned)page >= (unsigned)P) return -1;
+    return ((int64_t)page * ps_loc + (u - j * ps_loc)) * KD + head;
+  }
+};
+
+// The candidates of a tile below key x of a row: whole pages' ps_loc
+// each, and the tile's slots of x's page below x's slot.  Monotone in x;
+// the identity for the whole pool (s0 = 0, ps_loc = ps).
+__device__ __forceinline__ int tile_candidates(int x, int ps, int s0,
+                                               int ps_loc) {
+  const int j = x / ps;
+  return j * ps_loc + min(max(x - j * ps - s0, 0), ps_loc);
+}
 
 // ---------------------------------------------------------------------------
 // Split-KV (flash-decoding) across blocks, over either cache.
@@ -174,11 +225,14 @@ struct KeyLanes {
 // One block: keys of split `split` of the live span [start, start +
 // n_keys) of row b, kv-head kh, for q-heads [h_base, h_base + NW) of the
 // group; then, if it is the last block of its (row, kv-head, head group)
-// to finish, the merge of every split.  `addr(t)` gives the element
-// offset of key t.
+// to finish, the merge of every split, which also writes each q-head's
+// log-sum-exp to `lse` (B, H) where it is not null (-inf for a row with
+// no key).  `addr(t)` gives the element offset of key t; where
+// Addr::kMasks, a negative offset marks a key the block does not hold.
 template <typename T, int D, class Addr>
 __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ lse,
                             float* __restrict__ ws, int* counter, int B,
                             int b, int H, int G, int kh, int h_base,
                             int start, int n_keys, int split, int n_split,
@@ -209,12 +263,18 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
 
   // the group's keys t0 + grp + KPW u: every load issued before any is used
   float4 kr[U][NC], vr[U][NC];
+  bool live[U];
   auto fetch = [&](int t0) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = t0 + grp + KPW * u;
-      const bool ok = t < w_hi;
-      const int64_t off = ok ? addr(t) : 0;
+      bool ok = t < w_hi;
+      int64_t off = ok ? addr(t) : 0;
+      if constexpr (Addr::kMasks) {
+        ok = ok && off >= 0;
+        off = ok ? off : 0;
+      }
+      live[u] = ok;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int e = 4 * (ql + LK * c);
@@ -255,7 +315,7 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int o2 = 1; o2 < LK; o2 <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o2);
-        if (t0 + grp + KPW * u < w_hi) {
+        if (live[u]) {
           float x = dot * scale;
           if (softcap > 0.f) x = softcap * tanhf(x / softcap);
           const float m_new = fmaxf(m, x);
@@ -383,6 +443,9 @@ __device__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
     ll = warp_sum(ll);
     const float inv = ll > 0.f ? 1.f / ll : 0.f;
     for (int s = lane; s < n_split; s += 32) sm_w[warp][s] *= inv;
+    if (lse != nullptr && lane == 0)
+      lse[row0 + warp] = ll > 0.f ? mm + logf(ll)
+                                   : __int_as_float(0xff800000);  // -inf
   }
   __syncthreads();
   auto merge_pass = [&](int base) {
@@ -449,29 +512,47 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int len = lengths[b];
   const int start = window > 0 ? max(len - window, 0) : 0;
   const int end = min(max(len, 0), Tk);
-  split_block<T, D>(q, k, v, o, ws, counters + blockIdx.z * K + kh, B, b, H,
-                    H / K, kh, hg * NW, start, max(end - start, 0), split,
-                    n_split, scale, softcap, ContigAddr{b, Tk, K, kh, D});
+  split_block<T, D>(q, k, v, o, nullptr, ws, counters + blockIdx.z * K + kh,
+                    B, b, H, H / K, kh, hg * NW, start, max(end - start, 0),
+                    split, n_split, scale, softcap,
+                    ContigAddr{b, Tk, K, kh, D});
 }
 
-template <typename T, int D>
+// TILE: the pool is a rank's tile (TileAddr); the row's live keys
+// [start, end) are walked as the tile's candidates between
+// tile_candidates(start) and tile_candidates(end), which also reads lse.
+// Without it (p0 = s0 = 0, P = n_pages, ps_loc = ps) the whole pool, as
+// before the tile mode, and lse is null.
+template <typename T, int D, bool TILE>
 __global__ void __launch_bounds__(NW * 32, 2)
 paged_decode_fwd(const T* __restrict__ q, const T* __restrict__ kp,
                  const T* __restrict__ vp, const int* __restrict__ tables,
                  const int* __restrict__ lengths, T* __restrict__ o,
-                 float* __restrict__ ws, int* counters, int H, int K, int P,
-                 int ps, int n_max, int n_split, int n_hg, int window,
-                 float scale, float softcap) {
+                 float* __restrict__ lse, float* __restrict__ ws,
+                 int* counters, int H, int K, int n_pages, int p0, int P,
+                 int ps, int s0, int ps_loc, int n_max, int n_split,
+                 int n_hg, int window, float scale, float softcap) {
   const int split = blockIdx.x, kh = blockIdx.y;
   const int b = blockIdx.z / n_hg, hg = blockIdx.z % n_hg;
   const int B = gridDim.z / n_hg;
   const int len = lengths[b];
   const int start = window > 0 ? max(len - window, 0) : 0;
   const int end = min(max(len, 0), n_max * ps);
-  split_block<T, D>(q, kp, vp, o, ws, counters + blockIdx.z * K + kh, B, b,
-                    H, H / K, kh, hg * NW, start, max(end - start, 0), split,
-                    n_split, scale, softcap,
-                    PagedAddr{tables + (int64_t)b * n_max, P, ps, K, kh, D});
+  const int* table = tables + (int64_t)b * n_max;
+  int* counter = counters + blockIdx.z * K + kh;
+  if constexpr (TILE) {
+    const int lo = tile_candidates(start, ps, s0, ps_loc);
+    const int hi = tile_candidates(max(end, start), ps, s0, ps_loc);
+    split_block<T, D>(q, kp, vp, o, lse, ws, counter, B, b, H, H / K, kh,
+                      hg * NW, lo, hi - lo, split, n_split, scale, softcap,
+                      TileAddr<D>{table, n_pages - 1, p0, P, ps_loc, K * D,
+                                  kh * D});
+  } else {
+    split_block<T, D>(q, kp, vp, o, nullptr, ws, counter, B, b, H, H / K,
+                      kh, hg * NW, start, max(end - start, 0), split,
+                      n_split, scale, softcap,
+                      PagedAddr{table, n_pages, ps, K, kh, D});
+  }
 }
 
 template <typename T, int D>
@@ -492,17 +573,40 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 template <typename T, int D>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          const int* tables, const int* lengths, void* o,
-                         float* ws, int* counters, int B, int H, int K, int P,
-                         int ps, int n_max, int n_split, int window,
+                         float* lse, float* ws, int* counters, int B, int H,
+                         int K, int n_pages, int p0, int P, int ps, int s0,
+                         int ps_loc, int n_max, int n_split, int window,
                          float softcap, cudaStream_t stream) {
   const int n_hg = (H / K + NW - 1) / NW;
   const dim3 grid(n_split, K, B * n_hg);
-  paged_decode_fwd<T, D><<<grid, NW * 32, 0, stream>>>(
+  const bool tile = lse != nullptr;
+  auto kernel = tile ? paged_decode_fwd<T, D, true>
+                     : paged_decode_fwd<T, D, false>;
+  kernel<<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, lengths, static_cast<T*>(o), ws,
-      counters, H, K, P, ps, n_max, n_split, n_hg, window,
-      1.f / sqrtf((float)D), softcap);
+      static_cast<const T*>(vp), tables, lengths, static_cast<T*>(o), lse,
+      ws, counters, H, K, n_pages, p0, P, ps, s0, ps_loc, n_max, n_split,
+      n_hg, window, 1.f / sqrtf((float)D), softcap);
   return cudaGetLastError();
+}
+
+// The tile mode's launch at head dim D: out[0] threads a block, out[1]
+// the blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at that block, no dynamic shared memory), out[2] its static shared
+// memory; what analysis/kernel_check.py's plan is held to.
+template <typename T, int D>
+int tile_info(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, paged_decode_fwd<T, D, true>);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, paged_decode_fwd<T, D, true>, NW * 32, 0);
+  if (e != cudaSuccess) return e;
+  out[0] = NW * 32;
+  out[1] = blocks;
+  out[2] = (int)attr.sharedSizeBytes;
+  return cudaSuccess;
 }
 
 // head dims: the smoke configs (16), internvl2-1b (64), zamba2-7b (112),
@@ -562,12 +666,61 @@ extern "C" int paged_decode_attention_fwd(
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (dtype == 0) {
-    DISPATCH_D(D, launch_paged, float, q, kp, vp, tbl, len, o, w, cnt, B, H,
-               K, P, ps, n_max, n_split, window, softcap, s)
+    DISPATCH_D(D, launch_paged, float, q, kp, vp, tbl, len, o, nullptr, w,
+               cnt, B, H, K, P, 0, P, ps, 0, ps, n_max, n_split, window,
+               softcap, s)
   }
   if (dtype == 1) {
-    DISPATCH_D(D, launch_paged, __nv_bfloat16, q, kp, vp, tbl, len, o, w,
-               cnt, B, H, K, P, ps, n_max, n_split, window, softcap, s)
+    DISPATCH_D(D, launch_paged, __nv_bfloat16, q, kp, vp, tbl, len, o,
+               nullptr, w, cnt, B, H, K, P, 0, P, ps, 0, ps, n_max, n_split,
+               window, softcap, s)
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The tile mode: k/v hold a rank's tile (P, ps_loc, K, D) of a pool of
+// n_pages pages of ps slots, pages [p0, p0 + P) and slots [s0, s0 +
+// ps_loc); tables hold the pool's page ids.  Writes the rank's
+// normalised o (B, H, D) and its log-sum-exp lse (B, H) float32 (-inf,
+// and o = 0, where the tile holds no live key of a row).
+extern "C" int paged_decode_attention_tile_fwd(
+    const void* q, const void* kp, const void* vp, const void* tables,
+    const void* lengths, void* o, void* lse, void* ws, void* counters,
+    int B, int H, int K, int D, int n_pages, int p0, int P, int ps, int s0,
+    int ps_loc, int n_max, int n_split, int window, int dtype,
+    float softcap, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (n_split < 1 || n_split > MAX_SPLITS || P < 1 || p0 < 0 ||
+      p0 + P > n_pages || ps_loc < 1 || s0 < 0 || s0 + ps_loc > ps ||
+      window < 0 || lse == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tbl = static_cast<const int*>(tables);
+  const int* len = static_cast<const int*>(lengths);
+  float* l = static_cast<float*>(lse);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  if (dtype == 0) {
+    DISPATCH_D(D, launch_paged, float, q, kp, vp, tbl, len, o, l, w, cnt, B,
+               H, K, n_pages, p0, P, ps, s0, ps_loc, n_max, n_split, window,
+               softcap, s)
+  }
+  if (dtype == 1) {
+    DISPATCH_D(D, launch_paged, __nv_bfloat16, q, kp, vp, tbl, len, o, l, w,
+               cnt, B, H, K, n_pages, p0, P, ps, s0, ps_loc, n_max, n_split,
+               window, softcap, s)
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; int[3] out (tile_info).
+extern "C" int paged_decode_tile_info(int D, int dtype, void* out) {
+  int* o = static_cast<int*>(out);
+  if (dtype == 0) {
+    DISPATCH_D(D, tile_info, float, o)
+  }
+  if (dtype == 1) {
+    DISPATCH_D(D, tile_info, __nv_bfloat16, o)
   }
   return cudaErrorInvalidValue;
 }

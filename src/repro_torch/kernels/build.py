@@ -48,6 +48,13 @@ LIBRARIES = {
         # q, kp, vp, tables, lengths, o, ws, counters, B, H, K, D, P, ps,
         # n_max, n_split, window, dtype, softcap, stream
         "paged_decode_attention_fwd": [_P] * 8 + [_I] * 10 + [_F, _P],
+        # q, kp, vp, tables, lengths, o, lse, ws, counters, B, H, K, D,
+        # n_pages, p0, P, ps, s0, ps_loc, n_max, n_split, window, dtype,
+        # softcap, stream
+        "paged_decode_attention_tile_fwd": [_P] * 9 + [_I] * 14 + [_F, _P],
+        # D, dtype, int[3] out: threads a block, the blocks an SM holds,
+        # static shared-memory bytes of the tile mode's kernel
+        "paged_decode_tile_info": [_I, _I, _P],
     }),
     "ssd_scan": ("ssd_scan.cu", {
         # x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H, P, N, then the

@@ -51,9 +51,11 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
 #: kernel name -> launches since the last ``reset_launches()`` by call
 #: shape, which sum to the kernel's ``LAUNCHES`` entry: flash (B, S, T,
 #: H, K, D, causal, window), decode (B, T, H, K, D, window), paged
-#: decode (B, n_max, page_size, H, K, D, window), SSD (B, chunks, chunk
-#: length L, heads H) and both sLSTM kernels (B, S, H, hd); window 0 is
-#: none, so a local layer's launches count apart from a global one's
+#: decode (B, n_max, page_size, H, K, D, window) over a whole pool and
+#: (B, n_max, the tile's slots a page, H, K, D, window, the tile's pages,
+#: page_size) over a rank's tile, SSD (B, chunks, chunk length L, heads
+#: H) and both sLSTM kernels (B, S, H, hd); window 0 is none, so a local
+#: layer's launches count apart from a global one's
 SHAPE_LAUNCHES: dict[str, dict[tuple, int]] = {name: {} for name in LAUNCHES}
 
 #: head dims the attention kernels are instantiated for: the smoke
@@ -82,6 +84,9 @@ SSD_KEY_BLOCK = 64
 DECODE_MIN_KEYS = 16
 DECODE_HEADS_PER_BLOCK = 8
 DECODE_MAX_SPLITS = 256
+#: the blocks an SM each split-KV kernel is built to hold
+#: (``__launch_bounds__``)
+DECODE_BLOCKS_PER_SM = 2
 
 #: the sLSTM prefill kernel: the largest cluster (blocks a head; 16 is a
 #: non-portable size that Hopper allows), the 32-row slots of R a lane
@@ -152,6 +157,11 @@ class ClusterError(KernelPlanError):
 
 class GridError(KernelPlanError):
     """A grid extent above CUDA's ``MAX_GRID``."""
+
+
+class TileError(KernelPlanError):
+    """A paged decode tile that is not a tile of its pool: pages [p0, p0 +
+    P) past the pool's pages, or slots [s0, s0 + ps) past its page."""
 
 
 def reset_launches() -> None:
@@ -472,15 +482,41 @@ def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
     return o
 
 
+def _paged_tile(tile, P, ps):
+    """``tile`` (p0, n_pages, s0, page_size) checked against a rank's
+    (P, ps) pages of it: ``TileError`` unless pages [p0, p0 + P) lie in
+    the pool's n_pages and slots [s0, s0 + ps) in its page_size."""
+    p0, n_pages, s0, page_size = (int(x) for x in tile)
+    if p0 < 0 or P < 1 or p0 + P > n_pages or s0 < 0 or ps < 1 or \
+            s0 + ps > page_size:
+        raise TileError(
+            f"paged_decode_attention: a tile of {P} pages from page {p0} "
+            f"and {ps} slots from slot {s0} is not a tile of a pool of "
+            f"{n_pages} pages of {page_size}")
+    return p0, n_pages, s0, page_size
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                           window=0, softcap=0.0):
+                           window=0, softcap=0.0, tile=None):
     """Batched paged-KV decode: q (B,H,D); k/v pages (n_pages, page_size,
     K, D); block_tables (B, n_max) int32 page ids, clamped into range;
     lengths (B,) int32 masks each row's ragged tail; with ``window`` > 0
     keys below ``lengths - window`` are masked too (their pages are not
     read).  Returns (B,H,D).  The split count comes from static shapes
     (the table's span n_max * page_size, and the window), so nothing is
-    read back from the device."""
+    read back from the device.
+
+    The tile mode: with ``tile`` = (p0, n_pages, s0, page_size) the pages
+    are a rank's tile (P, ps, K, D) of a pool of n_pages pages of
+    page_size slots, pages [p0, p0 + P) and slots [s0, s0 + ps) of each
+    (``TileError`` otherwise), the tables hold the pool's page ids, and
+    the call attends over the live keys the tile holds; it then returns
+    (o, lse), the tile's normalised output and its log-sum-exp (B, H) in
+    float32 (-inf, and o = 0, where the tile holds no live key of a
+    row), which ranks combine into the whole pool's output
+    (``layers.attention.paged_decode_attention_shardmap``).  The splits
+    then share the tile's n_max * ps candidate keys a row; (0, n_pages, 0,
+    page_size) is the whole pool's tile."""
     _no_dtensor("paged_decode_attention",
                 (q, k_pages, v_pages, block_tables, lengths))
     if q.ndim != 3 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
@@ -502,10 +538,13 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise ValueError("paged_decode_attention: block_tables must be "
                          f"int32 on {dev}")
     window = _window("paged_decode_attention", window)
+    tiled = tile is not None
+    if tiled:
+        tile = _paged_tile(tile, P, ps)
     if dev.type == "cpu":
-        return ref.paged_decode_attention_ref(q, k_pages, v_pages,
-                                              block_tables, lengths,
-                                              window=window, softcap=softcap)
+        return ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, block_tables, lengths, window=window,
+            softcap=softcap, tile=tile)
     _cuda_ready("paged_decode_attention",
                 {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                  "block_tables": block_tables, "lengths": lengths}, D)
@@ -513,11 +552,15 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     G = H // K
     n_split = decode_splits(n_max * ps, B, K, G, sm_count(dev), window)
     check_grid("paged_decode_attention", decode_grid(B, K, G, n_split))
+    lse_bytes = 4 * B * H if tiled else 0
     _work("paged_decode_attention", 4 * B * H * n_max * ps * D,
           (q, k_pages, v_pages, block_tables, lengths),
-          _nbytes(q.shape, q.dtype), _decode_ws_bytes(B, H, D, n_split))
+          _nbytes(q.shape, q.dtype) + lse_bytes,
+          _decode_ws_bytes(B, H, D, n_split))
     if dev.type == "meta":
-        return torch.empty_like(q)
+        o = torch.empty_like(q)
+        return (o, torch.empty((B, H), dtype=torch.float32,
+                               device=dev)) if tiled else o
     _aligned("paged_decode_attention",
              {"q": q, "k_pages": k_pages, "v_pages": v_pages})
     from repro_torch.kernels.build import load
@@ -528,14 +571,27 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                      dtype=torch.float32, device=dev)
     tickets = _ticket_counters(
         dev, B * K * -(-G // DECODE_HEADS_PER_BLOCK))
-    err = lib.paged_decode_attention_fwd(
+    if not tiled:
+        err = lib.paged_decode_attention_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+            ws.data_ptr(), tickets.data_ptr(), B, H, K, D, P, ps, n_max,
+            n_split, window, _DTYPES[q.dtype], float(softcap), _stream(q))
+        _raise_on("paged_decode_attention", err)
+        _count("paged_decode_attention", (B, n_max, ps, H, K, D, window))
+        return o
+    p0, n_pages, s0, page_size = tile
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    err = lib.paged_decode_attention_tile_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        ws.data_ptr(), tickets.data_ptr(), B, H, K, D, P, ps, n_max,
-        n_split, window, _DTYPES[q.dtype], float(softcap), _stream(q))
+        lse.data_ptr(), ws.data_ptr(), tickets.data_ptr(), B, H, K, D,
+        n_pages, p0, P, page_size, s0, ps, n_max, n_split, window,
+        _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("paged_decode_attention", err)
-    _count("paged_decode_attention", (B, n_max, ps, H, K, D, window))
-    return o
+    _count("paged_decode_attention",
+           (B, n_max, ps, H, K, D, window, P, page_size))
+    return o, lse
 
 
 @dataclass(frozen=True)

@@ -63,7 +63,7 @@ def decode_attention_ref(q, k, v, lengths, *, window=0, softcap=0.0):
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
-                               *, window=0, softcap=0.0):
+                               *, window=0, softcap=0.0, tile=None):
     """q: (B,H,D); k_pages/v_pages: (n_pages, page_size, K, D);
     block_tables: (B, n_max) page ids; lengths: (B,) valid key counts.
 
@@ -71,15 +71,54 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
     contiguous (B, n_max*ps, K, D) view and defers to
     ``decode_attention_ref``; positions past ``lengths`` (and, with a
     ``window``, below ``lengths - window``) are masked.
+
+    With a ``tile`` (p0, n_pages, s0, page_size) the pages are a rank's
+    tile of a pool of ``n_pages`` pages of ``page_size`` slots: pages
+    [p0, p0 + P) and slots [s0, s0 + ps) of each, the tables the pool's
+    page ids; key t of a row lies on page ``tables[b, t // page_size]``
+    (clamped into the pool) at slot ``t % page_size``, and the tile holds
+    it only where both fall in its ranges.  The function is then the
+    attention over the keys the tile holds, returned with their
+    log-sum-exp (B, H) in float32: (o, lse), -inf and o = 0 where the
+    tile holds no live key of a row.  Softmax partials of tiles that
+    cover the pool combine to the untiled function.
     """
-    B = q.shape[0]
-    P, ps, K, D = k_pages.shape
+    if tile is None:
+        B = q.shape[0]
+        P, ps, K, D = k_pages.shape
+        n_max = block_tables.shape[1]
+        tables = block_tables.long().clamp(0, P - 1)
+        k = k_pages[tables].reshape(B, n_max * ps, K, D)
+        v = v_pages[tables].reshape(B, n_max * ps, K, D)
+        return decode_attention_ref(q, k, v, lengths, window=window,
+                                    softcap=softcap)
+    P, ps_loc, K, D = k_pages.shape
+    p0, n_pages, s0, ps = tile
+    B, H, _ = q.shape
     n_max = block_tables.shape[1]
-    tables = block_tables.long().clamp(0, P - 1)
-    k = k_pages[tables].reshape(B, n_max * ps, K, D)
-    v = v_pages[tables].reshape(B, n_max * ps, K, D)
-    return decode_attention_ref(q, k, v, lengths, window=window,
-                                softcap=softcap)
+    dev = q.device
+    page = block_tables.long().clamp(0, n_pages - 1) - p0      # (B, n_max)
+    held = (page >= 0) & (page < P)
+    local = page.clamp(0, P - 1)
+    k = k_pages[local].reshape(B, n_max * ps_loc, K, D).float()
+    v = v_pages[local].reshape(B, n_max * ps_loc, K, D).float()
+    t = (torch.arange(n_max, device=dev)[:, None] * ps + s0
+         + torch.arange(ps_loc, device=dev)[None]).reshape(-1)  # (n_max*ps,)
+    n = lengths.long()[:, None]
+    valid = (t[None] < n) & held.repeat_interleave(ps_loc, dim=1)
+    if window and window > 0:
+        valid &= t[None] >= n - window
+    G = H // K
+    s = torch.einsum("bhd,bthd->bht", q.float(),
+                     k.repeat_interleave(G, dim=2)) / math.sqrt(D)
+    if softcap and softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(valid[:, None], s, torch.full_like(s, -math.inf))
+    lse = torch.logsumexp(s, dim=-1)                           # (B, H)
+    live = torch.isfinite(lse)
+    p = torch.exp(s - torch.where(live, lse, torch.zeros_like(lse))[..., None])
+    o = torch.einsum("bht,bthd->bhd", p, v.repeat_interleave(G, dim=2))
+    return o.to(q.dtype), lse
 
 
 def ssd_intra_chunk_ref(x, Bm, Cm, dt, A_log, *, dtype=torch.float32):

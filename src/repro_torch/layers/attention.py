@@ -24,7 +24,17 @@ API:
                                            -> the same over a
                                               sequence-sharded cache,
                                               partial softmax per rank
+  paged_decode_attention_shardmap(q, k_pages, v_pages, tables, lengths,
+                                  mesh=)   -> one query per row over a
+                                              page pool sharded by pages
+                                              and by slots, the paged
+                                              kernel on each rank's tile
+                                              and a softmax combine
   cache_insert(cache, new, lengths, mode=, mesh=, rules=)
+  paged_cache_insert(pages, new, tables, lengths)
+                                           -> one token a row into a
+                                              page pool (a rank's tile
+                                              of a sharded one)
   cache_write_prefix(cache, new)           -> prefill's cache[:, :S] = new
 
 Weights keep the JAX package's layouts: ``wq`` (d, H, hd), ``wk``/``wv``
@@ -504,6 +514,57 @@ def _insert_tile(cache, new_val, lengths, *, blend: bool):
     return cache
 
 
+def pool_tile(pages):
+    """A page pool (n_pages, page_size, ...) as this rank holds it: (its
+    local tile (P, ps, ...), the tile (p0, n_pages, s0, page_size) the
+    paged kernel's tile mode takes, the mesh axes its pages are sharded
+    over, those of its slots).  The reference's pool lays the pages out
+    over "cache_batch" and each page's slots over "cache_seq"
+    (``models.lm._kv_cache_specs``); a plain pool is one whole tile.  A
+    pool whose kv heads or head dim are sharded is not that layout and
+    raises."""
+    if not sharding.is_dtensor(pages):
+        return pages, (0, pages.shape[0], 0, pages.shape[1]), None, None
+    spec = sharding.spec_of(pages)
+    if any(e is not None for e in spec[2:]):
+        raise ValueError(f"a page pool sharded as {spec}: the paged decode "
+                         "takes its pages and slots sharded, its heads whole")
+    loc, mesh = pages.to_local(), pages.device_mesh
+    P, ps = loc.shape[:2]
+    return loc, (sharding.axis_index(mesh, spec[0]) * P, pages.shape[0],
+                 sharding.axis_index(mesh, spec[1]) * ps,
+                 pages.shape[1]), spec[0], spec[1]
+
+
+def _whole(x, mesh):
+    """This rank's copy of the whole of ``x`` (every row, every head):
+    ``sharding.local_as``, which gathers through c10d where two gloo ranks
+    share a card."""
+    from torch.distributed.tensor import Replicate
+
+    return sharding.local_as(x, mesh, [Replicate()] * mesh.ndim)
+
+
+def _paged_write_index(block_tables, lengths, tile, P_loc, ps_loc):
+    """Where a decode step writes its one token a row in a rank's tile of
+    the pool: (the rows the tile holds, their local pages, their local
+    slots).  Row b writes position ``lengths[b]``: page ``tables[b,
+    lengths[b] // page_size]`` (the column clamped into the table; dead
+    rows point at the dummy page 0), slot ``lengths[b] % page_size``; a
+    row is the tile's where both fall in its ranges (a page id outside
+    the pool falls in no tile: its write is dropped, as the reference's
+    scatter drops it)."""
+    p0, _, s0, ps = tile
+    n_max = block_tables.shape[1]
+    lengths = lengths.long()
+    rows = torch.arange(lengths.shape[0], device=block_tables.device)
+    page = block_tables.long()[rows, (lengths // ps).clamp(0, n_max - 1)] - p0
+    slot = lengths % ps - s0
+    held = (page >= 0) & (page < P_loc) & (slot >= 0) & (slot < ps_loc)
+    rows = held.nonzero()[:, 0]
+    return rows, page[rows], slot[rows]
+
+
 def paged_cache_insert(pages, new_val, block_tables, lengths):
     """Write new_val (B, 1, ...) into a paged cache (n_pages, page_size,
     ...) at per-row position ``lengths``, resolving the owning page
@@ -513,7 +574,20 @@ def paged_cache_insert(pages, new_val, block_tables, lengths):
     are unique across rows; rows whose table points at a dummy page
     (dead decode rows) collide only with each other, on a page no
     sequence reads.
+
+    A DTensor pool (``pool_tile``'s layout) is written in each rank's
+    tile: ``new_val`` (rows over the data axes, kv heads over "model",
+    as ``project_qkv`` gives it) is gathered whole, and the rank writes
+    the rows whose page and slot it holds (``_paged_write_index``; dead
+    rows on page 0 land on whichever rank holds their slot of it).
     """
+    if sharding.is_dtensor(pages):
+        loc, tile, _, _ = pool_tile(pages)
+        rows, page, slot = _paged_write_index(block_tables, lengths, tile,
+                                              *loc.shape[:2])
+        nv = _whole(new_val, pages.device_mesh)
+        loc[page, slot] = nv[rows, 0].to(loc.dtype)
+        return pages
     ps = pages.shape[1]
     B = new_val.shape[0]
     n_max = block_tables.shape[1]
@@ -522,6 +596,47 @@ def paged_cache_insert(pages, new_val, block_tables, lengths):
     page = block_tables.long()[rows, (lengths // ps).clamp(0, n_max - 1)]
     pages[page, lengths % ps] = new_val[:, 0].to(pages.dtype)
     return pages
+
+
+def paged_decode_attention_shardmap(q, k_pages, v_pages, block_tables,
+                                    lengths, *, mesh, window: int = 0,
+                                    softcap: float = 0.0):
+    """Paged decode attention over a pool sharded as the reference lays
+    it out (pages over "cache_batch", each page's slots over
+    "cache_seq", kv heads whole: ``pool_tile``), without moving the pool.
+
+    q (B, 1, H, D) is gathered to every row and head (the pool holds
+    every row's keys on any data rank and every kv head); each rank runs
+    the paged kernel once over its own tile, in its tile mode, giving
+    its normalised o and log-sum-exp over the live keys it holds (key t
+    of a row up to ``lengths``, within ``window``); an all_reduce MAX of
+    the log-sum-exps and two SUMs over the pool's sharded mesh axes
+    combine them, as ``decode_attention_shardmap`` combines its partial
+    softmaxes (a row with no live key gives 0).  Returned at q's
+    placement.  ``lengths`` and ``block_tables`` are the step's plain
+    tensors; the function is the unsharded paged step's."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    q = sharding.settle(q)
+    q_l = _whole(q, mesh)[:, 0].contiguous()
+    k_l, tile, page_axes, slot_axes = pool_tile(k_pages)
+    v_l = pool_tile(v_pages)[0]
+    axes = tuple(a for e in (page_axes, slot_axes) if e is not None
+                 for a in ((e,) if isinstance(e, str) else e))
+    o, lse = kops.paged_decode_attention(
+        q_l, k_l, v_l, block_tables, lengths.to(torch.int32), window=window,
+        softcap=softcap, tile=tile)
+    m = sharding.all_reduce(lse, mesh, axes, "max")
+    safe_m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - safe_m)                       # 0 where lse = -inf
+    num = sharding.all_reduce(w[..., None] * o.float(), mesh, axes)
+    den = sharding.all_reduce(w, mesh, axes)
+    out = (num / den.clamp_min(1e-30)[..., None]).to(q_l.dtype)[:, None]
+    out = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    if sharding.is_dtensor(q):
+        out = sharding.to_placements(out, mesh, q.placements)
+    return out
 
 
 def paged_gather(pages, block_tables):

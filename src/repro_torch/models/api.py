@@ -39,7 +39,12 @@ factor the reference's ``moe_apply_ep`` is called with: at
 ``n_experts / experts_top_k`` no token is ever dropped).  The recurrent
 families (hybrid, ssm) run each Mamba2, mLSTM and sLSTM block on its
 rank's heads (``models.lm``), their state caches DTensors placed by the
-same rules.  Paged decode has no mesh path.
+same rules.  ``init_paged_cache`` returns DTensor pools placed by the
+same rules (pages over "cache_batch", each page's slots over
+"cache_seq"), and ``paged_decode_step`` runs the paged kernel on each
+rank's tile of them with the ranks' partial softmaxes combined
+(``models.lm._paged_attn_decode``); ``serving.kvcache.insert_pages``
+copies a one-row prefill cache into such a pool, each rank its tile.
 """
 
 from __future__ import annotations
@@ -155,8 +160,8 @@ class ModelBundle:
         if self.paged_cache_specs is None:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} has no paged-KV cache layout")
-        return init_tree(self.paged_cache_specs(n_pages, page_size, dtype),
-                         device=resolve_device(device))
+        return self._init(self.paged_cache_specs(n_pages, page_size, dtype),
+                          None, dtype, device)
 
 
 def _lm_specs(cfg, stages):

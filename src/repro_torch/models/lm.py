@@ -192,19 +192,25 @@ def _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx, cfg, *,
     ``ctx["block_tables"]`` (B, n_max) names each row's pages.  One
     batched paged decode kernel launch serves every row, a local layer's
     within its ``window`` (the reference gathers the pages and masks
-    instead: its kernel has no window)."""
-    if ctx.get("mesh") is not None:
-        raise NotImplementedError(
-            "paged decode under a mesh: the serving engine that pages "
-            "builds no mesh (as in the reference)")
+    instead: its kernel has no window).  Under a mesh the pools are
+    DTensors laid out as the reference's (pages over "cache_batch", each
+    page's slots over "cache_seq"): each rank writes the step's tokens in
+    its tile and runs the kernel once over it, and the ranks' partial
+    softmaxes are combined (``attn.paged_decode_attention_shardmap``)."""
     lengths = ctx["lengths"]
     tables = ctx["block_tables"]
+    mesh = ctx.get("mesh")
     attn.paged_cache_insert(cache["k"], k_new, tables, lengths)
     attn.paged_cache_insert(cache["v"], v_new, tables, lengths)
-    out = kops.paged_decode_attention(
-        q[:, 0].contiguous(), cache["k"], cache["v"], tables,
-        (lengths + 1).to(torch.int32), window=window,
-        softcap=cfg.attn_logit_softcap)[:, None]
+    if mesh is not None:
+        out = attn.paged_decode_attention_shardmap(
+            q, cache["k"], cache["v"], tables, lengths + 1, mesh=mesh,
+            window=window, softcap=cfg.attn_logit_softcap)
+    else:
+        out = kops.paged_decode_attention(
+            q[:, 0].contiguous(), cache["k"], cache["v"], tables,
+            (lengths + 1).to(torch.int32), window=window,
+            softcap=cfg.attn_logit_softcap)[:, None]
     y = attn.output_proj(p["attn"], out, x.dtype)
     if post_norm:
         y = apply_norm(p["ln_attn_post"], y, cfg.norm, cfg.norm_eps)

@@ -9,7 +9,8 @@ reports how much of the live pages' token capacity is actually filled
 (internal fragmentation is the price of fixed-size paging).
 
 ``insert_pages`` writes a batch-1 prefill cache into the pool in place
-(``index_copy_``) where the JAX package rebinds a donated buffer.
+(``index_copy_``) where the JAX package rebinds a donated buffer; into a
+sharded pool (DTensors of a mesh-built bundle) each rank writes its tile.
 
 ``SlotPool`` remains as the *row* allocator: the batched decode launch
 has a fixed leading batch axis, and each live sequence owns one row in
@@ -24,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common import sharding
 from repro_torch.common.pytree import tree_map
 
 
@@ -220,8 +222,17 @@ def insert_pages(paged_cache, one_cache, page_ids, n_tokens: int):
     ``len(page_ids) * page_size`` positions are copied page-by-page;
     garbage past ``n_tokens`` lands in the owned pages' tails, where the
     length mask hides it.
+
+    A DTensor pool (a mesh-built bundle's) holds on each rank a tile:
+    pages over the data axes, each page's slots over "model"; the dense
+    cache splits its sequence into contiguous parts over "model"
+    instead.  The one-row cache is gathered whole on each rank (through
+    ``sharding.local_as``), and each rank copies the tile's slots of the
+    pages it holds.
     """
     def one(pages, dense):
+        if sharding.is_dtensor(pages):
+            return _insert_tile(pages, dense, page_ids)
         ps = pages.shape[2]
         span = len(page_ids) * ps
         chunks = dense[:, 0, :span].reshape(
@@ -232,3 +243,30 @@ def insert_pages(paged_cache, one_cache, page_ids, n_tokens: int):
 
     tree_map(one, paged_cache, one_cache)
     return paged_cache
+
+
+def _insert_tile(pages, dense, page_ids):
+    """``insert_pages`` for one DTensor pool leaf (layers, n_pages,
+    page_size, ...): this rank's tile of pages [p0, p0 + P) and slots
+    [s0, s0 + ps) written from the whole one-row cache."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.layers.attention import pool_tile
+
+    mesh = pages.device_mesh
+    loc = pages.to_local()
+    P, ps = loc.shape[1:3]
+    p0, _, s0, _ = pool_tile(pages[0])[1]     # a layer's pool: its tile
+    whole = sharding.local_as(dense, mesh, [Replicate()] * mesh.ndim)
+    held = [(i, p - p0) for i, p in enumerate(page_ids) if p0 <= p < p0 + P]
+    if held:
+        n, page_size = len(page_ids), pages.shape[2]
+        chunks = whole[:, 0, :n * page_size].reshape(
+            whole.shape[0], n, page_size, *whole.shape[3:])[:, :, s0:s0 + ps]
+        dev = loc.device
+        src = torch.as_tensor([i for i, _ in held], dtype=torch.long,
+                              device=dev)
+        dst = torch.as_tensor([j for _, j in held], dtype=torch.long,
+                              device=dev)
+        loc.index_copy_(1, dst, chunks.index_select(1, src).to(loc.dtype))
+    return pages

@@ -171,6 +171,9 @@ def test_small_cases_match_the_plain_version_on_cpu():
     g = torch.Generator().manual_seed(0)
     for case in (kc._flash_case("s/flash", B=2, S=9, T=9, H=4, K=2, D=16),
                  kc._paged_decode_case("s/paged", B=3, T=40, H=4, K=2, D=16),
+                 kc._paged_tile_case("s/paged-tile", B=3, H=4, K=2, D=16,
+                                     n_max=3, n_pages=8, pages=4, p0=4,
+                                     s0=8, window=20),
                  kc._ssd_cases("s/ssd", B=1, S=16, H=2, P=4, N=8, chunk=8)[0],
                  kc._slstm_case("s/slstm", B=2, S=3, H=2, hd=16)):
         args = case.inputs(g)

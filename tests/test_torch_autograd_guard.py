@@ -1,6 +1,7 @@
 """The kernel wrappers and autograd.  The hand-written kernels have no
 backward, so on a card (and on ``meta`` tensors, which run every card
-check) each of the six wrappers raises ``ops.NoBackwardError`` before
+check) each of the six wrappers (the paged one also in its tile mode,
+which returns (o, lse)) raises ``ops.NoBackwardError`` before
 any launch when grad mode is on and any floating input requires grad;
 under ``torch.no_grad()`` it runs as before.  CPU tensors take the plain
 versions, which differentiate.  ``tests/test_torch_cuda.py`` holds the
@@ -14,7 +15,8 @@ from repro_torch.kernels import ops
 
 def guard_cases(device):
     """(wrapper name, call, its floating inputs) for each of the six
-    wrappers at a small shape every kernel has a plan for."""
+    wrappers at a small shape every kernel has a plan for, and the paged
+    wrapper's tile mode (2 of 4 pages, 2 of 4 slots)."""
     g = torch.Generator().manual_seed(0)
 
     def rnd(*shape):
@@ -42,7 +44,13 @@ def guard_cases(device):
         ("ssd_chunked", lambda *a: ops.ssd_chunked(*a, chunk=8),
          [x4, B3, C3, dt3, a_log]),
         ("slstm_scan", ops.slstm_scan, [pre, R]),
+        ("paged_decode_attention", lambda q, kp, vp: ops.paged_decode_attention(
+            q, kp, vp, i32(0, 3).reshape(1, 2), i32(7), tile=(2, 4, 2, 4)),
+         [qd, kp[2:, 2:].contiguous(), vp[2:, 2:].contiguous()]),
     ]
+
+
+N_CASES = 7
 
 
 def _outputs(out):
@@ -50,7 +58,7 @@ def _outputs(out):
             for t in (t if isinstance(t, tuple) else (t,))]
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(N_CASES))
 def test_meta_wrapper_raises_when_an_input_requires_grad(case):
     name, fn, inputs = guard_cases("meta")[case]
     for i in range(len(inputs)):
@@ -65,7 +73,7 @@ def test_meta_wrapper_raises_when_an_input_requires_grad(case):
         fn(*args)
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(N_CASES))
 def test_cpu_wrapper_differentiates_through_the_plain_version(case):
     name, fn, inputs = guard_cases("cpu")[case]
     args = [t.clone().requires_grad_(True) for t in inputs]

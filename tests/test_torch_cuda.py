@@ -347,6 +347,65 @@ def test_cuda_paged_split_edges(cuda_device, dtype, atol, rtol, geom, batch,
         assert not bool(got[lens.index(0)].float().abs().any())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("geom", ["D=64 G=7", "D=16 G=1", "D=64 G=8",
+                                  "D=256 G=2"])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (2, 4)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (37, 50.0)])
+def test_cuda_paged_tile_mode_matches_plain(cuda_device, dtype, atol, rtol,
+                                            geom, mesh, window, softcap):
+    """The paged kernel's tile mode on each rank's tile of a pool split
+    ``mesh`` ways (pages over the first, each page's slots over the
+    second, as ``paged_decode_attention_shardmap`` splits it), at the
+    split edges with garbage table tails: each tile's (o, lse) == the
+    plain version's (lse -inf on the same rows), and in float32 the
+    tiles combined == the whole-pool kernel (in bfloat16 each tile's o is
+    rounded before the combine, the whole pool's once)."""
+    H, K, D = {"D=256 G=2": (16, 8, 256)}.get(geom) or PAGED_GEOMS[geom]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    lens = paged_edge_lengths(ops.decode_splits(N_MAX * PAGE // mesh[1], 8,
+                                                K, H // K, n_sm))
+    tables, lengths = paged_tables(g, lens, cuda_device, P=N_PAGES - 1)
+    B, P = len(lens), N_PAGES - 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q = rnd(B, H, D)
+    kp, vp = rnd(P, PAGE, K, D), rnd(P, PAGE, K, D)
+    Pl, sl = P // mesh[0], PAGE // mesh[1]
+    kw = dict(window=window, softcap=softcap)
+    os_, lses = [], []
+    for i in range(mesh[0]):
+        for j in range(mesh[1]):
+            tile = (i * Pl, P, j * sl, PAGE)
+            kt = kp[i * Pl:(i + 1) * Pl, j * sl:(j + 1) * sl].contiguous()
+            vt = vp[i * Pl:(i + 1) * Pl, j * sl:(j + 1) * sl].contiguous()
+            o, lse = ops.paged_decode_attention(q, kt, vt, tables, lengths,
+                                                tile=tile, **kw)
+            wo, wl = ref.paged_decode_attention_ref(q, kt, vt, tables,
+                                                    lengths, tile=tile, **kw)
+            torch.testing.assert_close(o.float(), wo.float(), rtol=rtol,
+                                       atol=atol)
+            live = torch.isfinite(wl)
+            assert torch.equal(torch.isfinite(lse), live)
+            torch.testing.assert_close(lse[live], wl[live], rtol=rtol,
+                                       atol=atol)
+            os_.append(o.float())
+            lses.append(lse)
+    assert int(ops._TICKETS[cuda_device.index or 0].abs().sum()) == 0
+    if dtype is not torch.float32:
+        return
+    L, O = torch.stack(lses), torch.stack(os_)
+    M = L.amax(0)
+    w = torch.exp(L - torch.where(torch.isfinite(M), M, torch.zeros_like(M)))
+    got = (w[..., None] * O).sum(0) / w.sum(0).clamp_min(1e-30)[..., None]
+    whole = ops.paged_decode_attention(q, kp, vp, tables, lengths, **kw)
+    torch.testing.assert_close(got, whole, rtol=rtol, atol=atol)
+
+
 # the attention kernels' edge cases at each path's head geometry:
 # (H, K, D, the path's S or T)
 ATTN_GEOMS = {"internvl2-1b": (14, 2, 64, 267), "zamba2-7b": (32, 32, 112, 383),
@@ -595,7 +654,7 @@ def test_cuda_flash_plan_equals_the_kernel_plan(cuda_device, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(7))
 def test_cuda_wrapper_raises_under_grad_and_launches_under_no_grad(
         cuda_device, case):
     from test_torch_autograd_guard import guard_cases

@@ -1,7 +1,9 @@
 """The port's sharded model (``build_model(cfg, mesh=..., rules=...)``,
 DTensor weights and caches placed by the logical-axis rules) held to
-the JAX package's sharded model: smoke tinyllama-1.1b and
-granite-moe-3b-a800m, prefill + 4 greedy decode steps, under the
+the JAX package's sharded model: smoke tinyllama-1.1b,
+granite-moe-3b-a800m, gemma2-9b (its local/global pairs with the window
+and softcaps) and internvl2-1b (its image prefix through the vlm stub),
+prefill + 4 greedy decode steps, under the
 default rules and the serving rules (``{"embed": None}``), with and
 without the reference's ``smattn`` options (``decode_attn="shardmap"``,
 ``cache_update="shard"``), at meshes (1, 1) in this process and (1, 2),
@@ -34,11 +36,16 @@ from repro_torch.common.config import get_config
 from repro_torch.models.api import build_model
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m")
+ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "gemma2-9b",
+         "internvl2-1b")
 SERVING = {"embed": None}
 SMATTN = {"decode_attn": "shardmap", "cache_update": "shard"}
 MESHES = ((1, 2), (2, 2), (1, 4))
-CASES = [dict(arch=a, mesh=list(m), T=16, steps=4, rules=r, opts=o,
+#: the dense cache's length: the prefill (and a VLM's image prefix) and
+#: the 4 steps
+T_OF = {"internvl2-1b": 24}
+CASES = [dict(arch=a, mesh=list(m), T=T_OF.get(a, 16), steps=4, rules=r,
+              opts=o,
               local_shapes=r is None and not o)
          for a in ARCHS for m in MESHES for r in (None, SERVING)
          for o in ({}, SMATTN)]
@@ -80,18 +87,19 @@ def test_shard_tree_local_shapes_match_reference(outputs, i):
         assert tuple(got[k]) == tuple(want[k]), k
 
 
-def _ref_run(arch, mesh, rules, opts, T=16, steps=4):
+def _ref_run(arch, mesh, rules, opts, steps=4):
     cfg = mref.model_cfg(arch)
     b = ref_build_model(cfg, mesh=mesh, rules=rules,
                         compute_dtype=jnp.float32, **opts)
     params = b.init(jax.random.PRNGKey(0))
-    tokens = mref.model_tokens(cfg)
-    B, S = tokens.shape
-    cache = b.init_cache(B, T, jnp.float32)
+    batch, n_img = mref.model_batch(cfg)
+    B, S = batch["tokens"].shape
+    cache = b.init_cache(B, T_OF.get(arch, 16), jnp.float32)
     prefill, decode = jax.jit(b.prefill), jax.jit(b.decode_step)
-    lg, cache = prefill(params, {"tokens": jnp.asarray(tokens)}, cache)
+    lg, cache = prefill(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                        cache)
     out = [np.asarray(lg)]
-    lengths = jnp.full((B,), S, jnp.int32)
+    lengths = jnp.full((B,), S + n_img, jnp.int32)
     for _ in range(steps):
         tok = jnp.asarray(out[-1].argmax(-1)[:, None].astype(np.int32))
         lg, cache = decode(params, tok, cache, lengths)
@@ -100,20 +108,21 @@ def _ref_run(arch, mesh, rules, opts, T=16, steps=4):
     return np.stack(out), jax.tree.map(np.asarray, params)
 
 
-def _port_run(arch, mesh, rules, opts, params, T=16, steps=4):
+def _port_run(arch, mesh, rules, opts, params, steps=4):
     cfg = get_config(arch, smoke=True)
     b = build_model(cfg, mesh=mesh, rules=rules, **opts)
     p = params_from_numpy(params, "cpu")
     if mesh is not None:
         p = sharding.shard_tree(p, b.specs, b.rules, mesh)
-    tokens = torch.from_numpy(mref.model_tokens(cfg))
-    B, S = tokens.shape
-    cache = b.init_cache(B, T, device="cpu")
+    batch, n_img = mref.model_batch(cfg)
+    B, S = batch["tokens"].shape
+    cache = b.init_cache(B, T_OF.get(arch, 16), device="cpu")
     full = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
     with torch.no_grad():
-        lg, cache = b.prefill(p, {"tokens": tokens}, cache)
+        lg, cache = b.prefill(p, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()}, cache)
         out = [full(lg)]
-        lengths = torch.full((B,), S, dtype=torch.int32)
+        lengths = torch.full((B,), S + n_img, dtype=torch.int32)
         for _ in range(steps):
             tok = out[-1].argmax(-1)[:, None].to(torch.int32)
             lg, cache = b.decode_step(p, tok, cache, lengths)

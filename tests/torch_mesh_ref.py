@@ -4,10 +4,10 @@
         python tests/torch_mesh_ref.py <kind> <cases.json> <out.npz>
 
 Run as a child process by ``tests/test_torch_{moe_ep,shardmap_decode,
-sharded_model,sharded_loss}.py``, which set ``XLA_FLAGS`` for the child
-only (the test process keeps the one CPU device).  ``kind`` is "model",
-"moe", "decode", "loss" or "dryrun"; each case of the JSON list names its mesh
-shape and inputs,
+sharded_model,sharded_loss,paged_mesh}.py``, which set ``XLA_FLAGS`` for
+the child only (the test process keeps the one CPU device).  ``kind`` is
+"model", "moe", "decode", "loss", "dryrun" or "paged"; each case of the
+JSON list names its mesh shape and inputs,
 and every output is stored in the npz under ``<case index>/<name>``.
 The inputs are rebuilt here from the same seeds the tests use
 (``model_tokens``, ``loss_batch``, ``moe_x``, ``decode_inputs``; the
@@ -45,6 +45,62 @@ def model_cfg(arch):
 def model_tokens(cfg, B=2, S=5, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def model_batch(cfg, B=2, S=5):
+    """A prefill batch of ``model_tokens``, behind a VLM's image prefix
+    (``n_image_tokens`` embeddings, seed 1); and the prefix's length."""
+    batch = {"tokens": model_tokens(cfg, B, S)}
+    if not cfg.has_vision_stub:
+        return batch, 0
+    batch["image_embeds"] = np.random.default_rng(1).standard_normal(
+        (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return batch, cfg.n_image_tokens
+
+
+#: the paged cases' rows: each row's sequence length at the first paged
+#: step (a VLM's image prefix included; None a dead row, pointed at the
+#: dummy page 0 with length 0 and token 0), and the steps
+PAGED_LENS, PAGED_STEPS = (14, 37, None, 23), 4
+
+
+def paged_scenario(cfg, ps, n_pages, lens=PAGED_LENS, steps=PAGED_STEPS):
+    """The rows of a paged case: for each live row its prefill batch
+    (text tokens from seed 5 behind a VLM's image prefix), its length
+    and its pages, enough for ``steps`` more tokens, taken in the order
+    1 + m i mod (n_pages - 1), m the first of 5, 7, 11 prime to
+    n_pages - 1, so that rows straddle the pool's halves;
+    and the (B, n_max) block tables, padded with the dummy page 0.  At
+    pages of 16 row 0 crosses a page boundary during the steps and row
+    3's first step sees, under a window of 8, only slots 0-7 of its
+    second page (a model rank holding slots 8-15 has none of its keys)."""
+    import math
+
+    n_img = cfg.n_image_tokens if cfg.has_vision_stub else 0
+    rng = np.random.default_rng(5)
+    m = next(m for m in (5, 7, 11) if math.gcd(m, n_pages - 1) == 1)
+    order = [1 + (m * i) % (n_pages - 1) for i in range(n_pages - 1)]
+    rows, k = [], 0
+    for L in lens:
+        if L is None:
+            rows.append(None)
+            continue
+        n = -(-(L + steps) // ps)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, L - n_img))
+                 .astype(np.int32)}
+        if n_img:
+            batch["image_embeds"] = rng.standard_normal(
+                (1, n_img, cfg.d_model)).astype(np.float32)
+        rows.append({"batch": batch, "L": L, "pages": order[k:k + n]})
+        k += n
+    if k > n_pages - 1:
+        raise ValueError(f"{k} pages for a pool of {n_pages}")
+    n_max = max(len(r["pages"]) for r in rows if r)
+    tables = np.zeros((len(lens), n_max), np.int32)
+    for i, r in enumerate(rows):
+        if r:
+            tables[i, :len(r["pages"])] = r["pages"]
+    return rows, tables
 
 
 def loss_batch(cfg, B=4, S=8, seed=2):
@@ -140,17 +196,18 @@ def run_model(case):
                          compute_dtype=jnp.float32, **case.get("opts", {}))
     params = jax.device_put(model_params(case["arch"], case.get("cfg")),
                             tree_shardings(bundle.specs, rules, mesh))
-    tokens = model_tokens(cfg)
-    B, S = tokens.shape
+    batch, n_img = model_batch(cfg)
+    B, S = batch["tokens"].shape
     cache_specs = bundle.cache_specs(B, case["T"], jnp.float32)
     cache = jax.device_put(bundle.init_cache(B, case["T"], jnp.float32),
                            tree_shardings(cache_specs, rules, mesh))
     with mesh:
         prefill = jax.jit(bundle.prefill)
         decode = jax.jit(bundle.decode_step)
-        lg, cache = prefill(params, {"tokens": jnp.asarray(tokens)}, cache)
+        lg, cache = prefill(params, {k: jnp.asarray(v)
+                                     for k, v in batch.items()}, cache)
         logits = [np.asarray(lg)]
-        lengths = jnp.full((B,), S, jnp.int32)
+        lengths = jnp.full((B,), S + n_img, jnp.int32)
         for _ in range(case["steps"]):
             tok = jnp.asarray(logits[-1].argmax(-1)[:, None].astype(np.int32))
             lg, cache = decode(params, tok, cache, lengths)
@@ -162,6 +219,65 @@ def run_model(case):
         for path, leaf in leaf_paths(params):
             out["shape/" + path] = np.asarray(
                 leaf.addressable_shards[0].data.shape)
+    return out
+
+
+def run_paged(case):
+    """The sharded model's paged decode (``paged_scenario``): each live
+    row prefilled alone into a one-row dense cache and copied into the
+    sharded pool (``insert_pages``), then ``PAGED_STEPS`` paged steps of
+    every row (greedy tokens fed back).  Outputs: the logits (the
+    prefills' in a first row of zeros for a dead row, then each step's)
+    and every pool leaf after each step."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.common.sharding import merge_rules, tree_shardings
+    from repro.models.api import build_model
+    from repro.serving.kvcache import insert_pages
+
+    mesh = _mesh(case["mesh"])
+    cfg = model_cfg(case["arch"]).with_overrides(**case.get("cfg", {}))
+    rules = merge_rules(case.get("rules"))
+    f32 = jnp.float32
+    bundle = build_model(cfg, mesh=mesh, rules=rules, compute_dtype=f32)
+    params = jax.device_put(model_params(case["arch"], case.get("cfg")),
+                            tree_shardings(bundle.specs, rules, mesh))
+    ps, n_pages = case["ps"], case["n_pages"]
+    rows, tables = paged_scenario(cfg, ps, n_pages)
+    B = len(rows)
+    pool = jax.device_put(
+        bundle.init_paged_cache(n_pages, ps, f32),
+        tree_shardings(bundle.paged_cache_specs(n_pages, ps, f32), rules,
+                       mesh))
+    out = {}
+    with mesh:
+        prefill = jax.jit(bundle.prefill)
+        step = jax.jit(bundle.paged_decode_step)
+        first = np.zeros((B, cfg.vocab_size), np.float32)
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            T = len(r["pages"]) * ps
+            one = jax.device_put(
+                bundle.init_cache(1, T, f32),
+                tree_shardings(bundle.cache_specs(1, T, f32), rules, mesh))
+            lg, one = prefill(params, {k: jnp.asarray(v)
+                                       for k, v in r["batch"].items()}, one)
+            first[i] = np.asarray(lg)[0]
+            pool = insert_pages(pool, one, r["pages"], r["L"])
+        live = np.asarray([r is not None for r in rows])
+        lengths = np.asarray([r["L"] if r else 0 for r in rows], np.int32)
+        logits = [first]
+        for s in range(PAGED_STEPS):
+            tok = np.where(live, logits[-1].argmax(-1), 0).astype(np.int32)
+            lg, pool = step(params, jnp.asarray(tok[:, None]), pool,
+                            jnp.asarray(tables), jnp.asarray(lengths))
+            logits.append(np.asarray(lg))
+            for path, leaf in leaf_paths(pool):
+                out[f"pool{s}/{path}"] = np.asarray(leaf)
+            lengths = lengths + live
+    out["logits"] = np.stack(logits)
     return out
 
 
@@ -361,7 +477,7 @@ def finish(proc, out, timeout=400):
 def main(kind, cases_path, out_path):
     cases = json.loads(open(cases_path).read())
     run = {"model": run_model, "moe": run_moe, "decode": run_decode,
-           "loss": run_loss, "dryrun": run_dryrun}[kind]
+           "loss": run_loss, "dryrun": run_dryrun, "paged": run_paged}[kind]
     out = {}
     for i, case in enumerate(cases):
         for name, arr in run(case).items():

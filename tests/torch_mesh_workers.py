@@ -116,13 +116,14 @@ def model_worker(rank, shape, cases, params, out):
         p = shard_tree(params_from_numpy(
             params[case.get("params", case["arch"])], "cpu"),
             b.specs, b.rules, mesh)
-        tokens = torch.from_numpy(mref.model_tokens(cfg))
-        B, S = tokens.shape
+        batch, n_img = mref.model_batch(cfg)
+        B, S = batch["tokens"].shape
         cache = b.init_cache(B, case["T"], device="cpu")
         with torch.no_grad():
-            lg, cache = b.prefill(p, {"tokens": tokens}, cache)
+            lg, cache = b.prefill(p, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()}, cache)
             logits = [lg.full_tensor()]
-            lengths = torch.full((B,), S, dtype=torch.int32)
+            lengths = torch.full((B,), S + n_img, dtype=torch.int32)
             for _ in range(case["steps"]):
                 tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
                 lg, cache = b.decode_step(p, tok, cache, lengths)
@@ -132,6 +133,75 @@ def model_worker(rank, shape, cases, params, out):
         if case.get("local_shapes"):
             for path, leaf in mref.leaf_paths(p):
                 res[f"{i}/shape/{path}"] = np.asarray(leaf.to_local().shape)
+    _save(rank, out, res)
+
+
+def _paged_run(b, p, cfg, ps, n_pages, full):
+    """``torch_mesh_ref.run_paged``'s path on the bundle ``b`` (weights
+    ``p``): the logits, and every pool leaf after each step (``full``
+    makes a tensor whole)."""
+    import torch
+
+    from repro_torch.serving.kvcache import insert_pages
+
+    rows, tables = mref.paged_scenario(cfg, ps, n_pages)
+    B = len(rows)
+    pool = b.init_paged_cache(n_pages, ps, device="cpu")
+    res = {}
+    with torch.no_grad():
+        first = torch.zeros(B, cfg.vocab_size)
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            one = b.init_cache(1, len(r["pages"]) * ps, device="cpu")
+            lg, one = b.prefill(p, {k: torch.from_numpy(v)
+                                    for k, v in r["batch"].items()}, one)
+            first[i] = full(lg)[0]
+            insert_pages(pool, one, r["pages"], r["L"])
+        live = torch.tensor([r is not None for r in rows])
+        lengths = torch.tensor([r["L"] if r else 0 for r in rows],
+                               dtype=torch.int32)
+        tables = torch.from_numpy(tables)
+        logits = [first]
+        for s in range(mref.PAGED_STEPS):
+            tok = torch.where(live, logits[-1].argmax(-1), 0).to(torch.int32)
+            lg, pool = b.paged_decode_step(p, tok[:, None], pool, tables,
+                                           lengths)
+            logits.append(full(lg))
+            for path, leaf in mref.leaf_paths(pool):
+                res[f"pool{s}/{path}"] = full(leaf).numpy().copy()
+            lengths = lengths + live.to(torch.int32)
+    res["logits"] = torch.stack(logits).numpy()
+    return res
+
+
+def paged_worker(rank, shape, cases, params, out):
+    """``torch_mesh_ref.run_paged`` on the mesh ``shape`` for each case;
+    a case with "unsharded" runs the unsharded bundle of the same weights
+    too, its outputs under "plain/" (the port pages granite's moe stage,
+    which the reference does not)."""
+    from repro_torch.common.bridge import params_from_numpy
+    from repro_torch.common.config import get_config
+    from repro_torch.common.sharding import shard_tree
+    from repro_torch.models.api import build_model
+
+    mesh = _mesh(shape)
+    res = {}
+    for i, case in cases:
+        cfg = get_config(case["arch"], smoke=True).with_overrides(
+            **case.get("cfg", {}))
+        full = params_from_numpy(params[case.get("params", case["arch"])],
+                                 "cpu")
+        b = build_model(cfg, mesh=mesh, rules=case.get("rules"),
+                        **case.get("opts", {}))
+        p = shard_tree(full, b.specs, b.rules, mesh)
+        for k, v in _paged_run(b, p, cfg, case["ps"], case["n_pages"],
+                               lambda t: t.full_tensor()).items():
+            res[f"{i}/{k}"] = v
+        if case.get("unsharded"):
+            for k, v in _paged_run(build_model(cfg), full, cfg, case["ps"],
+                                   case["n_pages"], lambda t: t).items():
+                res[f"{i}/plain/{k}"] = v
     _save(rank, out, res)
 
 
