@@ -226,7 +226,20 @@ Phases (any failure exits non-zero; nothing is caught):
    from the code; the ranks' peaks below the card's 80 GB; internvl2-1b
    cut to 2 layers == the mesh path on the CPU within 2e-4.  Prints each
    rank's held and peak GB, prefill ms and ms a tick.
-16. Print the kernels line (JSON), the card line, and last
+16. The reference's default compute, bfloat16 (``build_model(cfg)``):
+   (a) internvl2-1b at full width and depth on the main path, its
+   weights phase 3's float32 draws cast to bfloat16, phase 3's requests
+   through serve() and submit() (the engine's caches float32, q widened
+   at the decode kernels); (b) the same through the bundle at its
+   defaults, a bfloat16 dense cache and page pool; (c) zamba2-7b at full
+   width cut to 8 layers.  Checked: routes, compare(), the pool drained;
+   serve() == submit() tokens; launches exact by shape and dtype; at full
+   depth the bfloat16 paths round alike (each no further from the
+   float32 compute on the same weights than twice its peer), decode ==
+   prefill in (b) and card == CPU at 2 layers within rtol = atol 3e-2.
+   Prints (a)'s rates beside phase 3's float32 ones.  Phase 2's bfloat16
+   rows read their launches off these paths.
+17. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
    main-path launches at that shape (``ops.SHAPE_LAUNCHES``), beside
@@ -462,6 +475,23 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def f32_shapes() -> dict:
+    """``ops.SHAPE_LAUNCHES`` of a float32 path, each key without its
+    last element, the launch's dtype: the shapes the float32 phases
+    count their exact launches by.  Fails where a launch ran at another
+    dtype (phase 16's bfloat16 paths read ``ops.SHAPE_LAUNCHES`` whole)."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name, counts in ops.SHAPE_LAUNCHES.items():
+        out[name] = {}
+        for key, n in counts.items():
+            if key[-1] != "float32":
+                fail(f"{name}: {n} launches at {key} on a float32 path")
+            out[name][key[:-1]] = n
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1877,17 +1907,29 @@ def phase_kernels_paged_tile(dev) -> tuple[list[dict], dict]:
 GB = 1024**3
 
 
-def _deployment(dev, cfg):
+def _deployment(dev, cfg, bf16=False, compute=None):
+    """Phase 3's deployment: a stand-in vision encoder shared by the
+    caption, ocr and classify tasks, the generative head ``cfg`` with
+    float32 weights from seed 0 at float32 compute; with ``bf16`` (phase
+    16) the same draws cast to bfloat16 and the bundle built with the
+    default compute, bfloat16, or with ``compute``.  Returns
+    (deployment, bundle, params)."""
     import torch
 
+    from repro_torch.common.pytree import tree_map
     from repro_torch.core.cluster import ClusterSpec, DeviceSpec
     from repro_torch.core.module import ModelSpec, ModuleSpec
     from repro_torch.models.api import build_model
     from repro_torch.s2m3 import Deployment
 
-    bundle = build_model(cfg)
+    if compute is None and not bf16:
+        compute = torch.float32
+    bundle = build_model(cfg) if compute is None else \
+        build_model(cfg, compute_dtype=compute)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = bundle.init(gen, torch.float32, dev)
+    if bf16:
+        params = tree_map(lambda t: t.to(torch.bfloat16), params)
     d = cfg.d_model
     w_enc = 0.1 * torch.randn(d, d, generator=gen, device=dev)
     w_cls = 0.05 * torch.randn(d, 1000, generator=gen, device=dev)
@@ -1895,7 +1937,7 @@ def _deployment(dev, cfg):
                      bytes_per_param=4.0,
                      flops_per_query=2.0 * cfg.n_image_tokens * d * d)
     head = ModuleSpec("vlm-head", "head", "task", bundle.param_count(),
-                      bytes_per_param=4.0, generative=True,
+                      bytes_per_param=2.0 if bf16 else 4.0, generative=True,
                       flops_per_query=2.0 * bundle.param_count(),
                       kv_bytes_per_token=bundle.kv_bytes_per_token())
     cls = ModuleSpec("cls-head", "head", "task", d * 1000,
@@ -2015,7 +2057,7 @@ def phase_reference(dev):
             ("smoke", get_config("internvl2-1b", smoke=True)),
             ("full width, 2 layers",
              get_config("internvl2-1b").with_overrides(n_layers=2))):
-        b = build_model(cfg)
+        b = build_model(cfg, compute_dtype=torch.float32)
         p_cpu = b.init(torch.Generator().manual_seed(SEED), device="cpu")
         g = torch.Generator().manual_seed(SEED + 1)
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 7),
@@ -2066,6 +2108,7 @@ def phase_serve(dev) -> dict:
     served_logits, solo_logits = {}, {}
     ops.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t_serve = time.perf_counter()
     with record_logits(served_logits):
         results = dep.serve(reqs, **SERVE_KW)
@@ -2078,8 +2121,9 @@ def phase_serve(dev) -> dict:
             solo[r.rid] = dep.submit(r)
     torch.cuda.synchronize()
     t_submit = time.perf_counter() - t_submit
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = dict(ops.LAUNCHES)
-    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    shapes = f32_shapes()
     log(f"[serve] launches by call shape: "
         f"{ {k: v for k, v in shapes.items() if v} }")
 
@@ -2157,7 +2201,19 @@ def phase_serve(dev) -> dict:
     if launches != want:
         fail(f"kernel launches {launches} != expected {want}")
 
-    # end-to-end numbers from the serve() trace
+    rates = _serve_rates(dep, gen_reqs, stream, submit_steps, t_submit,
+                         peak_gb, "serve")
+    return ({"launches": launches, "shapes": shapes, "rates": rates}, dep,
+            gen_reqs)
+
+
+def _serve_rates(dep, gen_reqs, stream, submit_steps, t_submit, peak_gb,
+                 tag) -> dict:
+    """The end-to-end numbers of a serve() run, from its trace (time to
+    first token, decode tokens/s and ms a tick), and of the submit()
+    run beside it (solo tokens/s); logged under ``tag``."""
+    import numpy as np
+
     trace = dep.trace()
     if trace.validate() != []:
         fail(f"trace malformed: {trace.validate()[:3]}")
@@ -2170,17 +2226,21 @@ def phase_serve(dev) -> dict:
         for s in spans:
             if s.phase == "decode_tick":
                 ticks[(s.t0, s.t1)] = s.t1 - s.t0
-    tick_ms = 1e3 * float(np.mean(list(ticks.values())))
-    decode_s = sum(ticks.values())
-    tok_s = stream.decode_tokens / decode_s
-    log(f"[serve] time to first token: mean {1e3 * np.mean(ttft):.1f} ms, "
-        f"p50 {1e3 * np.median(ttft):.1f} ms, max {1e3 * max(ttft):.1f} ms")
-    log(f"[serve] decode: {stream.decode_tokens} tokens over {len(ticks)} "
-        f"ticks, {tok_s:.1f} tokens/s, {tick_ms:.2f} ms per tick "
-        f"(mean rows {stream.decode_tokens / len(ticks):.2f})")
-    submit_tok_s = (submit_steps + len(gen_reqs)) / t_submit
-    log(f"[serve] submit() solo decode: {submit_tok_s:.1f} tokens/s")
-    return {"launches": launches, "shapes": shapes}, dep, gen_reqs
+    rates = {"ttft_mean_ms": 1e3 * float(np.mean(ttft)),
+             "ttft_max_ms": 1e3 * max(ttft),
+             "tick_ms": 1e3 * float(np.mean(list(ticks.values()))),
+             "tok_s": stream.decode_tokens / sum(ticks.values()),
+             "solo_tok_s": (submit_steps + len(gen_reqs)) / t_submit,
+             "peak_gb": peak_gb}
+    log(f"[{tag}] time to first token: mean {rates['ttft_mean_ms']:.1f} ms, "
+        f"p50 {1e3 * np.median(ttft):.1f} ms, max {rates['ttft_max_ms']:.1f}"
+        " ms")
+    log(f"[{tag}] decode: {stream.decode_tokens} tokens over {len(ticks)} "
+        f"ticks, {rates['tok_s']:.1f} tokens/s, {rates['tick_ms']:.2f} ms "
+        f"per tick (mean rows {stream.decode_tokens / len(ticks):.2f})")
+    log(f"[{tag}] submit() solo decode: {rates['solo_tok_s']:.1f} tokens/s;"
+        f" peak {peak_gb:.2f} GB allocated over serve() and submit()")
+    return rates
 
 
 def phase_profile(dep, gen_reqs) -> None:
@@ -2309,7 +2369,7 @@ def _card_vs_cpu(dev, cfg, batch, cache_T, tag, label) -> None:
     from repro_torch.common.pytree import tree_map
     from repro_torch.models.api import build_model
 
-    b = build_model(cfg)
+    b = build_model(cfg, compute_dtype=torch.float32)
     p_cpu = b.init(torch.Generator(device=dev).manual_seed(SEED),
                    device="cpu")
     L = batch["tokens"].shape[1]
@@ -2416,7 +2476,7 @@ def phase_recurrent(dev) -> dict[str, dict]:
             run = serve_arch(cfg, reqs, device=dev)  # weights from seed 0
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
-        shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        shapes = f32_shapes()
         ssd_shapes = shapes["ssd_intra_chunk"]
         log(f"[recurrent] {arch} launches by call shape: "
             f"{ {k: v for k, v in shapes.items() if v} }")
@@ -2552,7 +2612,7 @@ def phase_scenario(dev) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
-        shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        shapes = f32_shapes()
         trace_bytes = trace_path.stat().st_size
     dep = out["deployment"]
 
@@ -2708,7 +2768,7 @@ def phase_tinyllama(dev) -> dict:
     torch.cuda.synchronize()
     t_submit = time.perf_counter() - t_submit
     launches = dict(ops.LAUNCHES)
-    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    shapes = f32_shapes()
     n = rt.bundle.param_count()
     log(f"[phase7] {TL_ARCH}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32), "
         f"{cfg.n_layers} layers, d_model {cfg.d_model}, H {cfg.n_heads}, K "
@@ -2815,7 +2875,7 @@ def phase_whisper(dev) -> dict:
     with record_logits(logits):
         run = serve_arch(cfg, reqs, device=dev)
     launches = dict(ops.LAUNCHES)
-    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    shapes = f32_shapes()
     rt = next(iter(run.engine.decoders.values()))
     n = rt.bundle.param_count()
     log(f"[phase7] {W_ARCH}: {n:,} parameters ({n * 4 / 1e6:.1f} MB f32), "
@@ -2963,7 +3023,7 @@ def phase_family(dev, cfg, cpu_layers=2, tag="phase8") -> dict:
     torch.cuda.synchronize()
     t_submit = time.perf_counter() - t_submit
     launches = dict(ops.LAUNCHES)
-    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    shapes = f32_shapes()
     n = rt.bundle.param_count()
     log(f"[{tag}] {arch}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32), "
         f"{cfg.n_layers} layers, d_model {cfg.d_model}, H {cfg.n_heads}, K "
@@ -3097,7 +3157,8 @@ def phase_deepseek(dev) -> dict:
     leaf_bytes = 4 * int(np.prod(leaf.shape[1:]))
     log(f"[phase9] {DS_ARCH}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32; "
         f"the full model "
-        f"{build_model(get_config(DS_ARCH)).param_count():,}), {cfg.n_layers} "
+        f"{build_model(get_config(DS_ARCH)).param_count():,}), "
+        f"{cfg.n_layers} "
         f"layers ({cfg.first_dense_layers} dense), d_model {cfg.d_model}, "
         f"H {cfg.n_heads}, q_lora {cfg.q_lora_rank}, kv_lora "
         f"{cfg.kv_lora_rank}, qk {cfg.qk_nope_dim} + {cfg.qk_rope_dim}, v "
@@ -3145,7 +3206,7 @@ def phase_deepseek(dev) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return {"launches": launches,
-            "shapes": {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}}
+            "shapes": f32_shapes()}
 
 
 # --------------------------------------------------------------------------
@@ -3580,7 +3641,7 @@ def phase_training(dev) -> dict:
     # (a) full width and depth
     gc.collect()
     torch.cuda.empty_cache()
-    bundle = build_model(cfg, remat="none")
+    bundle = build_model(cfg, remat="none", compute_dtype=torch.float32)
     n_params = bundle.param_count()
     state = init_state(bundle.init(torch.Generator(device=dev)
                                    .manual_seed(SEED), device=dev), tcfg)
@@ -3591,7 +3652,7 @@ def phase_training(dev) -> dict:
     for remat, lo, hi in (("none", 0, TRAIN_STEPS),
                           ("full", TRAIN_STEPS,
                            TRAIN_STEPS + TRAIN_FULL_STEPS)):
-        b_r = build_model(cfg, remat=remat)
+        b_r = build_model(cfg, remat=remat, compute_dtype=torch.float32)
         if remat != "none":
             # the gradients alone (no optimizer), their time and peak
             torch.cuda.synchronize()
@@ -3643,13 +3704,14 @@ def phase_training(dev) -> dict:
     batch = batches[-1]
     with torch.no_grad():
         l_xla, _ = bundle.loss_fn(state["params"], batch)
-        kbundle = build_model(cfg, attn_impl="kernel")
+        kbundle = build_model(cfg, attn_impl="kernel",
+                              compute_dtype=torch.float32)
         torch.cuda.synchronize()
         ops.reset_launches()
         l_ker, _ = kbundle.loss_fn(state["params"], batch)
         torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    shapes = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+    shapes = f32_shapes()
     key = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, TL_H, TL_K, D, True, 0)
     want = {k: 0 for k in launches}
     want["flash_attention"] = cfg.n_layers
@@ -3669,7 +3731,7 @@ def phase_training(dev) -> dict:
 
     # (b) card == CPU at full width, 2 layers
     cfg2 = cfg.with_overrides(n_layers=TRAIN_CPU_LAYERS)
-    b2 = build_model(cfg2, remat="none")
+    b2 = build_model(cfg2, remat="none", compute_dtype=torch.float32)
     p_gpu = b2.init(torch.Generator(device=dev).manual_seed(SEED + 1),
                     device=dev)
     p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
@@ -3736,7 +3798,7 @@ def phase_training(dev) -> dict:
 
     # (e) a checkpoint written while the run goes on
     scfg = get_config(TRAIN_ARCH, smoke=True)
-    sb = build_model(scfg)
+    sb = build_model(scfg, compute_dtype=torch.float32)
     stcfg = TrainConfig(**TRAIN_TCFG)
     sbatches = _train_batches(scfg, 32, 4, dev, TRAIN_CKPT_STEP + 1)
     step = make_train_step(sb, stcfg)
@@ -3869,7 +3931,8 @@ def _dist_worker(rank, world, init, backend, dev_type, shape, cfg, rules,
                             rank=rank, world_size=world)
     try:
         mesh = local_mesh(shape, device=dev.type)
-        b = build_model(cfg, mesh=mesh, rules=rules, **opts)
+        b = build_model(cfg, mesh=mesh, rules=rules, **opts,
+                        compute_dtype=torch.float32)
         params = b.init(torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
         res = {"held": sum(t.to_local().numel() * t.to_local().element_size()
@@ -3888,7 +3951,7 @@ def _dist_worker(rank, world, init, backend, dev_type, shape, cfg, rules,
                     for r in reqs]
         res["wall"] = time.perf_counter() - t0
         res["launches"] = dict(ops.LAUNCHES)
-        res["shapes"] = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        res["shapes"] = f32_shapes()
         res["comm"] = {str(k): int(v)
                        for k, v in comm.get_comm_counts().items()}
         res["tokens"] = [r[0] for r in runs]
@@ -3904,7 +3967,7 @@ def _dist_worker(rank, world, init, backend, dev_type, shape, cfg, rules,
             # decode == a fresh prefill where no token is dropped
             b5 = build_model(cfg, mesh=mesh, rules=rules,
                              moe_capacity_factor=cfg.n_experts
-                             / cfg.experts_top_k, **opts)
+                             / cfg.experts_top_k, **opts, compute_dtype=torch.float32)
             for key, bb in (("decode_vs_prefill", b5),
                             ("decode_vs_prefill_default_cf", b)):
                 toks, lg, _, _ = _dist_generate(bb, params, longest, 2, dev)
@@ -3915,7 +3978,8 @@ def _dist_worker(rank, world, init, backend, dev_type, shape, cfg, rules,
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
             cfg2 = cfg.with_overrides(n_layers=DIST_CPU_LAYERS)
-            b2 = build_model(cfg2, mesh=mesh, rules=rules, **opts)
+            b2 = build_model(cfg2, mesh=mesh, rules=rules, **opts,
+                             compute_dtype=torch.float32)
             p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
             res["cut"] = _dist_generate(b2, p2, longest, FAM_NEW, dev)[:2]
@@ -4031,7 +4095,7 @@ def phase_distributed(dev, cfg=None) -> None:
             "b": _start_ranks(2, "gloo", dev, (1, 2), cfg, DIST_ATTNREP,
                               DIST_SMATTN, True, tmp, "phase12b")}
         runs = {tag: join() for tag, join in joins.items()}
-        n = build_model(cfg).param_count()
+        n = build_model(cfg, compute_dtype=torch.float32).param_count()
         steps = len(lens) * (FAM_NEW - 1)
         for tag, ranks in runs.items():
             held = sum(r["held"] for r in ranks)
@@ -4104,7 +4168,7 @@ def phase_distributed(dev, cfg=None) -> None:
         try:
             mesh = local_mesh((1, 1), device="cpu")
             b2 = build_model(cfg2, mesh=mesh, rules=DIST_ATTNREP,
-                             **DIST_SMATTN)
+                             **DIST_SMATTN, compute_dtype=torch.float32)
             p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
                          device="cpu")
             prompt = list(make_requests(cfg, len(lens), FAM_NEW,
@@ -4200,7 +4264,8 @@ def _dry_serve_worker(rank, world, init, backend, dev_type, cfg, rules,
                             rank=rank, world_size=world)
     try:
         mesh = local_mesh((1, world), device=dev.type)
-        b = build_model(cfg, mesh=mesh, rules=rules, **opts)
+        b = build_model(cfg, mesh=mesh, rules=rules, **opts,
+                        compute_dtype=torch.float32)
         params = b.init(torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
         cache = b.init_cache(1, dense_T(len(prompt), FAM_NEW),
@@ -4211,8 +4276,7 @@ def _dry_serve_worker(rank, world, init, backend, dev_type, cfg, rules,
         reps, peaks = _dry_serve_calls(b, params, cache, prompt, dev)
         torch.save({"reps": reps, "peaks": peaks,
                     "launches": dict(ops.LAUNCHES),
-                    "shapes": {k: dict(v)
-                               for k, v in ops.SHAPE_LAUNCHES.items()}},
+                    "shapes": f32_shapes()},
                    Path(out) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4243,12 +4307,14 @@ def _dry_train_worker(rank, world, init, backend, dev_type, cfg, out):
                             rank=rank, world_size=world)
     try:
         mesh = local_mesh((1, 1), device=dev.type)
-        b = build_model(cfg, mesh=mesh, remat="none")
+        b = build_model(cfg, mesh=mesh, remat="none",
+                        compute_dtype=torch.float32)
         params = b.init(torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
         batch = _train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, dev, 1)[0]
         with torch.no_grad():
-            plain, _ = build_model(cfg, remat="none").loss_fn(
+            plain, _ = build_model(cfg, remat="none",
+                                   compute_dtype=torch.float32).loss_fn(
                 tree_map(lambda t: t.to_local(), params), batch)
         tcfg = TrainConfig(**TRAIN_TCFG)
         state = init_state(params, tcfg)
@@ -4383,7 +4449,7 @@ def phase_dryrun(dev, serve_cfg=None, train_cfg=None) -> None:
         with dryrun.fake_group(2):
             mesh = local_mesh((1, 2), device=dev.type)
             b = build_model(cfg, mesh=mesh, rules=DIST_ATTNREP,
-                            **DIST_SMATTN)
+                            **DIST_SMATTN, compute_dtype=torch.float32)
             meta = torch.device("meta")
             dry, _ = _dry_serve_calls(
                 b, b.abstract_params(torch.float32),
@@ -4428,7 +4494,8 @@ def phase_dryrun(dev, serve_cfg=None, train_cfg=None) -> None:
                       tcfg_)
         with dryrun.fake_group(1):
             mesh = local_mesh((1, 1), device=dev.type)
-            b = build_model(tcfg_, mesh=mesh, remat="none")
+            b = build_model(tcfg_, mesh=mesh, remat="none",
+                            compute_dtype=torch.float32)
             tcfg = TrainConfig(**TRAIN_TCFG)
             state = b.abstract(state_specs(b.specs, tcfg), torch.float32)
             batch = {k: torch.empty(shape, dtype=dt, device="meta")
@@ -4602,7 +4669,8 @@ def _rec_mesh_worker(rank, world, init, dev_type, cfg, rules, out):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         mesh = local_mesh((1, world), device=dev.type)
-        b = build_model(cfg, mesh=mesh, rules=rules)
+        b = build_model(cfg, mesh=mesh, rules=rules,
+                        compute_dtype=torch.float32)
         params = b.init(torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
         res = {"held": sum(t.to_local().numel() * t.to_local().element_size()
@@ -4617,7 +4685,7 @@ def _rec_mesh_worker(rank, world, init, dev_type, cfg, rules, out):
                 for p in prompts]
         res["wall"] = time.perf_counter() - t0
         res["launches"] = dict(ops.LAUNCHES)
-        res["shapes"] = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        res["shapes"] = f32_shapes()
         res["calls"] = calls
         res["tokens"] = [r[0] for r in runs]
         res["logits"] = [torch.stack(r[1]) for r in runs]
@@ -4635,7 +4703,8 @@ def _rec_mesh_worker(rank, world, init, dev_type, cfg, rules, out):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         cfg2 = cfg.with_overrides(n_layers=MESH_CUT[cfg.name])
-        b2 = build_model(cfg2, mesh=mesh, rules=rules)
+        b2 = build_model(cfg2, mesh=mesh, rules=rules,
+                         compute_dtype=torch.float32)
         p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
                      device=dev)
         res["cut"] = _dist_generate(b2, p2, prompts[0], 2, dev)[:2]
@@ -4680,7 +4749,7 @@ def phase_recurrent_mesh(dev, cfgs=None) -> dict:
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-            b = build_model(cfg)
+            b = build_model(cfg, compute_dtype=torch.float32)
             params = b.init(torch.Generator(device=dev).manual_seed(SEED),
                             device=dev)
             plain = [_dist_generate(b, params, p, MESH_STEPS + 1, dev)[:2]
@@ -4700,7 +4769,8 @@ def phase_recurrent_mesh(dev, cfgs=None) -> dict:
                 rank=0, world_size=1)
             try:
                 mesh = local_mesh((1, 1), device="cpu")
-                b2 = build_model(cfg2, mesh=mesh, rules=rules)
+                b2 = build_model(cfg2, mesh=mesh, rules=rules,
+                                 compute_dtype=torch.float32)
                 p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
                              device="cpu")
                 cpu_toks, cpu_logits, _, _ = _dist_generate(
@@ -4990,14 +5060,15 @@ def _pm_worker(rank, world, init, dev_type, cfg, reqs, out):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         mesh = local_mesh((1, world), device=dev.type)
-        b = build_model(cfg, mesh=mesh, rules=PM_RULES)
+        b = build_model(cfg, mesh=mesh, rules=PM_RULES,
+                        compute_dtype=torch.float32)
         params = b.init(torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
         res = {"held": sum(t.to_local().numel() * t.to_local().element_size()
                            for t in tree_leaves(params))}
         # this rank's tile of a layer's pool leaf: (pages, slots, K, D)
         pool = b.init_paged_cache(_pm_layout(cfg, reqs)[0], PAGE,
-                                  device=dev)
+                                  device=dev, dtype=torch.float32)
         res["tile"] = tuple(tree_leaves(pool)[0].to_local().shape[1:])
         del pool
         if dev.type == "cuda":
@@ -5010,7 +5081,7 @@ def _pm_worker(rank, world, init, dev_type, cfg, reqs, out):
                                                    calls)
         res["wall"] = time.perf_counter() - t0
         res["launches"] = dict(ops.LAUNCHES)
-        res["shapes"] = {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+        res["shapes"] = f32_shapes()
         res.update(calls=calls, tokens=toks, logits=logits, prefill_s=pre_s,
                    tick_s=tick_s)
         # the longest request's first tick == a fresh prefill of its prompt
@@ -5030,7 +5101,8 @@ def _pm_worker(rank, world, init, dev_type, cfg, reqs, out):
             torch.cuda.empty_cache()
         if cfg.name == "internvl2-1b":
             cfg2 = cfg.with_overrides(n_layers=PM_CPU_LAYERS)
-            b2 = build_model(cfg2, mesh=mesh, rules=PM_RULES)
+            b2 = build_model(cfg2, mesh=mesh, rules=PM_RULES,
+                             compute_dtype=torch.float32)
             p2 = b2.init(torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
             res["cut"] = _pm_generate(b2, p2, cfg2, reqs, dev)[:2]
@@ -5075,7 +5147,7 @@ def phase_paged_mesh(dev, cfgs=None) -> dict:
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-            b = build_model(cfg)
+            b = build_model(cfg, compute_dtype=torch.float32)
             params = b.init(torch.Generator(device=dev).manual_seed(SEED),
                             device=dev)
             plain = _pm_generate(b, params, cfg, reqs, dev)
@@ -5097,7 +5169,7 @@ def phase_paged_mesh(dev, cfgs=None) -> dict:
                 try:
                     b2 = build_model(cfg2, mesh=local_mesh((1, 1),
                                                            device="cpu"),
-                                     rules=PM_RULES)
+                                     rules=PM_RULES, compute_dtype=torch.float32)
                     p2 = b2.init(torch.Generator(device=dev).manual_seed(
                         SEED), device="cpu")
                     cpu = _pm_generate(b2, p2, cfg2, reqs,
@@ -5182,6 +5254,680 @@ def phase_paged_mesh(dev, cfgs=None) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 16: the reference's bfloat16 compute on the card
+# --------------------------------------------------------------------------
+
+# rtol = atol for bfloat16 model outputs (tests/test_kernels.py's bfloat16
+# TOLS): serve() vs submit(), decode vs a fresh prefill, card vs CPU, and
+# the top-two logit gap under which serve() and submit() may choose
+# different tokens (a batched and a batch-1 GEMM round bfloat16 apart)
+BF16_TOL = 3e-2
+# where a bfloat16 comparison at full depth sits at bfloat16's own noise
+# (two bfloat16 runs of one function, rounded apart once, end as far
+# apart as either is from float32: ~0.04 on internvl2-1b's logits), it
+# is held as tests/test_torch_compute_dtype.py holds the port to the
+# reference: against the float32 compute on the same bfloat16 weights,
+# the path under test no further from it than BF16_NOISE_MULT times the
+# path it is compared with, plus BF16_NOISE_FLOOR
+BF16_NOISE_MULT, BF16_NOISE_FLOOR = 2.0, 1e-3
+# (b): the longest phase-3 prompt's 16 decode steps on a dense bfloat16
+# cache, and 4 of the phase-3 prompts as the rows of a bfloat16 pool of
+# pages of PAGE for 8 ticks
+B16_STEPS, B16_ROWS, B16_TICKS = 16, 4, 8
+# (c): zamba2-7b at full width cut to 8 layers (phases 8 and 12's depth),
+# a 200-token prompt and 4 decode steps; card == CPU at 2 layers
+Z16_ARCH, Z16_LAYERS, Z16_S, Z16_STEPS = "zamba2-7b", 8, 200, 4
+B16_CPU_LAYERS = 2
+#: the H100's HBM rate (common.hw), for the weight-read floor
+HBM_TBS = 3.35
+
+
+def _bf16_ratio(got, want) -> float:
+    """max |got - want| / (BF16_TOL (1 + |want|)): at most 1 where the two
+    agree within rtol = atol = BF16_TOL (inf where got is not finite)."""
+    import torch
+
+    g, w = got.float().cpu(), want.float().cpu()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return ((g - w).abs() / (BF16_TOL * (1 + w.abs()))).max().item()
+
+
+def _rounds_alike(got, peer, oracle) -> tuple[float, float, bool]:
+    """(max |got - oracle|, max |peer - oracle|, whether the first is at
+    most BF16_NOISE_MULT times the second plus BF16_NOISE_FLOOR): ``got``
+    rounds where ``peer`` does, ``oracle`` the float32 compute."""
+    d_got, d_peer = _err(got, oracle), _err(peer, oracle)
+    return d_got, d_peer, d_got <= BF16_NOISE_MULT * d_peer + BF16_NOISE_FLOOR
+
+
+def b16_shapes():
+    """Phase 16 (b)'s shapes: the longest phase-3 prefill S (its image's
+    tokens and prompt), the dense cache's T for B16_STEPS steps, the
+    B16_ROWS rows' prefill lengths, the table width n_max (pages a row)
+    and the pool's pages (one dummy page, then each row's)."""
+    from repro_torch.common.config import get_config
+    from repro_torch.s2m3 import Request
+
+    S, _ = serve_shapes()
+    rows = [N_IMG + len(r.prompt) for r in
+            _workload(get_config("internvl2-1b"), Request)
+            if r.prompt is not None][:B16_ROWS]
+    n_max = -(-(max(rows) + B16_TICKS + 1) // PAGE)
+    return S, dense_T(S, B16_STEPS), rows, n_max, 1 + B16_ROWS * n_max
+
+
+def b16_tables(n_max, device):
+    """(B16_ROWS, n_max) int32: row j's pages, last first (shuffled in the
+    pool), 1 + j n_max on."""
+    import torch
+
+    return torch.tensor([list(range((j + 1) * n_max, j * n_max, -1))
+                         for j in range(B16_ROWS)], dtype=torch.int32,
+                        device=device)
+
+
+def phase_kernels_bf16(dev) -> tuple[list[dict], dict]:
+    """The bfloat16 instances at phase 16's shapes, one kernels-line row
+    each, held to their plain versions at ``TOL["bfloat16"]``: flash D=64
+    at internvl2-1b's longest prefill (phase 16 (a)), decode D=64 over
+    (b)'s dense bfloat16 cache at its last step, paged D=64 over (b)'s
+    bfloat16 pool at its last tick, and zamba2-7b's flash D=112 over its
+    200-token prompt and decode D=112 at its last step ((c)); the
+    library call is SDPA in bfloat16 (none for the paged kernel).
+    Returns the rows and each row's (path, kernel, call shape and
+    dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    bf, dn, isz = torch.bfloat16, "bfloat16", 2
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rows, keys = [], {}
+    S, T, lens_b, n_max, n_pages = b16_shapes()
+    T_z = dense_T(Z16_S, Z16_STEPS)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    for name, path, H_, K_, D_, S_, what in (
+            ("flash_attention_bf16", "bf16-serve", H, K, D, S,
+             "internvl2-1b prefill"),
+            ("flash_attention_d112_bf16", "bf16-zamba2", Z_HEADS, Z_HEADS,
+             Z_D, Z16_S, "zamba2-7b shared attention prefill")):
+        q = rnd(1, S_, H_, D_)
+        k, v = rnd(1, S_, K_, D_), rnd(1, S_, K_, D_)
+        err = _check("flash_attention", dn, f"{what}: S={S_} H={H_} K={K_} "
+                     f"D={D_}", ops.flash_attention(q, k, v),
+                     ref.flash_attention_ref(q, k, v))
+        keys[name] = (path, "flash_attention",
+                      (1, S_, S_, H_, K_, D_, True, 0, dn))
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        rows.append(_row(
+            name, "csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:93", "flash_fwd", err,
+            lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
+            lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v),
+            lambda q=qh, k=kh, v=vh, gqa=H_ != K_:
+                F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=gqa),
+            *_flash_work(1, S_, S_, H_, K_, D_, True, isz), dname=dn))
+
+    for name, path, H_, K_, D_, T_, n, what in (
+            ("decode_attention_bf16", "bf16-bundle", H, K, D, T,
+             S + B16_STEPS, "internvl2-1b dense bfloat16 cache"),
+            ("decode_attention_d112_bf16", "bf16-zamba2", Z_HEADS, Z_HEADS,
+             Z_D, T_z, Z16_S + Z16_STEPS, "zamba2-7b shared attention")):
+        qd = rnd(1, H_, D_)
+        kd, vd = rnd(1, T_, K_, D_), rnd(1, T_, K_, D_)
+        ld = torch.tensor([n], dtype=torch.int32, device=dev)
+        err = _check("decode_attention", dn, f"{what}: T={T_} length {n} "
+                     f"H={H_} K={K_} D={D_}",
+                     ops.decode_attention(qd, kd, vd, ld),
+                     ref.decode_attention_ref(qd, kd, vd, ld))
+        keys[name] = (path, "decode_attention", (1, T_, H_, K_, D_, 0, dn))
+        mask = (torch.arange(T_, device=dev)[None] < ld[:, None])[
+            :, None, None, :]
+        rows.append(_row(
+            name, "csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:70", "decode_fwd", err,
+            lambda q=qd, k=kd, v=vd, l_=ld: ops.decode_attention(q, k, v, l_),
+            lambda q=qd, k=kd, v=vd, l_=ld: ref.decode_attention_ref(
+                q, k, v, l_),
+            lambda q=qd, k=kd, v=vd, m=mask, gqa=H_ != K_:
+                F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=m, enable_gqa=gqa),
+            *_decode_work(qd, kd, ld, isz), dname=dn))
+
+    qp = rnd(B16_ROWS, H, D)
+    kp, vp = rnd(n_pages, PAGE, K, D), rnd(n_pages, PAGE, K, D)
+    tables = b16_tables(n_max, dev)
+    lens_p = torch.tensor([n + B16_TICKS for n in lens_b], dtype=torch.int32,
+                          device=dev)
+    owned = torch.arange(n_max, device=dev)[None] * PAGE < lens_p[:, None]
+    err = _check("paged_decode_attention", dn,
+                 f"internvl2-1b bfloat16 pool: {B16_ROWS} rows, lengths "
+                 f"{lens_p.tolist()}",
+                 ops.paged_decode_attention(qp, kp, vp, tables, lens_p),
+                 ref.paged_decode_attention_ref(qp, kp, vp, tables, lens_p))
+    keys["paged_decode_attention_bf16"] = (
+        "bf16-bundle", "paged_decode_attention",
+        (B16_ROWS, n_max, PAGE, H, K, D, 0, dn))
+    rows.append(_row(
+        "paged_decode_attention_bf16", "csrc/decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention.py:77", "paged_decode_fwd",
+        err, lambda: ops.paged_decode_attention(qp, kp, vp, tables, lens_p),
+        lambda: ref.paged_decode_attention_ref(qp, kp, vp, tables, lens_p),
+        None, *_paged_work(qp, kp, lens_p, owned, isz), dname=dn))
+    return rows, keys
+
+
+def _raw_shapes() -> dict:
+    """``ops.SHAPE_LAUNCHES`` with each key's dtype, for phase 16's
+    paths, which launch bfloat16 and float32 instances."""
+    from repro_torch.kernels import ops
+
+    return {k: dict(v) for k, v in ops.SHAPE_LAUNCHES.items()}
+
+
+def _exact(tag, launches, shapes, want_shapes) -> None:
+    """Launches by kernel and by (shape, dtype) equal to ``want_shapes``
+    (kernel -> key -> count); fails otherwise."""
+    want = {k: sum(v.values()) for k, v in want_shapes.items()}
+    log(f"[phase16] {tag} kernel launches {launches}, expected {want}; by "
+        f"shape and dtype { {k: v for k, v in shapes.items() if v} }, "
+        f"expected { {k: v for k, v in want_shapes.items() if v} }")
+    if launches != want or shapes != want_shapes:
+        fail(f"phase 16 {tag}: launches {launches} {shapes} != {want} "
+             f"{want_shapes}")
+
+
+def phase_bf16_serve(dev, f32_rates) -> dict:
+    """(a) internvl2-1b at full width and depth, bfloat16 weights (phase
+    3's float32 draws cast) and the default compute, on the main path:
+    phase 3's deployment and 8 requests through plan -> materialize ->
+    serve() and submit().  Routes == simulate(), compare() has no route
+    divergence, the pool drains; serve()'s tokens == submit()'s, or where
+    they part submit()'s top-two logit gap there is within BF16_TOL;
+    every step's logits up to a parting round alike (``_rounds_alike``:
+    serve()'s no further from the float32 compute on the same weights,
+    submit() there, than BF16_NOISE_MULT times submit()'s), their
+    distance logged against rtol = atol = BF16_TOL too; launches
+    exact by shape and dtype (flash bfloat16 in prefill; the paged and
+    decode kernels' float32 instances, q widened against the engine's
+    float32 pool and caches).  The rates beside phase 3's float32 ones."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.s2m3 import Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("internvl2-1b")
+    dep, bundle, params = _deployment(dev, cfg, bf16=True)
+    dep.materialize()
+    dtypes = sorted({str(t.dtype) for t in _leaves(params)})
+    del params
+    torch.cuda.synchronize()
+    n_params = bundle.param_count()
+    log(f"[phase16] (a) internvl2-1b: {n_params:,} parameters, weights "
+        f"{dtypes} ({2 * n_params / 1e9:.2f} GB), compute "
+        f"{bundle.compute_dtype}, {cfg.n_layers} layers")
+    if dtypes != ["torch.bfloat16"] or bundle.compute_dtype != torch.bfloat16:
+        fail(f"(a) weights {dtypes}, compute {bundle.compute_dtype}")
+    reqs = _workload(cfg, Request)
+    gen_reqs = [r for r in reqs if r.prompt is not None]
+    warm = gen_reqs[0]
+    dep.submit(Request(99, warm.model, "dev0", prompt=warm.prompt,
+                       max_new_tokens=2, inputs=warm.inputs))
+    torch.cuda.synchronize()
+
+    served_logits, solo_logits = {}, {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with record_logits(served_logits):
+        results = dep.serve(reqs, **SERVE_KW)
+    torch.cuda.synchronize()
+    solo = {}
+    t_submit = time.perf_counter()
+    with record_logits(solo_logits):
+        for r in gen_reqs:
+            solo[r.rid] = dep.submit(r)
+    torch.cuda.synchronize()
+    t_submit = time.perf_counter() - t_submit
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches, shapes = dict(ops.LAUNCHES), _raw_shapes()
+    # the oracle: the same bfloat16 weights at float32 compute
+    oracle_dep, _, _ = _deployment(dev, cfg, bf16=True,
+                                   compute=torch.float32)
+    oracle_dep.materialize()
+    oracle_logits, oracle = {}, {}
+    with record_logits(oracle_logits):
+        for r in gen_reqs:
+            oracle[r.rid] = oracle_dep.submit(r)
+    del oracle_dep
+
+    by_rid = {r.rid: r for r in results}
+    parted = 0
+    for r in gen_reqs:
+        a = np.asarray(by_rid[r.rid].output)
+        b = np.asarray(solo[r.rid].output)
+        c = np.asarray(oracle[r.rid].output)
+        lg_a = torch.stack(served_logits[r.rid])
+        lg_b = torch.stack(solo_logits[r.rid])
+        lg_o = torch.stack(oracle_logits[r.rid])
+        n = min(len(a), len(b))
+        part = next((i for i in range(n) if a[i] != b[i]), None)
+        if part is None and len(a) != len(b):
+            fail(f"(a) rid {r.rid}: serve gave {len(a)} tokens, submit "
+                 f"{len(b)}")
+        upto = n if part is None else part + 1
+        # the oracle's own greedy tokens hold only as long as they match
+        upto_o = min(upto, next((i + 1 for i in range(min(n, len(c)))
+                                 if c[i] != b[i]), min(upto, len(c))))
+        ratio = _bf16_ratio(lg_a[:upto], lg_b[:upto])
+        d_s, d_u, alike = _rounds_alike(lg_a[:upto_o], lg_b[:upto_o],
+                                        lg_o[:upto_o])
+        top2 = lg_b.float().topk(2, dim=-1).values
+        msg = (f"[phase16] (a) rid {r.rid} {r.model}: {len(a)} tokens; "
+               f"logits over {upto} steps {_err(lg_a[:upto], lg_b[:upto]):.3e}"
+               f" apart ({ratio:.2f} of rtol = atol {BF16_TOL:g}); from the "
+               f"float32 compute over {upto_o} steps: serve {d_s:.3e}, "
+               f"submit {d_u:.3e} (limit {BF16_NOISE_MULT:g} x submit + "
+               f"{BF16_NOISE_FLOOR:g})")
+        if part is not None:
+            parted += 1
+            gap = (top2[part, 0] - top2[part, 1]).item()
+            msg += (f"; parts from submit() at step {part} (serve "
+                    f"{int(a[part])}, submit {int(b[part])}), submit()'s "
+                    f"top-two logit gap there {gap:.3e} (limit {BF16_TOL:g})")
+            if gap > BF16_TOL:
+                log(msg)
+                fail(f"(a) rid {r.rid}: serve and submit part at step {part} "
+                     f"where submit's top-two gap is {gap:.3e}")
+        else:
+            msg += "; serve == submit"
+        log(msg)
+        if not alike or upto_o < 1:
+            fail(f"(a) rid {r.rid}: serve's logits are {d_s:.3e} from the "
+                 f"float32 compute, submit's {d_u:.3e}")
+    for r in reqs:
+        if r.prompt is None:
+            out = by_rid[r.rid].output
+            if tuple(out.shape) != (1000,) or not bool(torch.isfinite(out).all()):
+                fail(f"(a) classify rid {r.rid}: output {tuple(out.shape)}")
+
+    sched = dep.scheduler
+    stream = sched.decode["vlm-head"]
+    if stream.pool.n_live_pages != 1:
+        fail(f"(a) page pool not drained: {stream.pool.n_live_pages} live")
+    sched.check_invariants()
+    sim = dep.simulate(reqs)
+    for r in results:
+        if r.devices != sim.routes[r.rid]:
+            fail(f"(a) rid {r.rid}: route {r.devices} != simulated "
+                 f"{sim.routes[r.rid]}")
+    if stream.prefills != len(gen_reqs):
+        fail(f"(a) {stream.prefills} prefills for {len(gen_reqs)} requests")
+
+    # every prefill at bfloat16; the tick's paged and the solo decode at
+    # float32, q widened against the engine's float32 pool and caches
+    n_l = cfg.n_layers
+    want = {k: {} for k in ops.LAUNCHES}
+
+    def add(kernel, key, n):
+        want[kernel][key] = want[kernel].get(key, 0) + n
+
+    for r in gen_reqs:
+        S_ = N_IMG + len(r.prompt)
+        add("flash_attention", (1, S_, S_, H, K, D, True, 0, "bfloat16"),
+            2 * n_l)
+        add("decode_attention", (1, dense_T(S_, r.max_new_tokens), H, K, D,
+                                 0, "float32"),
+            (len(solo[r.rid].output) - 1) * n_l)
+    add("paged_decode_attention", (ROWS, N_MAX, PAGE, H, K, D, 0, "float32"),
+        stream.decode_steps * n_l)
+    want = {k: {key: n for key, n in v.items() if n} for k, v in want.items()}
+    _exact("(a)", launches, shapes, want)
+
+    drift = dep.compare(reqs, **SERVE_KW)
+    if drift.n_route_divergences != 0 or drift.routes_checked == 0:
+        fail(f"(a) compare() {drift.summary()}")
+    log(f"[phase16] (a) routes == simulate(), compare() "
+        f"{drift.routes_checked} routes / {drift.n_route_divergences} "
+        f"divergences, pool drained; {parted} of {len(gen_reqs)} requests "
+        "part from submit() within the gap limit")
+    submit_steps = sum(len(solo[r.rid].output) - 1 for r in gen_reqs)
+    rates = _serve_rates(dep, gen_reqs, stream, submit_steps, t_submit,
+                         peak_gb, "phase16")
+    floor_ms = 2 * n_params / (HBM_TBS * 1e9)
+    log(f"[phase16] (a) bfloat16 vs phase 3's float32, same run: TTFT mean "
+        f"{rates['ttft_mean_ms']:.1f} ms (f32 {f32_rates['ttft_mean_ms']:.1f})"
+        f", max {rates['ttft_max_ms']:.1f} ms (f32 "
+        f"{f32_rates['ttft_max_ms']:.1f}); decode {rates['tok_s']:.1f} "
+        f"tokens/s (f32 {f32_rates['tok_s']:.1f}), {rates['tick_ms']:.2f} ms "
+        f"a tick (f32 {f32_rates['tick_ms']:.2f}); solo "
+        f"{rates['solo_tok_s']:.1f} tokens/s (f32 "
+        f"{f32_rates['solo_tok_s']:.1f}); peak {rates['peak_gb']:.2f} GB (f32 "
+        f"{f32_rates['peak_gb']:.2f}); bfloat16 weight-read floor "
+        f"{floor_ms:.3f} ms a step (2 B a parameter at {HBM_TBS} TB/s; "
+        f"float32 {2 * floor_ms:.3f})")
+    return {"launches": launches, "shapes": shapes}
+
+
+def _b16_batch(req, dev):
+    """A phase-3 request's prompt behind its image, as the bundle takes
+    them (the image embeddings straight in, no stand-in encoder)."""
+    import torch
+
+    return {"tokens": torch.tensor([list(req.prompt)], dtype=torch.int32,
+                                   device=dev),
+            "image_embeds": torch.as_tensor(req.inputs["vision"],
+                                            device=dev)[None]}
+
+
+def _fresh16(bundle, params, req, toks, dev):
+    """The last-token logits of a fresh prefill of ``req``'s image, prompt
+    and ``toks``, into a dense cache of the bundle's default dtype."""
+    import torch
+
+    batch = _b16_batch(req, dev)
+    batch["tokens"] = torch.cat([batch["tokens"], torch.tensor(
+        [toks], dtype=torch.int32, device=dev)], dim=1)
+    L = N_IMG + batch["tokens"].shape[1]
+    logits, _ = bundle.prefill(params, batch,
+                               bundle.init_cache(1, dense_T(L, 0), device=dev))
+    return logits[0]
+
+
+def _b16_run(bundle, params, reqs, dev, steps, ticks):
+    """(b)'s run on one device: the longest request's prefill into a dense
+    cache of the default dtype, ``steps`` greedy decode steps; then
+    B16_ROWS requests each prefilled into a one-row cache and copied into
+    a pool of the default dtype (``b16_tables``' pages), ``ticks`` paged
+    steps.  Returns (the dense steps' logits and tokens, the ticks'
+    logits and each row's tokens)."""
+    import torch
+
+    from repro_torch.serving.kvcache import insert_pages
+
+    S, T, lens, n_max, n_pages = b16_shapes()
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    cache = bundle.init_cache(1, T, device=dev)
+    lg, cache = bundle.prefill(params, _b16_batch(longest, dev), cache)
+    toks, dense = [int(lg[0].argmax())], []
+    for i in range(steps):
+        lg, cache = bundle.decode_step(
+            params, torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev),
+            cache, torch.tensor([S + i], dtype=torch.int32, device=dev))
+        dense.append(lg[0])
+        toks.append(int(lg[0].argmax()))
+    cdt = {str(t.dtype) for t in _leaves(cache)}
+    del cache
+    pool = bundle.init_paged_cache(n_pages, PAGE, device=dev)
+    tables = b16_tables(n_max, dev)
+    row_toks = []
+    for j, r in enumerate(reqs[:B16_ROWS]):
+        one = bundle.init_cache(1, n_max * PAGE, device=dev)
+        lg, one = bundle.prefill(params, _b16_batch(r, dev), one)
+        insert_pages(pool, one, tables[j].tolist(), lens[j])
+        row_toks.append([int(lg[0].argmax())])
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    paged = []
+    for t in range(ticks):
+        tok = torch.tensor([[tt[-1]] for tt in row_toks], dtype=torch.int32,
+                           device=dev)
+        lg, pool = bundle.paged_decode_step(params, tok, pool, tables,
+                                            lengths)
+        paged.append(lg)
+        for j in range(B16_ROWS):
+            row_toks[j].append(int(lg[j].argmax()))
+        lengths = lengths + 1
+    return (dense, toks), (paged, row_toks), \
+        (cdt, {str(t.dtype) for t in _leaves(pool)})
+
+
+def _leaves(tree):
+    from repro_torch.common.pytree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def phase_bf16_bundle(dev) -> dict:
+    """(b) internvl2-1b at full width through the bundle at the
+    reference's bundle defaults (bfloat16 compute, weights and caches):
+    a dense bfloat16 cache from ``init_cache``, the longest prompt's
+    prefill and B16_STEPS decode steps; a bfloat16 pool from
+    ``init_paged_cache``, B16_ROWS rows through ``paged_decode_step`` for
+    B16_TICKS ticks.  A decode step == a fresh prefill within BF16_TOL at
+    the first step and the last (dense and paged); at B16_CPU_LAYERS
+    layers the card == the port on the CPU, both bfloat16; launches
+    exact: flash, decode and paged at their bfloat16 instances."""
+    import gc
+
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.s2m3 import Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("internvl2-1b")
+    reqs = [r for r in _workload(cfg, Request) if r.prompt is not None]
+    b = build_model(cfg)
+    params = tree_map(lambda t: t.to(torch.bfloat16), b.init(
+        torch.Generator(device=dev).manual_seed(SEED), torch.float32, dev))
+    S, T, lens, n_max, n_pages = b16_shapes()
+    ops.reset_launches()
+    with torch.no_grad():
+        (dense, toks), (paged, row_toks), (cdt, pdt) = _b16_run(
+            b, params, reqs, dev, B16_STEPS, B16_TICKS)
+    torch.cuda.synchronize()
+    launches, shapes = dict(ops.LAUNCHES), _raw_shapes()
+    log(f"[phase16] (b) dense cache {sorted(cdt)}, pool {sorted(pdt)}; "
+        f"prefill of {S} then {B16_STEPS} decode steps (T={T}): tokens "
+        f"{toks}; {B16_ROWS} rows (lengths {lens}) over {n_pages} pages of "
+        f"{PAGE} for {B16_TICKS} ticks: tokens {row_toks}")
+    if cdt != {"torch.bfloat16"} or pdt != {"torch.bfloat16"}:
+        fail(f"(b) the bundle's default caches are {cdt} / {pdt}")
+    n_l = cfg.n_layers
+    bf = "bfloat16"
+    want = {k: {} for k in ops.LAUNCHES}
+    for S_ in [S] + lens:
+        key = (1, S_, S_, H, K, D, True, 0, bf)
+        want["flash_attention"][key] = \
+            want["flash_attention"].get(key, 0) + n_l
+    want["decode_attention"] = {(1, T, H, K, D, 0, bf): B16_STEPS * n_l}
+    want["paged_decode_attention"] = {
+        (B16_ROWS, n_max, PAGE, H, K, D, 0, bf): B16_TICKS * n_l}
+    _exact("(b)", launches, shapes, want)
+
+    # step k's logits came from the prompt and the first k + 1 tokens
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    with torch.no_grad():
+        for k in (0, B16_STEPS - 1):
+            ratio = _bf16_ratio(dense[k], _fresh16(b, params, longest,
+                                                   toks[:k + 1], dev))
+            log(f"[phase16] (b) dense step {k} vs a fresh prefill: "
+                f"{ratio:.2f} of rtol = atol {BF16_TOL:g}")
+            if ratio > 1.0:
+                fail(f"(b) dense decode step {k} disagrees with a prefill")
+        for t in (0, B16_TICKS - 1):
+            ratio = max(_bf16_ratio(paged[t][j], _fresh16(
+                b, params, reqs[j], row_toks[j][:t + 1], dev))
+                for j in range(B16_ROWS))
+            log(f"[phase16] (b) paged tick {t}, {B16_ROWS} rows vs fresh "
+                f"prefills: {ratio:.2f} of rtol = atol {BF16_TOL:g}")
+            if ratio > 1.0:
+                fail(f"(b) paged tick {t} disagrees with a prefill")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # card == CPU at B16_CPU_LAYERS layers, both bfloat16
+    cfg2 = cfg.with_overrides(n_layers=B16_CPU_LAYERS)
+    b2 = build_model(cfg2)
+    p_cpu = tree_map(lambda t: t.to(torch.bfloat16), b2.init(
+        torch.Generator(device=dev).manual_seed(SEED), device="cpu"))
+    outs = {}
+    with torch.no_grad():
+        for device in ("cpu", dev):
+            p = p_cpu if device == "cpu" else tree_map(lambda t: t.to(dev),
+                                                       p_cpu)
+            (d_, _), (pg, _), _ = _b16_run(b2, p, reqs, device, 3, 2)
+            outs[str(device)] = d_ + pg
+    worst = max(_bf16_ratio(a, c) for a, c in zip(outs[str(dev)],
+                                                   outs["cpu"]))
+    log(f"[phase16] (b) internvl2-1b at {B16_CPU_LAYERS} layers, bfloat16: "
+        f"card (kernels) vs CPU (plain versions), 3 dense steps and 2 paged "
+        f"ticks: {worst:.2f} of rtol = atol {BF16_TOL:g}")
+    if worst > 1.0:
+        fail("(b) the card disagrees with the CPU in bfloat16")
+    return {"launches": launches, "shapes": shapes}
+
+
+def _z16_run(bundle, params, prompt, dev, steps):
+    """zamba2's prompt into a dense cache of the default dtypes, then
+    ``steps`` greedy decode steps: (each call's logits, the tokens)."""
+    import torch
+
+    cache = bundle.init_cache(1, dense_T(len(prompt), steps), device=dev)
+    lg, cache = bundle.prefill(params, {"tokens": torch.tensor(
+        [prompt], dtype=torch.int32, device=dev)}, cache)
+    outs, toks = [lg[0]], [int(lg[0].argmax())]
+    for i in range(steps):
+        lg, cache = bundle.decode_step(
+            params, torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev),
+            cache, torch.tensor([len(prompt) + i], dtype=torch.int32,
+                                device=dev))
+        outs.append(lg[0])
+        toks.append(int(lg[0].argmax()))
+    return outs, toks
+
+
+def phase_bf16_zamba2(dev) -> dict:
+    """(c) zamba2-7b at full width cut to Z16_LAYERS layers, bfloat16
+    weights and the default compute: a Z16_S-token prompt and Z16_STEPS
+    decode steps.  Logits finite; each decode step rounds as a fresh
+    prefill does (``_rounds_alike``, against the float32 compute's fresh
+    prefill on the same weights; the distance logged against rtol = atol
+    = BF16_TOL too); at B16_CPU_LAYERS layers card == CPU within BF16_TOL;
+    launches exact: SSD at float32 (the layer widens its inputs, as the
+    reference does), flash and decode at D=112 in bfloat16."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.config import get_config
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(Z16_ARCH).with_overrides(n_layers=Z16_LAYERS)
+    b = build_model(cfg)
+    params = tree_map(lambda t: t.to(torch.bfloat16), b.init(
+        torch.Generator(device=dev).manual_seed(SEED), torch.float32, dev))
+    prompt = [int(t) for t in np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, Z16_S)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs, toks = _z16_run(b, params, prompt, dev, Z16_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(ops.LAUNCHES), _raw_shapes()
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        fail("(c) zamba2-7b logits are not finite")
+    log(f"[phase16] (c) {Z16_ARCH} at {Z16_LAYERS} layers (of "
+        f"{get_config(Z16_ARCH).n_layers}), {b.param_count():,} parameters "
+        f"in bfloat16, compute {b.compute_dtype}: prefill of {Z16_S} + "
+        f"{Z16_STEPS} steps in {1e3 * wall:.1f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; tokens {toks}; "
+        "logits finite")
+    n_attn = cfg.n_layers // cfg.n_mamba_per_super
+    T_z = dense_T(Z16_S, Z16_STEPS)
+    want = {k: {} for k in ops.LAUNCHES}
+    want["ssd_intra_chunk"] = {(*key, "float32"): n for key, n in
+                               expected_ssd_shapes(cfg, [Z16_S]).items()}
+    want["flash_attention"] = {
+        (1, Z16_S, Z16_S, Z_HEADS, Z_HEADS, Z_D, True, 0, "bfloat16"): n_attn}
+    want["decode_attention"] = {
+        (1, T_z, Z_HEADS, Z_HEADS, Z_D, 0, "bfloat16"): n_attn * Z16_STEPS}
+    _exact("(c)", launches, shapes, want)
+    # each step against a fresh prefill of its tokens, bfloat16, and the
+    # float32 compute's fresh prefill on the same weights (the oracle)
+    b32 = build_model(cfg, compute_dtype=torch.float32)
+
+    def fresh(bundle, k):
+        cache = bundle.init_cache(1, dense_T(Z16_S + k, 0),
+                                  bundle.compute_dtype, dev)
+        lg, _ = bundle.prefill(params, {"tokens": torch.tensor(
+            [prompt + toks[:k]], dtype=torch.int32, device=dev)}, cache)
+        return lg[0]
+
+    with torch.no_grad():
+        steps = list(range(1, Z16_STEPS + 1))
+        pre16, pre32 = [fresh(b, k) for k in steps], [fresh(b32, k)
+                                                      for k in steps]
+    dec = torch.stack([outs[k] for k in steps])
+    ratio = _bf16_ratio(dec, torch.stack(pre16))
+    d_dec, d_pre, alike = _rounds_alike(dec, torch.stack(pre16),
+                                        torch.stack(pre32))
+    log(f"[phase16] (c) decode steps 1..{Z16_STEPS} vs fresh prefills: "
+        f"{_err(dec, torch.stack(pre16)):.3e} apart ({ratio:.2f} of rtol = "
+        f"atol {BF16_TOL:g}); from the float32 compute's prefills: decode "
+        f"{d_dec:.3e}, prefill {d_pre:.3e} (limit {BF16_NOISE_MULT:g} x "
+        f"prefill + {BF16_NOISE_FLOOR:g})")
+    if not alike:
+        fail("(c) zamba2-7b's decode is further from the float32 compute "
+             "than its prefill's rounding")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = cfg.with_overrides(n_layers=B16_CPU_LAYERS)
+    b2 = build_model(cfg2)
+    p_cpu = tree_map(lambda t: t.to(torch.bfloat16), b2.init(
+        torch.Generator(device=dev).manual_seed(SEED), device="cpu"))
+    got = {}
+    with torch.no_grad():
+        for device in ("cpu", dev):
+            p = p_cpu if device == "cpu" else tree_map(lambda t: t.to(dev),
+                                                       p_cpu)
+            got[str(device)] = _z16_run(b2, p, prompt, device, 2)[0]
+    worst = max(_bf16_ratio(a, c) for a, c in zip(got[str(dev)], got["cpu"]))
+    log(f"[phase16] (c) {Z16_ARCH} at {B16_CPU_LAYERS} layers, bfloat16: card "
+        f"vs CPU, prefill of {Z16_S} + 2 steps: {worst:.2f} of rtol = atol "
+        f"{BF16_TOL:g}")
+    if worst > 1.0:
+        fail("(c) zamba2-7b on the card disagrees with the CPU in bfloat16")
+    return {"launches": launches, "shapes": shapes}
+
+
+def phase_bf16(dev, f32_rates) -> dict:
+    """Phase 16: the reference's default compute, bfloat16, on the card:
+    (a) the main path, (b) the bundle's default caches, (c) zamba2-7b."""
+    return {"bf16-serve": phase_bf16_serve(dev, f32_rates),
+            "bf16-bundle": phase_bf16_bundle(dev),
+            "bf16-zamba2": phase_bf16_zamba2(dev)}
+
+
 def main() -> int:
     try:
         import torch
@@ -5212,10 +5958,11 @@ def main() -> int:
 
     timed(1, phase_build)
     (rows, keys), (rec_rows, rec_keys), (slice_rows, slice_keys), \
-        (fam_rows, fam_keys), (tile_rows, tile_keys) = timed(2, lambda: [
-            f(dev) for f in (phase_kernels, phase_kernels_recurrent,
-                             phase_kernels_slice, phase_kernels_families,
-                             phase_kernels_paged_tile)])
+        (fam_rows, fam_keys), (tile_rows, tile_keys), (b16_rows, b16_keys) = \
+        timed(2, lambda: [f(dev) for f in (
+            phase_kernels, phase_kernels_recurrent, phase_kernels_slice,
+            phase_kernels_families, phase_kernels_paged_tile,
+            phase_kernels_bf16)])
     serve, dep, gen_reqs = timed(3, phase_serve, dev)
     timed(4, phase_profile, dep, gen_reqs)
     del dep, gen_reqs
@@ -5239,10 +5986,11 @@ def main() -> int:
     timed(13, phase_dryrun, dev)
     paths.update(timed(14, phase_recurrent_mesh, dev))
     paths.update(timed(15, phase_paged_mesh, dev))
+    paths.update(timed(16, phase_bf16, dev, serve["rates"]))
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
-    rows += rec_rows + slice_rows + fam_rows + tile_rows
-    keys.update(rec_keys, **slice_keys, **fam_keys, **tile_keys)
+    rows += rec_rows + slice_rows + fam_rows + tile_rows + b16_rows
+    keys.update(rec_keys, **slice_keys, **fam_keys, **tile_keys, **b16_keys)
     for row in rows:
         path, kernel, key = keys[row["name"]]
         if path is None:

@@ -113,8 +113,9 @@ def load_dryrun_t_comp(arch: str, shape: str, mesh: str = "pod16x16"):
     if present, at this model's one peak: the artifact's counts under
     ``common.hw.roofline_terms`` with compute at the bfloat16
     tensor-core peak, as ``roofline_t_comp`` and ``SubMesh.flops`` count
-    (the artifact's own ``roofline`` is at the float32 peak the port
-    computes at)."""
+    (the artifact's own ``roofline`` is at the peak of the cell's compute
+    dtype, which is bfloat16, the reference's default, so the two
+    agree)."""
     from repro_torch.launch.dryrun import OUT_DIR
 
     f = OUT_DIR / f"{arch}__{shape}__{mesh}.json"

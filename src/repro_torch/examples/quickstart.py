@@ -51,7 +51,7 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=True)   # reduced config: CPU-friendly
     print(f"arch={cfg.name} family={cfg.family} (reduced smoke config)")
-    bundle = build_model(cfg)
+    bundle = build_model(cfg, compute_dtype=torch.float32)
     print(f"params: {bundle.param_count():,}")
 
     tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=5,

@@ -52,7 +52,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     cfg = PRESETS[args.params]
-    bundle = build_model(cfg, remat="none")
+    bundle = build_model(cfg, compute_dtype=torch.float32, remat="none")
     print(f"{cfg.name}: {bundle.param_count():,} params on {device}")
     tcfg = TrainConfig(learning_rate=6e-4, warmup_steps=20,
                        total_steps=args.steps, remat="none")

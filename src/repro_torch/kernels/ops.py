@@ -49,13 +49,16 @@ LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
             "slstm_scan": 0, "slstm_scan_s1": 0}
 
 #: kernel name -> launches since the last ``reset_launches()`` by call
-#: shape, which sum to the kernel's ``LAUNCHES`` entry: flash (B, S, T,
-#: H, K, D, causal, window), decode (B, T, H, K, D, window), paged
-#: decode (B, n_max, page_size, H, K, D, window) over a whole pool and
-#: (B, n_max, the tile's slots a page, H, K, D, window, the tile's pages,
-#: page_size) over a rank's tile, SSD (B, chunks, chunk length L, heads
-#: H) and both sLSTM kernels (B, S, H, hd); window 0 is none, so a local
-#: layer's launches count apart from a global one's
+#: shape and dtype, which sum to the kernel's ``LAUNCHES`` entry: flash
+#: (B, S, T, H, K, D, causal, window, dtype), decode (B, T, H, K, D,
+#: window, dtype), paged decode (B, n_max, page_size, H, K, D, window,
+#: dtype) over a whole pool and (B, n_max, the tile's slots a page, H, K,
+#: D, window, the tile's pages, page_size, dtype) over a rank's tile, SSD
+#: (B, chunks, chunk length L, heads H, dtype) and both sLSTM kernels (B,
+#: S, H, hd, dtype); window 0 is none, so a local layer's launches count
+#: apart from a global one's, and dtype is the instance's name
+#: ("float32" or "bfloat16"), so a path's bfloat16 and float32 launches
+#: count apart
 SHAPE_LAUNCHES: dict[str, dict[tuple, int]] = {name: {} for name in LAUNCHES}
 
 #: head dims the attention kernels are instantiated for: the smoke
@@ -171,10 +174,12 @@ def reset_launches() -> None:
         counts.clear()
 
 
-def _count(name, key) -> None:
-    """One launch of kernel ``name`` at call shape ``key``."""
+def _count(name, key, dtype) -> None:
+    """One launch of kernel ``name`` at call shape ``key`` in ``dtype``
+    (its name, "float32" or "bfloat16", ends the counted key)."""
     LAUNCHES[name] += 1
     counts = SHAPE_LAUNCHES[name]
+    key = (*key, str(dtype).removeprefix("torch."))
     counts[key] = counts.get(key, 0) + 1
 
 
@@ -363,7 +368,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         K, D, _DTYPES[q.dtype], int(bool(causal)), window,
         float(softcap), _stream(q))
     _raise_on("flash_attention", err)
-    _count("flash_attention", (B, S, T, H, K, D, bool(causal), window))
+    _count("flash_attention", (B, S, T, H, K, D, bool(causal), window),
+           q.dtype)
     return o
 
 
@@ -478,7 +484,7 @@ def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0):
         o.data_ptr(), ws.data_ptr(), tickets.data_ptr(), B, H, K, D, T,
         n_split, window, _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("decode_attention", err)
-    _count("decode_attention", (B, T, H, K, D, window))
+    _count("decode_attention", (B, T, H, K, D, window), q.dtype)
     return o
 
 
@@ -578,7 +584,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
             ws.data_ptr(), tickets.data_ptr(), B, H, K, D, P, ps, n_max,
             n_split, window, _DTYPES[q.dtype], float(softcap), _stream(q))
         _raise_on("paged_decode_attention", err)
-        _count("paged_decode_attention", (B, n_max, ps, H, K, D, window))
+        _count("paged_decode_attention", (B, n_max, ps, H, K, D, window),
+               q.dtype)
         return o
     p0, n_pages, s0, page_size = tile
     lse = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -590,7 +597,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         _DTYPES[q.dtype], float(softcap), _stream(q))
     _raise_on("paged_decode_attention", err)
     _count("paged_decode_attention",
-           (B, n_max, ps, H, K, D, window, P, page_size))
+           (B, n_max, ps, H, K, D, window, P, page_size), q.dtype)
     return o, lse
 
 
@@ -727,7 +734,7 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A_log):
         B * nc, L, H, P, N, plan.tr, plan.ns, plan.n_heavy, plan.threads,
         plan.smem, _DTYPES[x.dtype], _stream(x))
     _raise_on("ssd_intra_chunk", err)
-    _count("ssd_intra_chunk", (B, nc, L, H))
+    _count("ssd_intra_chunk", (B, nc, L, H), x.dtype)
     return y, s_loc, lam
 
 
@@ -919,5 +926,5 @@ def slstm_scan(pre, R, *, state=None):
                                  plan.rows, _DTYPES[pre.dtype], _stream(pre))
         key = "slstm_scan"
     _raise_on("slstm_scan", err)
-    _count(key, (B, S, H, hd))
+    _count(key, (B, S, H, hd), pre.dtype)
     return y, tuple(out.unbind(0))

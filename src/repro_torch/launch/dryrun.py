@@ -7,9 +7,9 @@ arrays.  Here a cell starts a *fake* process group of 256 or 512 ranks
 returns at once) in its own process, builds the production mesh over it
 (a CUDA mesh, which needs no card over a fake group: DTensor picks the
 collectives the card's mesh would, where a CPU mesh swaps all-to-all for
-all-gather and a chunk), builds ``build_model(cfg, mesh=, rules=)`` with the
-reference's dtypes, makes this rank's state, batch and cache as
-meta-local DTensors (``ModelBundle.abstract_params``/``batch_specs``/
+all-gather and a chunk), builds ``build_model(cfg, mesh=, rules=)`` at
+the reference's default compute, bfloat16, makes this rank's state,
+batch and cache at the reference's dtypes as meta-local DTensors (``ModelBundle.abstract_params``/``batch_specs``/
 ``cache_specs``), and runs one train step, prefill or decode step under
 ``common.profiling.measure``.  A meta tensor holds no memory and no
 values, so nothing is computed: the step runs its Python and its
@@ -29,9 +29,11 @@ rank's ``memory`` (``profiling.measure``'s analysis), ``cost`` (dot
 FLOPs, operand bytes, FLOPs by kernel), ``collectives`` (bytes and count
 by kind, and the bytes over groups that span nodes) and the three-term
 ``roofline`` against the H100's published figures
-(``common.hw.roofline_terms``: compute at the float32 peak, as the port
-computes in float32 even on bfloat16 weights; a collective over a group
-that spans nodes at the NIC's rate, one within a node at NVLink's; on
+(``common.hw.roofline_terms``: compute at the peak of the cell's
+compute dtype, the bfloat16 tensor-core peak, the reference's default
+compute, which lays out bfloat16 activations over bfloat16 weights,
+batches and caches; a collective over a group that spans nodes at the
+NIC's rate, one within a node at NVLink's; on
 the production meshes every axis spans nodes); ``lower_s`` times
 building the mesh, the model and its abstract inputs, ``compile_s`` the
 counted call.  The reference's
@@ -196,8 +198,10 @@ def model_flops(bundle, shape) -> float:
     return 2.0 * n * shape.global_batch
 
 
-def record_costs(record: dict, rep, n_chips: int) -> dict:
-    """The reference's record keys from one rank's ``CostReport``."""
+def record_costs(record: dict, rep, n_chips: int, dtype: str) -> dict:
+    """The reference's record keys from one rank's ``CostReport``, the
+    roofline's compute at the peak of ``dtype``, the cell's compute
+    dtype."""
     from repro_torch.common.hw import roofline_terms
     from repro_torch.common.profiling import (
         collective_stats, cost_summary, memory_summary,
@@ -209,7 +213,7 @@ def record_costs(record: dict, rep, n_chips: int) -> dict:
     record["cost"] = cost_summary(rep)
     record["collectives"] = collective_stats(rep)
     record["roofline"] = roofline_terms(
-        rep.flops, rep.bytes, rep.collective_bytes, "float32",
+        rep.flops, rep.bytes, rep.collective_bytes, dtype,
         inter_node_bytes=rep.inter_node_bytes)
     record["model_vs_hlo_flops"] = (
         record["model_flops"] / (rep.flops * n_chips) if rep.flops else None)
@@ -243,7 +247,8 @@ def lay_out(cfg, shape, mesh, perf_variant="baseline") -> dict:
     _, rep = measure_step(bundle, shape, inputs, tcfg)
     record["compile_s"] = round(time.time() - t1, 2)
     record["model_flops"] = model_flops(bundle, shape)
-    return record_costs(record, rep, mesh.size())
+    return record_costs(record, rep, mesh.size(),
+                        str(bundle.compute_dtype).removeprefix("torch."))
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,

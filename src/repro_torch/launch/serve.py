@@ -135,7 +135,7 @@ def serve_arch(cfg, requests, *, device=None, params=None,
     from repro_torch.serving.scheduler import SchedulerConfig, lm_scheduler
 
     device = resolve_device(device)
-    bundle = build_model(cfg)
+    bundle = build_model(cfg, compute_dtype=torch.float32)
     if params is None:
         params = bundle.init(torch.Generator(device=device).manual_seed(0),
                              device=device)

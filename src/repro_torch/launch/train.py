@@ -94,7 +94,7 @@ def main(argv=None):
 
 def _train(args, device, rank: int, world: int):
     cfg = get_config(args.arch, smoke=args.smoke)
-    bundle = build_model(cfg, remat=args.remat)
+    bundle = build_model(cfg, compute_dtype=torch.float32, remat=args.remat)
     print(f"[train] {cfg.name} params={bundle.param_count():,} on {device} "
           f"procs={world} rank={rank}")
 

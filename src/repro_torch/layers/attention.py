@@ -20,6 +20,10 @@ API:
                                            -> one query per row over a
                                               dense cache, through the
                                               decode kernel
+  paged_attend(q, k_pages, v_pages, tables, lengths, ...)
+                                           -> one query per row over a
+                                              whole page pool, through
+                                              the paged decode kernel
   decode_attention_shardmap(q, k_cache, v_cache, lengths, mesh=, rules=)
                                            -> the same over a
                                               sequence-sharded cache,
@@ -38,7 +42,9 @@ API:
   cache_write_prefix(cache, new)           -> prefill's cache[:, :S] = new
 
 Weights keep the JAX package's layouts: ``wq`` (d, H, hd), ``wk``/``wv``
-(d, K, hd), ``wo`` (H, hd, d).  Cache updates write in place.
+(d, K, hd), ``wo`` (H, hd, d), each cast to its input's dtype at use.
+Cache updates write in place.  The decode paths run at the wider of
+q's and the cache's dtypes and return q's (``decode_attend``).
 
 Under a mesh (``mesh``/``rules`` given, tensors ``DTensor``s placed by
 the logical-axis rules, see ``common.sharding``) the projections run as
@@ -52,6 +58,7 @@ rank's local tile.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -306,6 +313,12 @@ def cross_kv_project(params, enc_out, cfg):
     return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
 
 
+def wider_dtype(*tensors) -> torch.dtype:
+    """The widest dtype of ``tensors`` (float32 over bfloat16): the one a
+    decode launch over q and a cache of another dtype runs at."""
+    return functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+
+
 def decode_attend(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
                   mesh=None, rules=None):
     """q (B, 1, H, D) against a dense cache (B, T, K, D) up to
@@ -313,14 +326,24 @@ def decode_attend(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
     the kernel runs per rank on its cache rows and its heads
     (``_head_specs``) with the whole sequence (the cache gathered over
     the rest, as GSPMD gathers the reference's seq-sharded cache on this
-    path).  A cache narrower than q (bfloat16, the reference's serving
-    dtype) is widened to q's dtype first, as the reference widens it to
-    the activations'."""
+    path).
+
+    The launch runs at the wider of q's and the cache's dtypes and
+    returns q's: a bfloat16 q (bfloat16 compute) against a float32 cache
+    (the serving engine's) is widened, the float32 instance runs and its
+    output is narrowed back, which is the reference's arithmetic (its
+    decode kernels read every operand as float32 and write q's dtype);
+    the cache, the larger operand, is never narrowed or copied.  A cache
+    narrower than q (a bfloat16 cache under float32 compute) is widened
+    to q's dtype, as the reference widens it to the activations'.  With
+    the bundle's own bfloat16 cache under its default compute both are
+    bfloat16 and the bfloat16 instance runs."""
     def fn(q_, k_, v_, len_):
+        dt = wider_dtype(q_, k_)
         return kops.decode_attention(
-            q_[:, 0].contiguous(), k_.to(q_.dtype).contiguous(),
-            v_.to(q_.dtype).contiguous(), len_.to(torch.int32),
-            window=window, softcap=softcap)[:, None]
+            q_[:, 0].to(dt).contiguous(), k_.to(dt).contiguous(),
+            v_.to(dt).contiguous(), len_.to(torch.int32),
+            window=window, softcap=softcap)[:, None].to(q_.dtype)
 
     if mesh is None:
         return fn(q, k_cache, v_cache, lengths)
@@ -357,7 +380,9 @@ def decode_attention_shardmap(q, k_cache, v_cache, lengths, *, mesh, rules,
     the data axes and seq-sharded over 'model'.  Each rank computes
     logits/softmax partials over its local seq tile; an all_reduce MAX
     and two SUMs (of s and o) combine them — the cache never moves.
-    Plain tensor ops, as the reference's are plain ``jnp``.
+    Plain tensor ops, as the reference's are plain ``jnp``, at the wider
+    of q's and the cache's dtypes (``decode_attend``'s rule); the output
+    is in q's dtype.
     """
     B, _, H, D = q.shape
     K = k_cache.shape[2]
@@ -373,6 +398,8 @@ def decode_attention_shardmap(q, k_cache, v_cache, lengths, *, mesh, rules,
     seq_axes = spec_c[1]
 
     def f(q_l, k_l, v_l, len_l):
+        out_dtype = q_l.dtype
+        q_l = q_l.to(wider_dtype(q_l, k_l))
         T_loc = k_l.shape[1]
         t_off = sharding.axis_index(mesh, seq_axes) * T_loc
         kv_pos = t_off + torch.arange(T_loc, dtype=torch.int32,
@@ -403,7 +430,7 @@ def decode_attention_shardmap(q, k_cache, v_cache, lengths, *, mesh, rules,
                          v_rep.to(q_l.dtype))
         o = sharding.all_reduce(o.float(), mesh, seq_axes)
         out = o / s.clamp_min(1e-30).transpose(1, 2)[..., None]
-        return out.to(q_l.dtype)
+        return out.to(out_dtype)
 
     return sharding.shard_map(f, mesh, (spec_q, spec_c, spec_c, spec_l),
                               spec_q)(q, k_cache, v_cache, lengths)
@@ -613,14 +640,19 @@ def paged_decode_attention_shardmap(q, k_pages, v_pages, block_tables,
     the log-sum-exps and two SUMs over the pool's sharded mesh axes
     combine them, as ``decode_attention_shardmap`` combines its partial
     softmaxes (a row with no live key gives 0).  Returned at q's
-    placement.  ``lengths`` and ``block_tables`` are the step's plain
-    tensors; the function is the unsharded paged step's."""
+    placement and dtype; the kernel runs at the wider of q's and the
+    pool's dtypes (``decode_attend``'s rule).  ``lengths`` and
+    ``block_tables`` are the step's plain tensors; the function is the
+    unsharded paged step's."""
     from torch.distributed.tensor import DTensor, Replicate
 
     q = sharding.settle(q)
-    q_l = _whole(q, mesh)[:, 0].contiguous()
+    q_l = _whole(q, mesh)[:, 0]
+    out_dtype = q_l.dtype
     k_l, tile, page_axes, slot_axes = pool_tile(k_pages)
     v_l = pool_tile(v_pages)[0]
+    dt = wider_dtype(q_l, k_l)
+    q_l, k_l, v_l = (t.to(dt).contiguous() for t in (q_l, k_l, v_l))
     axes = tuple(a for e in (page_axes, slot_axes) if e is not None
                  for a in ((e,) if isinstance(e, str) else e))
     o, lse = kops.paged_decode_attention(
@@ -631,12 +663,28 @@ def paged_decode_attention_shardmap(q, k_pages, v_pages, block_tables,
     w = torch.exp(lse - safe_m)                       # 0 where lse = -inf
     num = sharding.all_reduce(w[..., None] * o.float(), mesh, axes)
     den = sharding.all_reduce(w, mesh, axes)
-    out = (num / den.clamp_min(1e-30)[..., None]).to(q_l.dtype)[:, None]
+    out = (num / den.clamp_min(1e-30)[..., None]).to(out_dtype)[:, None]
     out = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim,
                              run_check=False)
     if sharding.is_dtensor(q):
         out = sharding.to_placements(out, mesh, q.placements)
     return out
+
+
+def paged_attend(q, k_pages, v_pages, block_tables, lengths, *, window=0,
+                 softcap=0.0):
+    """q (B, 1, H, D) against a whole page pool (n_pages, page_size, K,
+    D) through the block tables, up to ``lengths`` (B,) valid keys: one
+    paged kernel launch at the wider of q's and the pool's dtypes
+    (``decode_attend``'s rule: a bfloat16 q is widened against the
+    engine's float32 pool, which is never narrowed or copied; the
+    bundle's bfloat16 pool under bfloat16 compute runs the bfloat16
+    instance).  Returns (B, 1, H, D) in q's dtype."""
+    dt = wider_dtype(q, k_pages)
+    return kops.paged_decode_attention(
+        q[:, 0].to(dt).contiguous(), k_pages.to(dt), v_pages.to(dt),
+        block_tables, lengths.to(torch.int32), window=window,
+        softcap=softcap)[:, None].to(q.dtype)
 
 
 def paged_gather(pages, block_tables):

@@ -1,4 +1,6 @@
-"""Token embedding and LM output head, both computed in float32."""
+"""Token embedding and LM output head.  The embedding comes out in the
+caller's compute dtype (bfloat16 by default, as the reference's); the
+head computes in its input's dtype and returns float32 logits."""
 
 from __future__ import annotations
 
@@ -14,24 +16,25 @@ def embed_specs(vocab: int, d_model: int):
                            scale=0.02)}
 
 
-def embed_apply(params, ids, *, scale: float = 1.0):
-    # a row gather; a vocabulary-sharded table gathers its rows on each
-    # rank's own slice (``_vocab_sharded_rows``)
+def embed_apply(params, ids, *, scale: float = 1.0, dtype=torch.bfloat16):
+    """The rows of ``ids`` in ``dtype``, times ``scale`` rounded to
+    ``dtype`` (the reference's ``jnp.asarray(scale, dtype)``).  A row
+    gather; a vocabulary-sharded table gathers its rows on each rank's
+    own slice (``_vocab_sharded_rows``)."""
     table = params["table"]
     if sharding.is_dtensor(table) and sharding.spec_of(table)[0] is not None:
-        out = _vocab_sharded_rows(table, ids)
+        out = _vocab_sharded_rows(table, ids, dtype)
     else:
-        out = F.embedding(ids.long(), table)
-    out = out.float()
+        out = F.embedding(ids.long(), table).to(dtype)
     if scale != 1.0:
-        out = out * scale
+        out = out * torch.tensor(scale, dtype=dtype).item()
     return out
 
 
-def _vocab_sharded_rows(table, ids):
-    """``table[ids]`` for a table whose rows are sharded: each rank takes
-    the rows of its own slice (zeros for ids outside it) and an
-    all_reduce over the vocabulary axes sums them, as GSPMD does.  A
+def _vocab_sharded_rows(table, ids, dtype):
+    """``table[ids]`` in ``dtype`` for a table whose rows are sharded:
+    each rank takes the rows of its own slice (zeros for ids outside it)
+    and an all_reduce over the vocabulary axes sums them, as GSPMD does.  A
     masked gather written by hand: DTensor's own (a ``_MaskPartial``) has
     no backward from a partial-sum gradient.  The table is gathered over
     its embed (FSDP) axes and the ids' rows are sharded over them, as
@@ -49,7 +52,7 @@ def _vocab_sharded_rows(table, ids):
         rel = i.long() - sharding.axis_index(mesh, vocab) * n
         hit = ((rel >= 0) & (rel < n))[..., None].to(t.dtype)
         out = F.embedding(rel.clamp(0, n - 1), t) * hit
-        return sharding.all_reduce(out, mesh, vocab)
+        return sharding.all_reduce(out, mesh, vocab).to(dtype)
 
     lead = (rows,) + (None,) * (ids.ndim - 1)
     return sharding.shard_map(f, mesh, ((vocab, None), lead),

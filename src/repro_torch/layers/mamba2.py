@@ -79,8 +79,13 @@ def _ssd_chunked(xh, Bm, Cm, dt, A_log, D_skip, chunk: int,
                  initial_state=None):
     """Chunkwise SSD with the D skip.  xh: (B,S,H,P); Bm/Cm: (B,S,N);
     dt: (B,S,H) post-softplus.  A ragged tail is padded to the chunk
-    with dt = 0 (decay 1, update 0: state-neutral).  Returns (y
-    (B,S,H,P), final state (B,H,N,P) float32)."""
+    with dt = 0 (decay 1, update 0: state-neutral).  x, B and C are
+    widened to float32 first, as the reference widens them before its
+    SSD, so the kernel's float32 instance runs under bfloat16 compute.
+    Returns (y (B,S,H,P) in xh's dtype, final state (B,H,N,P)
+    float32)."""
+    out_dtype = xh.dtype
+    xh, Bm, Cm = xh.float(), Bm.float(), Cm.float()
     S = xh.shape[1]
     L = min(chunk, S)
     pad = (L - S % L) % L
@@ -92,8 +97,8 @@ def _ssd_chunked(xh, Bm, Cm, dt, A_log, D_skip, chunk: int,
     y, final = kops.ssd_chunked(xh.contiguous(), Bm.contiguous(),
                                 Cm.contiguous(), dt.contiguous(), A_log,
                                 chunk=L, initial_state=initial_state)
-    y = y[:, :S] + xh[:, :S].float() * D_skip.float()[None, None, :, None]
-    return y.to(xh.dtype), final
+    y = y[:, :S] + xh[:, :S] * D_skip.float()[None, None, :, None]
+    return y.to(out_dtype), final
 
 
 def _ssd_chunked_plain(xh, Bm, Cm, dt, A_log, D_skip, chunk: int,

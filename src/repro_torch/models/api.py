@@ -17,10 +17,21 @@ hand-written kernels, which have no backward, so only under
 ``torch.no_grad()`` on the card), ``remat`` ("full" by default; "none",
 "dots": ``layers.remat``), ``z_loss`` and ``softmax_dtype`` (the plain
 attention's softmax, float32 by default).  Serving runs the kernels
-whatever they say.  The port computes in float32, the dtype the JAX
-package is held to (``build_model(..., compute_dtype=jnp.float32)``);
-``compute_dtype`` and the paged serving knobs are accepted and not
-read.
+whatever they say.  ``compute_dtype`` (a torch dtype, or "bfloat16" /
+"float32") is read as the reference's ``build_model`` reads it, with its
+default of bfloat16: the embedding, the image prefix and the MTP input
+come out in it, and every projection casts its weight to its input's
+dtype at use, so float32 weights under bfloat16 compute make a
+transient bfloat16 copy a use.  Norms, rotary angles, softmaxes, router
+logits and the recurrences (SSD, mLSTM, sLSTM) widen to float32 where
+the reference's do and narrow back after; the logits are float32.
+``init_cache``, ``init_paged_cache``, ``cache_specs`` and
+``paged_cache_specs`` default to bfloat16, as the reference's do; the
+serving engine asks for float32 caches, as the reference's engine does,
+and the decode attention widens q to a wider cache's dtype
+(``layers.attention.decode_attend``).  Callers held to the reference at
+float32 pass ``compute_dtype=torch.float32``.  The paged serving knobs
+are accepted and not read.
 
 With a ``mesh`` (a ``DeviceMesh`` named ("data", "model") or ("pod",
 "data", "model"), see ``common.sharding``) the bundle is the
@@ -91,6 +102,7 @@ class ModelBundle:
     mesh: Any = None                 # a DeviceMesh: the sharded model
     rules: Any = None                # the merged logical-axis rules
     batch_specs: Callable | None = None  # (ShapeConfig) -> WSpec tree
+    compute_dtype: torch.dtype = torch.bfloat16  # the activations' dtype
 
     # ``device=None`` is the card (``common.device.resolve_device``):
     # with no CUDA device these raise unless the caller names "cpu".
@@ -152,11 +164,11 @@ class ModelBundle:
         return sum(math.prod(ws.shape) * ws.dtype.itemsize for ws in
                    tree_leaves(self.cache_specs(1, 1, torch.float32)))
 
-    def init_cache(self, B: int, T: int, dtype=torch.float32, device=None):
+    def init_cache(self, B: int, T: int, dtype=torch.bfloat16, device=None):
         return self._init(self.cache_specs(B, T, dtype), None, dtype, device)
 
     def init_paged_cache(self, n_pages: int, page_size: int,
-                         dtype=torch.float32, device=None):
+                         dtype=torch.bfloat16, device=None):
         if self.paged_cache_specs is None:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} has no paged-KV cache layout")
@@ -198,23 +210,17 @@ def _lm_specs(cfg, stages):
     return sp
 
 
-#: the dtype of a batch's float inputs (image embeddings, audio frames)
-#: in ``batch_specs``: the reference's default compute dtype, so a dry
-#: run's batch holds the reference's bytes (the port computes in float32)
-BATCH_FLOAT = torch.bfloat16
-
-
-def lm_batch_specs(cfg, shape):
+def lm_batch_specs(cfg, shape, dtype=torch.bfloat16):
     """The reference's batch WSpec tree for a ``ShapeConfig``: train
     (tokens, targets, mask), prefill (tokens, lengths) or decode (one
     token a row, lengths); a VLM's text is shorter by its image tokens,
-    whose embeddings come first."""
+    whose embeddings come first, in the compute ``dtype``."""
     B, S = shape.global_batch, shape.seq_len
     text, extra = S, {}
     if cfg.has_vision_stub:
         text = S - cfg.n_image_tokens
         extra["image_embeds"] = WSpec((B, cfg.n_image_tokens, cfg.d_model),
-                                      ("batch", None, None), dtype=BATCH_FLOAT)
+                                      ("batch", None, None), dtype=dtype)
     return _token_batch(shape, B, text, extra)
 
 
@@ -236,11 +242,14 @@ def _embed_scale(cfg) -> float:
     return math.sqrt(cfg.d_model) if cfg.embed_scale_by_dim else 1.0
 
 
-def _embed_inputs(cfg, params, batch):
-    """Token embedding, behind the projected image prefix for VLMs."""
-    h = embed_apply(params["embed"], batch["tokens"], scale=_embed_scale(cfg))
+def _embed_inputs(cfg, params, batch, dtype):
+    """Token embedding, behind the projected image prefix for VLMs, both
+    in the compute ``dtype``."""
+    h = embed_apply(params["embed"], batch["tokens"], scale=_embed_scale(cfg),
+                    dtype=dtype)
     if cfg.has_vision_stub:
-        img = batch["image_embeds"].float() @ params["img_proj"]["w"].float()
+        img = batch["image_embeds"].to(dtype) @ \
+            params["img_proj"]["w"].to(dtype)
         h = torch.cat([img, h], dim=1)
     return h
 
@@ -341,15 +350,15 @@ def cross_entropy(logits, targets, mask, z_loss=0.0):
     return loss
 
 
-def _mtp_loss(cfg, params, h, batch, positions, attn_impl):
+def _mtp_loss(cfg, params, h, batch, positions, attn_impl, dtype):
     """Simplified DeepSeek MTP, as the reference computes it: one extra
     block over [norm(h_t), norm(embed(token_{t+1}))] predicting token
-    t + 2; the last position has no target."""
+    t + 2, in the compute ``dtype``; the last position has no target."""
     p = params["mtp"]
-    emb = embed_apply(params["embed"], batch["tokens"][:, 1:])
+    emb = embed_apply(params["embed"], batch["tokens"][:, 1:], dtype=dtype)
     hh = apply_norm(p["norm_h"], h[:, :-1], cfg.norm, cfg.norm_eps)
     ee = apply_norm(p["norm_e"], emb, cfg.norm, cfg.norm_eps)
-    x = torch.cat([hh, ee], dim=-1) @ p["proj"].float()
+    x = torch.cat([hh, ee], dim=-1) @ p["proj"].to(dtype)
     positions = positions[:, 1:]
     blk = p["block"]
     xn = apply_norm(blk["ln_attn"], x, cfg.norm, cfg.norm_eps)
@@ -413,12 +422,28 @@ def _make_ctx(mesh, rules, mode, positions, lengths, opts):
     }
 
 
+def _dtype_opt(opts, key, default) -> torch.dtype:
+    """A dtype option: a torch dtype, or the name "bfloat16" / "float32"."""
+    dt = opts.get(key, default)
+    if isinstance(dt, str):
+        if dt not in ("bfloat16", "float32"):
+            raise ValueError(f"{key} {dt!r} is not 'bfloat16' or 'float32'")
+        return getattr(torch, dt)
+    return dt
+
+
 def softmax_dtype(opts) -> torch.dtype:
-    """The ``softmax_dtype`` option (a torch dtype or its name, as the
-    dry run's ``bf16sm`` variant passes "bfloat16"): the dtype of the
-    plain-torch attention's masked softmax, float32 by default."""
-    dt = opts.get("softmax_dtype", torch.float32)
-    return getattr(torch, dt) if isinstance(dt, str) else dt
+    """The ``softmax_dtype`` option (as the dry run's ``bf16sm`` variant
+    passes "bfloat16"): the dtype of the plain-torch attention's masked
+    softmax, float32 by default."""
+    return _dtype_opt(opts, "softmax_dtype", torch.float32)
+
+
+def compute_dtype(opts) -> torch.dtype:
+    """The ``compute_dtype`` option: the activations' dtype, bfloat16 by
+    default as in the reference (whose ``build_model`` reads
+    ``opts.get("compute_dtype", jnp.bfloat16)``)."""
+    return _dtype_opt(opts, "compute_dtype", torch.bfloat16)
 
 
 def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
@@ -432,11 +457,12 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
     stages = make_stages(cfg)
     specs = _lm_specs(cfg, stages)
     attn_impl, _, z_loss = train_options(opts)
+    dt = compute_dtype(opts)
     scope = partial(sharding.mesh_scope, mesh)
 
     def loss_fn(params, batch):
         with scope():
-            h = _embed_inputs(cfg, params, batch)
+            h = _embed_inputs(cfg, params, batch, dt)
             n_prefix = h.shape[1] - batch["tokens"].shape[1]
             B, S = h.shape[:2]
             positions = torch.arange(S, dtype=torch.int32,
@@ -452,7 +478,8 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
             if cfg.router_aux_loss and cfg.n_experts:
                 loss = loss + cfg.router_aux_loss * aux
             if cfg.mtp_depth:
-                mtp = _mtp_loss(cfg, params, h, batch, positions, attn_impl)
+                mtp = _mtp_loss(cfg, params, h, batch, positions, attn_impl,
+                                dt)
                 metrics["mtp"] = mtp
                 loss = loss + 0.3 * mtp
             metrics["loss"] = loss
@@ -460,7 +487,7 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
 
     def prefill(params, batch, cache):
         with scope():
-            h = _embed_inputs(cfg, params, batch)
+            h = _embed_inputs(cfg, params, batch, dt)
             B, S = h.shape[:2]
             positions = torch.arange(S, dtype=torch.int32,
                                      device=h.device).expand(B, S)
@@ -476,7 +503,8 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
 
     def _decode(params, tokens, cache, lengths, **extra):
         with scope():
-            h = embed_apply(params["embed"], tokens, scale=_embed_scale(cfg))
+            h = embed_apply(params["embed"], tokens, scale=_embed_scale(cfg),
+                            dtype=dt)
             ctx = _make_ctx(mesh, rules, "decode",
                             lengths[:, None].to(torch.int32), lengths, opts)
             ctx.update(extra)
@@ -503,7 +531,7 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
         return _decode(params, tokens, cache, lengths, cache_layout="paged",
                        block_tables=block_tables)
 
-    def cache_specs(B, T, dtype=torch.float32):
+    def cache_specs(B, T, dtype=torch.bfloat16):
         out = {}
         for st in stages:
             per_layer = st.cache_specs(cfg, B, T, dtype)
@@ -513,7 +541,7 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
                 per_layer)
         return out
 
-    def paged_cache_specs(n_pages, page_size, dtype=torch.float32):
+    def paged_cache_specs(n_pages, page_size, dtype=torch.bfloat16):
         return cache_specs(n_pages, page_size, dtype)
 
     return ModelBundle(
@@ -521,4 +549,5 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
         decode_step=decode_step, cache_specs=cache_specs,
         paged_decode_step=paged_decode_step if paged_supported else None,
         paged_cache_specs=paged_cache_specs if paged_supported else None,
-        mesh=mesh, rules=rules, batch_specs=partial(lm_batch_specs, cfg))
+        mesh=mesh, rules=rules, compute_dtype=dt,
+        batch_specs=partial(lm_batch_specs, cfg, dtype=dt))

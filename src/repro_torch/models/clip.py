@@ -12,6 +12,9 @@ kernel (``layers.attention.attention_apply``): non-causal in the vision
 tower, causal in the text tower.  The towers take ``impl``: "kernel"
 (serving) or "xla", plain torch that differentiates, which
 ``contrastive_loss`` runs as the reference's towers run its XLA path.
+The encoders and ``clip_forward`` take the reference's ``dtype`` (float32
+by default): the stub embeddings, the token embedding and every weight
+are cast to it at use; ``init_clip`` draws its weights in it.
 """
 
 from __future__ import annotations
@@ -103,27 +106,29 @@ def clip_specs(cfg: ClipConfig):
     }
 
 
-def encode_image(params, patches, cfg: ClipConfig, impl: str = "kernel"):
+def encode_image(params, patches, cfg: ClipConfig, impl: str = "kernel",
+                 dtype=torch.float32):
     """patches: (B, n_image_tokens, vision_width) stub embeddings."""
-    h = patches.float() @ params["patch_proj"].float()
-    h = h + params["pos"].float()[None]
+    h = patches.to(dtype) @ params["patch_proj"].to(dtype)
+    h = h + params["pos"].to(dtype)[None]
     h = _tower_apply(params["blocks"], h, causal=False, eps=cfg.norm_eps,
                      impl=impl)
     h = apply_norm(params["ln_post"], h.mean(dim=1, keepdim=True),
                    "layernorm", cfg.norm_eps)[:, 0]
-    z = h @ params["proj"].float()
+    z = h @ params["proj"].to(dtype)
     return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
 
 
-def encode_text(params, ids, cfg: ClipConfig, impl: str = "kernel"):
+def encode_text(params, ids, cfg: ClipConfig, impl: str = "kernel",
+                dtype=torch.float32):
     """ids: (B, S) int32; EOT = last token."""
-    h = embed_apply(params["embed"], ids)
+    h = embed_apply(params["embed"], ids, dtype=dtype)
     S = ids.shape[1]
-    h = h + params["pos"].float()[None, :S]
+    h = h + params["pos"].to(dtype)[None, :S]
     h = _tower_apply(params["blocks"], h, causal=True, eps=cfg.norm_eps,
                      impl=impl)
     h = apply_norm(params["ln_final"], h, "layernorm", cfg.norm_eps)
-    z = h[:, -1] @ params["proj"].float()
+    z = h[:, -1] @ params["proj"].to(dtype)
     return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
 
 
@@ -132,10 +137,11 @@ def retrieval_logits(img_z, txt_z, logit_scale):
     return torch.exp(logit_scale) * img_z @ txt_z.T
 
 
-def clip_forward(params, patches, ids, cfg: ClipConfig, impl: str = "kernel"):
+def clip_forward(params, patches, ids, cfg: ClipConfig, impl: str = "kernel",
+                 dtype=torch.float32):
     """Monolithic forward — the oracle the split execution must match."""
-    zi = encode_image(params["vision"], patches, cfg, impl)
-    zt = encode_text(params["text"], ids, cfg, impl)
+    zi = encode_image(params["vision"], patches, cfg, impl, dtype)
+    zt = encode_text(params["text"], ids, cfg, impl, dtype)
     return retrieval_logits(zi, zt, params["logit_scale"])
 
 
@@ -152,9 +158,10 @@ def contrastive_loss(params, patches, ids, cfg: ClipConfig,
     return 0.5 * (li + lt)
 
 
-def init_clip(generator: torch.Generator, cfg: ClipConfig, device=None):
-    """float32 weights of ``cfg`` drawn from ``generator`` on ``device``
-    (the card unless the caller names another;
-    ``common.device.resolve_device``)."""
-    return init_tree(clip_specs(cfg), generator, torch.float32,
+def init_clip(generator: torch.Generator, cfg: ClipConfig, device=None,
+               dtype=torch.float32):
+    """The weights of ``cfg`` in ``dtype`` (float32 by default, as the
+    reference's) drawn from ``generator`` on ``device`` (the card unless
+    the caller names another; ``common.device.resolve_device``)."""
+    return init_tree(clip_specs(cfg), generator, dtype,
                      resolve_device(device))

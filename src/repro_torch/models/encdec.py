@@ -18,8 +18,10 @@ over the dense cache up to ``lengths + 1`` and the cross-attention
 through the decode kernel over the cached cross K/V with lengths = T.
 ``loss_fn`` (train mode, no cache) runs all three attentions through
 ``attn_impl`` (plain torch by default: the kernels have no backward)
-and each encoder and decoder layer under ``remat``.  The port computes
-in float32.
+and each encoder and decoder layer under ``remat``.  The activations
+are in ``compute_dtype`` (bfloat16 by default, as in the reference: the
+audio frames, their projection, the token embedding and the sinusoids
+are cast to it), the logits float32.
 
 Under a mesh (``build_encdec(cfg, mesh, rules)``) the weights and caches
 are DTensors placed by the rules, each decoder block constrains its
@@ -154,13 +156,13 @@ def _layer(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
-def _encode(cfg, params, frames, impl="kernel", remat="none", mesh=None,
-            rules=None):
+def _encode(cfg, params, frames, dtype, impl="kernel", remat="none",
+            mesh=None, rules=None):
     B, S = frames.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=frames.device).expand(B, S)
-    h = frames.float() @ params["audio_proj"]["w"].float()
-    h = h + sinusoid(positions, cfg.d_model)
+    h = frames.to(dtype) @ params["audio_proj"]["w"].to(dtype)
+    h = h + sinusoid(positions, cfg.d_model).to(dtype)
     for i in range(cfg.n_encoder_layers):
         h = remat_call(remat, partial(_enc_block, _layer(params["encoder"], i),
                                       positions, cfg, impl, mesh, rules), h)
@@ -170,13 +172,14 @@ def _encode(cfg, params, frames, impl="kernel", remat="none", mesh=None,
 
 def build_encdec(cfg, mesh=None, rules=None, **opts):
     from repro_torch.models.api import (
-        BATCH_FLOAT, ModelBundle, _constrainer, _token_batch, cross_entropy,
+        ModelBundle, _constrainer, _token_batch, compute_dtype, cross_entropy,
         last_rows, train_options,
     )
 
     # z_loss is not read: the reference's encoder-decoder loss is the
     # plain cross entropy
     attn_impl, remat, _ = train_options(opts)
+    dt = compute_dtype(opts)
     rules = sharding.merge_rules(rules if isinstance(rules, dict) else None)
     scope = partial(sharding.mesh_scope, mesh)
 
@@ -195,8 +198,8 @@ def build_encdec(cfg, mesh=None, rules=None, **opts):
     }
 
     def _dec_embed(params, tokens, positions):
-        h = embed_apply(params["embed"], tokens)
-        return h + sinusoid(positions, cfg.d_model)
+        h = embed_apply(params["embed"], tokens, dtype=dt)
+        return h + sinusoid(positions, cfg.d_model).to(dt)
 
     def _head(params, h):
         # whisper ties the decoder embedding and the output head
@@ -213,7 +216,7 @@ def build_encdec(cfg, mesh=None, rules=None, **opts):
 
     def loss_fn(params, batch):
         with scope():
-            enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"],
+            enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"], dt,
                                        attn_impl, remat, mesh, rules)
             tokens = batch["tokens"]
             B, S = tokens.shape
@@ -229,7 +232,7 @@ def build_encdec(cfg, mesh=None, rules=None, **opts):
 
     def prefill(params, batch, cache):
         with scope():
-            enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"],
+            enc_out, enc_pos = _encode(cfg, params, batch["audio_frames"], dt,
                                        mesh=mesh, rules=rules)
             tokens = batch["tokens"]
             B, S = tokens.shape
@@ -254,7 +257,7 @@ def build_encdec(cfg, mesh=None, rules=None, **opts):
             h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
             return _head(params, h)[:, 0], cache
 
-    def cache_specs(B, T, dtype=torch.float32):
+    def cache_specs(B, T, dtype=torch.bfloat16):
         K, D = cfg.n_kv_heads, cfg.head_dim
 
         def kv(t):
@@ -275,9 +278,10 @@ def build_encdec(cfg, mesh=None, rules=None, **opts):
         B, S = shape.global_batch, shape.seq_len
         frames = {} if shape.kind == "decode" else {"audio_frames": WSpec(
             (B, cfg.encoder_seq, cfg.d_model), ("batch", None, None),
-            dtype=BATCH_FLOAT)}
+            dtype=dt)}
         return _token_batch(shape, B, S, frames)
 
     return ModelBundle(cfg=cfg, specs=specs, loss_fn=loss_fn, prefill=prefill,
                        decode_step=decode_step, cache_specs=cache_specs,
-                       mesh=mesh, rules=rules, batch_specs=batch_specs)
+                       mesh=mesh, rules=rules, batch_specs=batch_specs,
+                       compute_dtype=dt)

@@ -68,7 +68,6 @@ from repro_torch.common import sharding
 from repro_torch.common.pytree import (
     tree_leaves, tree_map, tree_map_with_path, tree_unflatten,
 )
-from repro_torch.kernels import ops as kops
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mamba2 as m2
 from repro_torch.layers import mla as mla_lib
@@ -207,10 +206,9 @@ def _paged_attn_decode(p, h, x, cache, q, k_new, v_new, ctx, cfg, *,
             q, cache["k"], cache["v"], tables, lengths + 1, mesh=mesh,
             window=window, softcap=cfg.attn_logit_softcap)
     else:
-        out = kops.paged_decode_attention(
-            q[:, 0].contiguous(), cache["k"], cache["v"], tables,
-            (lengths + 1).to(torch.int32), window=window,
-            softcap=cfg.attn_logit_softcap)[:, None]
+        out = attn.paged_attend(q, cache["k"], cache["v"], tables,
+                                lengths + 1, window=window,
+                                softcap=cfg.attn_logit_softcap)
     y = attn.output_proj(p["attn"], out, x.dtype)
     if post_norm:
         y = apply_norm(p["ln_attn_post"], y, cfg.norm, cfg.norm_eps)

@@ -17,7 +17,10 @@ by SLO deadline (earliest first), then arrival.  Dead rows point their
 block-table entries at a reserved dummy page (page 0), so the batched
 scatter never corrupts a live sequence.
 
-The paged pool and the per-request dense prefill cache are float32.
+The paged pool and the per-request dense prefill cache are float32, as
+the reference's are, whatever the bundle computes in: under bfloat16
+compute the decode kernels widen q to the pool's dtype
+(``layers.attention.paged_attend``) and never copy the pool.
 The pool is updated in place — by ``insert_pages`` after each prefill
 and by the paged decode step — and never rebound from a copy.
 

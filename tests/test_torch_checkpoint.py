@@ -120,7 +120,7 @@ def test_crash_restart_resumes_from_checkpoint(tmp_path):
     from repro_torch.training.train_step import batch_to_tensors, make_train_step
 
     cfg = get_config("tinyllama-1.1b", smoke=True)
-    bundle = build_model(cfg)
+    bundle = build_model(cfg, compute_dtype=torch.float32)
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
     state = init_state(bundle.init(torch.Generator().manual_seed(0),
                                    device="cpu"), tcfg)

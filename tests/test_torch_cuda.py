@@ -78,7 +78,7 @@ def test_cuda_model_steps_match_cpu_plain_path(cuda_device):
     from repro_torch.serving.kvcache import insert_pages
 
     cfg = get_config("internvl2-1b", smoke=True)
-    b = build_model(cfg)
+    b = build_model(cfg, compute_dtype=torch.float32)
     p_cpu = b.init(torch.Generator().manual_seed(0), device="cpu")
     g = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 9), generator=g,
@@ -122,7 +122,7 @@ def test_cuda_sampled_serve_equals_submit(cuda_device):
     from repro_torch.serving.scheduler import SchedulerConfig, lm_scheduler
 
     cfg = get_config("internvl2-1b", smoke=True)
-    b = build_model(cfg)
+    b = build_model(cfg, compute_dtype=torch.float32)
     params = b.init(torch.Generator(device=cuda_device).manual_seed(0),
                     torch.float32, cuda_device)
     sched = lm_scheduler(b, params, device=cuda_device,
@@ -524,13 +524,15 @@ def test_cuda_attention_launches_counted_by_shape(cuda_device):
     ops.paged_decode_attention(qd, kp, kp, tables, lens)
     ops.flash_attention(q, q, q, window=4)
     ops.decode_attention(qd, kd, kd, lens, window=8)
+    f32 = "float32"
     assert ops.SHAPE_LAUNCHES["flash_attention"] == {
-        (1, 7, 1500, 6, 6, 64, False, 0): 2, (1, 7, 7, 6, 6, 64, True, 0): 1,
-        (1, 7, 7, 6, 6, 64, True, 4): 1}
+        (1, 7, 1500, 6, 6, 64, False, 0, f32): 2,
+        (1, 7, 7, 6, 6, 64, True, 0, f32): 1,
+        (1, 7, 7, 6, 6, 64, True, 4, f32): 1}
     assert ops.SHAPE_LAUNCHES["decode_attention"] == {
-        (2, 24, 32, 4, 64, 0): 1, (2, 24, 32, 4, 64, 8): 1}
+        (2, 24, 32, 4, 64, 0, f32): 1, (2, 24, 32, 4, 64, 8, f32): 1}
     assert ops.SHAPE_LAUNCHES["paged_decode_attention"] == {
-        (2, 2, 16, 32, 4, 64, 0): 1}
+        (2, 2, 16, 32, 4, 64, 0, f32): 1}
     assert {name: sum(c.values()) for name, c in ops.SHAPE_LAUNCHES.items()
             } == {name: ops.LAUNCHES[name] for name in ops.SHAPE_LAUNCHES}
 
@@ -688,7 +690,7 @@ def test_cuda_train_step_matches_cpu(cuda_device):
     )
 
     cfg = get_config("tinyllama-1.1b", smoke=True)
-    bundle = build_model(cfg)
+    bundle = build_model(cfg, compute_dtype=torch.float32)
     p_cpu = bundle.init(torch.Generator().manual_seed(0), device="cpu")
     p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
     batch = next(TokenStream(DataConfig(seq_len=16, global_batch=4,
@@ -700,7 +702,8 @@ def test_cuda_train_step_matches_cpu(cuda_device):
     for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
     with torch.no_grad():
-        lk, _ = build_model(cfg, attn_impl="kernel").loss_fn(p_gpu, bg)
+        lk, _ = build_model(cfg, attn_impl="kernel",
+                            compute_dtype=torch.float32).loss_fn(p_gpu, bg)
     torch.testing.assert_close(lk, lg, rtol=2e-4, atol=2e-4)
     tcfg = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
     outs = []
@@ -715,3 +718,84 @@ def test_cuda_train_step_matches_cpu(cuda_device):
     for a, b in zip(tree_leaves(outs[0][0]["params"]),
                     tree_leaves(outs[1][0]["params"])):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-5)
+
+
+# the bfloat16 compute's decode launches: internvl2-1b's geometry (H=14,
+# K=2, D=64), q in bfloat16 against the serving engine's float32 cache
+# and pool, and against the bundle's own bfloat16 ones
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_cuda_bf16_q_against_a_float32_cache_runs_the_float32_instance(
+        cuda_device, kind):
+    """A bfloat16 q against a float32 cache (``decode_attend``) or pool
+    (``paged_attend``) is widened: one launch of the float32 instance,
+    output in bfloat16, equal to the plain version on the widened
+    operands within one bfloat16 ulp; no copy of the cache is made (the
+    bytes allocated during the call stay below its size)."""
+    from repro_torch.layers import attention as attn
+
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    B, H, K, D = 4, 14, 2, 64
+    q = torch.randn(B, 1, H, D, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    lens = torch.tensor([296, 1, 150, 9], dtype=torch.int32,
+                        device=cuda_device)
+    if kind == "dense":
+        k, v = (torch.randn(B, 296, K, D, generator=g, device=cuda_device)
+                for _ in range(2))
+        call = lambda: attn.decode_attend(q, k, v, lens)           # noqa: E731
+        want = ref.decode_attention_ref(q[:, 0].float(), k, v, lens)
+        key = (B, 296, H, K, D, 0, "float32")
+        name = "decode_attention"
+    else:
+        k, v = (torch.randn(129, 16, K, D, generator=g, device=cuda_device)
+                for _ in range(2))
+        tables = torch.randint(1, 129, (B, 32), generator=g,
+                               device=cuda_device, dtype=torch.int32)
+        call = lambda: attn.paged_attend(q, k, v, tables, lens)    # noqa: E731
+        want = ref.paged_decode_attention_ref(q[:, 0].float(), k, v, tables,
+                                              lens)
+        key = (B, 32, 16, H, K, D, 0, "float32")
+        name = "paged_decode_attention"
+    call()                                             # build, warm up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = call()
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    assert out.dtype == torch.bfloat16 and out.shape == (B, 1, H, D)
+    assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1
+    assert ops.SHAPE_LAUNCHES[name] == {key: 1}
+    assert grown < k.numel() * k.element_size(), grown
+    torch.testing.assert_close(out[:, 0].float(),
+                               want.to(torch.bfloat16).float(),
+                               rtol=2.0**-7, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_launches_are_keyed_by_dtype(cuda_device):
+    """One shape launched in float32 and in bfloat16 counts under two
+    keys, each ending in its instance's dtype; a bfloat16 cache under a
+    bfloat16 q runs the bfloat16 instance."""
+    from repro_torch.layers import attention as attn
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    q = torch.randn(1, 7, 14, 64, generator=g, device=cuda_device)
+    k = torch.randn(1, 7, 2, 64, generator=g, device=cuda_device)
+    qd = torch.randn(2, 1, 14, 64, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    kd = torch.randn(2, 24, 2, 64, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    lens = torch.tensor([5, 24], dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    ops.flash_attention(q, k, k)
+    ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    assert attn.decode_attend(qd, kd, kd, lens).dtype == torch.bfloat16
+    assert ops.SHAPE_LAUNCHES["flash_attention"] == {
+        (1, 7, 7, 14, 2, 64, True, 0, "float32"): 1,
+        (1, 7, 7, 14, 2, 64, True, 0, "bfloat16"): 1}
+    assert ops.SHAPE_LAUNCHES["decode_attention"] == {
+        (2, 24, 14, 2, 64, 0, "bfloat16"): 1}
+    assert ops.LAUNCHES["flash_attention"] == 2

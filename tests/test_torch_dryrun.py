@@ -211,6 +211,9 @@ def test_dryrun_matches_reference(reference, i):
     assert got["cost"]["flops"] - dot_flops(named) == want_flops, msg
     assert got["collectives"]["total_bytes"] > 0, msg
     assert got["model_flops"] > 0 and got["roofline"]["roofline_s"] > 0
+    # the cell is built at the reference's default compute, bfloat16, and
+    # its roofline charges that dtype's peak
+    assert got["roofline"]["peak_dtype"] == "bfloat16"
 
 
 @pytest.fixture(scope="module")
@@ -360,7 +363,7 @@ def test_mamba2_raises_on_misaligned_inner_and_head_splits():
     with dryrun.fake_group(2):
         mesh = local_mesh((1, 2), device="cpu")
         b = build_model(get_config("zamba2-7b", smoke=True), mesh=mesh,
-                        rules={"embed": None, "ssm_heads": None})
+                        rules={"embed": None, "ssm_heads": None}, compute_dtype=torch.float32)
         params = b.abstract_params(torch.float32)
         cache = b.abstract(b.cache_specs(1, 8, torch.float32), torch.float32)
         with torch.no_grad(), pytest.raises(ValueError, match="same mesh"):
@@ -407,7 +410,7 @@ def test_abstract_params_local_shapes_are_shard_trees():
     with dryrun.fake_group(4):
         mesh = local_mesh((2, 2), device="cpu")
         b = build_model(get_config("granite-moe-3b-a800m", smoke=True),
-                        mesh=mesh)
+                        mesh=mesh, compute_dtype=torch.float32)
         meta = b.abstract_params(torch.float32)
         full = shard_tree(init_tree(b.specs, torch.Generator(), device="cpu"),
                           b.specs, b.rules, mesh)

@@ -33,7 +33,7 @@ def models():
     cfg = ref_get_config(ARCH, smoke=True)
     jb = ref_build_model(cfg, compute_dtype=jnp.float32)
     jp = jb.init(jax.random.PRNGKey(0))
-    tb = build_model(get_config(ARCH, smoke=True))
+    tb = build_model(get_config(ARCH, smoke=True), compute_dtype=torch.float32)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return cfg, jb, jp, tb, tp
 
@@ -53,7 +53,7 @@ def test_specs_param_count_and_cache_layout_match_reference(models):
     init = tb.init(torch.Generator().manual_seed(0), device="cpu")
     assert sorted(tuple(x.shape) for x in tree_leaves(init)) == \
         sorted(tuple(x.shape) for x in jax.tree.leaves(jp))
-    tc = tb.init_cache(2, 24, device="cpu")
+    tc = tb.init_cache(2, 24, device="cpu", dtype=torch.float32)
     jc = jb.init_cache(2, 24, jnp.float32)
     for part in ("self", "cross"):
         for kv in ("k", "v"):
@@ -77,7 +77,7 @@ def test_prefill_then_decode_matches_reference(models):
     jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks),
                              "lengths": jnp.asarray(lens),
                              "audio_frames": jnp.asarray(frames)}, jc)
-    tc = tb.init_cache(2, T, device="cpu")
+    tc = tb.init_cache(2, T, device="cpu", dtype=torch.float32)
     tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks),
                              "lengths": torch.from_numpy(lens),
                              "audio_frames": torch.from_numpy(frames)}, tc)
@@ -100,7 +100,7 @@ def test_decode_equals_fresh_prefill(models):
     cfg, _, _, tb, tp = models
     frames = torch.from_numpy(_frames(cfg, 1, seed=2))
     prompt = [3, 17, 40]
-    cache = tb.init_cache(1, 16, device="cpu")
+    cache = tb.init_cache(1, 16, device="cpu", dtype=torch.float32)
     logits, cache = tb.prefill(tp, {"tokens": torch.tensor([prompt]),
                                     "audio_frames": frames}, cache)
     toks = list(prompt)
@@ -111,7 +111,8 @@ def test_decode_equals_fresh_prefill(models):
             torch.tensor([len(toks) - 1], dtype=torch.int32))
         fresh, _ = tb.prefill(tp, {"tokens": torch.tensor([toks]),
                                    "audio_frames": frames},
-                              tb.init_cache(1, 16, device="cpu"))
+                              tb.init_cache(1, 16, device="cpu",
+                                            dtype=torch.float32))
         assert (logits - fresh).abs().max().item() <= DECODE_TOL
 
 
@@ -170,7 +171,7 @@ def test_serve_launcher_feeds_audio_frames():
             lg, _ = b.prefill(rt.params, {
                 "tokens": torch.tensor([req.prompt], dtype=torch.int32),
                 "audio_frames": torch.as_tensor(frames)[None]},
-                b.init_cache(1, 16, device="cpu"))
+                b.init_cache(1, 16, device="cpu", dtype=torch.float32))
             return lg[0]
         lg = first_logits(req.inputs["audio"])
         assert int(lg.argmax()) == int(res.output[0])

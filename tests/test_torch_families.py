@@ -42,7 +42,8 @@ def models(request):
     cfg = ref_get_config(request.param, smoke=True)
     jb = ref_build_model(cfg, compute_dtype=jnp.float32)
     jp = jb.init(jax.random.PRNGKey(0))
-    tb = build_model(get_config(request.param, smoke=True))
+    tb = build_model(get_config(request.param, smoke=True),
+                     compute_dtype=torch.float32)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return cfg, jb, jp, tb, tp
 
@@ -102,7 +103,7 @@ def test_prefill_then_decode_matches_reference(models):
     T = 24
     jc = jb.init_cache(2, T, jnp.float32)
     jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
-    tc = tb.init_cache(2, T, device="cpu")
+    tc = tb.init_cache(2, T, device="cpu", dtype=torch.float32)
     tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks)}, tc)
     _close(tl, jl)
     for t, j in zip(_leaves(tc), jax.tree.leaves(jc), strict=True):
@@ -129,9 +130,10 @@ def test_paged_decode_matches_reference(models):
     L, span = toks.shape[1], len(pages) * ps
     jd = jb.init_cache(1, span, jnp.float32)
     _, jd = jb.prefill(jp, {"tokens": jnp.asarray(toks)}, jd)
-    td = tb.init_cache(1, span, device="cpu")
+    td = tb.init_cache(1, span, device="cpu", dtype=torch.float32)
     _, td = tb.prefill(tp, {"tokens": torch.from_numpy(toks)}, td)
-    tpool = insert_pages(tb.init_paged_cache(n_pages, ps, device="cpu"), td,
+    tpool = insert_pages(tb.init_paged_cache(n_pages, ps, device="cpu",
+                                             dtype=torch.float32), td,
                          pages, L)
     paged_ref = jb.paged_decode_step is not None
     if paged_ref:
@@ -167,11 +169,13 @@ def test_decode_equals_fresh_prefill(models):
     toks = _tokens(cfg, 2, 13, seed=3)
     T = 32
     _, cache = tb.prefill(tp, {"tokens": torch.from_numpy(toks[:, :12])},
-                          tb.init_cache(2, T, device="cpu"))
+                          tb.init_cache(2, T, device="cpu",
+                                        dtype=torch.float32))
     got, _ = tb.decode_step(tp, torch.from_numpy(toks[:, 12:]), cache,
                             torch.full((2,), 12, dtype=torch.int32))
     want, _ = tb.prefill(tp, {"tokens": torch.from_numpy(toks)},
-                         tb.init_cache(2, T, device="cpu"))
+                         tb.init_cache(2, T, device="cpu",
+                                       dtype=torch.float32))
     _close(got, want.numpy(), DECODE_TOL)
 
 
@@ -270,7 +274,7 @@ def test_kv_bytes_per_token(models):
     cfg, _, _, tb, _ = models
     want = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
     assert tb.kv_bytes_per_token() == want
-    full = build_model(get_config(cfg.name))
+    full = build_model(get_config(cfg.name), compute_dtype=torch.float32)
     c = full.cfg
     assert full.kv_bytes_per_token() == \
         2 * c.n_layers * c.n_kv_heads * c.head_dim * 4

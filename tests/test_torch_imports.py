@@ -95,16 +95,16 @@ def test_model_init_needs_cuda_unless_cpu_is_asked_for(monkeypatch, arch):
     from repro_torch.models.api import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    b = build_model(get_config(arch, smoke=True))
+    b = build_model(get_config(arch, smoke=True), compute_dtype=torch.float32)
     for make in (lambda: b.init(torch.Generator().manual_seed(0)),
-                 lambda: b.init_cache(1, 8)):
+                 lambda: b.init_cache(1, 8, dtype=torch.float32)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     params = b.init(torch.Generator().manual_seed(0), device="cpu")
     assert {t.device.type for t in tree_leaves(params)} == {"cpu"}
     if b.paged_cache_specs is not None:
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            b.init_paged_cache(4, 8)
+            b.init_paged_cache(4, 8, dtype=torch.float32)
 
 
 @pytest.mark.parametrize("kw,code", [

@@ -72,7 +72,8 @@ def test_embedding_and_tied_head_match_reference():
     table = _rand(rng, 50, 16)
     ids = rng.integers(0, 50, (2, 4)).astype(np.int32)
     te = temb.embed_apply({"table": torch.from_numpy(table)},
-                          torch.from_numpy(ids), scale=2.0)
+                          torch.from_numpy(ids), scale=2.0,
+                          dtype=torch.float32)
     je = jemb.embed_apply({"table": jnp.asarray(table)}, jnp.asarray(ids),
                           scale=2.0, dtype=jnp.float32)
     _close(te, je)

@@ -27,7 +27,8 @@ def models(request):
     cfg = ref_get_config(request.param, smoke=True)
     jb = ref_build_model(cfg, compute_dtype=jnp.float32)
     jp = jb.init(jax.random.PRNGKey(0))
-    tb = build_model(get_config(request.param, smoke=True))
+    tb = build_model(get_config(request.param, smoke=True),
+                     compute_dtype=torch.float32)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return cfg, jb, jp, tb, tp
 
@@ -71,7 +72,7 @@ def test_prefill_then_decode_matches_reference(models):
     T = 24
     jc = jb.init_cache(2, T, jnp.float32)
     jl, jc = jb.prefill(jp, jbatch, jc)
-    tc = tb.init_cache(2, T, device="cpu")
+    tc = tb.init_cache(2, T, device="cpu", dtype=torch.float32)
     tl, tc = tb.prefill(tp, tbatch, tc)
     _close(tl, jl)
     _close(tc["blocks"]["k"], jc["blocks"]["k"])
@@ -99,9 +100,10 @@ def test_paged_decode_matches_reference(models):
     _, jd = jb.prefill(jp, jbatch, jd)
     jpool = ref_insert_pages(jb.init_paged_cache(n_pages, ps, jnp.float32),
                              jd, pages, L)
-    td = tb.init_cache(1, span, device="cpu")
+    td = tb.init_cache(1, span, device="cpu", dtype=torch.float32)
     _, td = tb.prefill(tp, tbatch, td)
-    tpool = insert_pages(tb.init_paged_cache(n_pages, ps, device="cpu"), td, pages, L)
+    tpool = insert_pages(tb.init_paged_cache(n_pages, ps, torch.float32,
+                                             "cpu"), td, pages, L)
     _close(tpool["blocks"]["v"], jpool["blocks"]["v"])
     # row 0 live, row 1 dead (dummy page 0); tables with garbage tails
     tables = np.array([[5, 2, 7, -4], [0, 0, 0, 0]], np.int32)

@@ -27,7 +27,8 @@ def models(request):
     cfg = ref_get_config(request.param, smoke=True)
     jb = ref_build_model(cfg, compute_dtype=jnp.float32)
     jp = jb.init(jax.random.PRNGKey(0))
-    tb = build_model(get_config(request.param, smoke=True))
+    tb = build_model(get_config(request.param, smoke=True),
+                     compute_dtype=torch.float32)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return cfg, jb, jp, tb, tp
 
@@ -64,7 +65,7 @@ def test_prefill_then_decode_matches_reference(models):
     T = 24
     jc = jb.init_cache(2, T, jnp.float32)
     jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
-    tc = tb.init_cache(2, T, device="cpu")
+    tc = tb.init_cache(2, T, device="cpu", dtype=torch.float32)
     tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks)}, tc)
     _close(tl, jl)
     for t, j in zip(_leaves(tc), jax.tree.leaves(jc), strict=True):

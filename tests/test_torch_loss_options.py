@@ -26,6 +26,9 @@ from repro_torch.models.api import build_model
 from repro_torch.training.train_step import loss_and_grads
 from test_torch_losses import TOL, _batch, _close, _leaves, _ref_loss_and_grads, _torch
 
+#: the compute every test here holds to the reference's float32 run
+F32 = {"compute_dtype": torch.float32}
+
 
 def test_z_loss_matches_reference():
     arch = "tinyllama-1.1b"
@@ -33,9 +36,9 @@ def test_z_loss_matches_reference():
     batch = _batch(cfg, seed=1)
     jp, jl, jm, jg = _ref_loss_and_grads(arch, batch, z_loss=1e-3)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    tl, tm, tg = loss_and_grads(build_model(cfg, z_loss=1e-3), tp,
+    tl, tm, tg = loss_and_grads(build_model(cfg, z_loss=1e-3, **F32), tp,
                                 _torch(batch))
-    plain, _, _ = loss_and_grads(build_model(cfg), tp, _torch(batch))
+    plain, _, _ = loss_and_grads(build_model(cfg, **F32), tp, _torch(batch))
     _close(tl, jl)
     assert float(tl) > float(plain)
     for t, j in zip(_leaves(tg), jax.tree.leaves(jg)):
@@ -46,10 +49,10 @@ def test_z_loss_matches_reference():
                                   "xlstm-1.3b"])
 def test_remat_policies_give_the_same_gradients(arch):
     cfg = get_config(arch, smoke=True)
-    params = build_model(cfg).init(torch.Generator().manual_seed(0),
-                                   device="cpu")
+    params = build_model(cfg, **F32).init(torch.Generator().manual_seed(0),
+                                          device="cpu")
     batch = _torch(_batch(cfg, seed=2))
-    out = {r: loss_and_grads(build_model(cfg, remat=r), params, batch)
+    out = {r: loss_and_grads(build_model(cfg, remat=r, **F32), params, batch)
            for r in ("none", "full", "dots")}
     for r in ("full", "dots"):
         torch.testing.assert_close(out[r][0], out["none"][0], rtol=1e-6,
@@ -57,7 +60,7 @@ def test_remat_policies_give_the_same_gradients(arch):
         for a, b in zip(_leaves(out[r][2]), _leaves(out["none"][2])):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError):
-        build_model(cfg, remat="some")
+        build_model(cfg, remat="some", compute_dtype=torch.float32)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-9b",
@@ -68,15 +71,17 @@ def test_kernel_path_loss_equals_plain_path_on_cpu(arch):
     kernels' path (attention, SSD, sLSTM) and the differentiable one
     compute the same loss."""
     cfg = get_config(arch, smoke=True)
-    params = build_model(cfg).init(torch.Generator().manual_seed(0),
-                                   device="cpu")
+    params = build_model(cfg, **F32).init(torch.Generator().manual_seed(0),
+                                          device="cpu")
     batch = _torch(_batch(cfg, seed=3))
     with torch.no_grad():
-        lk, mk = build_model(cfg, attn_impl="kernel").loss_fn(params, batch)
-        lx, mx = build_model(cfg, attn_impl="xla").loss_fn(params, batch)
+        lk, mk = build_model(cfg, attn_impl="kernel", **F32).loss_fn(params,
+                                                                     batch)
+        lx, mx = build_model(cfg, attn_impl="xla", **F32).loss_fn(params,
+                                                                  batch)
     torch.testing.assert_close(lk, lx, **TOL)
     with pytest.raises(ValueError):
-        build_model(cfg, attn_impl="pallas")
+        build_model(cfg, attn_impl="pallas", compute_dtype=torch.float32)
 
 
 def test_clip_contrastive_loss_and_gradients_match_reference():

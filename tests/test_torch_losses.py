@@ -79,7 +79,8 @@ def test_loss_metrics_and_gradients_match_reference(arch):
     batch = _batch(cfg)
     jp, jl, jm, jg = _ref_loss_and_grads(arch, batch)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    tl, tm, tg = loss_and_grads(build_model(cfg), tp, _torch(batch))
+    tl, tm, tg = loss_and_grads(build_model(cfg, compute_dtype=torch.float32),
+                                tp, _torch(batch))
     _close(tl, jl)
     assert sorted(tm) == sorted(jm)
     for k in jm:

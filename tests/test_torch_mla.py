@@ -56,7 +56,7 @@ def model():
     cfg = ref_get_config(ARCH, smoke=True)
     jb = ref_build_model(cfg, compute_dtype=jnp.float32)
     jp = jb.init(jax.random.PRNGKey(0))
-    tb = build_model(get_config(ARCH, smoke=True))
+    tb = build_model(get_config(ARCH, smoke=True), compute_dtype=torch.float32)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return cfg, jb, jp, tb, tp
 
@@ -154,7 +154,7 @@ def test_specs_and_param_tree_match_reference(model):
                               "final_norm"}
     assert tb.paged_decode_step is None and not tb.supports_paged_decode
     assert jb.supports_paged_decode == tb.supports_paged_decode
-    cache = tb.cache_specs(1, 1)
+    cache = tb.cache_specs(1, 1, dtype=torch.float32)
     floats = sum(int(np.prod(ws.shape)) for ws in tree_leaves(cache))
     assert floats == cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim)
 
@@ -165,7 +165,7 @@ def test_specs_and_param_tree_match_reference(model):
 def test_full_param_counts_match_reference(arch, n_params, n_active):
     """Specs only: the published configs' counts, no init."""
     jb = ref_build_model(ref_get_config(arch))
-    tb = build_model(get_config(arch))
+    tb = build_model(get_config(arch), compute_dtype=torch.float32)
     assert tb.param_count() == jb.param_count() == n_params
     assert tb.active_param_count() == jb.active_param_count() == n_active
 
@@ -178,7 +178,7 @@ def test_prefill_then_decode_matches_reference(model):
     T = 16
     jc = jb.init_cache(2, T, jnp.float32)
     jl, jc = jb.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
-    tc = tb.init_cache(2, T, device="cpu")
+    tc = tb.init_cache(2, T, device="cpu", dtype=torch.float32)
     ops.reset_launches()
     tl, tc = tb.prefill(tp, {"tokens": torch.from_numpy(toks)}, tc)
     _close(tl, jl)
@@ -205,11 +205,13 @@ def test_decode_equals_fresh_prefill(model):
     toks = _tokens(cfg, 2, 13, seed=3)
     T = 16
     _, cache = tb.prefill(tp, {"tokens": torch.from_numpy(toks[:, :12])},
-                          tb.init_cache(2, T, device="cpu"))
+                          tb.init_cache(2, T, device="cpu",
+                                        dtype=torch.float32))
     got, _ = tb.decode_step(tp, torch.from_numpy(toks[:, 12:]), cache,
                             torch.full((2,), 12, dtype=torch.int32))
     want, _ = tb.prefill(tp, {"tokens": torch.from_numpy(toks)},
-                         tb.init_cache(2, T, device="cpu"))
+                         tb.init_cache(2, T, device="cpu",
+                                       dtype=torch.float32))
     _close(got, want.numpy(), DECODE_TOL)
 
 

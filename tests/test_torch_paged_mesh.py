@@ -224,8 +224,8 @@ def test_tile_mode_on_meta_gives_o_and_lse():
 def test_init_paged_cache_under_a_mesh_holds_dtensors(world1):
     for arch in ("gemma2-9b", GRANITE):
         b = build_model(get_config(arch, smoke=True), mesh=world1,
-                        rules=SERVING)
-        pool = b.init_paged_cache(8, 16, device="cpu")
+                        rules=SERVING, compute_dtype=torch.float32)
+        pool = b.init_paged_cache(8, 16, device="cpu", dtype=torch.float32)
         leaves = [t for _, t in mref.leaf_paths(pool)]
         assert leaves and all(sharding.is_dtensor(t) for t in leaves)
         assert all(t.shape[1:3] == (8, 16) for t in leaves)

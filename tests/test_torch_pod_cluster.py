@@ -192,7 +192,8 @@ def test_load_dryrun_t_comp_reads_a_record_at_the_pod_peak(tmp_path,
                rec["cost"]["bytes"] / H100_SXM.hbm_bandwidth,
                coll["total_bytes"] / NVLINK)
     assert load_dryrun_t_comp("tinyllama-1.1b", "t") == pytest.approx(want)
-    assert rec["roofline"]["peak_dtype"] == "float32"
+    assert rec["roofline"]["peak_dtype"] == "bfloat16"
+    assert rec["roofline"]["roofline_s"] == pytest.approx(want)
     assert load_dryrun_t_comp("zamba2-7b", "t") is None
     assert load_dryrun_t_comp("tinyllama-1.1b", "t", "multipod2x16x16") \
         is None

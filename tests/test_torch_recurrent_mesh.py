@@ -121,13 +121,14 @@ def test_shard_tree_local_shapes_match_reference(outputs, i):
 
 
 def _port_run(arch, mesh, params, rules=None, T=16, steps=4):
-    b = build_model(get_config(arch, smoke=True), mesh=mesh, rules=rules)
+    b = build_model(get_config(arch, smoke=True), mesh=mesh, rules=rules,
+                    compute_dtype=torch.float32)
     p = params_from_numpy(params, "cpu")
     if mesh is not None:
         p = sharding.shard_tree(p, b.specs, b.rules, mesh)
     tokens = torch.from_numpy(mref.model_tokens(b.cfg))
     B, S = tokens.shape
-    cache = b.init_cache(B, T, device="cpu")
+    cache = b.init_cache(B, T, device="cpu", dtype=torch.float32)
     full = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
     with torch.no_grad():
         lg, cache = b.prefill(p, {"tokens": tokens}, cache)

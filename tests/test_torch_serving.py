@@ -56,7 +56,7 @@ def both():
         .add_model(ocr).plan("greedy").materialize())
 
     tcfg = get_config("internvl2-1b", smoke=True)
-    tbundle = build_model(tcfg)
+    tbundle = build_model(tcfg, compute_dtype=torch.float32)
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     tw = params_from_numpy(np.asarray(w), "cpu")
     caption, ocr = _specs(ModuleSpec, ModelSpec, d)
@@ -187,7 +187,8 @@ def test_lm_scheduler_tokens_equal_reference():
     cfg = ref_get_config("internvl2-1b", smoke=True)
     bundle = ref_build_model(cfg, compute_dtype=jnp.float32)
     params = bundle.init(jax.random.PRNGKey(2))
-    tbundle = build_model(get_config("internvl2-1b", smoke=True))
+    tbundle = build_model(get_config("internvl2-1b", smoke=True),
+                          compute_dtype=torch.float32)
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     knobs = dict(decode_rows=2, page_size=8, max_seq_len=48, decode_pages=20)
     img = np.random.default_rng(5).standard_normal(

@@ -110,13 +110,15 @@ def _ref_run(arch, mesh, rules, opts, steps=4):
 
 def _port_run(arch, mesh, rules, opts, params, steps=4):
     cfg = get_config(arch, smoke=True)
-    b = build_model(cfg, mesh=mesh, rules=rules, **opts)
+    b = build_model(cfg, mesh=mesh, rules=rules, **opts,
+                    compute_dtype=torch.float32)
     p = params_from_numpy(params, "cpu")
     if mesh is not None:
         p = sharding.shard_tree(p, b.specs, b.rules, mesh)
     batch, n_img = mref.model_batch(cfg)
     B, S = batch["tokens"].shape
-    cache = b.init_cache(B, T_OF.get(arch, 16), device="cpu")
+    cache = b.init_cache(B, T_OF.get(arch, 16), device="cpu",
+                         dtype=torch.float32)
     full = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
     with torch.no_grad():
         lg, cache = b.prefill(p, {k: torch.from_numpy(v)
@@ -148,23 +150,25 @@ def test_no_mesh_is_the_unsharded_model(world1):
     want, params = _ref_run(arch, None, None, {})
     got = _port_run(arch, None, None, {}, params)
     np.testing.assert_allclose(got, want, **TOL)
-    b = build_model(get_config(arch, smoke=True))
+    b = build_model(get_config(arch, smoke=True), compute_dtype=torch.float32)
     assert b.mesh is None and b.rules == sharding.DEFAULT_RULES
 
 
 def test_bundle_under_a_mesh_holds_dtensors(world1):
     cfg = get_config("granite-moe-3b-a800m", smoke=True)
-    b = build_model(cfg, mesh=world1, rules=SERVING)
+    b = build_model(cfg, mesh=world1, rules=SERVING,
+                    compute_dtype=torch.float32)
     assert b.mesh is world1 and b.rules["embed"] is None
     params = b.init(torch.Generator().manual_seed(0), device="cpu")
-    cache = b.init_cache(1, 8, device="cpu")
+    cache = b.init_cache(1, 8, device="cpu", dtype=torch.float32)
     for leaf in [params["stages"]["moe"]["blocks"]["moe"]["wi_gate"],
                  cache["moe"]["k"]]:
         assert sharding.is_dtensor(leaf)
     # the hybrid family too: its weights and its state caches
-    hb = build_model(get_config("zamba2-7b", smoke=True), mesh=world1)
+    hb = build_model(get_config("zamba2-7b", smoke=True), mesh=world1,
+                     compute_dtype=torch.float32)
     hp = hb.init(torch.Generator().manual_seed(0), device="cpu")
-    hc = hb.init_cache(1, 8, device="cpu")
+    hc = hb.init_cache(1, 8, device="cpu", dtype=torch.float32)
     for leaf in [hp["stages"]["super"]["blocks"]["mamba"]["mamba"]["wz"],
                  hc["super"]["mamba"]["ssm"], hc["super"]["mamba"]["conv_x"],
                  hc["tail"]["ssm"]]:
@@ -194,11 +198,12 @@ def test_whisper_on_a_mesh_matches_reference(world1):
                                    jnp.full((B,), S + i, jnp.int32))
         want.append(np.asarray(lg))
 
-    b = build_model(get_config(arch, smoke=True), mesh=world1)
+    b = build_model(get_config(arch, smoke=True), mesh=world1,
+                    compute_dtype=torch.float32)
     p = sharding.shard_tree(
         params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"), b.specs,
         b.rules, world1)
-    tc = b.init_cache(B, 8, device="cpu")
+    tc = b.init_cache(B, 8, device="cpu", dtype=torch.float32)
     with torch.no_grad():
         lg, tc = b.prefill(p, {"tokens": torch.from_numpy(tokens),
                                "audio_frames": torch.from_numpy(frames)}, tc)

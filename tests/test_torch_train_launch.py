@@ -96,7 +96,7 @@ def test_launcher_trains_a_replica_a_rank_under_torch_distributed_run(
     assert ckpt.latest_step(tmp_path) == steps
 
     cfg = get_config("tinyllama-1.1b", smoke=True)
-    bundle = build_model(cfg, remat="none")
+    bundle = build_model(cfg, remat="none", compute_dtype=torch.float32)
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=10,
                        total_steps=steps, remat="none", microbatches=1)
     replicas = []

@@ -54,7 +54,7 @@ def _leaves(tree):
 
 def _setup(microbatches=1, **tkw):
     cfg = get_config("tinyllama-1.1b", smoke=True)
-    bundle = build_model(cfg)
+    bundle = build_model(cfg, compute_dtype=torch.float32)
     tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=5, total_steps=60,
                        microbatches=microbatches, **tkw)
     params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
@@ -194,7 +194,7 @@ def test_moment_dtype_bf16():
 
 def test_state_specs_mirror_param_tree():
     cfg = get_config("tinyllama-1.1b", smoke=True)
-    bundle = build_model(cfg)
+    bundle = build_model(cfg, compute_dtype=torch.float32)
     ss = state_specs(bundle.specs, TrainConfig())
     assert len(tree_leaves(bundle.specs)) == len(tree_leaves(ss["m"])) \
         == len(tree_leaves(ss["v"]))
@@ -276,7 +276,7 @@ def test_int8_quantizer_matches_reference_on_shared_noise():
 def test_state_specs_match_reference():
     cfg = get_config("tinyllama-1.1b", smoke=True)
     for moments in ("float32", "bfloat16"):
-        ts = state_specs(build_model(cfg).specs,
+        ts = state_specs(build_model(cfg, compute_dtype=torch.float32).specs,
                          TrainConfig(moment_dtype=moments))
         js = jopt.state_specs(
             ref_build_model(ref_get_config("tinyllama-1.1b", smoke=True)).specs,
@@ -299,7 +299,8 @@ def test_five_step_loss_trajectory_matches_reference():
     jp = jax.jit(jb.init)(jax.random.PRNGKey(0))
     js = jopt.init_state(jp, RefTrainConfig(**kw))
     jstep = jax.jit(ref_make_train_step(jb, RefTrainConfig(**kw)))
-    tb = build_model(get_config("tinyllama-1.1b", smoke=True))
+    tb = build_model(get_config("tinyllama-1.1b", smoke=True),
+                     compute_dtype=torch.float32)
     ts = init_state(params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
                     TrainConfig(**kw))
     tstep = make_train_step(tb, TrainConfig(**kw))

@@ -182,7 +182,18 @@ def _mesh(shape):
     return Mesh(np.asarray(devs).reshape(shape), ("data", "model"))
 
 
+def forced_tokens(cfg, B, steps, seed=3):
+    """A "bf16" case's decode inputs: ``steps`` columns of seeded tokens
+    fed in turn (teacher forcing), so a bfloat16 rounding that tips a
+    near-tie argmax cannot send the two packages down different paths."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, steps)).astype(np.int32)
+
+
 def run_model(case):
+    """A case's prefill and decode logits; a "bf16" case builds with the
+    reference's default compute (bfloat16) and caches, and feeds
+    ``forced_tokens``, else float32 and greedy tokens fed back."""
     import jax
     import jax.numpy as jnp
 
@@ -192,14 +203,18 @@ def run_model(case):
     mesh = _mesh(case["mesh"])
     cfg = model_cfg(case["arch"]).with_overrides(**case.get("cfg", {}))
     rules = merge_rules(case.get("rules"))
-    bundle = build_model(cfg, mesh=mesh, rules=rules,
-                         compute_dtype=jnp.float32, **case.get("opts", {}))
+    bf16 = case.get("bf16", False)
+    dt = {} if bf16 else {"compute_dtype": jnp.float32}
+    bundle = build_model(cfg, mesh=mesh, rules=rules, **dt,
+                         **case.get("opts", {}))
     params = jax.device_put(model_params(case["arch"], case.get("cfg")),
                             tree_shardings(bundle.specs, rules, mesh))
     batch, n_img = model_batch(cfg)
     B, S = batch["tokens"].shape
-    cache_specs = bundle.cache_specs(B, case["T"], jnp.float32)
-    cache = jax.device_put(bundle.init_cache(B, case["T"], jnp.float32),
+    cdt = jnp.bfloat16 if bf16 else jnp.float32
+    forced = forced_tokens(cfg, B, case["steps"])
+    cache_specs = bundle.cache_specs(B, case["T"], cdt)
+    cache = jax.device_put(bundle.init_cache(B, case["T"], cdt),
                            tree_shardings(cache_specs, rules, mesh))
     with mesh:
         prefill = jax.jit(bundle.prefill)
@@ -208,8 +223,9 @@ def run_model(case):
                                      for k, v in batch.items()}, cache)
         logits = [np.asarray(lg)]
         lengths = jnp.full((B,), S + n_img, jnp.int32)
-        for _ in range(case["steps"]):
-            tok = jnp.asarray(logits[-1].argmax(-1)[:, None].astype(np.int32))
+        for step in range(case["steps"]):
+            tok = jnp.asarray(forced[:, step:step + 1] if bf16 else
+                              logits[-1].argmax(-1)[:, None].astype(np.int32))
             lg, cache = decode(params, tok, cache, lengths)
             logits.append(np.asarray(lg))
             lengths = lengths + 1

@@ -95,10 +95,12 @@ def _save(rank, out, res):
 
 
 def model_worker(rank, shape, cases, params, out):
-    """Each case's prefill + decode logits (greedy tokens fed back) on
-    the mesh ``shape``; "local_shapes" adds every leaf's local shape.  A
-    case's "cfg" overrides the smoke config, its weights then under the
-    key "params" of ``params`` (else its arch)."""
+    """Each case's prefill + decode logits (greedy tokens fed back, or
+    in a "bf16" case ``torch_mesh_ref.forced_tokens`` at the default
+    compute and cache dtypes, bfloat16) on the mesh ``shape``;
+    "local_shapes" adds every leaf's local shape.  A case's "cfg"
+    overrides the smoke config, its weights then under the key "params"
+    of ``params`` (else its arch)."""
     import torch
 
     from repro_torch.common.bridge import params_from_numpy
@@ -111,21 +113,25 @@ def model_worker(rank, shape, cases, params, out):
     for i, case in cases:
         cfg = get_config(case["arch"], smoke=True).with_overrides(
             **case.get("cfg", {}))
+        bf16 = case.get("bf16", False)
+        dt = torch.bfloat16 if bf16 else torch.float32
         b = build_model(cfg, mesh=mesh, rules=case.get("rules"),
-                        **case.get("opts", {}))
+                        **case.get("opts", {}), compute_dtype=dt)
         p = shard_tree(params_from_numpy(
             params[case.get("params", case["arch"])], "cpu"),
             b.specs, b.rules, mesh)
         batch, n_img = mref.model_batch(cfg)
         B, S = batch["tokens"].shape
-        cache = b.init_cache(B, case["T"], device="cpu")
+        forced = torch.from_numpy(mref.forced_tokens(cfg, B, case["steps"]))
+        cache = b.init_cache(B, case["T"], device="cpu", dtype=dt)
         with torch.no_grad():
             lg, cache = b.prefill(p, {k: torch.from_numpy(v)
                                       for k, v in batch.items()}, cache)
             logits = [lg.full_tensor()]
             lengths = torch.full((B,), S + n_img, dtype=torch.int32)
-            for _ in range(case["steps"]):
-                tok = logits[-1].argmax(-1)[:, None].to(torch.int32)
+            for step in range(case["steps"]):
+                tok = (forced[:, step:step + 1] if bf16 else
+                       logits[-1].argmax(-1)[:, None].to(torch.int32))
                 lg, cache = b.decode_step(p, tok, cache, lengths)
                 logits.append(lg.full_tensor())
                 lengths = lengths + 1
@@ -146,14 +152,15 @@ def _paged_run(b, p, cfg, ps, n_pages, full):
 
     rows, tables = mref.paged_scenario(cfg, ps, n_pages)
     B = len(rows)
-    pool = b.init_paged_cache(n_pages, ps, device="cpu")
+    pool = b.init_paged_cache(n_pages, ps, device="cpu", dtype=torch.float32)
     res = {}
     with torch.no_grad():
         first = torch.zeros(B, cfg.vocab_size)
         for i, r in enumerate(rows):
             if r is None:
                 continue
-            one = b.init_cache(1, len(r["pages"]) * ps, device="cpu")
+            one = b.init_cache(1, len(r["pages"]) * ps, device="cpu",
+                               dtype=torch.float32)
             lg, one = b.prefill(p, {k: torch.from_numpy(v)
                                     for k, v in r["batch"].items()}, one)
             first[i] = full(lg)[0]
@@ -180,6 +187,8 @@ def paged_worker(rank, shape, cases, params, out):
     a case with "unsharded" runs the unsharded bundle of the same weights
     too, its outputs under "plain/" (the port pages granite's moe stage,
     which the reference does not)."""
+    import torch
+
     from repro_torch.common.bridge import params_from_numpy
     from repro_torch.common.config import get_config
     from repro_torch.common.sharding import shard_tree
@@ -193,14 +202,15 @@ def paged_worker(rank, shape, cases, params, out):
         full = params_from_numpy(params[case.get("params", case["arch"])],
                                  "cpu")
         b = build_model(cfg, mesh=mesh, rules=case.get("rules"),
-                        **case.get("opts", {}))
+                        **case.get("opts", {}), compute_dtype=torch.float32)
         p = shard_tree(full, b.specs, b.rules, mesh)
         for k, v in _paged_run(b, p, cfg, case["ps"], case["n_pages"],
                                lambda t: t.full_tensor()).items():
             res[f"{i}/{k}"] = v
         if case.get("unsharded"):
-            for k, v in _paged_run(build_model(cfg), full, cfg, case["ps"],
-                                   case["n_pages"], lambda t: t).items():
+            for k, v in _paged_run(
+                    build_model(cfg, compute_dtype=torch.float32), full, cfg,
+                    case["ps"], case["n_pages"], lambda t: t).items():
                 res[f"{i}/plain/{k}"] = v
     _save(rank, out, res)
 
@@ -223,7 +233,7 @@ def loss_worker(rank, shape, cases, params, out):
         cfg = get_config(case["arch"], smoke=True).with_overrides(
             **case.get("cfg", {}))
         b = build_model(cfg, mesh=mesh, rules=case.get("rules"),
-                        **case.get("opts", {}))
+                        **case.get("opts", {}), compute_dtype=torch.float32)
         p = shard_tree(params_from_numpy(params[case["arch"]], "cpu"),
                        b.specs, b.rules, mesh)
         batch = {k: torch.from_numpy(v)
@@ -239,8 +249,9 @@ def loss_worker(rank, shape, cases, params, out):
 def dryrun_worker(rank, shape, cells, out):
     """Each dry-run cell's step on real tensors on the mesh ``shape``,
     counted by ``common.profiling`` as ``launch.dryrun`` counts it on
-    meta tensors: the weights drawn at the dry run's dtypes (float32
-    train state, bfloat16 serving weights and cache), random tokens, a
+    meta tensors: built at the dry run's default compute (bfloat16), the
+    weights drawn at its dtypes (float32 train state, bfloat16 serving
+    weights and cache), random tokens, a
     prefill of the whole sequence and a decode at half of it.  Writes
     each cell's FLOPs, collectives by kind and argument bytes as JSON
     from rank 0."""

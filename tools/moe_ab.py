@@ -123,7 +123,7 @@ def main() -> int:
     print(f"[card] {cs.card_line()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     cfg = get_config("granite-moe-3b-a800m")
-    bundle = build_model(cfg)
+    bundle = build_model(cfg, compute_dtype=torch.float32)
     params = bundle.init(torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     lens = cs.prompt_lens(cs.FAM_PROMPTS, cs.FAM_REQS)

@@ -60,7 +60,7 @@ def run(arch, remat, form, args) -> dict:
     cfg = get_config(arch, smoke=args.smoke)
     if not args.smoke:
         cfg = cfg.with_overrides(n_layers=CUTS[arch])
-    bundle = build_model(cfg, remat=remat)
+    bundle = build_model(cfg, remat=remat, compute_dtype=torch.float32)
     tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=1,
                        total_steps=args.steps)
     state = init_state(bundle.init(

@@ -45,7 +45,7 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
     cfg = get_config("tinyllama-1.1b").with_overrides(n_layers=args.layers)
-    bundle = build_model(cfg, remat="none")
+    bundle = build_model(cfg, remat="none", compute_dtype=torch.float32)
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=10,
                        total_steps=args.steps)
     state = init_state(bundle.init(torch.Generator().manual_seed(args.seed),
