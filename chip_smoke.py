@@ -9,10 +9,13 @@ Phases (any failure exits non-zero; nothing is caught):
    ``nvcc`` for sm_90a (one process per source, in parallel), print the
    card's name and power limit, each kernel instance's registers,
    static shared memory and spills (``ptxas -v``; a spill in an
-   attention or SSD kernel fails), the flash kernel's tiles and dynamic
-   shared memory per head dim, the SSD kernel's plan at zamba2-7b's three
-   prefill shapes (tiles, threads, shared memory, and how many blocks an
-   SM holds: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, at least
+   attention or SSD kernel fails; the bfloat16 flash instance,
+   ``flash_fwd_mma``, must be there at every head dim), the flash
+   kernel's tiles and dynamic shared memory per head dim and dtype (the
+   float32 and the bfloat16 instance have their own), the SSD kernel's
+   plan at zamba2-7b's three prefill shapes (tiles, threads, shared
+   memory, and how many blocks an SM holds:
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, at least
    two), and the sLSTM prefill kernel's plan at xlstm-1.3b (cluster size,
    shared memory, and how many such clusters the card holds at once:
    ``cudaOccupancyMaxActiveClusters``).
@@ -121,11 +124,11 @@ Phases (any failure exits non-zero; nothing is caught):
    checks and times the three attention kernels at its shapes.
 10. The analysis passes against the card: the kernel checker's sweep
    (``check_kernels(device=...)``) gives no ERROR and its flash, SSD and
-   sLSTM plans equal the built kernels' (``flash_attention_plan``,
-   ``ssd_intra_chunk_info``, ``slstm_prefill_info``); every case it
-   passes launches once at its full shape in float32 with seeded inputs
-   and matches its plain version at the tests' f32 tolerance (rtol =
-   atol = 2e-4); every case it marks ERROR
+   sLSTM plans equal the built kernels' (``flash_attention_plan`` in
+   each dtype, ``ssd_intra_chunk_info``, ``slstm_prefill_info``); every
+   case it passes launches once at its full shape in float32 with seeded
+   inputs and matches its plain version at the tests' f32 tolerance
+   (rtol = atol = 2e-4); every case it marks ERROR
    (head dim 96, sLSTM head dims 1024 and 136, SSD states of 256 and
    1024, grid extents above CUDA's, a paged tile past its page) raises in
    its wrapper; the checker's tile plans (threads, blocks an SM) against
@@ -238,7 +241,9 @@ Phases (any failure exits non-zero; nothing is caught):
    float32 compute on the same weights than twice its peer), decode ==
    prefill in (b) and card == CPU at 2 layers within rtol = atol 3e-2.
    Prints (a)'s rates beside phase 3's float32 ones.  Phase 2's bfloat16
-   rows read their launches off these paths.
+   rows read their launches off these paths, but for the flash row at
+   gemma2-9b's 4,100-token local layer, which no bfloat16 path runs (its
+   launches 0, and a failure if one of these paths ran that shape).
 17. Print the kernels line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.  Each row of the kernels line is
    timed at a call shape its path runs; its ``launches`` are that path's
@@ -269,6 +274,19 @@ TOL = {"float32": (2e-4, 0.0),        # f32 math, another summation order
        # result to bf16: at most one bf16 ulp (2^-7 relative) apart; the
        # 1e-3 floor stays below one key's share of a ~270-key softmax
        "bfloat16": (1e-3, 2.0**-7)}
+# TOL["bfloat16"] passes one bf16 ulp anywhere, so it cannot tell float32
+# math from a narrower one.  A bf16 flash output is also read against
+# exact (float64) attention rounded to bf16: the share of outputs that
+# differ (``ref.flips``) may be at most FLIPS_MULTIPLE times the plain
+# version's on the same inputs.  Float32 math flips ~0.02-0.06 % (its
+# summation order); P kept to ~17 bits, or O summed in the tensor cores'
+# truncating accumulators over 4,096 keys, flips 0.18-0.37 % (H100).
+FLIPS_MULTIPLE = 3.0
+# A library call in bf16 (SDPA, flex_attention) rounds P to bf16 before
+# P.V, a narrower function than the kernels' (2.3x TOL["bfloat16"] for
+# flex_attention at gemma2-9b's local layer, H100); it stands as the
+# library time where it is within this multiple of the tolerance.
+LIB_BF16_MULTIPLE = 4.0
 # phase 10 holds each kernel-checker case to its plain version at
 # TOL["float32"], except the SSD cases: those are held to the plain
 # version in float64 (ssd_intra_chunk_ref, and for ssd_chunked the
@@ -590,11 +608,18 @@ def phase_build():
     plan = (ctypes.c_int * 4)()
     lib = build.load("flash_attention")
     for D in ops.HEAD_DIMS:
-        if lib.flash_attention_plan(D, plan) != 0:
-            fail(f"flash_attention has no plan for D={D}")
-        log(f"[build] flash_attention plan D={D}: BQ {plan[0]}, BK "
-            f"{plan[1]}, {plan[2]} threads, {plan[3]} B dynamic shared "
-            "memory")
+        for dt, code in ops._DTYPES.items():
+            if lib.flash_attention_plan(D, code, plan) != 0:
+                fail(f"flash_attention has no {dt} plan for D={D}")
+            log(f"[build] flash_attention {str(dt).split('.')[1]} plan "
+                f"D={D}: BQ {plan[0]}, BK {plan[1]}, {plan[2]} threads, "
+                f"{plan[3]} B dynamic shared memory")
+    # the bfloat16 instance is flash_fwd_mma<D, BQ, BK, KW>, one a head dim
+    mma = [e for e in ptxas_entries(reports["flash_attention"])
+           if "flash_fwd_mma" in e["name"]]
+    if len(mma) != len(ops.HEAD_DIMS):
+        fail(f"ptxas reported {len(mma)} flash_fwd_mma instances, not "
+             f"{len(ops.HEAD_DIMS)}")
     if spilled:
         fail(f"register spills in {spilled}")
     # the SSD kernel's plan at zamba2-7b's prefills (and smoke): the
@@ -740,6 +765,28 @@ def _within(got, want, dtype: str) -> tuple[float, float]:
     return diff.max().item(), (diff / (atol + rtol * w.abs())).max().item()
 
 
+def _flips(what, got, q, k, v, **kw) -> dict:
+    """The flips of a bf16 flash output ``got`` of (q, k, v, **kw) and of
+    the plain version, against exact attention rounded to bf16; fails
+    above ``FLIPS_MULTIPLE`` times the plain version's.  Returns both."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    exact = ref.flash_attention_ref(q, k, v, dtype=torch.float64, **kw)
+    mine = ref.flips(got, exact)
+    plain = ref.flips(ref.flash_attention_ref(q, k, v, **kw), exact)
+    ok = mine <= FLIPS_MULTIPLE * plain
+    log(f"[kernels] flash_attention bfloat16 {what}: flips {mine:.5%} of "
+        f"the outputs, the plain version {plain:.5%} (at most "
+        f"{FLIPS_MULTIPLE:g}x) {'ok' if ok else 'TOO MANY'}")
+    if not ok:
+        fail(f"flash_attention bfloat16 {what}: {mine:.5%} of the outputs "
+             f"differ from exact attention, above {FLIPS_MULTIPLE:g}x the "
+             f"plain version's {plain:.5%}")
+    return {"flips": mine, "plain_flips": plain}
+
+
 def _check(name, dtype, what, got, want) -> float:
     import torch
 
@@ -815,13 +862,14 @@ def _g2_softcap(s, b, h, qi, ki):
     return G2_SOFTCAP * (s / G2_SOFTCAP).tanh()
 
 
-def _flex_lib(name, q, k, v, want, mask_mod, Q_LEN, KV_LEN):
+def _flex_lib(name, q, k, v, want, mask_mod, Q_LEN, KV_LEN, dname):
     """The one-call library equivalent where SDPA has no softcap:
     ``flex_attention`` over q (1, H, Q_LEN, D) and k, v (1, K, KV_LEN, D)
     with gemma2-9b's tanh softcap as score_mod, ``mask_mod`` as a block
     mask and GQA, compiled once here, outside any timing.  Its output
-    (1, H, Q_LEN, D) is held to ``want`` (the plain version's) at the
-    float32 tolerance before it is timed; returns the call."""
+    (1, H, Q_LEN, D) is held to ``want`` (the plain version's) before it
+    is timed: at ``TOL["float32"]``, or in bfloat16 within
+    ``LIB_BF16_MULTIPLE`` times ``TOL["bfloat16"]``; returns the call."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -834,8 +882,17 @@ def _flex_lib(name, q, k, v, want, mask_mod, Q_LEN, KV_LEN):
         return flex(q, k, v, score_mod=_g2_softcap, block_mask=block_mask,
                     enable_gqa=True)
 
-    _check(name, "float32", "library (flex_attention) vs plain",
-           call().transpose(1, 2).reshape(want.shape), want)
+    got = call().transpose(1, 2).reshape(want.shape)
+    if dname == "float32":
+        _check(name, dname, "library (flex_attention) vs plain", got, want)
+        return call
+    torch.cuda.synchronize()
+    err, ratio = _within(got, want, dname)
+    log(f"[kernels] {name} {dname} library (flex_attention) vs plain: "
+        f"max_abs_err {err:.3e}, {ratio:.2f} of the tolerance (at most "
+        f"{LIB_BF16_MULTIPLE:g}: it keeps P in bf16)")
+    if not ratio <= LIB_BF16_MULTIPLE:
+        fail(f"{name}: flex_attention in {dname} is not the same function")
     return call
 
 
@@ -1609,20 +1666,23 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
             kw = dict(window=window, softcap=softcap)
             q = rnd(1, S_, H_, D_).to(dt)
             k, v = rnd(1, S_, K_, D_).to(dt), rnd(1, S_, K_, D_).to(dt)
-            err = _check("flash_attention", dname,
-                         f"{path} prefill: S={S_} H={H_} K={K_} D={D_} {kw}",
-                         ops.flash_attention(q, k, v, **kw),
+            what = f"{path} prefill: S={S_} H={H_} K={K_} D={D_} {kw}"
+            got = ops.flash_attention(q, k, v, **kw)
+            err = _check("flash_attention", dname, what, got,
                          ref.flash_attention_ref(q, k, v, **kw))
+            if dt is torch.bfloat16 and S_ == G2_LONG:  # a share of 17 M
+                _flips(what, got, q, k, v, **kw)       # outputs, not of 45 k
+            del got
             lib = None
             qh, kh_, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             if not softcap and not window:
                 lib = (lambda q=qh, k=kh_, v=vh:
                        F.scaled_dot_product_attention(
                            q, k, v, is_causal=True, enable_gqa=True))
-            elif dt is torch.float32:
+            elif dt is torch.float32:  # bf16 rows are checked, not kept
                 lib = _flex_lib(name, qh, kh_, vh,
                                 ref.flash_attention_ref(q, k, v, **kw),
-                                flex_mask, S_, S_)
+                                flex_mask, S_, S_, dname)
             specs.append((
                 name, "csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:93", "flash_fwd", err,
@@ -1682,7 +1742,7 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
                                 kd.transpose(1, 2).contiguous(),
                                 vd.transpose(1, 2).contiguous(),
                                 ref.decode_attention_ref(qd, kd, vd, ld, **kw),
-                                flex_mask, 1, T_)
+                                flex_mask, 1, T_, dname)
             specs.append((
                 name, "csrc/decode_attention.cu",
                 "src/repro/kernels/decode_attention.py:70", "decode_fwd", err,
@@ -1868,8 +1928,11 @@ def phase_kernels_paged_tile(dev) -> tuple[list[dict], dict]:
                 keys[name] = (f"{arch}-paged-mesh", "paged_decode_attention",
                               (B_, tables.shape[1], ps_loc, H_, K_, D_,
                                kw["window"], P_loc, tile[3]))
-            else:
-                keys[name] = (None, "paged_decode_attention", None)
+            else:  # no path on one card: 0 on phase 15's
+                keys[name] = (tuple(f"{a}-paged-mesh" for a in PM_ARCHS),
+                              "paged_decode_attention",
+                              (B_, tables.shape[1], ps_loc, H_, K_, D_,
+                               kw["window"], P_loc, tile[3]))
             if dt is not torch.float32:
                 continue
             rows.append(_row(
@@ -3223,24 +3286,22 @@ def _plans_agree(dev, cases, n_sm) -> None:
     holds at once against the heads)."""
     import ctypes
 
-    import torch
-
     from repro_torch.analysis import kernel_check as kc
     from repro_torch.kernels import build, ops
 
     out = (ctypes.c_int * 4)()
     lib = build.load("flash_attention")
-    for D in ops.HEAD_DIMS:
-        if lib.flash_attention_plan(D, out) != 0:
-            fail(f"flash_attention_plan has no plan for D={D}")
-        for dt in (torch.float32, torch.bfloat16):
+    for dt, code in ops._DTYPES.items():
+        for D in ops.HEAD_DIMS:
+            if lib.flash_attention_plan(D, code, out) != 0:
+                fail(f"flash_attention_plan has no {dt} plan for D={D}")
             p = ops.flash_plan(D, dt)
             if (p.bq, p.bk, p.threads, p.smem) != tuple(out):
                 fail(f"ops.flash_plan({D}, {dt}) = {p}, the kernel's "
                      f"{tuple(out)}")
-    if lib.flash_attention_plan(96, out) == 0:
-        fail("flash_attention_plan has a plan for D=96; ops.flash_plan "
-             "has none")
+        if lib.flash_attention_plan(96, code, out) == 0:
+            fail(f"flash_attention_plan has a {dt} plan for D=96; "
+                 "ops.flash_plan has none")
     log(f"[phase10] ops.flash_plan == flash_attention_plan at D in "
         f"{ops.HEAD_DIMS}, float32 and bfloat16; both refuse D=96")
     info = (ctypes.c_int * 3)()
@@ -5334,10 +5395,13 @@ def phase_kernels_bf16(dev) -> tuple[list[dict], dict]:
     at internvl2-1b's longest prefill (phase 16 (a)), decode D=64 over
     (b)'s dense bfloat16 cache at its last step, paged D=64 over (b)'s
     bfloat16 pool at its last tick, and zamba2-7b's flash D=112 over its
-    200-token prompt and decode D=112 at its last step ((c)); the
-    library call is SDPA in bfloat16 (none for the paged kernel).
-    Returns the rows and each row's (path, kernel, call shape and
-    dtype)."""
+    200-token prompt and decode D=112 at its last step ((c)), and flash
+    D=256 at gemma2-9b's 4,100-token local layer, which no bf16 path
+    runs (its path the tuple of bf16 paths, none of which may run it); the
+    library call is SDPA in bfloat16, flex_attention for the D=256 row
+    (softcap), none for the paged kernel.  The flash rows also carry their
+    flips and the plain version's (``_flips``).  Returns the rows and each
+    row's (path, kernel, call shape and dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -5359,13 +5423,15 @@ def phase_kernels_bf16(dev) -> tuple[list[dict], dict]:
              Z_D, Z16_S, "zamba2-7b shared attention prefill")):
         q = rnd(1, S_, H_, D_)
         k, v = rnd(1, S_, K_, D_), rnd(1, S_, K_, D_)
-        err = _check("flash_attention", dn, f"{what}: S={S_} H={H_} K={K_} "
-                     f"D={D_}", ops.flash_attention(q, k, v),
+        what = f"{what}: S={S_} H={H_} K={K_} D={D_}"
+        got = ops.flash_attention(q, k, v)
+        err = _check("flash_attention", dn, what, got,
                      ref.flash_attention_ref(q, k, v))
+        flips = _flips(what, got, q, k, v)
         keys[name] = (path, "flash_attention",
                       (1, S_, S_, H_, K_, D_, True, 0, dn))
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        rows.append(_row(
+        rows.append(flips | _row(
             name, "csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:93", "flash_fwd", err,
             lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
@@ -5374,6 +5440,34 @@ def phase_kernels_bf16(dev) -> tuple[list[dict], dict]:
                 F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                enable_gqa=gqa),
             *_flash_work(1, S_, S_, H_, K_, D_, True, isz), dname=dn))
+
+    # gemma2-9b's local layer at its 4,100-token prefill: the bf16
+    # instance at D = 256 under a window and a softcap, which no bf16 path
+    # runs (phase 8 serves gemma2-9b in float32); the library call is
+    # flex_attention in bf16, timed at a few calls
+    name = "flash_attention_d256_local_bf16"
+    H_, K_, D_ = FAM_GEOM["gemma2-9b"]
+    kw = dict(window=G2_WINDOW, softcap=G2_SOFTCAP)
+    q = rnd(1, G2_LONG, H_, D_)
+    k, v = rnd(1, G2_LONG, K_, D_), rnd(1, G2_LONG, K_, D_)
+    what = f"gemma2-9b local prefill: S={G2_LONG} H={H_} K={K_} D={D_} {kw}"
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    err = _check("flash_attention", dn, what, got, want)
+    flips = _flips(what, got, q, k, v, **kw)
+    del got
+    keys[name] = (BF16_PATHS, "flash_attention",
+                  (1, G2_LONG, G2_LONG, H_, K_, D_, True, G2_WINDOW, dn))
+    lib = _flex_lib(name, *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+                    want, _g2_prefill_local, G2_LONG, G2_LONG, dn)
+    del want
+    rows.append(flips | _row(
+        name, "csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:93", "flash_fwd", err,
+        lambda: ops.flash_attention(q, k, v, **kw),
+        lambda: ref.flash_attention_ref(q, k, v, **kw), lib,
+        *_flash_work(1, G2_LONG, G2_LONG, H_, K_, D_, True, isz, G2_WINDOW),
+        dname=dn, iters=3))
 
     for name, path, H_, K_, D_, T_, n, what in (
             ("decode_attention_bf16", "bf16-bundle", H, K, D, T,
@@ -5920,12 +6014,16 @@ def phase_bf16_zamba2(dev) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+# phase 16's paths: (a), (b), (c)
+BF16_PATHS = ("bf16-serve", "bf16-bundle", "bf16-zamba2")
+
+
 def phase_bf16(dev, f32_rates) -> dict:
     """Phase 16: the reference's default compute, bfloat16, on the card:
     (a) the main path, (b) the bundle's default caches, (c) zamba2-7b."""
-    return {"bf16-serve": phase_bf16_serve(dev, f32_rates),
-            "bf16-bundle": phase_bf16_bundle(dev),
-            "bf16-zamba2": phase_bf16_zamba2(dev)}
+    return dict(zip(BF16_PATHS, (phase_bf16_serve(dev, f32_rates),
+                                 phase_bf16_bundle(dev),
+                                 phase_bf16_zamba2(dev))))
 
 
 def main() -> int:
@@ -5993,16 +6091,18 @@ def main() -> int:
     keys.update(rec_keys, **slice_keys, **fam_keys, **tile_keys, **b16_keys)
     for row in rows:
         path, kernel, key = keys[row["name"]]
-        if path is None:
-            # phase 2's page-range tile: a (2, ·) mesh's, which one card
-            # does not run; its kernel's launches are phase 15's
+        if isinstance(path, tuple):
+            # a shape no path runs (the page-range tile, a (2, ·) mesh's;
+            # the bf16 flash at gemma2-9b's local layer): 0 at it on the
+            # paths named, beside the kernel's launches there
             row["launches"] = 0
-            row["launches_of_kernel"] = sum(
-                paths[f"{a}-paged-mesh"]["launches"][kernel]
-                for a in PM_ARCHS)
-            log(f"[launches] {row['name']}: 0: no path on one card runs "
-                f"a page-range tile (phase 15's ranks ran "
-                f"{row['launches_of_kernel']} {kernel} launches on theirs)")
+            row["launches_of_kernel"] = sum(paths[p]["launches"][kernel]
+                                            for p in path)
+            log(f"[launches] {row['name']}: 0: no path runs it ({path} "
+                f"ran {row['launches_of_kernel']} {kernel} launches, none "
+                f"at {key})")
+            if any(paths[p]["shapes"][kernel].get(key) for p in path):
+                fail(f"{row['name']}: a path of {path} ran {key}")
             continue
         row["launches"] = paths[path]["shapes"][kernel].get(key, 0)
         row["launches_of_kernel"] = paths[path]["launches"][kernel]

@@ -397,8 +397,10 @@ def launch_plan(case: KernelCase, n_sm: int) -> LaunchPlan:
     if e == "flash_attention":
         B, S, H, D = case.shape("q")
         p = ops.flash_plan(D, case.dtype)
-        return LaunchPlan("flash_fwd", ops.flash_grid(B, S, H, D), p.threads,
-                          p.smem, plan=p)
+        kernel = ("flash_fwd_mma" if case.dtype is torch.bfloat16
+                  else "flash_fwd")
+        return LaunchPlan(kernel, ops.flash_grid(B, S, H, D, case.dtype),
+                          p.threads, p.smem, plan=p)
     if e in ("decode_attention", "paged_decode_attention"):
         B, H, D = case.shape("q")
         if e == "decode_attention":

@@ -38,8 +38,9 @@ LIBRARIES = {
         # q, k, v, o, B, S, T, H, K, D, dtype, causal, window, softcap, stream
         "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
-        # D, int[4] out: BQ, BK, threads, dynamic shared-memory bytes
-        "flash_attention_plan": [_I, _P],
+        # D, dtype, int[4] out: BQ, BK, threads, dynamic shared-memory
+        # bytes of that dtype's instance
+        "flash_attention_plan": [_I, _I, _P],
     }),
     "decode_attention": ("decode_attention.cu", {
         # q, k, v, lengths, o, ws, counters, B, H, K, D, T, n_split,

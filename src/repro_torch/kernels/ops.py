@@ -253,10 +253,10 @@ def check_grid(name, grid) -> None:
 
 @dataclass(frozen=True)
 class FlashPlan:
-    """The flash kernel's tiles at one head dim: the ``Tiles<D>`` and
-    ``Geom`` of ``csrc/flash_attention.cu``, which ``flash_attention_plan``
-    reports on the card.  bf16 inputs are widened to f32 as they are
-    staged, so the plan does not depend on the dtype."""
+    """The flash kernel's tiles at one head dim and dtype, which
+    ``flash_attention_plan`` reports on the card: the float32 instance's
+    ``Tiles<D>`` and ``Geom``, or the bfloat16 instance's ``MmaTiles<D>``
+    and ``MmaGeom`` (``csrc/flash_attention.cu``)."""
 
     bq: int           # query rows a block
     bk: int           # keys a tile
@@ -264,44 +264,57 @@ class FlashPlan:
     smem: int         # dynamic shared-memory bytes a block
 
 
-#: ``Tiles<D>`` of ``csrc/flash_attention.cu``: (BQ, BK) by head dim
+#: ``Tiles<D>`` of ``csrc/flash_attention.cu``, the float32 instance:
+#: (BQ, BK) by head dim
 FLASH_TILES = {16: (64, 64), 64: (16, 64), 112: (32, 64), 128: (64, 32),
                256: (32, 32)}
-#: the flash kernel's threads a block (``NT``)
+#: the float32 instance's threads a block (``NT``)
 FLASH_THREADS = 128
+#: ``MmaTiles<D>``, the bfloat16 instance: (BQ, BK, KW) by head dim; a
+#: warp owns 16 query rows and BK keys of each tile of KW x BK, so a block
+#: has 2 BQ KW threads
+FLASH_TILES_BF16 = {16: (32, 16, 1), 64: (32, 32, 4), 112: (64, 32, 2),
+                    128: (64, 32, 1), 256: (64, 16, 1)}
 
 
 @functools.lru_cache(maxsize=None)
 def flash_plan(D, dtype=torch.float32) -> FlashPlan:
-    """The flash kernel's plan at head dim D for ``dtype`` inputs
-    (float32 or bfloat16; the plan is the same for both): the Python
-    mirror of ``flash_attention_plan``.  Shared memory holds Q, one K
-    tile, one V tile (rows padded to D + 4 floats) and P (BK rows of BQ
-    + 4).  Raises ``NoPlanError`` for a D without a plan, as the wrapper
-    does at launch."""
+    """The flash kernel's plan at head dim D for ``dtype`` inputs: the
+    Python mirror of ``flash_attention_plan``.  float32: shared memory
+    holds Q, one K tile, one V tile (rows padded to D + 4 floats) and P
+    (BK rows of BQ + 4).  bfloat16: Q and two (K, V) tile pairs of KW x
+    BK keys, all bf16 with rows padded to D + 8.
+    Raises ``NoPlanError`` for a D without a plan, as the wrapper does at
+    launch."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention: dtype {dtype} is not float32 or "
                         "bfloat16")
     if D not in FLASH_TILES:
         raise NoPlanError(f"flash_attention: head_dim {D} not in "
                           f"{HEAD_DIMS}")
-    bq, bk = FLASH_TILES[D]
-    smem = 4 * (bq * (D + 4) + 2 * bk * (D + 4) + bk * (bq + 4))
+    if dtype is torch.bfloat16:
+        bq, bk, kw = FLASH_TILES_BF16[D]
+        threads = 2 * bq * kw
+        smem = 2 * (D + 8) * (bq + 4 * kw * bk)
+    else:
+        bq, bk = FLASH_TILES[D]
+        threads = FLASH_THREADS
+        smem = 4 * (bq * (D + 4) + 2 * bk * (D + 4) + bk * (bq + 4))
     if smem > SMEM_LIMIT:
         raise SharedMemoryError(f"flash_attention: head_dim {D} needs "
                                 f"{smem} B of shared memory a block, above "
                                 f"{SMEM_LIMIT}")
-    return FlashPlan(bq=bq, bk=bk, threads=FLASH_THREADS, smem=smem)
+    return FlashPlan(bq=bq, bk=bk, threads=threads, smem=smem)
 
 
-def flash_grid(B, S, H, D) -> tuple[int, int, int]:
+def flash_grid(B, S, H, D, dtype=torch.float32) -> tuple[int, int, int]:
     """The flash kernel's grid: (H, B, q tiles), the q tile slowest."""
-    return H, B, -(-S // flash_plan(D).bq)
+    return H, B, -(-S // flash_plan(D, dtype).bq)
 
 
 def _aligned(name, tensors):
     """The flash and split-KV decode kernels read rows with 16-byte
-    (f32) or 8-byte (bf16) vector loads."""
+    (f32; bf16 flash) or 8-byte (bf16 decode) vector loads."""
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must start on a 16-byte "
@@ -353,7 +366,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
     _cuda_ready("flash_attention", {"q": q, "k": k, "v": v}, D)
-    check_grid("flash_attention", flash_grid(B, S, H, D))
+    check_grid("flash_attention", flash_grid(B, S, H, D, q.dtype))
     _work("flash_attention", 4 * B * H * S * T * D, (q, k, v),
           _nbytes(q.shape, q.dtype))
     if dev.type == "meta":

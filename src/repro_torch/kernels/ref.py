@@ -17,17 +17,18 @@ NEG_INF = -2.0e38
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        lengths=None, starts=None):
+                        lengths=None, starts=None, dtype=torch.float32):
     """q: (B,S,H,D); k/v: (B,T,K,D). Plain softmax attention.  Optional
     per-row key bounds (B,): keys at or past ``lengths`` and below
-    ``starts`` are masked."""
+    ``starts`` are masked.  Computed in ``dtype``, the output rounded to
+    q's: float64 gives the exact attention of the inputs (``flips``)."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
+    s = torch.einsum("bshd,bthd->bhst", q.to(dtype), k.to(dtype)) / math.sqrt(D)
     if softcap and softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     qp = torch.arange(S, device=q.device)[:, None]
@@ -46,7 +47,14 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     # rows with every key masked produce 0 (matches the streaming kernel)
     p = torch.where(mask.any(-1, keepdim=True), p, torch.zeros_like(p))
-    return torch.einsum("bhst,bthd->bshd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", p, v.to(dtype)).to(q.dtype)
+
+
+def flips(out, exact) -> float:
+    """The share of a low-precision output's elements that differ from
+    ``exact`` (the same function computed in float64, then rounded to
+    out's dtype): how often an error crossed a rounding boundary."""
+    return (out != exact).float().mean().item()
 
 
 def decode_attention_ref(q, k, v, lengths, *, window=0, softcap=0.0):

@@ -188,21 +188,36 @@ def test_small_cases_match_the_plain_version_on_cpu():
 
 
 def test_flash_plan_mirrors_the_cuda_source():
-    """``ops.FLASH_TILES`` / ``FLASH_THREADS`` are the ``Tiles<D>`` and
-    ``NT`` lines of ``csrc/flash_attention.cu``; every head dim of the
-    wrappers has a plan, the same in float32 and bfloat16."""
+    """``ops.FLASH_TILES`` / ``FLASH_THREADS`` are the float32 instance's
+    ``Tiles<D>`` and ``NT`` lines of ``csrc/flash_attention.cu``, and
+    ``ops.FLASH_TILES_BF16`` the bfloat16 instance's ``MmaTiles<D>``
+    lines; every head dim of
+    the wrappers has a plan in each dtype, within a block's shared memory
+    and its threads, with warps of 16 query rows x BK keys in the
+    bfloat16 one."""
     src = (PORT / "csrc" / "flash_attention.cu").read_text()
     tiles = {int(d): (int(bq), int(bk)) for d, bq, bk in re.findall(
         r"struct Tiles<(\d+)> \{ static constexpr int BQ = (\d+), BK = "
         r"(\d+); \}", src)}
+    mma = {int(d): tuple(map(int, rest)) for d, *rest in re.findall(
+        r"struct MmaTiles<(\d+)> \{ static constexpr int BQ = (\d+), "
+        r"BK = (\d+), KW = (\d+); \}", src)}
     assert tiles == ops.FLASH_TILES
+    assert mma == ops.FLASH_TILES_BF16
     assert int(re.search(r"constexpr int NT = (\d+);", src).group(1)) == \
         ops.FLASH_THREADS
     assert tuple(sorted(ops.FLASH_TILES)) == ops.HEAD_DIMS
+    assert tuple(sorted(ops.FLASH_TILES_BF16)) == ops.HEAD_DIMS
     for D in ops.HEAD_DIMS:
         p = ops.flash_plan(D, torch.float32)
-        assert p == ops.flash_plan(D, torch.bfloat16)
-        assert p.smem <= ops.SMEM_LIMIT
+        assert (p.bq, p.bk, p.threads) == (*ops.FLASH_TILES[D],
+                                           ops.FLASH_THREADS)
+        b = ops.flash_plan(D, torch.bfloat16)
+        bq, bk, kw = ops.FLASH_TILES_BF16[D]
+        assert (b.bq, b.bk) == (bq, bk) and bq % 16 == 0 and bk % 16 == 0
+        assert b.threads == 32 * (bq // 16) * kw <= 256
+        assert b.smem == 2 * (D + 8) * (bq + 4 * kw * bk)
+        assert p.smem <= ops.SMEM_LIMIT and b.smem <= ops.SMEM_LIMIT
     with pytest.raises(ops.NoPlanError, match="head_dim 96"):
         ops.flash_plan(96)
 

@@ -572,6 +572,27 @@ def test_cuda_flash_family_head_dims(cuda_device, dtype, atol, rtol, H, K,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,D,kw", [
+    (1, 267, 14, 2, 64, {}),                     # internvl2-1b prefill
+    (1, 200, 32, 32, 112, {}),                   # zamba2-7b shared attention
+    (4, 512, 4, 4, 16, dict(causal=False)),      # the mini-clip towers' D
+    (1, 1024, 32, 8, 128, {}),                   # llama3-8b
+    (1, 2048, 16, 8, 256, dict(window=1024, softcap=50.0))])  # gemma2-9b
+def test_cuda_flash_bf16_flips_near_plain(cuda_device, B, S, H, K, D, kw):
+    """The bf16 instance keeps float32 math on its bf16 inputs: the share
+    of its outputs that differ from exact (float64) attention rounded to
+    bf16 is at most 3x the plain version's (``FLIPS_MULTIPLE`` of
+    ``chip_smoke.py``), which one bf16 ulp of tolerance cannot see; a
+    P narrowed to bf16 or to two bf16 terms fails it."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = (torch.randn(B, S, n, D, generator=g,
+                           device=cuda_device).bfloat16() for n in (H, K, K))
+    exact = ref.flash_attention_ref(q, k, v, dtype=torch.float64, **kw)
+    plain = ref.flips(ref.flash_attention_ref(q, k, v, **kw), exact)
+    assert ref.flips(ops.flash_attention(q, k, v, **kw), exact) <= 3 * plain
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol,rtol", [
     (torch.float32, 2e-4, 2e-4), (torch.bfloat16, 1e-3, 2.0**-7)])
 @pytest.mark.parametrize("H,K,D", FAMILY_DECODE_GEOMS)
@@ -640,17 +661,18 @@ def test_cuda_windowed_decode_reads_no_key_below_the_window(cuda_device):
 @pytest.mark.parametrize("D", ops.HEAD_DIMS)
 def test_cuda_flash_plan_equals_the_kernel_plan(cuda_device, D, dtype):
     """``ops.flash_plan`` (what the kernel checker reads on the CPU) is the
-    plan ``flash_attention_plan`` reports from the built kernel; a head
-    dim without one is refused by both."""
+    plan ``flash_attention_plan`` reports from the built kernel for the
+    same dtype; a head dim without one is refused by both."""
     import ctypes
 
     from repro_torch.kernels.build import load
 
     out = (ctypes.c_int * 4)()
-    assert load("flash_attention").flash_attention_plan(D, out) == 0
+    code = ops._DTYPES[dtype]
+    assert load("flash_attention").flash_attention_plan(D, code, out) == 0
     p = ops.flash_plan(D, dtype)
     assert (p.bq, p.bk, p.threads, p.smem) == tuple(out)
-    assert load("flash_attention").flash_attention_plan(96, out) != 0
+    assert load("flash_attention").flash_attention_plan(96, code, out) != 0
     with pytest.raises(ops.NoPlanError):
         ops.flash_plan(96, dtype)
 

@@ -208,3 +208,45 @@ def test_wrappers_reject_bad_inputs(bad):
         args = (q.to("meta"), k, k, lens)
     with pytest.raises((ValueError, TypeError)):
         ops.decode_attention(*args)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=50, softcap=30.0),
+                                dict(causal=False)],
+                         ids=["causal", "window-softcap", "full"])
+def test_flash_float64_reference_and_bf16_flips(kw):
+    """``ref.flash_attention_ref(..., dtype=torch.float64)`` is the exact
+    attention that ``chip_smoke.py`` reads a bfloat16 flash output's flips
+    against (``ref.flips``: outputs that differ from it rounded to bf16):
+    on float32 inputs it is the reference's function (2e-4).  At
+    internvl2-1b's prefill (S = 267, H = 14, K = 2, D = 64) the bf16
+    wrapper's CPU path, the plain version's float32 math, flips few
+    outputs (under 0.1 %), and a single bf16 P, which the kernel must
+    not keep, flips more than ``FLIPS_MULTIPLE`` = 3 times as many: the
+    limit tells the two apart."""
+    rng = np.random.default_rng(27)
+    (jq, jk, jv), (tq, tk, tv) = _both(_rand(rng, 1, 40, 4, 16),
+                                       _rand(rng, 1, 40, 2, 16),
+                                       _rand(rng, 1, 40, 2, 16))
+    exact32 = ref.flash_attention_ref(tq, tk, tv, dtype=torch.float64, **kw)
+    assert exact32.dtype == torch.float32
+    np.testing.assert_allclose(exact32.numpy(), np.asarray(
+        jref.flash_attention_ref(jq, jk, jv, **kw)), **TOL)
+
+    S, H, K, D = 267, 14, 2, 64
+    q, k, v = (torch.from_numpy(_rand(rng, 1, S, n, D)).bfloat16()
+               for n in (H, K, K))
+    exact = ref.flash_attention_ref(q, k, v, dtype=torch.float64, **kw)
+    plain = ref.flips(ops.flash_attention(q, k, v, **kw), exact)
+    assert 0.0 < plain < 1e-3
+    # P rounded to bf16 before P.V, the rest in float32
+    kk, vv = (x.float().repeat_interleave(H // K, dim=2) for x in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kk) / D ** 0.5
+    if kw.get("softcap"):
+        s = kw["softcap"] * torch.tanh(s / kw["softcap"])
+    i, j = torch.arange(S)[:, None], torch.arange(S)[None]
+    hidden = (j > i) if kw.get("causal", True) else torch.zeros(S, S, dtype=torch.bool)
+    if kw.get("window"):
+        hidden |= j <= i - kw["window"]
+    p = torch.softmax(s.masked_fill(hidden, float("-inf")), -1)
+    narrow = torch.einsum("bhst,bthd->bshd", p.bfloat16().float(), vv)
+    assert ref.flips(narrow.bfloat16(), exact) > 3 * plain

@@ -9,6 +9,10 @@
         > build/ab/ssd_scan_old.cu
     python3 tools/kernel_sweep.py --parts ssd \\
         --old-ssd build/ab/ssd_scan_old.cu
+    git show <commit>:src/repro_torch/csrc/flash_attention.cu \\
+        > build/ab/flash_attention_old.cu
+    python3 tools/kernel_sweep.py --parts flash_ab,flash \\
+        --old-flash build/ab/flash_attention_old.cu
 
 From the root of a checkout, on a machine with the card and ``nvcc``:
 
@@ -45,11 +49,23 @@ From the root of a checkout, on a machine with the card and ``nvcc``:
    ``--alt-ssd`` source (a variant with the package's C interface) in
    turns with the package's kernel at the three calls.
 
-6. Flash tiles (``--parts flash``): the package's flash source built
-   with each candidate (BQ, BK) tile at D = 128 and 256, checked against
-   the plain version and timed at gemma2-9b's prefill of 4,100 tokens
-   (local with window 4,096, and global; softcap 50) and llama3-8b's;
-   each instance's registers and spills.
+6. Flash A/B (``--parts flash_ab``, ``--old-flash``): an earlier
+   ``flash_attention.cu`` (the package's C interface) and each
+   ``--alt-flash`` variant against the package's, all launched directly,
+   in turns (old, new, variants, then back): the
+   bfloat16 instance at internvl2-1b's prefill (D = 64, S = 267, H = 14,
+   K = 2), zamba2-7b's shared attention (D = 112, S = 200, H = K = 32)
+   and gemma2-9b's local layer (D = 256, S = 4,100, window 4,096,
+   softcap 50), and the float32 instance at the first two as a control:
+   device time, CUDA-event time, the distance from the plain version,
+   in bfloat16 the share of outputs that differ from exact (float64)
+   attention rounded to bfloat16, SDPA's device time in the same dtype
+   where it computes the same function, and the bound.
+7. Flash tiles (``--parts flash``): the bfloat16 instance built with
+   each candidate (BQ, BK) tile, BQ in {32, 64} and BK in {16, 32, 64},
+   and KW in {1, 2, 4} warps on a row group's keys (8 warps a block at
+   most), each held to the plain version and timed at each head dim's
+   call (``FLASH_CALLS``), with each instance's registers and spills.
 
 Each ``--old-*`` source is needed only by the part that uses it.
 
@@ -572,82 +588,198 @@ def ssd_tile_sweep(dev) -> None:
                                                   50))
 
 
-# flash tile candidates (BQ, BK) at the new head dims, and the calls they
-# are timed at: gemma2-9b's prefill of 4,100 tokens (H = 16, K = 8, D =
-# 256, softcap 50), its local layers (window 4,096) and global ones;
-# llama3-8b's (H = 32, K = 8, D = 128) at the same length
-FLASH_TILES = {128: ((16, 64), (32, 32), (32, 64), (64, 32)),
-               256: ((16, 32), (16, 64), (32, 32), (32, 64))}
-FLASH_CALLS = ((256, 16, 8, 4100, 4096, 50.0), (256, 16, 8, 4100, 0, 50.0),
-               (128, 32, 8, 4100, 0, 0.0))
+# the bfloat16 flash instance's tile candidates (BQ, BK, KW: q rows a
+# block, keys a warp tile, warps on a row group's keys; at most 8 warps a
+# block), and the call each head dim is timed at, (B, S, H, K, causal,
+# window, softcap): the mini-clip vision tower (D = 16), internvl2-1b's
+# prefill (64), zamba2-7b's shared attention at its 200-token prompt
+# (112), llama3-8b at gemma2-9b's long prompt (128), gemma2-9b's local
+# layer (256)
+FLASH_TILES = tuple((bq, bk, kw) for bq in (32, 64)
+                    for bk in (16, 32, 64) for kw in (1, 2, 4)
+                    if bq // 16 * kw <= 8)
+FLASH_CALLS = {16: (4, 16, 4, 4, False, 0, 0.0),
+               64: (1, 267, 14, 2, True, 0, 0.0),
+               112: (1, 200, 32, 32, True, 0, 0.0),
+               128: (1, 4100, 32, 8, True, 0, 0.0),
+               256: (1, 4100, 16, 8, True, 4096, 50.0)}
+# the old-vs-new bfloat16 rows (--old-flash): the two served shapes and
+# gemma2-9b's local layer; the float32 instance at the served shapes as
+# the control that did not change
+FLASH_AB = ((64, "bfloat16"), (112, "bfloat16"), (256, "bfloat16"),
+            (64, "float32"), (112, "float32"))
+
+
+def flash_call(lib, q, k, v, o, causal, window, softcap):
+    """One direct launch of ``lib``'s ``flash_attention_fwd`` into o."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, T,
+            H, K, D, ops._DTYPES[q.dtype], int(causal), window, softcap,
+            stream)
+        if err:
+            raise RuntimeError(f"flash_attention_fwd: CUDA error {err}")
+    return call
+
+
+def _flash_inputs(g, dev, D, dtype):
+    import torch
+
+    B, S, H, K, causal, window, softcap = FLASH_CALLS[D]
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=dev).to(dtype)
+               for n in (H, K, K))
+    return q, k, v, dict(causal=causal, window=window, softcap=softcap)
+
+
+def _set_argtypes(lib):
+    from repro_torch.kernels import build
+
+    fn = lib.flash_attention_fwd
+    fn.argtypes = build.LIBRARIES["flash_attention"][1]["flash_attention_fwd"]
+    fn.restype = ctypes.c_int
 
 
 def flash_tile_sweep(dev) -> None:
-    """The flash kernel built with each candidate tile at D = 128 and 256
-    (a copy of the package's source under ``build/ab/`` with its
-    ``Tiles<D>`` line rewritten), each checked against the plain version
-    and timed (device time under the profiler) at ``FLASH_CALLS``; the
-    package's own tile is marked ``chosen``."""
+    """The bfloat16 flash instance built with each candidate tile (a copy
+    of the package's source under ``build/ab/`` with every
+    ``MmaTiles<D>`` line rewritten to it; a tile above a block's shared
+    memory at a head dim is skipped there), each held to the plain version
+    at ``TOL["bfloat16"]`` and timed (device time under the profiler) at
+    ``FLASH_CALLS``, with its registers and spills; the package's own
+    tile is marked ``chosen``."""
     import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    line = re.compile(r"(struct MmaTiles<(\d+)> \{ static constexpr int "
+                      r"BQ = )\d+, BK = \d+, KW = \d+")
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    names = {}
+    for bq, bk, kw in FLASH_TILES:
+        variant, n = line.subn(rf"\g<1>{bq}, BK = {bk}, KW = {kw}", text)
+        if n != len(ops.HEAD_DIMS):
+            raise SystemExit("kernel_sweep: flash_attention.cu has "
+                             f"{n} MmaTiles lines, not {len(ops.HEAD_DIMS)}")
+        name = f"flash_bf16_{bq}x{bk}x{kw}"
+        names[name] = AB_DIR / f"{name}.cu"
+        names[name].write_text(variant)
+    logs: dict[str, str] = {}
+    libs = build_libs(names, logs)
+    for name, log in logs.items():
+        entries = cs.ptxas_entries(log)
+        for e, short in zip(entries, cs._short_names([e["name"]
+                                                      for e in entries])):
+            if "flash_fwd_mma" in short:
+                record("flash_ptxas", build=name, kernel=short,
+                       registers=e["registers"], spill=e["spill"])
+    for lib in libs.values():
+        _set_argtypes(lib)
+    plan = (ctypes.c_int * 4)()
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for D in FLASH_CALLS:
+        q, k, v, opts = _flash_inputs(g, dev, D, torch.bfloat16)
+        want = ref.flash_attention_ref(q, k, v, **opts)
+        for bq, bk, kw in FLASH_TILES:
+            lib = libs[f"flash_bf16_{bq}x{bk}x{kw}"]
+            lib.flash_attention_plan(D, 1, plan)
+            if plan[3] > ops.SMEM_LIMIT:
+                record("flash_tiles", D=D, BQ=bq, BK=bk, KW=kw,
+                       smem=plan[3], skipped="above a block's shared memory")
+                continue
+            o = torch.empty_like(q)
+            call = flash_call(lib, q, k, v, o, **opts)
+            call()
+            torch.cuda.synchronize()
+            err, ratio = cs._within(o, want, "bfloat16")
+            record("flash_tiles", D=D, shape=FLASH_CALLS[D], BQ=bq, BK=bk,
+                   KW=kw, chosen=(bq, bk, kw) == ops.FLASH_TILES_BF16[D],
+                   threads=plan[2], smem=plan[3],
+                   blocks=q.shape[2] * q.shape[0] * -(-q.shape[1] // bq),
+                   max_abs_err=err, of_tolerance=ratio,
+                   device_ms=cs.device_ms(
+                       call, "flash_fwd_mma", 20 if q.shape[1] > 1000
+                       else 50))
+
+
+def flash_ab(old_src: Path, dev, alts: dict[str, Path]) -> None:
+    """An earlier ``flash_attention.cu`` (the C interface of the
+    package's ``flash_attention_fwd``) and each ``--alt-flash`` variant
+    against the package's, all launched directly, in turns (old, new,
+    variants, then back) at ``FLASH_AB``: the kernel's device time under
+    the profiler (events named "flash_fwd", which every instance's name
+    holds) and CUDA-event time over back-to-back calls, each held to the
+    plain version and, in bfloat16, the share of its outputs that differ
+    from exact (float64) attention rounded to bfloat16 (``flips``; the
+    plain version's beside it); then SDPA in the same dtype where it
+    computes the same function (no window, no softcap; device time of all
+    its kernels) and the bound."""
+    import torch
+    import torch.nn.functional as F
 
     import chip_smoke as cs
     from repro_torch.kernels import build, ref
 
-    text = (build.CSRC / "flash_attention.cu").read_text()
-    AB_DIR.mkdir(parents=True, exist_ok=True)
-    names = {}
-    for D, tiles in FLASH_TILES.items():
-        line = re.compile(rf"(struct Tiles<{D}> {{ static constexpr int "
-                          rf"BQ = )\d+, BK = \d+")
-        for bq, bk in tiles:
-            variant, n = line.subn(rf"\g<1>{bq}, BK = {bk}", text)
-            if n != 1:
-                raise SystemExit(f"kernel_sweep: no Tiles<{D}> line in "
-                                 "flash_attention.cu")
-            name = f"flash_d{D}_{bq}x{bk}"
-            names[name] = AB_DIR / f"{name}.cu"
-            names[name].write_text(variant)
-    logs: dict[str, str] = {}
-    libs = build_libs(names, logs)
-    for lib in libs.values():
-        for fn, argtypes in build.LIBRARIES["flash_attention"][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-    for name, log in logs.items():
-        for e, short in zip(cs.ptxas_entries(log), cs._short_names(
-                [e["name"] for e in cs.ptxas_entries(log)])):
-            if "float" in short and (", 128," in short or ", 256," in short):
-                record("flash_ptxas", build=name, kernel=short,
-                       registers=e["registers"], spill=e["spill"])
-    plan = (ctypes.c_int * 4)()
-    own = build.load("flash_attention")
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    stream = torch.cuda.current_stream().cuda_stream
-    for D, H, K, S, window, softcap in FLASH_CALLS:
-        q = torch.randn(1, S, H, D, generator=g, device=dev)
-        k = torch.randn(1, S, K, D, generator=g, device=dev)
-        v = torch.randn(1, S, K, D, generator=g, device=dev)
-        want = ref.flash_attention_ref(q, k, v, window=window,
-                                       softcap=softcap)
-        own.flash_attention_plan(D, plan)
-        chosen = (plan[0], plan[1])
-        for bq, bk in FLASH_TILES[D]:
-            lib = libs[f"flash_d{D}_{bq}x{bk}"]
-            lib.flash_attention_plan(D, plan)
-            o = torch.empty_like(q)
-
-            def call(lib=lib, o=o):
-                err = lib.flash_attention_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    1, S, S, H, K, D, 0, 1, window, softcap, stream)
-                if err:
-                    raise RuntimeError(f"CUDA error {err}")
+    libs = {"old": build_lib(old_src, "flash_attention_old"),
+            "new": build.load("flash_attention"), **build_libs(alts)}
+    for name, lib in libs.items():
+        if name != "new":
+            _set_argtypes(lib)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for D, dname in FLASH_AB:
+        dt = getattr(torch, dname)
+        q, k, v, opts = _flash_inputs(g, dev, D, dt)
+        B, S, H, _ = q.shape
+        K = k.shape[2]
+        want = ref.flash_attention_ref(q, k, v, **opts)
+        exact = None
+        if dt is torch.bfloat16:
+            exact = ref.flash_attention_ref(q, k, v, dtype=torch.float64,
+                                            **opts)
+            record("flash_ab_plain", D=D, dtype=dname, shape=FLASH_CALLS[D],
+                   flips=ref.flips(want, exact))
+        outs = {name: torch.empty_like(q) for name in libs}
+        calls = {name: flash_call(lib, q, k, v, outs[name], **opts)
+                 for name, lib in libs.items()}
+        errs, flips = {}, {}
+        for name, call in calls.items():
             call()
             torch.cuda.synchronize()
-            record("flash_tiles", D=D, H=H, K=K, S=S, window=window,
-                   softcap=softcap, BQ=bq, BK=bk, chosen=(bq, bk) == chosen,
-                   smem=plan[3], max_abs_err=(o - want).abs().max().item(),
-                   device_ms=cs.device_ms(call, "flash_fwd", 20))
+            errs[name] = cs._within(outs[name], want, dname)
+            flips[name] = (None if exact is None else
+                           ref.flips(outs[name], exact))
+        n = 20 if S > 1000 else 50
+        dv: dict[str, list] = {name: [] for name in calls}
+        ev: dict[str, list] = {name: [] for name in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            dv[name].append(cs.device_ms(calls[name], "flash_fwd", n))
+            ev[name].append(cs.time_ms(calls[name], n))
+        for name in calls:
+            record("flash_ab", D=D, dtype=dname, shape=FLASH_CALLS[D],
+                   version=name, device_ms=min(dv[name]),
+                   device_turns=[round(x, 5) for x in dv[name]],
+                   events_ms=min(ev[name]), max_abs_err=errs[name][0],
+                   of_tolerance=errs[name][1], flips=flips[name])
+        b_ms, b_by = cs.bound(*cs._flash_work(
+            B, S, S, H, K, D, opts["causal"], q.element_size(),
+            opts["window"]), dname)
+        lib_ms = None
+        if not opts["window"] and not opts["softcap"]:
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = (lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=opts["causal"], enable_gqa=H != K))
+            lib_ms = cs.device_ms(sdpa, "", n)
+        record("flash_ab_yardsticks", D=D, dtype=dname, shape=FLASH_CALLS[D],
+               sdpa_device_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def main() -> int:
@@ -658,6 +790,13 @@ def main() -> int:
     ap.add_argument("--old-ssd", type=Path,
                     help="an earlier ssd_scan.cu (one block per (chunk, "
                          "head); part ssd)")
+    ap.add_argument("--old-flash", type=Path,
+                    help="an earlier flash_attention.cu, timed against the "
+                         "package's in turns (part flash_ab)")
+    ap.add_argument("--alt-flash", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="a variant flash_attention.cu with the package's "
+                         "interface, timed beside it (part flash_ab)")
     ap.add_argument("--alt-slstm", action="append", default=[],
                     metavar="NAME=PATH",
                     help="a variant slstm_scan.cu with the package's "
@@ -666,16 +805,20 @@ def main() -> int:
                     metavar="NAME=PATH",
                     help="a variant ssd_scan.cu with the package's "
                          "interface, timed beside it (part ssd)")
-    ap.add_argument("--parts", default="ab,prefill,barrier,paged,ssd,flash",
+    ap.add_argument("--parts",
+                    default="ab,prefill,barrier,paged,ssd,flash_ab,flash",
                     help="comma-separated sections to run (default: all)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
-    for part, src in (("ab", "old_slstm"), ("ssd", "old_ssd")):
+    for part, src in (("ab", "old_slstm"), ("ssd", "old_ssd"),
+                      ("flash_ab", "old_flash")):
         if part in parts and getattr(args, src) is None:
             ap.error(f"part {part} needs --{src.replace('_', '-')}")
     alts = {k: Path(v) for k, v in (a.split("=", 1) for a in args.alt_slstm)}
     ssd_alts = {k: Path(v)
                 for k, v in (a.split("=", 1) for a in args.alt_ssd)}
+    flash_alts = {k: Path(v)
+                  for k, v in (a.split("=", 1) for a in args.alt_flash)}
     import torch
 
     import chip_smoke as cs
@@ -696,6 +839,8 @@ def main() -> int:
         barrier_latency(dev)
     if "paged" in parts:
         paged_split_sweep(dev)
+    if "flash_ab" in parts:
+        flash_ab(args.old_flash, dev, flash_alts)
     if "flash" in parts:
         flash_tile_sweep(dev)
     if "ssd" in parts:
