@@ -2,7 +2,13 @@
 
 * **Tracing** (``obs.trace``): ``Span``/``Tracer`` with an injectable
   monotonic clock; the engine, scheduler and decode streams emit one
-  span tree per request, exportable as Chrome-trace JSON.
+  span tree per request, exportable as Chrome-trace JSON.  The device
+  calls' spans (``encode``, ``head``, ``prefill``, ``decode_tick``)
+  carry ``dispatch_s`` and ``syncs``.  ``Tracer.scope`` times the
+  serving loop's host phases (``s2m3.<part>.<phase>``) and, while a
+  ``torch.profiler`` records, names them in its timeline; a tracer built
+  with ``gc=True`` (the scheduler's) records each garbage collection as
+  a ``gc`` span.
 * **Metrics** (``obs.metrics``): a lock-safe counter/gauge/histogram
   registry; ``stats_dict()`` is a compatibility view over it.
   ``obs.summary.slo_summary`` renders per-task p50/p99 and SLO-deadline
@@ -17,10 +23,10 @@
 from repro_torch.obs.drift import DriftReport, compare_deployment
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.summary import format_slo_summary, slo_summary
-from repro_torch.obs.trace import Span, Trace, Tracer
+from repro_torch.obs.trace import Scope, Span, Trace, Tracer
 
 __all__ = [
     "Counter", "DriftReport", "Gauge", "Histogram", "MetricsRegistry",
-    "Span", "Trace", "Tracer", "compare_deployment",
+    "Scope", "Span", "Trace", "Tracer", "compare_deployment",
     "format_slo_summary", "slo_summary",
 ]

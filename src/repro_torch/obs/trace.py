@@ -13,16 +13,38 @@ passes its epoch-relative ``_now``).  ``Tracer.trace`` snapshots a
 ``Trace`` — queryable (``spans_for``/``tree``/``validate``) and
 exportable as Chrome-trace/Perfetto JSON (``to_chrome_trace``), where
 each request id becomes one track.
+
+``Tracer.scope(name)`` times one host phase of the serving loop
+(``s2m3.<part>.<phase>``): two reads of the tracer's clock, kept on the
+scope for its caller, and nothing recorded.  While a ``torch.profiler``
+records, the scope also opens a host range of its name (a
+``record_function`` without a device-side annotation), so the phase
+lies in the profile's timeline beside the device's kernels, and the
+operators it launches nest under it.  The serving loop's scopes are
+siblings that never nest.
+
+A tracer built with ``gc=True`` also records each of Python's garbage
+collections as a closed span (``name="python"``, ``phase="gc"``, no rid,
+attributes ``generation`` and ``collected``) through one process-wide
+``gc.callbacks`` hook.  The hook never takes a tracer's lock (a
+collection can start while its own thread holds it): it queues the span,
+and the tracer files it, with its span id, at its next ``begin`` or
+``trace``.
 """
 
 from __future__ import annotations
 
+import gc as _gc
 import json
 import threading
 import time
+import weakref
+from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable
+
+import torch
 
 #: tolerance when checking child-within-parent nesting (clock jitter)
 _EPS = 1e-9
@@ -60,14 +82,102 @@ class Span:
         yield self.t1
 
 
-class Tracer:
-    """Thread-safe span collector with an injectable monotonic clock."""
+#: whether a ``torch.profiler`` is recording (a flag read, no call into
+#: the profiler)
+_profiling = torch.autograd._profiler_enabled
+#: the profiler's range for a scope: ``record_function``'s host event
+#: alone.  ``torch.profiler.record_function`` opens a user annotation,
+#: which the CUDA profile also lays on the device's timeline as a
+#: ``gpu_user_annotation`` spanning the scope's kernels and the gaps
+#: between them; a reader of device busy time would count it as work.
+_record_range = torch._C._profiler._RecordFunctionFast
 
-    def __init__(self, clock: Callable[[], float] | None = None):
+
+class Scope:
+    """One host phase of the serving loop, timed on a tracer's clock.
+
+    ``t0``/``t1`` are the clock on entry and exit, ``dur`` their
+    difference.  With no profiler recording the scope reads the clock
+    twice and the profiler's flag once, and makes no other object."""
+
+    __slots__ = ("_clock", "name", "t0", "t1", "_range")
+
+    def __init__(self, clock: Callable[[], float], name: str):
+        self._clock = clock
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "Scope":
+        if _profiling():
+            self._range = _record_range(self.name)
+            self._range.__enter__()
+        self.t0 = self._clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = self._clock()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+
+    @property
+    def dur(self) -> float:
+        return self.t1 - self.t0
+
+
+#: tracers that asked for the collector's pauses (``Tracer(gc=True)``)
+_GC_TRACERS: "weakref.WeakSet[Tracer]" = weakref.WeakSet()
+#: (tracer, its clock) at the start of the collection under way
+_gc_started: list = []
+
+
+def _gc_hook(phase: str, info: dict) -> None:
+    if phase == "start":
+        if _GC_TRACERS:
+            _gc_started.extend((t, t.clock()) for t in _GC_TRACERS)
+        return
+    for t, t0 in _gc_started:
+        t._gc_done.append(Span(
+            "python", "gc", t0, t.clock(),
+            attrs={"generation": info["generation"],
+                   "collected": info["collected"]}))
+    _gc_started.clear()
+
+
+def _watch_gc(tracer: "Tracer") -> None:
+    if _gc_hook not in _gc.callbacks:
+        _gc.callbacks.append(_gc_hook)
+    _GC_TRACERS.add(tracer)
+
+
+class Tracer:
+    """Thread-safe span collector with an injectable monotonic clock.
+    ``gc=True`` records the collector's pauses as ``gc`` spans."""
+
+    def __init__(self, clock: Callable[[], float] | None = None, *,
+                 gc: bool = False):
         self.clock = clock or time.perf_counter
         self._lock = threading.Lock()
         self._spans: list[Span] = []
         self._next_sid = 0
+        # gc spans the hook queued, filed under the lock by _file_gc
+        self._gc_done: deque[Span] = deque()
+        if gc:
+            _watch_gc(self)
+
+    def scope(self, name: str) -> Scope:
+        """A host phase named ``name``, timed on this tracer's clock
+        (``with tracer.scope("s2m3.decode.read") as sc: ...; sc.dur``)."""
+        return Scope(self.clock, name)
+
+    def _file_gc(self) -> None:
+        """File the gc spans the hook queued, each with its span id."""
+        with self._lock:
+            while self._gc_done:
+                span = self._gc_done.popleft()
+                span.sid = self._next_sid
+                self._next_sid += 1
+                self._spans.append(span)
 
     def begin(self, name: str, phase: str, *, rid: int | None = None,
               parent: int | None = None, t0: float | None = None,
@@ -75,6 +185,8 @@ class Tracer:
         """Open a span; returns its id for ``end()`` / child parenting."""
         span = Span(name, phase, self.clock() if t0 is None else t0,
                     rid=rid, parent=parent, attrs=dict(attrs))
+        if self._gc_done:
+            self._file_gc()
         with self._lock:
             span.sid = self._next_sid
             self._next_sid += 1
@@ -114,6 +226,7 @@ class Tracer:
 
     @property
     def trace(self) -> "Trace":
+        self._file_gc()
         with self._lock:
             return Trace(list(self._spans))
 

@@ -28,6 +28,14 @@ Lock discipline (enforced by ``repro.analysis.concurrency_lint``): all
 allocator calls and shared-state mutation happen under ``self._lock``;
 prefill/decode dispatch happens outside it.  A tick-level busy flag
 keeps concurrent ``tick()`` calls from interleaving device steps.
+
+A tick's host phases are tracer scopes (``obs.trace.Tracer.scope``):
+``s2m3.decode.admit`` around each admission's bookkeeping,
+``s2m3.prefill.dispatch`` and ``s2m3.prefill.read`` around its prefill,
+then ``s2m3.decode.form``, ``.dispatch``, ``.read`` and ``.retire``
+around the batched step.  The ``prefill`` and ``decode_tick`` spans carry
+``dispatch_s`` (the dispatch scope's time) and ``syncs`` (the blocking
+token reads: 1 a prefill, one a live row a tick).
 """
 
 from __future__ import annotations
@@ -93,8 +101,7 @@ class DecodeStream:
         # ServeScheduler both are shared so stats and traces are unified
         self.metrics = metrics or MetricsRegistry()
         self.tracer = tracer or Tracer(clock=self._now)
-        self.pool = PagePool(n_pages, page_size, metrics=self.metrics,
-                             module=module)
+        self.pool = PagePool(n_pages, page_size)
         self.rows = SlotPool(rows)
         self.cache = engine.init_paged_cache(module, n_pages, page_size,
                                              torch.float32)
@@ -222,29 +229,26 @@ class DecodeStream:
             self._reserved -= self._worst.pop(seq.rid)
 
     # -- execution ------------------------------------------------------
-    def _prefill(self, seq: _GenSeq) -> None:
+    def _prefill(self, seq: _GenSeq):
         """Batch-1 prefill into the sequence's pages + first token.
-        Device dispatch — runs outside the lock."""
+        Device dispatch — runs outside the lock.  Returns the dispatch
+        and read scopes, which the ``prefill`` span spans."""
         req = seq.request
-        with self._lock:
-            pages = self.pool.block_table(seq.rid)
-        span = len(pages) * self.page_size
-        one = self.rt.bundle.init_cache(1, span, torch.float32,
-                                        self.rt.device)
-        t0 = self._now()
-        batch = self.engine.gen_batch(req.prompt, seq.enc_outputs)
-        logits, one = self.engine.apply_prefill(self.module, batch, one)
-        insert_pages(self.cache, one, pages, seq.length)
-        seq.rng = rid_generator(seq.rid, logits.device)
-        tok = int(select_token(logits[0], seq.rng,
-                               temperature=req.temperature))
-        seq.tokens.append(tok)
-        span = self.tracer.record(self.module, "prefill", t0, self._now(),
-                                  rid=seq.rid, parent=seq.parent,
-                                  prompt_tokens=len(req.prompt),
-                                  prefix_len=seq.length)
-        seq.timeline.append(span)
-        self._c_prefills.inc()
+        scope = self.tracer.scope
+        with scope("s2m3.decode.admit"):
+            with self._lock:
+                pages = self.pool.block_table(seq.rid)
+            one = self.rt.bundle.init_cache(1, len(pages) * self.page_size,
+                                            torch.float32, self.rt.device)
+        with scope("s2m3.prefill.dispatch") as disp:
+            batch = self.engine.gen_batch(req.prompt, seq.enc_outputs)
+            logits, one = self.engine.apply_prefill(self.module, batch, one)
+            insert_pages(self.cache, one, pages, seq.length)
+            seq.rng = rid_generator(seq.rid, logits.device)
+        with scope("s2m3.prefill.read") as read:
+            seq.tokens.append(int(select_token(
+                logits[0], seq.rng, temperature=req.temperature)))
+        return disp, read
 
     def _seq_done(self, seq: _GenSeq) -> bool:
         req = seq.request
@@ -253,13 +257,15 @@ class DecodeStream:
 
     def _admit_all(self) -> list[_GenSeq]:
         finished = []
+        scope = self.tracer.scope
         while True:
-            with self._lock:
-                seq = self._pop_admittable()
+            with scope("s2m3.decode.admit"):
+                with self._lock:
+                    seq = self._pop_admittable()
             if seq is None:
                 break
             try:
-                self._prefill(seq)
+                disp, read = self._prefill(seq)
             except Exception:
                 # a failed prefill must not strand the admitted row,
                 # its pages, or the worst-case reservation — the leak
@@ -267,65 +273,80 @@ class DecodeStream:
                 with self._lock:
                     self._finish_locked(seq)
                 raise
-            if self._seq_done(seq):
-                with self._lock:
-                    self._finish_locked(seq)
-                finished.append(seq)
-            else:
-                # residency span: every decode tick of this sequence
-                # parents under it
-                seq.decode_sid = self.tracer.begin(
-                    self.module, "decode", rid=seq.rid, parent=seq.parent)
+            with scope("s2m3.decode.admit"):
+                seq.timeline.append(self.tracer.record(
+                    self.module, "prefill", disp.t0, read.t1, rid=seq.rid,
+                    parent=seq.parent, prompt_tokens=len(seq.request.prompt),
+                    prefix_len=seq.length, dispatch_s=disp.dur, syncs=1))
+                self._c_prefills.inc()
+                if self._seq_done(seq):
+                    with self._lock:
+                        self._finish_locked(seq)
+                    finished.append(seq)
+                else:
+                    # residency span: every decode tick of this sequence
+                    # parents under it
+                    seq.decode_sid = self.tracer.begin(
+                        self.module, "decode", rid=seq.rid,
+                        parent=seq.parent)
         return finished
 
     def _decode_once(self) -> tuple[list[_GenSeq], int]:
         """One batched decode step over all live rows.  Batch formation
-        (incl. page extension) under the lock; dispatch outside it."""
-        with self._lock:
-            tokens = np.zeros((self.rows.max_slots, 1), np.int32)
-            live = sorted(self.live.items())
-            if not live:
-                return [], 0
-            for row, seq in live:
-                # the step inserts at position length: make sure the
-                # owning page exists (reservation guarantees success)
-                added = self.pool.extend(seq.rid, seq.length + 1)
-                if added:
-                    table = self.pool.block_table(seq.rid)
-                    self.tables[row, :len(table)] = table
-                tokens[row, 0] = seq.tokens[-1]
-            tables = self.tables.copy()
-            lengths = self.lengths.copy()
-            pages_live = self.pool.n_live_pages
-            self._c_steps.inc()
-            if len({seq.request.model for _, seq in live}) >= 2:
-                self._c_xtask.inc()
-        t0 = self._now()
-        logits, _ = self.engine.apply_paged_decode(
-            self.module, torch.from_numpy(tokens), self.cache,
-            torch.from_numpy(tables), torch.from_numpy(lengths))
-        picks: dict[int, int] = {}
-        for row, seq in live:
-            picks[row] = int(select_token(
+        (incl. page extension) under the lock; dispatch outside it.
+        Every row's ``decode_tick`` span is the step's dispatch (the
+        tokens', tables' and lengths' copies and the launches,
+        ``dispatch_s``) and then the rows' token reads, one a row
+        (``syncs``)."""
+        scope = self.tracer.scope
+        with scope("s2m3.decode.form"):
+            with self._lock:
+                tokens = np.zeros((self.rows.max_slots, 1), np.int32)
+                live = sorted(self.live.items())
+                if not live:
+                    return [], 0
+                for row, seq in live:
+                    # the step inserts at position length: make sure the
+                    # owning page exists (reservation guarantees success)
+                    added = self.pool.extend(seq.rid, seq.length + 1)
+                    if added:
+                        table = self.pool.block_table(seq.rid)
+                        self.tables[row, :len(table)] = table
+                    tokens[row, 0] = seq.tokens[-1]
+                tables = self.tables.copy()
+                lengths = self.lengths.copy()
+                pages_live = self.pool.n_live_pages
+                self._c_steps.inc()
+                if len({seq.request.model for _, seq in live}) >= 2:
+                    self._c_xtask.inc()
+        with scope("s2m3.decode.dispatch") as disp:
+            logits, _ = self.engine.apply_paged_decode(
+                self.module, torch.from_numpy(tokens), self.cache,
+                torch.from_numpy(tables), torch.from_numpy(lengths))
+        with scope("s2m3.decode.read") as read:
+            picks = {row: int(select_token(
                 logits[row], seq.rng, temperature=seq.request.temperature))
-        t1 = self._now()
-        for row, seq in live:
-            self.tracer.record(self.module, "decode_tick", t0, t1,
-                               rid=seq.rid, parent=seq.decode_sid,
-                               rows=len(live), pages_live=pages_live)
-        finished = []
-        with self._lock:
+                for row, seq in live}
+        with scope("s2m3.decode.retire"):
             for row, seq in live:
-                seq.length += 1
-                self.lengths[row] = seq.length
-                self.pool.used_tokens[seq.rid] = seq.length
-                seq.tokens.append(picks[row])
-                self._c_tokens.inc()
-                if self._seq_done(seq):
-                    seq.timeline.append(
-                        self.tracer.end(seq.decode_sid, t1=self._now()))
-                    self._finish_locked(seq)
-                    finished.append(seq)
+                self.tracer.record(self.module, "decode_tick", disp.t0,
+                                   read.t1, rid=seq.rid,
+                                   parent=seq.decode_sid, rows=len(live),
+                                   pages_live=pages_live,
+                                   dispatch_s=disp.dur, syncs=len(live))
+            finished = []
+            with self._lock:
+                for row, seq in live:
+                    seq.length += 1
+                    self.lengths[row] = seq.length
+                    self.pool.used_tokens[seq.rid] = seq.length
+                    seq.tokens.append(picks[row])
+                    self._c_tokens.inc()
+                    if self._seq_done(seq):
+                        seq.timeline.append(
+                            self.tracer.end(seq.decode_sid, t1=self._now()))
+                        self._finish_locked(seq)
+                        finished.append(seq)
         return finished, len(live)
 
     def tick(self) -> TickReport:

@@ -31,7 +31,6 @@ from repro_torch.common.pytree import tree_map
 from repro_torch.core.module import ModelSpec, ModuleSpec
 from repro_torch.core.placement import Placement
 from repro_torch.core.registry import ModuleRegistry
-from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Span, Tracer
 
 
@@ -116,9 +115,6 @@ class S2M3Engine:
         # solo infer()/generate() spans land here; the serving scheduler
         # uses its own epoch-relative tracer for the batched paths
         self.tracer = tracer or Tracer()
-        # engine-lifetime instruments (per-module call counts); each
-        # ServeScheduler keeps its own per-run registry on top
-        self.metrics = MetricsRegistry()
         self.runtimes: dict[str, ModuleRuntime] = {}
         self.decoders: dict[str, DecoderRuntime] = {}
         self.device_map = device_map or {"dev0": resolve_device()}
@@ -264,7 +260,6 @@ class S2M3Engine:
         used = host if host is not None and host in self.device_map else rt.host
         params = self.params_on(module_name, used)
         x = torch.as_tensor(x).to(self._device_for(used))
-        self.metrics.counter("engine.module_calls", module=module_name).inc()
         return rt.apply(params, x), used
 
     def apply_head(self, module_name: str, enc_outputs: dict[str, Any],
@@ -277,7 +272,6 @@ class S2M3Engine:
         params = self.params_on(module_name, used)
         dev = self._device_for(used)
         moved = {k: torch.as_tensor(v).to(dev) for k, v in enc_outputs.items()}
-        self.metrics.counter("engine.head_calls", module=module_name).inc()
         return rt.apply(params, moved, **(head_extra or {})), used
 
     # -- generative (decoder-head) path ---------------------------------
@@ -314,7 +308,6 @@ class S2M3Engine:
         (last-token logits, filled dense cache)."""
         rt = self.decoder_runtime(module_name)
         batch = to_device(batch, rt.device)
-        self.metrics.counter("engine.prefills", module=module_name).inc()
         return rt.bundle.prefill(rt.params, batch, cache)
 
     def apply_paged_decode(self, module_name: str, tokens, cache,
@@ -326,7 +319,6 @@ class S2M3Engine:
             raise NotImplementedError(
                 f"decoder {module_name!r} (family "
                 f"{rt.bundle.cfg.family!r}) has no paged decode path")
-        self.metrics.counter("engine.decode_steps", module=module_name).inc()
         return rt.bundle.paged_decode_step(
             rt.params, tokens.to(rt.device), cache,
             block_tables.to(rt.device), lengths.to(rt.device))

@@ -74,8 +74,7 @@ class PagePool:
     each sequence so ``fragmentation()`` can report internal slack.
     """
 
-    def __init__(self, n_pages: int, page_size: int, *, metrics=None,
-                 **labels):
+    def __init__(self, n_pages: int, page_size: int):
         if n_pages < 1 or page_size < 1:
             raise ValueError("n_pages and page_size must be >= 1")
         self.n_pages = n_pages
@@ -84,19 +83,6 @@ class PagePool:
         self.tables: dict[object, list[int]] = {}
         self.used_tokens: dict[object, int] = {}
         self.pages_peak = 0
-        # optional obs.metrics registry: page-occupancy gauges + alloc
-        # counters, labelled by the owning decode stream's module
-        self._metrics = metrics
-        self._labels = dict(labels)
-        self._note()
-
-    def _note(self) -> None:
-        if self._metrics is None:
-            return
-        self._metrics.gauge("pagepool.pages_live",
-                            **self._labels).set(self.n_live_pages)
-        self._metrics.gauge("pagepool.pages_peak",
-                            **self._labels).set(self.pages_peak)
 
     # -- capacity -------------------------------------------------------
     @property
@@ -132,10 +118,6 @@ class PagePool:
         self.tables[seq] = pages
         self.used_tokens[seq] = max(n_tokens, 0)
         self.pages_peak = max(self.pages_peak, self.n_live_pages)
-        if self._metrics is not None:
-            self._metrics.counter("pagepool.page_allocs",
-                                  **self._labels).inc(need)
-        self._note()
         return pages
 
     def extend(self, seq, new_len: int) -> list[int]:
@@ -153,10 +135,6 @@ class PagePool:
         pages.extend(added)
         self.used_tokens[seq] = max(self.used_tokens[seq], new_len)
         self.pages_peak = max(self.pages_peak, self.n_live_pages)
-        if added and self._metrics is not None:
-            self._metrics.counter("pagepool.page_allocs",
-                                  **self._labels).inc(len(added))
-        self._note()
         return added
 
     def free(self, seq) -> None:
@@ -169,10 +147,6 @@ class PagePool:
                 "free would hand the same pages to two sequences)")
         self.used_tokens.pop(seq, None)
         self._free.extend(reversed(pages))
-        if self._metrics is not None:
-            self._metrics.counter("pagepool.seq_frees",
-                                  **self._labels).inc()
-        self._note()
 
     # -- views ----------------------------------------------------------
     def block_table(self, seq) -> list[int]:

@@ -137,6 +137,18 @@ class _Stage:
 
 
 @dataclass
+class _Picked:
+    """A step's module call, formed in ``s2m3.sched.pick``: the batch
+    popped at ``t_pop``, the host it is routed to and, for a head call,
+    its request's in-flight record (taken out of ``inflight``)."""
+
+    batch: list
+    t_pop: float
+    host: str | None
+    fl: Any = None
+
+
+@dataclass
 class _InFlight:
     request: Request
     t_admit: float
@@ -168,7 +180,8 @@ class ServeScheduler:
         # fresh per-scheduler registry: stats_dict() stays zeroed until
         # this scheduler actually serves (dep.serve() builds one per call)
         self.metrics = MetricsRegistry()
-        self.tracer = tracer or Tracer(clock=self._now)
+        # its own tracer also records the collector's pauses (gc spans)
+        self.tracer = tracer or Tracer(clock=self._now, gc=True)
         # guards queues/inflight/results/_free_at; RLock so a
         # blocked submit() may re-enter through step().  Discipline
         # (enforced by repro_torch.analysis.concurrency_lint): mutate shared
@@ -298,46 +311,56 @@ class ServeScheduler:
         applying backpressure when a target queue is at depth.
         Generative models skip the head queue — after their encoders
         finish they enter the head's paged decode stream instead."""
-        model = self.engine.registry.models[request.model]
-        if model.encoders and request.inputs is None:
-            raise ValueError(
-                f"request {request.rid} has no inputs payload; serving "
-                "needs Request(inputs={modality: array})")
-        stream = None
-        if model.head.generative:
-            stream = self._ensure_stream(model.head.name)
-            stream.validate(request)      # fail fast, before encoder admit
-        root = self.tracer.begin("request", "request", rid=request.rid,
-                                 model=request.model)
-        targets = [m.name for m in model.encoders] + [model.head.name]
-        try:
-            for t in targets:
-                while self._at_depth(t):
-                    if self.cfg.admission == "reject":
-                        raise QueueFull(
-                            f"module queue {t!r} at max_queue_depth="
-                            f"{self.cfg.max_queue_depth}")
-                    if not self.step():
-                        break             # nothing serviceable: admit anyway
-        except QueueFull:
-            self.tracer.end(root, rejected=True)
-            raise
-        fl = _InFlight(request, self._now(),
-                       pending={m.name for m in model.encoders},
-                       root_sid=root)
-        with self._lock:
-            self.inflight[request.rid] = fl
-        if model.encoders:
-            for enc in model.encoders:
-                self._enqueue(_Stage(request.rid, enc.name, request,
-                                     x=request.inputs[enc.modality]))
-        elif stream is not None:
-            # head-only generative: any inputs payload carries
-            # precomputed modality features (e.g. VLM image embeds)
-            stream.submit(request.rid, request, dict(request.inputs or {}),
-                          parent=root)
-        else:
-            self._enqueue(_Stage(request.rid, model.head.name, request))
+        with self.tracer.scope("s2m3.sched.submit"):
+            model = self.engine.registry.models[request.model]
+            if model.encoders and request.inputs is None:
+                raise ValueError(
+                    f"request {request.rid} has no inputs payload; serving "
+                    "needs Request(inputs={modality: array})")
+            stream = None
+            if model.head.generative:
+                stream = self._ensure_stream(model.head.name)
+                stream.validate(request)  # fail fast, before encoder admit
+            root = self.tracer.begin("request", "request", rid=request.rid,
+                                     model=request.model)
+            targets = [m.name for m in model.encoders] + [model.head.name]
+            blocked = any(self._at_depth(t) for t in targets)
+        if blocked:
+            # outside the scope: the steps that drain have their own
+            try:
+                self._backpressure(targets)
+            except QueueFull:
+                self.tracer.end(root, rejected=True)
+                raise
+        with self.tracer.scope("s2m3.sched.submit"):
+            fl = _InFlight(request, self._now(),
+                           pending={m.name for m in model.encoders},
+                           root_sid=root)
+            with self._lock:
+                self.inflight[request.rid] = fl
+            if model.encoders:
+                for enc in model.encoders:
+                    self._enqueue(_Stage(request.rid, enc.name, request,
+                                         x=request.inputs[enc.modality]))
+            elif stream is not None:
+                # head-only generative: any inputs payload carries
+                # precomputed modality features (e.g. VLM image embeds)
+                stream.submit(request.rid, request,
+                              dict(request.inputs or {}), parent=root)
+            else:
+                self._enqueue(_Stage(request.rid, model.head.name, request))
+
+    def _backpressure(self, targets: list[str]) -> None:
+        """Drain steps while a target queue is at depth (``block``), or
+        refuse the request (``reject``)."""
+        for t in targets:
+            while self._at_depth(t):
+                if self.cfg.admission == "reject":
+                    raise QueueFull(
+                        f"module queue {t!r} at max_queue_depth="
+                        f"{self.cfg.max_queue_depth}")
+                if not self.step():
+                    break             # nothing serviceable: admit anyway
 
     def _ensure_stream(self, module: str) -> DecodeStream:
         with self._lock:
@@ -376,18 +399,31 @@ class ServeScheduler:
     def step(self) -> bool:
         """Service the deepest non-empty queue (most coalescing
         opportunity); decode streams compete on waiting + live depth.
-        Returns False when there is nothing to do."""
-        with self._lock:
-            depths = {m: len(q) for m, q in self.queues.items() if q}
-            streams = dict(self.decode)
-        for m, stream in streams.items():
-            d = stream.depth()
-            if d:
-                depths[m] = depths.get(m, 0) + d
-        module = max(depths, key=lambda m: depths[m], default=None)
-        if module is None:
-            return False
-        self._service(module)
+        Returns False when there is nothing to do.
+
+        Each phase of a step is a host scope of the tracer
+        (``s2m3.<part>.<phase>``): ``sched.pick`` (the depth scan, the
+        batch and its host), then the call's own ``dispatch``, ``wait``
+        or ``read``, and ``retire`` scopes.  They follow one another and
+        never nest, so a profile names each gap by its phase."""
+        with self.tracer.scope("s2m3.sched.pick"):
+            with self._lock:
+                depths = {m: len(q) for m, q in self.queues.items() if q}
+                streams = dict(self.decode)
+            for m, stream in streams.items():
+                d = stream.depth()
+                if d:
+                    depths[m] = depths.get(m, 0) + d
+            module = max(depths, key=lambda m: depths[m], default=None)
+            if module is None:
+                return False
+            picked = self._pick(module)
+        if isinstance(picked, DecodeStream):
+            self._service_decode(module, picked)
+        elif picked is not None and picked.fl is None:
+            self._run_encoder_batch(module, picked)
+        elif picked is not None:
+            self._run_head(module, picked)
         return True
 
     def drain(self) -> dict[int, InferenceResult]:
@@ -414,19 +450,20 @@ class ServeScheduler:
         return [results[q.rid] for q in workload]
 
     # -- execution ------------------------------------------------------
-    def _service(self, module: str) -> None:
+    def _pick(self, module: str) -> DecodeStream | _Picked | None:
+        """The module's work for this step: its decode stream, or its
+        batch popped from the queue, the admission spans ended."""
         with self._lock:
             stream = self.decode.get(module)
         if stream is not None:
-            self._service_decode(module, stream)
-            return
+            return stream
         spec = self.engine.registry.modules.get(module)
         is_encoder = spec is not None and spec.kind == "encoder"
         # form the batch under the lock; dispatch outside it
         with self._lock:
             q = self.queues.get(module)
             if not q:
-                return
+                return None
             head = q.popleft()
             batch = [head]
             if is_encoder:
@@ -444,9 +481,10 @@ class ServeScheduler:
             if s.wait_sid >= 0:
                 self.tracer.end(s.wait_sid, t1=t_pop)
         if is_encoder:
-            self._run_encoder_batch(module, batch, t_pop)
-        else:
-            self._run_head(module, batch[0], t_pop)
+            return _Picked(batch, t_pop, self._route(module, head))
+        with self._lock:
+            fl = self.inflight.pop(head.rid)
+        return _Picked(batch, t_pop, self._route(module, head), fl)
 
     @staticmethod
     def _shape_sig(x) -> tuple | None:
@@ -506,118 +544,128 @@ class ServeScheduler:
             mt.counter("slo.hit" if met else "slo.miss",
                        model=result.model).inc()
 
-    def _run_encoder_batch(self, module: str, batch: list[_Stage],
-                           t_pop: float) -> None:
-        host = self._route(module, batch[0])
-        t0 = self._now()
-        if len(batch) == 1:
-            out, used = self.engine.apply_module(module, batch[0].x,
-                                                 host=host)
-            outs = [out]
-        else:
-            xs = [torch.as_tensor(s.x) for s in batch]
-            out, used = self.engine.apply_module(
-                module, torch.cat(xs, dim=0), host=host)
-            # views of one launch's output: no copy
-            outs = torch.split(out, [x.shape[0] for x in xs], dim=0)
-        self._charge(module, used, len(batch), t0)
-        self._bookkeep(module, batch)
+    def _run_encoder_batch(self, module: str, picked: _Picked) -> None:
+        batch, t_pop, host = picked.batch, picked.t_pop, picked.host
+        scope = self.tracer.scope
+        with scope("s2m3.encode.dispatch") as disp:
+            if len(batch) == 1:
+                out, used = self.engine.apply_module(module, batch[0].x,
+                                                     host=host)
+                outs = [out]
+            else:
+                xs = [torch.as_tensor(s.x) for s in batch]
+                out, used = self.engine.apply_module(
+                    module, torch.cat(xs, dim=0), host=host)
+                # views of one launch's output: no copy
+                outs = torch.split(out, [x.shape[0] for x in xs], dim=0)
+            self._charge(module, used, len(batch), disp.t0)
+            self._bookkeep(module, batch)
         # the encode span ends when the device has run the batch, not
         # when it was enqueued (CUDA launches return at once)
-        sync(out.device)
-        t1 = self._now()
-        modality = self.engine.registry.modules[module].modality
-        models = sorted({s.request.model for s in batch})
-        # per-request bookkeeping under the lock: two encoder batches
-        # finishing concurrently for the same request must not both see
-        # an empty pending set and double-enqueue the head.  Ready heads
-        # are collected and submitted after release (stream construction
-        # and head enqueue do their own locking).
-        ready: list[tuple[_Stage, dict[str, Any], int]] = []
-        for s, o in zip(batch, outs):
-            with self._lock:
-                fl = self.inflight[s.rid]
-                root = fl.root_sid
-            self.tracer.record(module, "batch", t_pop, t0, rid=s.rid,
-                               parent=root, batch=len(batch),
-                               models=models)
-            span = self.tracer.record(
-                module, "encode", t0, t1, rid=s.rid, parent=root,
-                host=used, batch=len(batch), models=models,
-                cross_task=len(models) >= 2)
-            with self._lock:
-                fl.enc_outputs[modality] = o
-                if used:
-                    fl.devices[module] = used
-                fl.timeline.append(span)
-                fl.pending.discard(module)
-                if not fl.pending:
-                    ready.append((s, dict(fl.enc_outputs), root))
-        for s, enc_outputs, root in ready:
-            head = self.engine.registry.models[s.request.model].head
-            if head.generative:
-                stream = self._ensure_stream(head.name)
-                stream.submit(s.rid, s.request, enc_outputs, parent=root)
-            else:
-                self._enqueue(_Stage(s.rid, head.name, s.request))
+        with scope("s2m3.encode.wait") as wait:
+            sync(out.device)
+        with scope("s2m3.encode.retire"):
+            t0, t1 = disp.t0, wait.t1
+            modality = self.engine.registry.modules[module].modality
+            models = sorted({s.request.model for s in batch})
+            # per-request bookkeeping under the lock: two encoder batches
+            # finishing concurrently for the same request must not both
+            # see an empty pending set and double-enqueue the head.  Ready
+            # heads are collected and submitted after release (stream
+            # construction and head enqueue do their own locking).
+            ready: list[tuple[_Stage, dict[str, Any], int]] = []
+            for s, o in zip(batch, outs):
+                with self._lock:
+                    fl = self.inflight[s.rid]
+                    root = fl.root_sid
+                self.tracer.record(module, "batch", t_pop, t0, rid=s.rid,
+                                   parent=root, batch=len(batch),
+                                   models=models)
+                span = self.tracer.record(
+                    module, "encode", t0, t1, rid=s.rid, parent=root,
+                    host=used, batch=len(batch), models=models,
+                    cross_task=len(models) >= 2, dispatch_s=disp.dur,
+                    syncs=1)
+                with self._lock:
+                    fl.enc_outputs[modality] = o
+                    if used:
+                        fl.devices[module] = used
+                    fl.timeline.append(span)
+                    fl.pending.discard(module)
+                    if not fl.pending:
+                        ready.append((s, dict(fl.enc_outputs), root))
+            for s, enc_outputs, root in ready:
+                head = self.engine.registry.models[s.request.model].head
+                if head.generative:
+                    stream = self._ensure_stream(head.name)
+                    stream.submit(s.rid, s.request, enc_outputs,
+                                  parent=root)
+                else:
+                    self._enqueue(_Stage(s.rid, head.name, s.request))
 
     def _service_decode(self, module: str, stream: DecodeStream) -> None:
         """One decode-stream service round: admissions + one batched
         decode step, then results for the sequences that finished."""
         report = stream.tick()
-        host = self.engine.decoder_runtime(module).host
-        if report.decode_batch:
-            self._charge(module, host, report.decode_batch, self._now())
-        for seq in report.finished:
-            with self._lock:
-                fl = self.inflight.pop(seq.rid)
-            fl.timeline.extend(seq.timeline)
-            if host:
-                fl.devices[module] = host
-            enc = dict(fl.enc_outputs)
-            t_end = self._now()
+        with self.tracer.scope("s2m3.decode.retire"):
+            host = self.engine.decoder_runtime(module).host
+            if report.decode_batch:
+                self._charge(module, host, report.decode_batch, self._now())
+            for seq in report.finished:
+                with self._lock:
+                    fl = self.inflight.pop(seq.rid)
+                fl.timeline.extend(seq.timeline)
+                if host:
+                    fl.devices[module] = host
+                enc = dict(fl.enc_outputs)
+                t_end = self._now()
+                result = InferenceResult(
+                    model=seq.request.model,
+                    output=np.asarray(seq.tokens, np.int32),
+                    encoder_outputs=enc, timeline=fl.timeline,
+                    latency_s=t_end - fl.t_admit, devices=fl.devices,
+                    rid=seq.rid)
+                self.tracer.end(fl.root_sid, t1=t_end,
+                                n_tokens=len(seq.tokens))
+                self._finish_metrics(result, seq.request)
+                with self._lock:
+                    self.results[seq.rid] = result
+                if self.on_finish is not None:
+                    self.on_finish(result)
+
+    def _run_head(self, module: str, picked: _Picked) -> None:
+        stage, fl, t_pop = picked.batch[0], picked.fl, picked.t_pop
+        scope = self.tracer.scope
+        with scope("s2m3.head.dispatch") as disp:
+            out, used = self.engine.apply_head(
+                module, fl.enc_outputs, stage.request.head_extra,
+                host=picked.host)
+            self._charge(module, used, 1, disp.t0)
+            self._bookkeep(module, [stage])
+        with scope("s2m3.head.wait") as wait:
+            sync(out.device)
+        with scope("s2m3.head.retire"):
+            t0, t1 = disp.t0, wait.t1
+            self.tracer.record(module, "batch", t_pop, t0, rid=stage.rid,
+                               parent=fl.root_sid, batch=1)
+            span = self.tracer.record(module, "head", t0, t1,
+                                      rid=stage.rid, parent=fl.root_sid,
+                                      host=used, dispatch_s=disp.dur,
+                                      syncs=1)
+            if used:
+                fl.devices[module] = used
+            fl.timeline.append(span)
             result = InferenceResult(
-                model=seq.request.model,
-                output=np.asarray(seq.tokens, np.int32),
-                encoder_outputs=enc, timeline=fl.timeline,
-                latency_s=t_end - fl.t_admit, devices=fl.devices,
-                rid=seq.rid)
-            self.tracer.end(fl.root_sid, t1=t_end,
-                            n_tokens=len(seq.tokens))
-            self._finish_metrics(result, seq.request)
+                model=stage.request.model, output=out,
+                encoder_outputs=fl.enc_outputs, timeline=fl.timeline,
+                latency_s=t1 - fl.t_admit, devices=fl.devices,
+                rid=stage.rid)
+            self.tracer.end(fl.root_sid, t1=t1)
+            self._finish_metrics(result, stage.request)
             with self._lock:
-                self.results[seq.rid] = result
+                self.results[stage.rid] = result
             if self.on_finish is not None:
                 self.on_finish(result)
-
-    def _run_head(self, module: str, stage: _Stage, t_pop: float) -> None:
-        with self._lock:
-            fl = self.inflight.pop(stage.rid)
-        host = self._route(module, stage)
-        t0 = self._now()
-        out, used = self.engine.apply_head(
-            module, fl.enc_outputs, stage.request.head_extra, host=host)
-        sync(out.device)
-        self._charge(module, used, 1, t0)
-        self._bookkeep(module, [stage])
-        t1 = self._now()
-        self.tracer.record(module, "batch", t_pop, t0, rid=stage.rid,
-                           parent=fl.root_sid, batch=1)
-        span = self.tracer.record(module, "head", t0, t1, rid=stage.rid,
-                                  parent=fl.root_sid, host=used)
-        if used:
-            fl.devices[module] = used
-        fl.timeline.append(span)
-        result = InferenceResult(
-            model=stage.request.model, output=out,
-            encoder_outputs=fl.enc_outputs, timeline=fl.timeline,
-            latency_s=t1 - fl.t_admit, devices=fl.devices, rid=stage.rid)
-        self.tracer.end(fl.root_sid, t1=t1)
-        self._finish_metrics(result, stage.request)
-        with self._lock:
-            self.results[stage.rid] = result
-        if self.on_finish is not None:
-            self.on_finish(result)
 
 
 def lm_scheduler(bundle, params, *, device=None,
