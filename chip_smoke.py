@@ -50,7 +50,12 @@ Phases (any failure exits non-zero; nothing is caught):
    classify), eight requests through ``Deployment.serve()`` and the
    generative ones again through ``Deployment.submit()``.  Tokens and
    every step's logits, routes, cross-task batching, the drained page
-   pool and the kernel launch counts are checked.  Before it, the
+   pool and the kernel launch counts are checked.  The recorded serve()
+   takes the eager decode step (the only one that keeps every row's
+   logits); the same requests are then served once more on the tick's
+   CUDA graph: its tokens == the eager ticks', one capture and every
+   later tick a replay, the replays' counted paged launches == ticks x
+   layers, and the rates are that run's.  Before it, the
    model's logits through the kernels on the card are held against the
    plain versions on the CPU, at smoke size and at full width with
    depth cut to 2 layers.
@@ -85,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught):
    step's logits equal), whisper's 3 through ``Deployment.submit()``;
    decode == a fresh prefill, card == CPU (tinyllama with depth cut to
    2 layers, whisper at full depth), exact launch counts by kernel and
-   by call shape, prefill ms and decode tokens/s.  Phase 2 checks and
+   by call shape, prefill ms and decode tokens/s; tinyllama's requests
+   again on the tick's CUDA graph, as phase 3's.  Phase 2 checks and
    times the attention kernels at these phases' shapes (D = 16 towers,
    G = 8, S = T = 1500, the cross-attention prefill, T = 1500 cross
    decode, the paged G = 8 tick).
@@ -103,7 +109,8 @@ Phases (any failure exits non-zero; nothing is caught):
    prefill (gemma2's long request past position 4,096), card == CPU at
    full width with depth cut to 2 layers, exact launches by kernel and
    by call shape (local and global apart), prefill ms, tokens/s, device
-   busy over 3 decode steps.  Phase 2 checks and times the attention
+   busy over 3 decode steps; then the requests again on the tick's CUDA
+   graph, as phase 3's.  Phase 2 checks and times the attention
    kernels at these shapes (flash D = 256 local and global at S =
    4,100, D = 128, D = 64 with G = 3; decode D = 256 local and global,
    D = 128; paged D = 256 local, D = 128), with the window's edges.
@@ -2054,21 +2061,71 @@ LOGIT_TOL = 2e-4
 def record_logits(store: dict):
     """Keep a copy of every logits row a token is chosen from, keyed by
     rid (the seed of the request's sampling generator), on the decode
-    stream (serve) and the solo path (submit) alike."""
+    stream (serve) and the solo path (submit) alike.  A tick's logits
+    exist only on the eager step (the CUDA graph keeps its picks alone),
+    so the decode stream takes it while recording: ``_graph_vs_eager``
+    serves the graph's ticks."""
     from repro_torch.serving import decode, sampler
 
     select = sampler.select_token
+    pick = decode.pick_tokens
+    engages = vars(decode.DecodeStream)["graph_engages"]
 
     def recording(logits, generator=None, **kw):
         store.setdefault(generator.initial_seed(), []).append(
             logits.detach().clone())
         return select(logits, generator, **kw)
 
+    def picking(logits, live):
+        for row, seq in live:
+            if seq.request.temperature <= 0.0:      # sampled: recording()
+                store.setdefault(seq.rng.initial_seed(), []).append(
+                    logits[row].detach().clone())
+        return pick(logits, live)
+
     decode.select_token = sampler.select_token = recording
+    decode.pick_tokens = picking
+    decode.DecodeStream.graph_engages = staticmethod(lambda rt, live: False)
     try:
         yield
     finally:
         decode.select_token = sampler.select_token = select
+        decode.pick_tokens = pick
+        decode.DecodeStream.graph_engages = engages
+
+
+def _graph_vs_eager(tag, arch, serve, eager, n_layers) -> None:
+    """The served path again on the decode tick's CUDA graph: ``serve()``
+    serves the requests of a recorded run (``record_logits``: the eager
+    step) once more on the same weights and returns (results, its decode
+    stream).  Checked: every request's tokens == the eager ticks', one
+    capture and every later tick a replay, and the paged launches the
+    replays count == ticks x layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    before = ops.LAUNCHES["paged_decode_attention"]
+    results, stream = serve()
+    torch.cuda.synchronize()
+    paged = ops.LAUNCHES["paged_decode_attention"] - before
+    for r in results:
+        a, b = np.asarray(r.output), np.asarray(eager[r.rid])
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"{arch} rid {r.rid}: graph tokens {a.tolist()} != eager "
+                 f"{b.tolist()}")
+    steps = stream.decode_steps
+    if (stream.graph_captures, stream.graph_replays) != (1, steps - 1):
+        fail(f"{arch}: {stream.graph_captures} graph captures and "
+             f"{stream.graph_replays} replays over {steps} ticks (want 1 "
+             f"and {steps - 1})")
+    if paged != steps * n_layers:
+        fail(f"{arch}: {paged} paged launches counted over {steps} ticks, "
+             f"want {steps * n_layers}")
+    log(f"[{tag}] {arch} graph == eager: {len(results)} requests' tokens "
+        f"equal; {steps} ticks, 1 capture, {stream.graph_replays} replays; "
+        f"paged launches {paged} == ticks x {n_layers} layers")
 
 
 def _model_steps(bundle, params, batch, device):
@@ -2264,8 +2321,16 @@ def phase_serve(dev) -> dict:
     if launches != want:
         fail(f"kernel launches {launches} != expected {want}")
 
-    rates = _serve_rates(dep, gen_reqs, stream, submit_steps, t_submit,
-                         peak_gb, "serve")
+    # the tick's CUDA graph on the main path: the same requests again
+    def graph_serve():
+        out = dep.serve(reqs, **SERVE_KW)
+        return ([r for r in out if r.rid in solo],
+                dep.scheduler.decode["vlm-head"])
+
+    _graph_vs_eager("serve", "internvl2-1b", graph_serve,
+                    {rid: by_rid[rid].output for rid in solo}, n_l)
+    rates = _serve_rates(dep, gen_reqs, dep.scheduler.decode["vlm-head"],
+                         submit_steps, t_submit, peak_gb, "serve")
     return ({"launches": launches, "shapes": shapes, "rates": rates}, dep,
             gen_reqs)
 
@@ -2887,6 +2952,9 @@ def phase_tinyllama(dev) -> dict:
     if launches != want or shapes != want_shapes:
         fail(f"{TL_ARCH}: kernel launches {launches}, by shape {shapes} != "
              f"expected {want}, {want_shapes}")
+    _graph_vs_eager("phase7", TL_ARCH, lambda: _graph_run(serve_arch(
+        cfg, reqs, device=dev, params=rt.params, max_batch=TL_ROWS,
+        cache_len=TL_CACHE)), {r.rid: r.output for r in run.results}, n_l)
 
     # rates: the serve() ticks, the solo decode spans, a warm prefill
     trace = run.scheduler.tracer.trace
@@ -2916,6 +2984,11 @@ def phase_tinyllama(dev) -> dict:
         f"decode {steps} steps, {steps / solo_s:.1f} tokens/s "
         f"({1e3 * solo_s / steps:.2f} ms per token)")
     return {"launches": launches, "shapes": shapes}
+
+
+def _graph_run(run):
+    """A ``serve_arch`` run as ``_graph_vs_eager`` takes it."""
+    return run.results, next(iter(run.scheduler.decode.values()))
 
 
 def phase_whisper(dev) -> dict:
@@ -3169,6 +3242,10 @@ def phase_family(dev, cfg, cpu_layers=2, tag="phase8") -> dict:
         f"({1e3 * solo_s / steps:.2f} ms per token; weight-read floor "
         f"{n * 4 / hbm_bytes_s() * 1e3:.2f} ms); peak device memory "
         f"{peak:.1f} GB")
+    _graph_vs_eager(tag, arch, lambda: _graph_run(serve_arch(
+        cfg, reqs, device=dev, params=rt.params, max_batch=FAM_ROWS,
+        cache_len=cache_len)), {r.rid: r.output for r in run.results},
+        cfg.n_layers)
     del run, rt, cache, served, solo, solo_res
     gc.collect()
     torch.cuda.empty_cache()

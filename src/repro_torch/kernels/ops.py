@@ -29,11 +29,16 @@ reads and writes (each input once, each output once), and the bytes
 the call holds at its peak beyond what was live when it began (its
 outputs and workspace).  ``common.profiling`` counts a step that way;
 on the CPU the plain versions' own ops are counted instead.
+A CUDA graph captured inside ``recording()`` launches nothing until it
+is replayed: the counts and work reports made while it captures are
+kept on a tape, which ``replay_tape`` applies once a replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -116,10 +121,50 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WORK_HOOKS: list = []
 
 
+#: this thread's tape while ``recording()`` is open
+_TAPE = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep the launch counts and work reports that the wrappers make in
+    this thread on a tape instead of applying them: a CUDA graph captured
+    inside launches nothing until it is replayed.  Yields the tape, a
+    list of calls that ``replay_tape`` applies."""
+    outer = getattr(_TAPE, "calls", None)
+    tape = _TAPE.calls = []
+    try:
+        yield tape
+    finally:
+        _TAPE.calls = outer
+
+
+def replay_tape(tape) -> None:
+    """Apply a ``recording()`` tape, as a replay of the graph captured
+    with it launches its kernels: ``LAUNCHES`` and ``SHAPE_LAUNCHES``
+    count them and the ``WORK_HOOKS`` hear of them."""
+    for fn, args in tape:
+        fn(*args)
+
+
+def _taped(fn, args) -> bool:
+    calls = getattr(_TAPE, "calls", None)
+    if calls is None:
+        return False
+    calls.append((fn, args))
+    return True
+
+
 def _work(name, flops, inputs, out_bytes, scratch=0) -> None:
     moved = sum(t.numel() * t.element_size() for t in inputs) + out_bytes
+    _report(name, float(flops), moved, out_bytes + scratch)
+
+
+def _report(name, flops, moved, peak) -> None:
+    if _taped(_report, (name, flops, moved, peak)):
+        return
     for hook in WORK_HOOKS:
-        hook(name, float(flops), moved, out_bytes + scratch)
+        hook(name, flops, moved, peak)
 
 
 def _nbytes(shape, dtype) -> int:
@@ -177,6 +222,8 @@ def reset_launches() -> None:
 def _count(name, key, dtype) -> None:
     """One launch of kernel ``name`` at call shape ``key`` in ``dtype``
     (its name, "float32" or "bfloat16", ends the counted key)."""
+    if _taped(_count, (name, key, dtype)):
+        return
     LAUNCHES[name] += 1
     counts = SHAPE_LAUNCHES[name]
     key = (*key, str(dtype).removeprefix("torch."))
@@ -440,6 +487,9 @@ def _sm_count(index):
 
 
 _TICKETS: dict[int, torch.Tensor] = {}
+#: tickets a larger launch outgrew, kept: a CUDA graph may hold their
+#: pointer
+_OUTGROWN: list = []
 
 
 def _ticket_counters(dev, n):
@@ -448,6 +498,8 @@ def _ticket_counters(dev, n):
     ordered (one stream), not concurrent."""
     t = _TICKETS.get(dev.index)
     if t is None or t.numel() < n:
+        if t is not None:
+            _OUTGROWN.append(t)
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
         _TICKETS[dev.index] = t
     return t

@@ -127,20 +127,25 @@ class Scope:
 
 #: tracers that asked for the collector's pauses (``Tracer(gc=True)``)
 _GC_TRACERS: "weakref.WeakSet[Tracer]" = weakref.WeakSet()
-#: (tracer, its clock) at the start of the collection under way
+#: (a weak reference to a tracer, its clock) at the start of the
+#: collection under way: weak, so that the collection frees a tracer's
+#: cycle (a scheduler's, through its clock) as it frees any other
 _gc_started: list = []
 
 
 def _gc_hook(phase: str, info: dict) -> None:
     if phase == "start":
         if _GC_TRACERS:
-            _gc_started.extend((t, t.clock()) for t in _GC_TRACERS)
+            _gc_started.extend((weakref.ref(t), t.clock())
+                               for t in _GC_TRACERS)
         return
-    for t, t0 in _gc_started:
-        t._gc_done.append(Span(
-            "python", "gc", t0, t.clock(),
-            attrs={"generation": info["generation"],
-                   "collected": info["collected"]}))
+    for ref, t0 in _gc_started:
+        t = ref()
+        if t is not None:
+            t._gc_done.append(Span(
+                "python", "gc", t0, t.clock(),
+                attrs={"generation": info["generation"],
+                       "collected": info["collected"]}))
     _gc_started.clear()
 
 

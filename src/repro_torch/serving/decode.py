@@ -29,13 +29,31 @@ allocator calls and shared-state mutation happen under ``self._lock``;
 prefill/decode dispatch happens outside it.  A tick-level busy flag
 keeps concurrent ``tick()`` calls from interleaving device steps.
 
+The batched step runs as one CUDA graph replay where it can: on a CUDA
+decoder without a mesh, in a tick whose live rows are all greedy.  The
+graph holds the whole step, every kernel the eager step launches, and
+ends in the rows' greedy picks; a tick copies its tokens, tables and
+lengths from pinned host staging into the graph's static buffers,
+replays, and reads the picks once.  The first such tick runs the step
+eagerly and captures it; the graph bakes in the pointers of the
+decoder's parameters and of the page pool, so a tick that finds one of
+them moved (a replan, an evict and re-add) runs eagerly and captures
+again.  Every other tick (the CPU, a mesh, a sampled row) runs the step
+eagerly: one greedy over the batch and one read for the greedy rows,
+and each sampled row its own generator's draw and read.  The kernel
+wrappers count a replay's launches from what the capture recorded
+(``kernels.ops.recording``).  Counters ``decode.graph_captures`` and
+``decode.graph_replays`` count both, labelled by module.
+
 A tick's host phases are tracer scopes (``obs.trace.Tracer.scope``):
 ``s2m3.decode.admit`` around each admission's bookkeeping,
 ``s2m3.prefill.dispatch`` and ``s2m3.prefill.read`` around its prefill,
 then ``s2m3.decode.form``, ``.dispatch``, ``.read`` and ``.retire``
 around the batched step.  The ``prefill`` and ``decode_tick`` spans carry
 ``dispatch_s`` (the dispatch scope's time) and ``syncs`` (the blocking
-token reads: 1 a prefill, one a live row a tick).
+token reads: 1 a prefill; a tick 1 for its greedy rows and 1 for each
+sampled row); a ``decode_tick`` span also carries ``graph``, 1 where the
+tick replayed the graph and 0 where it ran eagerly.
 """
 
 from __future__ import annotations
@@ -48,11 +66,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.common.pytree import tree_leaves
 from repro_torch.core.routing import Request
+from repro_torch.kernels import ops
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
 from repro_torch.serving.kvcache import PagePool, SlotPool, insert_pages
-from repro_torch.serving.sampler import rid_generator, select_token
+from repro_torch.serving.sampler import greedy, rid_generator, select_token
 
 _DUMMY = "<dummy>"
 
@@ -81,6 +101,75 @@ class TickReport:
     finished: list[_GenSeq]
     prefills: int = 0
     decode_batch: int = 0
+
+
+def pick_tokens(logits, live) -> tuple[dict[int, int], int]:
+    """The live rows' next tokens from an eager step's logits: one greedy
+    over the batch and one read for all the greedy rows (the first
+    maximal index of each row), then each sampled row's draw from its own
+    generator and its read.  Returns ({row: token}, the reads made)."""
+    picks: dict[int, int] = {}
+    reads = 0
+    if any(seq.request.temperature <= 0.0 for _, seq in live):
+        top = greedy(logits).tolist()
+        reads = 1
+        picks = {row: top[row] for row, seq in live
+                 if seq.request.temperature <= 0.0}
+    for row, seq in live:
+        if row not in picks:
+            picks[row] = int(select_token(
+                logits[row], seq.rng, temperature=seq.request.temperature))
+            reads += 1
+    return picks, reads
+
+
+class _StepGraph:
+    """A stream's batched paged decode step as a CUDA graph that ends in
+    the rows' greedy picks: static (rows, 1) tokens, (rows, n_max) tables
+    and (rows,) lengths, int32 on the decoder's device, filled each tick
+    from pinned host staging; the (rows,) int32 picks each replay
+    writes; and ``key``, the pointers the capture baked in."""
+
+    def __init__(self, rows: int, n_max: int, device):
+        shapes = ((rows, 1), (rows, n_max), (rows,))
+        self.inputs = tuple(torch.zeros(s, dtype=torch.int32, device=device)
+                            for s in shapes)
+        self.staged = tuple(torch.zeros(s, dtype=torch.int32,
+                                        pin_memory=True) for s in shapes)
+        self.stream = torch.cuda.Stream(device)
+        self.graph = None
+        self.key = None
+        self.picks = None
+        self.tape: list = []
+
+    def fill(self, *arrays) -> None:
+        """The tick's tokens, tables and lengths into the static buffers
+        on the current stream.  The previous tick's pick read, which
+        synchronised, has finished the copies out of the staging."""
+        for staged, buf, a in zip(self.staged, self.inputs, arrays):
+            staged.numpy()[...] = a
+            buf.copy_(staged, non_blocking=True)
+
+    def replay(self):
+        self.graph.replay()
+        ops.replay_tape(self.tape)
+        return self.picks
+
+    def capture(self, step, key) -> None:
+        """Capture ``step`` on the static buffers, on the graph's side
+        stream, once an eager run at the same shapes has set up what sets
+        up on first use.  cuBLAS keeps a workspace for each stream it runs
+        on: dropped before and after the capture (as torch's own graph
+        trees do), the capture's comes from the graph's private pool,
+        which keeps it for the replays, and no second workspace stays
+        allocated.  The logits stay in that pool too, unreferenced."""
+        graph = torch.cuda.CUDAGraph()
+        torch._C._cuda_clearCublasWorkspaces()
+        with ops.recording() as tape, \
+                torch.cuda.graph(graph, stream=self.stream):
+            out = step(*self.inputs)
+        torch._C._cuda_clearCublasWorkspaces()
+        self.graph, self.key, self.picks, self.tape = graph, key, out, tape
 
 
 class DecodeStream:
@@ -124,6 +213,11 @@ class DecodeStream:
                                                 module=module)
         self._c_xtask = self.metrics.counter("decode.cross_task_batches",
                                              module=module)
+        self._c_captures = self.metrics.counter("decode.graph_captures",
+                                                module=module)
+        self._c_replays = self.metrics.counter("decode.graph_replays",
+                                               module=module)
+        self._graph: _StepGraph | None = None
 
     # legacy counter attributes, now views over the metrics registry
     @property
@@ -141,6 +235,14 @@ class DecodeStream:
     @property
     def cross_task_decode_batches(self) -> int:
         return int(self._c_xtask.value)
+
+    @property
+    def graph_captures(self) -> int:
+        return int(self._c_captures.value)
+
+    @property
+    def graph_replays(self) -> int:
+        return int(self._c_replays.value)
 
     # -- sizing ---------------------------------------------------------
     def _worst_tokens(self, request: Request) -> int:
@@ -291,13 +393,48 @@ class DecodeStream:
                         parent=seq.parent)
         return finished
 
+    @staticmethod
+    def graph_engages(rt, live) -> bool:
+        """Whether a tick over ``live`` runs as the graph's replay: a
+        CUDA decoder without a mesh, every live row greedy."""
+        return (rt.device.type == "cuda" and rt.bundle.mesh is None
+                and all(seq.request.temperature <= 0.0 for _, seq in live))
+
+    def _greedy_step(self, tokens, tables, lengths):
+        """The step the graph holds: the paged decode step over every row,
+        then the batch's greedy picks, (rows,) int32."""
+        logits, _ = self.engine.apply_paged_decode(self.module, tokens,
+                                                   self.cache, tables, lengths)
+        return greedy(logits)
+
+    def _graph_step(self, rt, tokens, tables, lengths):
+        """Fill the graph's inputs and replay it; at pointers the graph
+        has not baked in (the first tick, or the parameters or the pool
+        rebound) run the step eagerly and capture it instead.  Returns
+        the picks on the device and whether the tick replayed."""
+        g = self._graph
+        if g is None:
+            g = self._graph = _StepGraph(*tables.shape, rt.device)
+        g.fill(tokens, tables, lengths)
+        key = tuple(t.data_ptr()
+                    for t in tree_leaves((rt.params, self.cache)))
+        if g.key == key:
+            self._c_replays.inc()
+            return g.replay(), True
+        picks = self._greedy_step(*g.inputs)
+        g.capture(self._greedy_step, key)
+        self._c_captures.inc()
+        return picks, False
+
     def _decode_once(self) -> tuple[list[_GenSeq], int]:
         """One batched decode step over all live rows.  Batch formation
         (incl. page extension) under the lock; dispatch outside it.
-        Every row's ``decode_tick`` span is the step's dispatch (the
-        tokens', tables' and lengths' copies and the launches,
-        ``dispatch_s``) and then the rows' token reads, one a row
-        (``syncs``)."""
+        Every row's ``decode_tick`` span is the step's dispatch
+        (``dispatch_s``: the tokens', tables' and lengths' copies and
+        the graph's replay, or the eager step's launches) and then the
+        picks' reads (``syncs``: 1 for the greedy rows, which is all of
+        them on a replay, and 1 for each sampled row); ``graph`` is 1
+        where the tick replayed the graph."""
         scope = self.tracer.scope
         with scope("s2m3.decode.form"):
             with self._lock:
@@ -319,21 +456,30 @@ class DecodeStream:
                 self._c_steps.inc()
                 if len({seq.request.model for _, seq in live}) >= 2:
                     self._c_xtask.inc()
+        rt = self.engine.decoder_runtime(self.module)
+        graphed = self.graph_engages(rt, live)
+        replayed = False
         with scope("s2m3.decode.dispatch") as disp:
-            logits, _ = self.engine.apply_paged_decode(
-                self.module, torch.from_numpy(tokens), self.cache,
-                torch.from_numpy(tables), torch.from_numpy(lengths))
+            if graphed:
+                out, replayed = self._graph_step(rt, tokens, tables, lengths)
+            else:
+                out, _ = self.engine.apply_paged_decode(
+                    self.module, torch.from_numpy(tokens), self.cache,
+                    torch.from_numpy(tables), torch.from_numpy(lengths))
         with scope("s2m3.decode.read") as read:
-            picks = {row: int(select_token(
-                logits[row], seq.rng, temperature=seq.request.temperature))
-                for row, seq in live}
+            if graphed:
+                top = out.tolist()
+                picks, reads = {row: top[row] for row, _ in live}, 1
+            else:
+                picks, reads = pick_tokens(out, live)
         with scope("s2m3.decode.retire"):
             for row, seq in live:
                 self.tracer.record(self.module, "decode_tick", disp.t0,
                                    read.t1, rid=seq.rid,
                                    parent=seq.decode_sid, rows=len(live),
                                    pages_live=pages_live,
-                                   dispatch_s=disp.dur, syncs=len(live))
+                                   dispatch_s=disp.dur, syncs=reads,
+                                   graph=int(replayed))
             finished = []
             with self._lock:
                 for row, seq in live:

@@ -197,21 +197,32 @@ def _ref_deployment(jb, jp):
 @contextlib.contextmanager
 def _record_logits(store):
     """Every logits row a token is chosen from, by rid, on the decode
-    stream (serve) and the solo path (submit)."""
+    stream (serve: a tick's greedy rows through ``pick_tokens``) and the
+    solo path (submit)."""
     from repro_torch.serving import decode, sampler
 
     select = sampler.select_token
+    pick = decode.pick_tokens
 
     def recording(logits, generator=None, **kw):
         store.setdefault(generator.initial_seed(), []).append(
             logits.detach().clone())
         return select(logits, generator, **kw)
 
+    def picking(logits, live):
+        for row, seq in live:
+            if seq.request.temperature <= 0.0:
+                store.setdefault(seq.rng.initial_seed(), []).append(
+                    logits[row].detach().clone())
+        return pick(logits, live)
+
     decode.select_token = sampler.select_token = recording
+    decode.pick_tokens = picking
     try:
         yield
     finally:
         decode.select_token = sampler.select_token = select
+        decode.pick_tokens = pick
 
 
 def test_serve_equals_submit_and_reference_tokens(models):

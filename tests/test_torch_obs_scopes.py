@@ -3,7 +3,7 @@
 scope is a top-level host event with the operators it launches nested
 under it and no scope inside another; with no profiler recording no
 range is entered; the device calls' spans carry ``dispatch_s`` and
-``syncs``; each garbage collection is one ``gc`` span, also when it
+``syncs`` (one read a call of greedy rows); each garbage collection is one ``gc`` span, also when it
 starts while the tracer's lock is held."""
 
 import gc
@@ -118,11 +118,13 @@ def test_call_spans_carry_dispatch_and_syncs(profiled):
     assert calls
     for s in calls:
         assert 0.0 <= s.attrs["dispatch_s"] <= s.dur
-        want = s.attrs["rows"] if s.phase == "decode_tick" else 1
-        assert s.attrs["syncs"] == want, s
+        # every row is greedy: one read a call, a tick's included
+        assert s.attrs["syncs"] == 1, s
 
 
 def test_a_tick_reads_a_token_a_live_row():
+    """The greedy rows' tokens come back in one read a tick, however
+    many rows are live; on the CPU the tick runs eagerly (``graph`` 0)."""
     sched, reqs = _decode_case()
     _serve(sched, reqs)
     ticks: dict = {}
@@ -131,8 +133,9 @@ def test_a_tick_reads_a_token_a_live_row():
             ticks.setdefault((s.t0, s.t1), []).append(s)
     assert any(len(rows) > 1 for rows in ticks.values())
     for rows in ticks.values():
-        assert {s.attrs["syncs"] for s in rows} == {len(rows)}
+        assert {s.attrs["syncs"] for s in rows} == {1}
         assert {s.attrs["rows"] for s in rows} == {len(rows)}
+        assert {s.attrs["graph"] for s in rows} == {0}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -284,3 +287,16 @@ def test_gc_spans_under_threads_keep_every_span_and_its_id():
     assert [s.attrs["generation"] for s in trace.spans
             if s.phase == "gc"] == ended
     assert trace.validate() == []
+
+
+def test_a_collection_frees_a_gc_tracers_cycle():
+    """A scheduler's tracer records the collector's pauses and reads the
+    scheduler's clock, a cycle: a collection frees it with everything it
+    holds, as it frees any other cycle."""
+    import weakref
+
+    sched, _ = _decode_case()
+    ref = weakref.ref(sched)
+    del sched
+    gc.collect()
+    assert ref() is None
