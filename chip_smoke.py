@@ -119,14 +119,19 @@ Phases (any failure exits non-zero; nothing is caught):
    before the next).  deepseek (MLA with its latent cache, 256 routed
    experts top-8 and a shared one, the MTP weights carried) at 2 layers,
    one dense and one MoE (14,630,400,000 parameters), serves phase 8's 4
-   greedy requests solo through ``launch.serve.serve_arch`` →
-   ``Deployment.submit()``: finite logits, decode == a fresh prefill,
-   card == CPU at 2 layers with 16 of the 256 experts (a cut for the
-   host), no kernel launch at all (the reference runs MLA and the MoE as
-   plain products); prints the prefill time, solo tokens/s beside the
-   weight-read floor, the latent cache's bytes a token and the peak
-   device memory, which must stay below the weights plus one expert
-   leaf.  llama3-405b (128 q / 8 kv heads of 128, G = 16) at 2 layers
+   greedy requests through ``launch.serve.serve_arch``'s paged scheduler
+   (the latent pages, the absorbed decode through ``paged_mla_decode``)
+   and again solo (``submit()``): tokens and every step's logits serve
+   == submit, finite logits, decode == a fresh prefill, card == CPU at 2
+   layers with 16 of the 256 experts (a cut for the host), exact
+   launches (``paged_mla_decode`` once a layer a tick, no other kernel),
+   then the requests again on the tick's CUDA graph; prints the prefill
+   time, serve() and solo tokens/s beside the weight-read floor, the
+   latent cache's bytes a token and the peak device memory, which must
+   stay below the weights plus one expert leaf.  Phase 2 holds
+   ``paged_mla_decode`` to its plain version at its tick (4 rows, 128
+   heads, lengths across page boundaries), at edge lengths and at
+   dots-vlm1.ocr's 64 rows, and times it.  llama3-405b (128 q / 8 kv heads of 128, G = 16) at 2 layers
    runs phase 8's path and checks, card == CPU at 1 layer; phase 2
    checks and times the three attention kernels at its shapes.
 10. The analysis passes against the card: the kernel checker's sweep
@@ -377,6 +382,8 @@ DS_ARCH, DS_CUT, DS_CPU_EXPERTS = ("deepseek-v3-671b",
                                    dict(n_layers=2, first_dense_layers=1), 16)
 L405_ARCH, L405_LAYERS, L405_CPU_LAYERS = "llama3-405b", 2, 1
 FAM_GEOM[L405_ARCH] = (128, 8, 128)
+#: deepseek-v3-671b's rotary key width (its latent, kv_lora_rank, is 512)
+MLA_ROPE = 64
 FAM_CACHE[L405_ARCH] = 256
 
 # phase 11: tinyllama-1.1b trains at full width and depth in float32 for
@@ -1831,6 +1838,98 @@ def phase_kernels_families(dev) -> tuple[list[dict], dict]:
     return rows, keys
 
 
+def _mla_work(q_lat, lens, n_rows, pages_read) -> tuple[int, float]:
+    """MLA's paged decode call: its bytes (each live key's ckv and kr
+    once, each row's q_lat, q_pe and output, the table entries of the
+    pages read and the lengths) and FLOPs (the scores against ckv || kr
+    and the weighted sum of ckv, each head and live key)."""
+    B, H, r = q_lat.shape
+    rope = MLA_ROPE
+    live = int(lens.clamp_min(0).sum())
+    nbytes = (4 * live * (r + rope) + 4 * n_rows * H * (2 * r + rope)
+              + 4 * pages_read + 4 * n_rows)
+    return nbytes, 2.0 * H * live * (2 * r + rope)
+
+
+def phase_kernels_mla(dev) -> tuple[list[dict], dict]:
+    """MLA's absorbed paged decode (``paged_mla_decode``) against its
+    plain version, float32 (the kernel's only instance): one row at phase
+    9's deepseek-v3-671b tick (4 rows, H = 128, r = 512, rope = 64,
+    tables of 16 pages of 16, lengths across page boundaries: each
+    prompt's length plus half the new tokens, garbage table entries past
+    a row's pages), timed; and, checked besides, rows of length 0 and 1,
+    a page boundary +- 1 and a full table, and dots-vlm1.ocr's 64 rows
+    (28 live of 1,100-2,400 keys in 200 pages).  The library call is SDPA
+    over the row's keys gathered beforehand (ckv || kr as one kv head,
+    ckv as the value)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    H_, r, rope = 128, 512, MLA_ROPE
+    scale = (128 + 64) ** -0.5
+
+    def case(lens, n_max):
+        B = len(lens)
+        P = B * n_max + 1
+        q_lat = torch.randn(B, H_, r, generator=g, device=dev)
+        q_pe = torch.randn(B, H_, rope, generator=g, device=dev)
+        ckv = torch.randn(P, PAGE, r, generator=g, device=dev)
+        kr = torch.randn(P, PAGE, rope, generator=g, device=dev)
+        perm = torch.randperm(P - 1, generator=g, device=dev) + 1
+        tables = perm[:B * n_max].reshape(B, n_max).to(torch.int32)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        junk = torch.randint(-50, P + 50, (B, n_max), generator=g,
+                             device=dev, dtype=torch.int32)
+        owned = torch.arange(n_max, device=dev)[None] * PAGE < lens_t[:, None]
+        tables = torch.where(owned, tables, junk).contiguous()
+        return (q_lat, q_pe, ckv, kr, tables, lens_t), int(owned.sum())
+
+    n_max = FAM_CACHE[L405_ARCH] // PAGE
+    lens = [n + FAM_NEW // 2 for n in prompt_lens(FAM_PROMPTS, FAM_REQS)]
+    args, pages = case(lens, n_max)
+    err = _check("paged_mla_decode", "float32",
+                 f"phase 9's tick: H={H_} r={r} rope={rope} {n_max} pages a "
+                 f"row, lengths {lens}",
+                 ops.paged_mla_decode(*args, scale=scale),
+                 ref.paged_mla_decode_ref(*args, scale=scale))
+    for what, edge, nm in (
+            ("edges", [0, 1, PAGE - 1, PAGE, PAGE + 1, n_max * PAGE], n_max),
+            ("dots-vlm1.ocr's 64 rows", [1100 + 47 * i if i < 28 else 0
+                                         for i in range(64)], 200)):
+        eargs, _ = case(edge, nm)
+        _check("paged_mla_decode", "float32", what,
+               ops.paged_mla_decode(*eargs, scale=scale),
+               ref.paged_mla_decode_ref(*eargs, scale=scale))
+    q_lat, q_pe, ckv, kr, tables, lens_t = args
+    T_ = n_max * PAGE
+    idx = tables.long().clamp(0, ckv.shape[0] - 1)
+    keys = torch.cat([ckv[idx], kr[idx]], -1).reshape(len(lens), 1, T_,
+                                                      r + rope)
+    vals = ckv[idx].reshape(len(lens), 1, T_, r)
+    mask = (torch.arange(T_, device=dev)[None] < lens_t[:, None])[
+        :, None, None, :]
+    qq = torch.cat([q_lat, q_pe], -1)[:, :, None]
+
+    def lib():
+        return F.scaled_dot_product_attention(qq, keys, vals, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    keys_ = {"paged_mla_decode": (DS_ARCH, "paged_mla_decode",
+                                  (len(lens), n_max, PAGE, H_, r, rope))}
+    # device time: every kernel of a call (the kernel, and its split
+    # merge where the row's keys split)
+    row = _row("paged_mla_decode", "csrc/mla_decode.cu",
+               "none (the JAX package runs MLA as plain products)",
+               "", err,
+               lambda: ops.paged_mla_decode(*args, scale=scale),
+               lambda: ref.paged_mla_decode_ref(*args, scale=scale),
+               lib, *_mla_work(q_lat, lens_t, len(lens), pages))
+    return [row], keys_
+
+
 def _tile_work(q, tables, lens, tile, ps_loc, P_loc, K_, D_, isz,
                window=0) -> tuple[int, float]:
     """A tile-mode call's bytes (q, o, the lse, the k and v of the live keys
@@ -2094,22 +2193,23 @@ def record_logits(store: dict):
         decode.DecodeStream.graph_engages = engages
 
 
-def _graph_vs_eager(tag, arch, serve, eager, n_layers) -> None:
+def _graph_vs_eager(tag, arch, serve, eager, n_layers,
+                    kernel="paged_decode_attention") -> None:
     """The served path again on the decode tick's CUDA graph: ``serve()``
     serves the requests of a recorded run (``record_logits``: the eager
     step) once more on the same weights and returns (results, its decode
     stream).  Checked: every request's tokens == the eager ticks', one
-    capture and every later tick a replay, and the paged launches the
-    replays count == ticks x layers."""
+    capture and every later tick a replay, and the launches of the paged
+    ``kernel`` the replays count == ticks x layers."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
 
-    before = ops.LAUNCHES["paged_decode_attention"]
+    before = ops.LAUNCHES[kernel]
     results, stream = serve()
     torch.cuda.synchronize()
-    paged = ops.LAUNCHES["paged_decode_attention"] - before
+    paged = ops.LAUNCHES[kernel] - before
     for r in results:
         a, b = np.asarray(r.output), np.asarray(eager[r.rid])
         if a.shape != b.shape or not np.array_equal(a, b):
@@ -3256,15 +3356,20 @@ def phase_family(dev, cfg, cpu_layers=2, tag="phase8") -> dict:
 def phase_deepseek(dev) -> dict:
     """deepseek-v3-671b at its published width with depth cut to one
     dense and one MoE layer (random float32 weights from seed 0) through
-    ``launch.serve.serve_arch``: MLA's latent cache has no paged layout,
-    so each request runs solo through ``Deployment.submit()``.  Checked:
-    finite logits, decode == a fresh prefill at steps 1 and FAM_NEW - 1,
-    no kernel launch anywhere in the phase, and the peak device memory
-    below the weights plus one expert leaf (the dense MoE reads each
-    expert leaf in place); before it, card == CPU at full width with 2
-    layers and DS_CPU_EXPERTS of the 256 experts.  Prints the prefill
-    time, solo tokens/s beside the weight-read floor, the latent cache's
-    bytes a token, device busy over 3 decode steps and the peak."""
+    ``launch.serve.serve_arch``: MLA's latent cache pages, so the
+    requests go through the paged scheduler (serve(): the absorbed
+    decode through ``paged_mla_decode``), then each through the solo
+    path (submit(): the dense latent cache, plain products).  Checked:
+    tokens and every step's logits serve == submit, finite logits,
+    decode == a fresh prefill at steps 1 and FAM_NEW - 1, exact launches
+    (``paged_mla_decode`` once a layer a tick, at the tick's call shape;
+    no other kernel), the tick's CUDA graph == the eager ticks, and the
+    peak device memory below the weights plus one expert leaf (the dense
+    MoE reads each expert leaf in place); before it, card == CPU at full
+    width with 2 layers and DS_CPU_EXPERTS of the 256 experts.  Prints
+    the prefill time, serve() and solo tokens/s beside the weight-read
+    floor, the latent cache's bytes a token, device busy over 3 decode
+    steps and the peak."""
     import gc
 
     import numpy as np
@@ -3291,16 +3396,25 @@ def phase_deepseek(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     lens = prompt_lens(FAM_PROMPTS, FAM_REQS)
+    cache_len = FAM_CACHE[L405_ARCH]
     reqs = make_requests(cfg, len(lens), FAM_NEW, prompt_lens=lens,
                          seed=SEED)
-    solo = {}
-    with record_logits(solo):
-        run = serve_arch(cfg, reqs, device=dev)
-    if run.scheduler is not None:
-        fail(f"{DS_ARCH}: served through the paged scheduler; MLA's "
-             "latent cache has no paged layout")
+    served, solo = {}, {}
+    ops.reset_launches()
+    with record_logits(served):
+        run = serve_arch(cfg, reqs, device=dev, max_batch=FAM_ROWS,
+                         cache_len=cache_len)
+    if run.scheduler is None:
+        fail(f"{DS_ARCH}: served solo; MLA's latent cache pages")
     rt = next(iter(run.engine.decoders.values()))
     b = rt.bundle
+    t_submit = time.perf_counter()
+    with record_logits(solo):
+        solo_res = {r.rid: run.engine.generate(r) for r in reqs}
+    torch.cuda.synchronize()
+    t_submit = time.perf_counter() - t_submit
+    launches = dict(ops.LAUNCHES)
+    shapes = f32_shapes()
     n = b.param_count()
     n_mtp = spec_param_count(b.specs["mtp"])
     n_embed = spec_param_count(b.specs["embed"])
@@ -3316,13 +3430,51 @@ def phase_deepseek(dev) -> dict:
         f"{cfg.v_head_dim}, {cfg.n_experts} experts of {cfg.moe_d_ff} "
         f"top-{cfg.experts_top_k} + {cfg.n_shared_experts} shared, dense "
         f"d_ff {cfg.dense_d_ff}, MTP weights {n_mtp:,} (carried, not run); "
-        f"submit() x{len(reqs)} (prompts {lens}, {FAM_NEW} new tokens) in "
-        f"{run.seconds:.3f} s")
-    req_steps = _decode_vs_prefill(DS_ARCH, b, rt.params, reqs, run.results,
-                                   solo, dev, (1, FAM_NEW - 1), tag="phase9")
+        f"serve() of {len(reqs)} requests (prompts {lens}, {FAM_NEW} new "
+        f"tokens, rows of {cache_len}) in {run.seconds:.3f} s, submit() "
+        f"x{len(reqs)} in {t_submit:.3f} s")
+    for req, r in zip(reqs, run.results, strict=True):
+        a_, b_ = np.asarray(r.output), np.asarray(solo_res[r.rid].output)
+        if a_.shape != b_.shape or not np.array_equal(a_, b_):
+            fail(f"{DS_ARCH} rid {r.rid}: serve tokens {a_.tolist()} != "
+                 f"submit {b_.tolist()}")
+        lg_a, lg_b = torch.stack(served[r.rid]), torch.stack(solo[r.rid])
+        if not bool(torch.isfinite(lg_b).all()):
+            fail(f"{DS_ARCH} rid {r.rid}: non-finite logits")
+        dlogit = _err(lg_a, lg_b)
+        log(f"[phase9] {DS_ARCH} rid {r.rid} prompt {len(req.prompt)}: "
+            f"serve == submit over {len(a_)} tokens, max |dlogit| "
+            f"{dlogit:.3e} (tol {LOGIT_TOL:g}; |logit| up to "
+            f"{lg_b.abs().max().item():.3f})")
+        if dlogit > LOGIT_TOL:
+            fail(f"{DS_ARCH} rid {r.rid}: serve logits differ from submit's "
+                 f"by {dlogit:.3e}")
+    req_steps = _decode_vs_prefill(DS_ARCH, b, rt.params, reqs,
+                                   [solo_res[r.rid] for r in reqs], solo,
+                                   dev, (1, FAM_NEW - 1), tag="phase9")
+    ticks = run.decode_steps
+    n_max = cache_len // PAGE
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["paged_mla_decode"] = ticks * cfg.n_layers
+    want_shapes = {k: {} for k in ops.SHAPE_LAUNCHES}
+    want_shapes["paged_mla_decode"] = {
+        (FAM_ROWS, n_max, PAGE, cfg.n_heads, cfg.kv_lora_rank,
+         cfg.qk_rope_dim): ticks * cfg.n_layers}
+    log(f"[phase9] {DS_ARCH} kernel launches {launches}, expected {want}; "
+        f"by shape {shapes}, expected {want_shapes}")
+    if launches != want or shapes != want_shapes:
+        fail(f"{DS_ARCH}: kernel launches {launches}, by shape {shapes} != "
+             f"expected {want}, {want_shapes}")
 
-    solo_s = sum(sp.t1 - sp.t0 for r in run.results for sp in r.timeline
-                 if sp.phase == "decode")
+    trace = run.scheduler.tracer.trace
+    tick_s = {}
+    for r in reqs:
+        for sp in trace.spans_for(r.rid):
+            if sp.phase == "decode_tick":
+                tick_s[(sp.t0, sp.t1)] = sp.t1 - sp.t0
+    stats = run.scheduler.stats_dict()[cfg.name]
+    solo_s = sum(sp.t1 - sp.t0 for r in solo_res.values()
+                 for sp in r.timeline if sp.phase == "decode")
     steps = sum(req_steps)
     longest = reqs[int(np.argmax(lens))]
     batch = {"tokens": torch.tensor([longest.prompt], dtype=torch.int32,
@@ -3330,34 +3482,36 @@ def phase_deepseek(dev) -> dict:
     pre, cache = _prefill_ms(b, rt.params, batch, dense_T(max(lens), FAM_NEW),
                              dev)
     _profile_decode(DS_ARCH, b, rt.params, cache, max(lens), dev)
-    launches = dict(ops.LAUNCHES)
-    log(f"[phase9] {DS_ARCH} kernel launches over the phase {launches}, "
-        "expected none (MLA and the MoE are plain products)")
-    if any(launches.values()):
-        fail(f"{DS_ARCH}: kernel launches {launches}, expected none")
     cache_floats = sum(int(np.prod(ws.shape)) for ws in
                        tree_leaves(b.cache_specs(1, 1))) // cfg.n_layers
     read = (n - n_embed - n_mtp) * 4
-    peak = torch.cuda.max_memory_allocated()
     log(f"[phase9] {DS_ARCH}: prefill of {max(lens)} tokens "
         f"{min(pre):.1f} ms (best of 3, warm; "
-        f"{', '.join(f'{t:.1f}' for t in pre)}); solo decode {steps} steps, "
-        f"{steps / solo_s:.1f} tokens/s ({1e3 * solo_s / steps:.2f} ms per "
-        f"token; weight-read floor {read / hbm_bytes_s() * 1e3:.2f} ms: "
-        f"{read / 1e9:.2f} GB a step, the embedding table and the MTP block "
-        f"unread); latent cache {cache_floats} floats "
-        f"({4 * cache_floats} B) a token and layer; peak device memory "
-        f"{peak / 1e9:.2f} GB (weights {n * 4 / 1e9:.2f} GB, one expert "
-        f"leaf {leaf_bytes / 1e9:.2f} GB)")
+        f"{', '.join(f'{t:.1f}' for t in pre)}); serve() decode "
+        f"{stats['decode_tokens']} tokens over {len(tick_s)} ticks, "
+        f"{stats['decode_tokens'] / sum(tick_s.values()):.1f} tokens/s, "
+        f"{1e3 * sum(tick_s.values()) / len(tick_s):.2f} ms per tick; solo "
+        f"decode {steps} steps, {steps / solo_s:.1f} tokens/s "
+        f"({1e3 * solo_s / steps:.2f} ms per token; weight-read floor "
+        f"{read / hbm_bytes_s() * 1e3:.2f} ms: {read / 1e9:.2f} GB a step, "
+        f"the embedding table and the MTP block unread); latent cache "
+        f"{cache_floats} floats ({4 * cache_floats} B) a token and layer")
+    _graph_vs_eager("phase9", DS_ARCH, lambda: _graph_run(serve_arch(
+        cfg, reqs, device=dev, params=rt.params, max_batch=FAM_ROWS,
+        cache_len=cache_len)), {r.rid: r.output for r in run.results},
+        cfg.n_layers, kernel="paged_mla_decode")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[phase9] {DS_ARCH}: peak device memory {peak / 1e9:.2f} GB "
+        f"(weights {n * 4 / 1e9:.2f} GB, one expert leaf "
+        f"{leaf_bytes / 1e9:.2f} GB)")
     if peak >= n * 4 + leaf_bytes:
         fail(f"{DS_ARCH}: peak {peak / 1e9:.2f} GB reaches the weights plus "
              "one expert leaf: an expert leaf was copied")
-    del run, rt, b, cache, solo
+    del run, rt, b, cache, served, solo, solo_res
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    return {"launches": launches,
-            "shapes": f32_shapes()}
+    return {"launches": launches, "shapes": shapes}
 
 
 # --------------------------------------------------------------------------
@@ -3371,7 +3525,8 @@ def _plans_agree(dev, cases, n_sm) -> None:
     SSD and sLSTM prefill plan against ``ssd_intra_chunk_info`` /
     ``slstm_prefill_info`` (shared memory, threads; the blocks an SM the
     SSD planner counts against the card's occupancy; clusters the card
-    holds at once against the heads)."""
+    holds at once against the heads), and each paged MLA plan against
+    ``paged_mla_decode_info`` (threads, shared memory, blocks an SM)."""
     import ctypes
 
     from repro_torch.analysis import kernel_check as kc
@@ -3393,7 +3548,7 @@ def _plans_agree(dev, cases, n_sm) -> None:
     log(f"[phase10] ops.flash_plan == flash_attention_plan at D in "
         f"{ops.HEAD_DIMS}, float32 and bfloat16; both refuse D=96")
     info = (ctypes.c_int * 3)()
-    n_ssd = n_sl = n_tile = 0
+    n_ssd = n_sl = n_tile = n_mla = 0
     for case in cases:
         lp = kc.launch_plan(case, n_sm)
         if lp.kernel == "ssd_tile_kernel":
@@ -3424,6 +3579,15 @@ def _plans_agree(dev, cases, n_sm) -> None:
                 fail(f"{case.name}: the card holds {info[2]} clusters of "
                      f"{p.cluster}, fewer than the {H_} heads")
             n_sl += 1
+        elif lp.kernel == "paged_mla_decode_kernel":
+            if build.load("mla_decode").paged_mla_decode_info(info) != 0:
+                fail(f"{case.name}: paged_mla_decode_info failed")
+            if (info[0], info[1]) != (lp.threads, lp.smem) or \
+                    info[2] != lp.blocks_per_sm:
+                fail(f"{case.name}: the MLA plan's {lp.threads} threads, "
+                     f"{lp.smem} B and {lp.blocks_per_sm} blocks an SM, "
+                     f"the card's {tuple(info)}")
+            n_mla += 1
         elif lp.tile is not None:
             D_ = case.shape("q")[2]
             if build.load("decode_attention").paged_decode_tile_info(
@@ -3442,7 +3606,8 @@ def _plans_agree(dev, cases, n_sm) -> None:
     log(f"[phase10] the checker's SSD plans at {n_ssd} cases equal "
         f"ssd_intra_chunk_info (smem, threads, blocks an SM), its sLSTM "
         f"prefill plans at {n_sl} equal slstm_prefill_info, its paged "
-        f"tile plans at {n_tile} agree with paged_decode_tile_info")
+        f"tile plans at {n_tile} agree with paged_decode_tile_info, its MLA "
+        f"plans at {n_mla} equal paged_mla_decode_info")
 
 
 def _ssd_vs_f64(case, args, got) -> float:
@@ -6149,6 +6314,7 @@ def main() -> int:
             phase_kernels, phase_kernels_recurrent, phase_kernels_slice,
             phase_kernels_families, phase_kernels_paged_tile,
             phase_kernels_bf16)])
+    mla_rows, mla_keys = timed(2, phase_kernels_mla, dev)
     serve, dep, gen_reqs = timed(3, phase_serve, dev)
     timed(4, phase_profile, dep, gen_reqs)
     del dep, gen_reqs
@@ -6175,8 +6341,9 @@ def main() -> int:
     paths.update(timed(16, phase_bf16, dev, serve["rates"]))
     # each row's launches at its own call shape on its path's main-path
     # run, beside the kernel's launches on that path
-    rows += rec_rows + slice_rows + fam_rows + tile_rows + b16_rows
-    keys.update(rec_keys, **slice_keys, **fam_keys, **tile_keys, **b16_keys)
+    rows += rec_rows + slice_rows + fam_rows + tile_rows + b16_rows + mla_rows
+    keys.update(rec_keys, **slice_keys, **fam_keys, **tile_keys, **b16_keys,
+                **mla_keys)
     for row in rows:
         path, kernel, key = keys[row["name"]]
         if isinstance(path, tuple):

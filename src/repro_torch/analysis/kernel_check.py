@@ -6,7 +6,8 @@ sLSTM head dim no cluster splits or a tile above a block's shared memory
 passes every CPU test and raises only at launch on the card.  For every
 kernel entry point and every shape the zoo serves (the JAX package's
 sweep — gemma2-9b, llama3-8b, whisper-tiny, mini-clip, xlstm-1.3b,
-zamba2-7b — and the shapes ``chip_smoke.py`` serves), this pass:
+zamba2-7b — and the shapes ``chip_smoke.py`` and ``portbench`` serve,
+deepseek-v3-671b's paged MLA decode among them), this pass:
 
 * calls the real entry point on ``meta`` tensors: the wrappers run every
   check of the card path there (plan, shared memory, cluster, grid) and
@@ -58,10 +59,15 @@ from repro_torch.common import hw
 from repro_torch.kernels import ops, ref
 
 _KB = 1024
+#: MLA's paged decode kernel's threads a block and dynamic shared memory
+#: (``csrc/mla_decode.cu``: 16 heads' queries, a tile of 32 keys, the
+#: scores, probabilities and running statistics, in floats)
+MLA_THREADS = 256
+MLA_SMEM = 4 * (16 * 576 + 32 * 580 + 16 * 33 + 32 * 16 + 3 * 16)
 
-#: the six public kernel entry points the checker must cover
+#: the public kernel entry points the checker must cover
 ENTRY_POINTS = ("flash_attention", "decode_attention",
-                "paged_decode_attention", "ssd_chunked",
+                "paged_decode_attention", "paged_mla_decode", "ssd_chunked",
                 "ssd_intra_chunk", "slstm_scan")
 
 #: case names of the JAX package's sweep that the port checks under
@@ -130,17 +136,18 @@ class KernelCase:
         # a paged tile's tables hold its pool's page ids, its rows the
         # pool's pages of page_size slots
         tile = self.kwargs.get("tile")
+        pool = "ckv_pages" if self.entry == "paged_mla_decode" else "k_pages"
         out = []
         for name, s, kind in self.operands:
             if kind == _LENGTHS:
                 T = (self.shape("k")[1] if self.entry == "decode_attention"
                      else self.shape("block_tables")[1]
-                     * (tile[3] if tile else self.shape("k_pages")[1]))
+                     * (tile[3] if tile else self.shape(pool)[1]))
                 t = torch.randint(1, T + 1, s, generator=generator,
                                   device=dev, dtype=torch.int32)
                 t[-1] = T
             elif kind == _TABLES:
-                n_pages = tile[1] if tile else self.shape("k_pages")[0]
+                n_pages = tile[1] if tile else self.shape(pool)[0]
                 t = torch.randperm(n_pages, generator=generator, device=dev)
                 if t.numel() < s[0] * s[1]:     # a pool of fewer pages
                     t = t.repeat(-(-s[0] * s[1] // n_pages))
@@ -210,6 +217,21 @@ def _paged_tile_case(name, *, B, H, D, K, n_max, n_pages, pages, p0=0,
              tile=(p0, n_pages, s0, page_size)), dtype)
 
 
+def _paged_mla_case(name, *, B, H, T, r, rope, page_size=16,
+                    scale=0.125, dtype=torch.float32):
+    """MLA's absorbed decode over a latent pool of B rows' worth of
+    pages, each row's T-token budget carved into pages."""
+    n_max = -(-T // page_size)
+    n_pages = B * n_max
+    return KernelCase(
+        name, "paged_mla_decode",
+        (("q_lat", (B, H, r), _FLOAT), ("q_pe", (B, H, rope), _FLOAT),
+         ("ckv_pages", (n_pages, page_size, r), _FLOAT),
+         ("kr_pages", (n_pages, page_size, rope), _FLOAT),
+         ("block_tables", (B, n_max), _TABLES),
+         ("lengths", (B,), _LENGTHS)), dict(scale=scale), dtype)
+
+
 def _ssd_intra_case(name, *, B, nc, L, H, P, N, dtype=torch.float32):
     return KernelCase(
         name, "ssd_intra_chunk",
@@ -255,6 +277,7 @@ def zoo_cases(dtype=torch.float32) -> list[KernelCase]:
     xl, vl = get_config("xlstm-1.3b"), get_config("internvl2-1b")
     tl = get_config("tinyllama-1.1b")
     gr, l405 = get_config("granite-moe-3b-a800m"), get_config("llama3-405b")
+    ds = get_config("deepseek-v3-671b")
     clip = get_clip_config("mini-clip")
     dt = dict(dtype=dtype)
     gkw = dict(H=g.n_heads, D=g.head_dim, K=g.n_kv_heads,
@@ -323,6 +346,14 @@ def zoo_cases(dtype=torch.float32) -> list[KernelCase]:
         _paged_tile_case("internvl2-1b/paged-tile-page-range", B=4, n_max=18,
                          n_pages=70, pages=35, p0=35, slots=4, s0=4,
                          H=vl.n_heads, D=vl.head_dim, K=vl.n_kv_heads, **dt),
+        # deepseek-v3-671b's latent pool: chip_smoke.py phase 9's 4-row
+        # tick and portbench's dots-vlm1.ocr tick (64 rows of up to 3,200
+        # keys), float32 only
+        *(_paged_mla_case(f"deepseek-v3-671b/paged-mla-decode{tag}", B=B,
+                          T=T, H=ds.n_heads, r=ds.kv_lora_rank,
+                          rope=ds.qk_rope_dim)
+          for tag, B, T in (("", 4, 256), ("-64rows", 64, 3200))
+          if dtype is torch.float32),
         # xlstm-1.3b's decode step (the one-step kernel)
         _slstm_case("xlstm-1.3b/step", B=1, S=1, H=xl.n_heads, hd=xl_hd,
                     **dt),
@@ -418,6 +449,15 @@ def launch_plan(case: KernelCase, n_sm: int) -> LaunchPlan:
                           blocks_per_sm=ops.DECODE_BLOCKS_PER_SM,
                           workspace=ops._decode_ws_bytes(B, H, D, n_split),
                           tile=kw.get("tile"))
+    if e == "paged_mla_decode":
+        B, H, r = case.shape("q_lat")
+        ps = case.shape("ckv_pages")[1]
+        T = case.shape("block_tables")[1] * ps
+        n_split = ops.mla_splits(T, B, H, n_sm)
+        return LaunchPlan("paged_mla_decode_kernel",
+                          ops.mla_grid(B, H, n_split), MLA_THREADS, MLA_SMEM,
+                          blocks_per_sm=ops.MLA_BLOCKS_PER_SM,
+                          workspace=ops._mla_ws_bytes(B, H, r, n_split))
     if e in ("ssd_intra_chunk", "ssd_chunked"):
         if e == "ssd_intra_chunk":
             B, nc, L, H, P = case.shape("x")
@@ -453,6 +493,8 @@ def plain(case: KernelCase, args):
         return ref.decode_attention_ref(*args, **kw)
     if case.entry == "paged_decode_attention":
         return ref.paged_decode_attention_ref(*args, **kw)
+    if case.entry == "paged_mla_decode":
+        return ref.paged_mla_decode_ref(*args, **kw)
     if case.entry == "ssd_intra_chunk":
         return ref.ssd_intra_chunk_ref(*args)
     if case.entry == "ssd_chunked":
@@ -491,6 +533,11 @@ def _work(case: KernelCase, args, outs) -> tuple[int, float]:
             T = case.shape("block_tables")[1] * case.shape("k_pages")[1]
         w = kw.get("window", 0)
         return nbytes, 4.0 * D * H * B * (min(T, w) if w else T)
+    if e == "paged_mla_decode":
+        B, H, r = case.shape("q_lat")
+        rope = case.shape("q_pe")[2]
+        T = case.shape("block_tables")[1] * case.shape("ckv_pages")[1]
+        return nbytes, 2.0 * B * H * T * (2 * r + rope)
     if e in ("ssd_intra_chunk", "ssd_chunked"):
         if e == "ssd_intra_chunk":
             B, nc, L, H, P = case.shape("x")
@@ -581,18 +628,11 @@ def check_case(case: KernelCase, *, n_sm: int | None = None
 def check_kernels(*, device=None, cases: list[KernelCase] | None = None
                   ) -> list[Diagnostic]:
     """Run every case (default: the zoo sweep, which covers all of
-    ``ENTRY_POINTS``) and concatenate the findings, with one INFO for
-    deepseek-v3-671b, whose MLA layers launch no kernel.  ``device``: a
-    CUDA device reads its SM count from the card (nothing is launched);
-    None or the CPU take the H100's."""
+    ``ENTRY_POINTS``) and concatenate the findings.  ``device``: a CUDA
+    device reads its SM count from the card (nothing is launched); None
+    or the CPU take the H100's."""
     n_sm = ops.sm_count(torch.device("meta" if device is None else device))
     diags: list[Diagnostic] = []
     for c in (zoo_cases() if cases is None else cases):
         diags.extend(check_case(c, n_sm=n_sm))
-    if cases is None:
-        diags.append(Diagnostic(
-            Severity.INFO, "kernel/no-kernel",
-            "deepseek-v3-671b: MLA attention and the MoE run as plain "
-            "products over the latent cache, as in the JAX package; no "
-            "hand-written kernel is launched", entity="deepseek-v3-671b"))
     return diags

@@ -14,6 +14,18 @@ from typing import Any, Callable, Mapping
 
 
 @dataclass(frozen=True)
+class Yarn:
+    """YaRN's rotary settings, under the names of DeepSeek-V3's published
+    ``rope_scaling`` (``layers.rope``)."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                      # dense | moe | vlm | audio | hybrid | ssm
@@ -41,6 +53,17 @@ class ArchConfig:
     qk_rope_dim: int = 0
     qk_nope_dim: int = 0
     v_head_dim: int = 0
+
+    # --- DeepSeek-V3's published serving path.  The port's own: the JAX
+    # package computes none of it, and the defaults keep its behaviour
+    # (the softmax router, every expert held, plain rotary angles) ---
+    moe_router: str = "softmax"      # softmax | noaux_tc (sigmoid, groups)
+    n_group: int = 0                 # noaux_tc: groups of experts
+    topk_group: int = 0              # noaux_tc: groups a token keeps
+    routed_scaling_factor: float = 1.0  # noaux_tc: the gates' scale
+    experts_held: int = 0            # experts this rank holds (0: all) ...
+    experts_offset: int = 0          # ... from this global expert id on
+    rope_yarn: Yarn | None = None    # YaRN's rotary angles (layers.rope)
 
     # --- attention variants ---
     sliding_window: int = 0          # window size for "local" layers
@@ -78,6 +101,7 @@ class ArchConfig:
     # --- VLM ---
     has_vision_stub: bool = False
     n_image_tokens: int = 256        # precomputed patch embeddings (stub)
+    image_proj: bool = True          # the prefix through img_proj (d x d)
 
     # --- misc ---
     act_fn: str = "silu"             # silu | gelu | gelu_tanh

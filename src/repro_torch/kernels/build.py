@@ -57,6 +57,14 @@ LIBRARIES = {
         # static shared-memory bytes of the tile mode's kernel
         "paged_decode_tile_info": [_I, _I, _P],
     }),
+    "mla_decode": ("mla_decode.cu", {
+        # q_lat, q_pe, ckv, kr, tables, lengths, o, ws, B, H, r, rope, P,
+        # ps, n_max, n_split, scale, stream
+        "paged_mla_decode_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
+        # int[3] out: threads a block, dynamic shared-memory bytes, the
+        # blocks an SM holds
+        "paged_mla_decode_info": [_P],
+    }),
     "ssd_scan": ("ssd_scan.cu", {
         # x, Bm, Cm, dt, A_log, y, s_loc, lam, BC, L, H, P, N, then the
         # plan (tr, ns, n_heavy, threads, smem), dtype, stream

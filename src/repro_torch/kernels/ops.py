@@ -1,5 +1,6 @@
-"""Wrappers over the hand-written CUDA kernels: attention, the Mamba2
-SSD intra-chunk kernel and the sLSTM recurrence.
+"""Wrappers over the hand-written CUDA kernels: attention (MLA's
+absorbed paged decode among it), the Mamba2 SSD intra-chunk kernel and
+the sLSTM recurrence.
 
 Each wrapper checks its inputs, then either launches its kernel on the
 current CUDA stream or — only for tensors that lie on the CPU — takes
@@ -50,15 +51,16 @@ from repro_torch.kernels import ref
 #: (``slstm_scan`` counts the prefill kernel, ``slstm_scan_s1`` the
 #: one-step decode kernel; both are launched by ``slstm_scan()``)
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0,
-            "paged_decode_attention": 0, "ssd_intra_chunk": 0,
-            "slstm_scan": 0, "slstm_scan_s1": 0}
+            "paged_decode_attention": 0, "paged_mla_decode": 0,
+            "ssd_intra_chunk": 0, "slstm_scan": 0, "slstm_scan_s1": 0}
 
 #: kernel name -> launches since the last ``reset_launches()`` by call
 #: shape and dtype, which sum to the kernel's ``LAUNCHES`` entry: flash
 #: (B, S, T, H, K, D, causal, window, dtype), decode (B, T, H, K, D,
 #: window, dtype), paged decode (B, n_max, page_size, H, K, D, window,
 #: dtype) over a whole pool and (B, n_max, the tile's slots a page, H, K,
-#: D, window, the tile's pages, page_size, dtype) over a rank's tile, SSD
+#: D, window, the tile's pages, page_size, dtype) over a rank's tile,
+#: MLA's paged decode (B, n_max, page_size, H, kv_lora_rank, rope, dtype), SSD
 #: (B, chunks, chunk length L, heads H, dtype) and both sLSTM kernels (B,
 #: S, H, hd, dtype); window 0 is none, so a local layer's launches count
 #: apart from a global one's, and dtype is the instance's name
@@ -95,6 +97,12 @@ DECODE_MAX_SPLITS = 256
 #: the blocks an SM each split-KV kernel is built to hold
 #: (``__launch_bounds__``)
 DECODE_BLOCKS_PER_SM = 2
+
+#: MLA's paged decode kernel: the latent and rotary widths it is built
+#: for (DeepSeek-V3's kv_lora_rank and qk_rope_dim), the heads a block,
+#: the fewest keys a split keeps, the blocks an SM holds, its most splits
+MLA_RANK, MLA_ROPE, MLA_HEADS_PER_BLOCK = 512, 64, 16
+MLA_MIN_KEYS, MLA_BLOCKS_PER_SM, MLA_MAX_SPLITS = 64, 2, 64
 
 #: the sLSTM prefill kernel: the largest cluster (blocks a head; 16 is a
 #: non-portable size that Hopper allows), the 32-row slots of R a lane
@@ -664,6 +672,101 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _count("paged_decode_attention",
            (B, n_max, ps, H, K, D, window, P, page_size), q.dtype)
     return o, lse
+
+
+def mla_splits(T, B, H, n_sm) -> int:
+    """The splits of a row's keys in MLA's paged decode, whose grid is
+    (n_split, H / 16, B): enough blocks to fill ``MLA_BLOCKS_PER_SM`` an
+    SM eight times over (a tick's dead rows' blocks end at once, and
+    more, shorter blocks even out the live rows' waves: 0.96 ms at 8
+    splits against 1.14 at 2 for 28 live rows of ~1,600 keys in 64 on an
+    H100), each split keeping ``MLA_MIN_KEYS`` of a full row's T keys (at
+    most ``MLA_MAX_SPLITS``).  Static shapes only, as
+    ``decode_splits``."""
+    blocks = B * (H // MLA_HEADS_PER_BLOCK)
+    want = -(-8 * MLA_BLOCKS_PER_SM * n_sm // max(blocks, 1))
+    return max(1, min(want, T // MLA_MIN_KEYS, MLA_MAX_SPLITS))
+
+
+def mla_grid(B, H, n_split) -> tuple[int, int, int]:
+    return n_split, H // MLA_HEADS_PER_BLOCK, B
+
+
+def _mla_ws_bytes(B, H, r, n_split) -> int:
+    """The split partials: (m, l) and the r-wide sum of each (row, head,
+    split); none with one split."""
+    return 0 if n_split == 1 else 4 * B * H * n_split * (r + 2)
+
+
+def paged_mla_decode(q_lat, q_pe, ckv_pages, kr_pages, block_tables,
+                     lengths, *, scale):
+    """MLA's absorbed decode step over a paged latent pool (see
+    ``ref.paged_mla_decode_ref``): q_lat (B,H,r), q_pe (B,H,rope),
+    ckv_pages (P, page_size, r), kr_pages (P, page_size, rope),
+    block_tables (B, n_max) int32, lengths (B,) int32.  Returns (B,H,r).
+    The kernel is float32 at r = ``MLA_RANK``, rope = ``MLA_ROPE`` and H
+    a multiple of ``MLA_HEADS_PER_BLOCK``; its splits come from static
+    shapes, so a CUDA graph can hold the call."""
+    name = "paged_mla_decode"
+    _no_dtensor(name, (q_lat, q_pe, ckv_pages, kr_pages, block_tables,
+                       lengths))
+    if q_lat.ndim != 3 or q_pe.ndim != 3 or ckv_pages.ndim != 3 or \
+            kr_pages.ndim != 3 or block_tables.ndim != 2:
+        raise ValueError(f"{name}: bad shapes q_lat{tuple(q_lat.shape)} "
+                         f"q_pe{tuple(q_pe.shape)} "
+                         f"ckv{tuple(ckv_pages.shape)} "
+                         f"kr{tuple(kr_pages.shape)}")
+    B, H, r = q_lat.shape
+    P, ps, rope = kr_pages.shape
+    if q_pe.shape != (B, H, rope) or ckv_pages.shape != (P, ps, r) or \
+            block_tables.shape[0] != B:
+        raise ValueError(f"{name}: q_lat{tuple(q_lat.shape)} "
+                         f"q_pe{tuple(q_pe.shape)} do not match "
+                         f"ckv{tuple(ckv_pages.shape)} "
+                         f"kr{tuple(kr_pages.shape)} / "
+                         f"tables{tuple(block_tables.shape)}")
+    dev = _check(name, {"q_lat": q_lat, "q_pe": q_pe, "ckv_pages": ckv_pages,
+                        "kr_pages": kr_pages})
+    _no_backward(name, dev, (q_lat, q_pe, ckv_pages, kr_pages))
+    _lengths_ok(name, lengths, B, dev)
+    if block_tables.dtype != torch.int32 or block_tables.device != dev:
+        raise ValueError(f"{name}: block_tables must be int32 on {dev}")
+    if dev.type == "cpu":
+        return ref.paged_mla_decode_ref(q_lat, q_pe, ckv_pages, kr_pages,
+                                        block_tables, lengths, scale=scale)
+    _contiguous(name, {"q_lat": q_lat, "q_pe": q_pe, "ckv_pages": ckv_pages,
+                       "kr_pages": kr_pages, "block_tables": block_tables,
+                       "lengths": lengths})
+    if (r, rope) != (MLA_RANK, MLA_ROPE) or H % MLA_HEADS_PER_BLOCK or \
+            q_lat.dtype != torch.float32:
+        raise NoPlanError(
+            f"{name}: the kernel takes float32 at r={MLA_RANK}, "
+            f"rope={MLA_ROPE} and H a multiple of {MLA_HEADS_PER_BLOCK}; "
+            f"got {q_lat.dtype} r={r} rope={rope} H={H}")
+    n_max = block_tables.shape[1]
+    n_split = mla_splits(n_max * ps, B, H, sm_count(dev))
+    check_grid(name, mla_grid(B, H, n_split))
+    ws_bytes = _mla_ws_bytes(B, H, r, n_split)
+    _work(name, 2 * B * H * n_max * ps * (2 * r + rope),
+          (q_lat, q_pe, ckv_pages, kr_pages, block_tables, lengths),
+          _nbytes(q_lat.shape, q_lat.dtype), ws_bytes)
+    if dev.type == "meta":
+        return torch.empty_like(q_lat)
+    _aligned(name, {"q_lat": q_lat, "q_pe": q_pe, "ckv_pages": ckv_pages,
+                    "kr_pages": kr_pages})
+    from repro_torch.kernels.build import load
+
+    lib = load("mla_decode")
+    o = torch.empty_like(q_lat)
+    ws = torch.empty(max(ws_bytes // 4, 1), dtype=torch.float32, device=dev)
+    err = lib.paged_mla_decode_fwd(
+        q_lat.data_ptr(), q_pe.data_ptr(), ckv_pages.data_ptr(),
+        kr_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+        o.data_ptr(), ws.data_ptr(), B, H, r, rope, P, ps, n_max, n_split,
+        float(scale), _stream(q_lat))
+    _raise_on(name, err)
+    _count(name, (B, n_max, ps, H, r, rope), q_lat.dtype)
+    return o
 
 
 @dataclass(frozen=True)

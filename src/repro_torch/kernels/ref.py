@@ -70,6 +70,30 @@ def decode_attention_ref(q, k, v, lengths, *, window=0, softcap=0.0):
     return out[:, 0]
 
 
+def paged_mla_decode_ref(q_lat, q_pe, ckv_pages, kr_pages, block_tables,
+                         lengths, *, scale):
+    """The absorbed latent decode step: q_lat (B,H,r) and q_pe (B,H,rope)
+    of each row's query; the latent pools ckv_pages (P, page_size, r) and
+    kr_pages (P, page_size, rope); block_tables (B, n_max) page ids
+    (clamped into range); lengths (B,) live keys.  Scores
+    ``scale * (q_lat . ckv + q_pe . kr)`` over the row's keys below its
+    length, softmax in float32, and the weighted sum of ``ckv``: (B,H,r)
+    in q_lat's dtype; a row with no live key gives 0."""
+    B = q_lat.shape[0]
+    P, ps = ckv_pages.shape[:2]
+    n_max = block_tables.shape[1]
+    tables = block_tables.long().clamp(0, P - 1)
+    ckv = ckv_pages[tables].reshape(B, n_max * ps, -1).float()
+    kr = kr_pages[tables].reshape(B, n_max * ps, -1).float()
+    s = (torch.einsum("bhr,btr->bht", q_lat.float(), ckv)
+         + torch.einsum("bhr,btr->bht", q_pe.float(), kr)) * scale
+    live = torch.arange(n_max * ps, device=q_lat.device)[None] < \
+        lengths.to(q_lat.device).long()[:, None]
+    s = torch.where(live[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1) * live.any(-1)[:, None, None]
+    return torch.einsum("bht,btr->bhr", p, ckv).to(q_lat.dtype)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                *, window=0, softcap=0.0, tile=None):
     """q: (B,H,D); k_pages/v_pages: (n_pages, page_size, K, D);

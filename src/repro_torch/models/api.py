@@ -189,7 +189,7 @@ def _lm_specs(cfg, stages):
         sp["stages"][st.name] = entry
     if not cfg.tie_embeddings:
         sp["head"] = head_specs(cfg.d_model, cfg.vocab_size)
-    if cfg.has_vision_stub:
+    if cfg.has_vision_stub and cfg.image_proj:
         sp["img_proj"] = {"w": WSpec((cfg.d_model, cfg.d_model), (None, "embed"))}
     if cfg.mtp_depth:
         d = cfg.d_model
@@ -243,13 +243,15 @@ def _embed_scale(cfg) -> float:
 
 
 def _embed_inputs(cfg, params, batch, dtype):
-    """Token embedding, behind the projected image prefix for VLMs, both
-    in the compute ``dtype``."""
+    """Token embedding, behind the image prefix for VLMs (through
+    ``img_proj`` where ``cfg.image_proj``, else as it comes), both in
+    the compute ``dtype``."""
     h = embed_apply(params["embed"], batch["tokens"], scale=_embed_scale(cfg),
                     dtype=dtype)
     if cfg.has_vision_stub:
-        img = batch["image_embeds"].to(dtype) @ \
-            params["img_proj"]["w"].to(dtype)
+        img = batch["image_embeds"].to(dtype)
+        if cfg.image_proj:
+            img = img @ params["img_proj"]["w"].to(dtype)
         h = torch.cat([img, h], dim=1)
     return h
 
@@ -496,6 +498,8 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
                 lengths = torch.full((B,), S, dtype=torch.int32,
                                      device=h.device)
             ctx = _make_ctx(mesh, rules, "prefill", positions, lengths, opts)
+            if mesh is None and cfg.n_experts:
+                ctx["valid"] = positions < lengths[:, None]
             h, _ = _run_backbone(stages, params, ctx["constrain"](h), ctx,
                                  cache)
             h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
@@ -507,6 +511,8 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
                             dtype=dt)
             ctx = _make_ctx(mesh, rules, "decode",
                             lengths[:, None].to(torch.int32), lengths, opts)
+            if mesh is None and cfg.n_experts:
+                ctx["valid"] = (lengths > 0)[:, None]
             ctx.update(extra)
             h, _ = _run_backbone(stages, params, ctx["constrain"](h), ctx,
                                  cache)
@@ -516,16 +522,17 @@ def build_model(cfg: ArchConfig, mesh=None, rules=None, **opts) -> ModelBundle:
     def decode_step(params, tokens, cache, lengths):
         return _decode(params, tokens, cache, lengths)
 
-    # Every dense/vlm/non-MLA moe stage cache is {"k","v"} with (B, T,
-    # K, D) leaves (a list of two per gemma2 pair): re-reading (B, T) as
-    # (n_pages, page_size) gives the global page pool the paged decode
-    # kernel and the block-table scatter consume.  The JAX package pages
-    # dense/vlm only; the port's non-MLA moe stage has the same cache, so
-    # it pages too.  MLA's latent {"ckv","kr"} cache and the recurrent
-    # (hybrid/ssm) caches do not fit the page layout; those bundles keep
-    # the paged fields None and serve solo, as in the reference.
-    paged_supported = cfg.family in ("dense", "vlm") or (
-        cfg.family == "moe" and not cfg.use_mla)
+    # Every attention cache leaf is (B, T, ...): {"k","v"} with (B, T,
+    # K, D) leaves (a list of two per gemma2 pair), MLA's latent
+    # {"ckv","kr"} with (B, T, kv_lora_rank) and (B, T, qk_rope_dim).
+    # Re-reading (B, T) as (n_pages, page_size) gives the global page
+    # pools the paged decode kernels and the block-table scatter consume.
+    # The JAX package pages dense/vlm only; the port's moe family has the
+    # same caches (MLA's latent pools decode through their own kernel),
+    # so it pages too.  The recurrent (hybrid/ssm) caches do not fit the
+    # page layout; those bundles keep the paged fields None and serve
+    # solo, as in the reference.
+    paged_supported = cfg.family in ("dense", "vlm", "moe")
 
     def paged_decode_step(params, tokens, cache, block_tables, lengths):
         return _decode(params, tokens, cache, lengths, cache_layout="paged",

@@ -13,7 +13,8 @@ package.  The port covers:
 * moe with MLA (deepseek): a ``"dense"`` stage of ``first_dense_layers``
   MLA + gated-MLP blocks, then a ``"moe"`` stage of MLA + MoE blocks
   (routed experts and the shared one); each layer caches the latent
-  ``ckv`` and the rotary key ``kr`` (``layers.mla``);
+  ``ckv`` and the rotary key ``kr`` (``layers.mla``), which page as
+  (n_pages, page_size, width) pools;
 * hybrid (zamba2) ``"super"``: superblocks of ``n_mamba_per_super``
   Mamba2 blocks (weights ``(n_super, k, ...)``) followed by one
   attention + MLP block whose weights exist once, under
@@ -35,9 +36,10 @@ caches: attention through the flash kernel, windowed for local layers,
 Mamba2 through the SSD kernel, sLSTM through its kernel) and "decode"
 (one token per row: attention against a dense cache through the decode
 kernel, or a paged pool through the paged kernel, both with the window
-of a local layer; MLA attends over its latent cache with plain
-products, as the reference does; the recurrent blocks step their
-state).
+of a local layer; MLA attends over a dense latent cache with plain
+products, as the reference does, and over its paged latent pools in
+the absorbed form through its own kernel; the recurrent blocks step
+their state).
 
 Under a mesh (``ctx["mesh"]``, see ``models.api``) every attention and
 MLA block constrains its residual stream first, as the reference's do;
@@ -219,14 +221,20 @@ def _apply_ffn_sub(p, h, ctx, cfg, *, use_moe: bool, post_norm: bool):
     """Norm + MLP (or MoE) + residual (+post-norm).  Returns (h, the
     MoE's router loss, 0.0 without one); serving drops the loss.  The
     MoE runs ``ctx["moe_impl"]`` ("dense" without a mesh, "ep" by default
-    under one, at ``ctx["moe_capacity_factor"]``)."""
+    under one, at ``ctx["moe_capacity_factor"]``); a prefill over held
+    experts (``cfg.experts_held``) without a mesh runs the routed pairs
+    alone.  ``ctx["valid"]`` marks the tokens whose routed pairs
+    ``moe.counting_pairs`` counts."""
     x = apply_norm(p["ln_mlp"], h, cfg.norm, cfg.norm_eps)
     aux = 0.0
     if use_moe:
+        impl = ctx.get("moe_impl", "dense")
+        if cfg.experts_held and ctx["mode"] == "prefill":
+            impl = "pairs"
         y, aux = moe_lib.moe_apply(
-            p["moe"], x, cfg, mesh=ctx.get("mesh"),
-            impl=ctx.get("moe_impl", "dense"),
-            capacity_factor=ctx.get("moe_capacity_factor", 1.25))
+            p["moe"], x, cfg, mesh=ctx.get("mesh"), impl=impl,
+            capacity_factor=ctx.get("moe_capacity_factor", 1.25),
+            valid=ctx.get("valid"))
     else:
         y = mlp_apply(p["mlp"], x, cfg.act_fn)
     if post_norm:
@@ -248,7 +256,9 @@ def _mla_block(p, h, cache, ctx, cfg, *, use_moe: bool):
     Train attends over the segment's own latents; prefill writes the
     latent cache's first S slots; decode inserts one token per row at
     ``lengths`` (``ctx["cache_update"]``'s mode) and attends over the
-    slots below ``lengths + 1``."""
+    slots below ``lengths + 1``: over a dense cache with plain products,
+    over the paged latent pools (``ctx["cache_layout"] == "paged"``) in
+    the absorbed form through the ``paged_mla_decode`` kernel."""
     h = _constrain(ctx, h)
     x = apply_norm(p["ln_attn"], h, cfg.norm, cfg.norm_eps)
     if ctx["mode"] == "train":
@@ -259,6 +269,16 @@ def _mla_block(p, h, cache, ctx, cfg, *, use_moe: bool):
                                          positions=ctx["positions"], cfg=cfg)
         attn.cache_write_prefix(cache["ckv"], ckv)
         attn.cache_write_prefix(cache["kr"], kr)
+    elif ctx.get("cache_layout") == "paged":
+        lengths, tables = ctx["lengths"], ctx["block_tables"]
+        ckv_new, kr_new = mla_lib.mla_project_kv(p["attn"], x,
+                                                 ctx["positions"], cfg)
+        attn.paged_cache_insert(cache["ckv"], ckv_new, tables, lengths)
+        attn.paged_cache_insert(cache["kr"], kr_new, tables, lengths)
+        y = mla_lib.mla_decode_paged(
+            p["attn"], x, positions=ctx["positions"], cfg=cfg,
+            ckv_pages=cache["ckv"], kr_pages=cache["kr"],
+            block_tables=tables, lengths=lengths + 1)
     else:
         lengths = ctx["lengths"]
         mesh, rules = ctx.get("mesh"), ctx.get("rules")

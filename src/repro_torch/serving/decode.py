@@ -45,6 +45,20 @@ wrappers count a replay's launches from what the capture recorded
 (``kernels.ops.recording``).  Counters ``decode.graph_captures`` and
 ``decode.graph_replays`` count both, labelled by module.
 
+A decoder with MoE layers also counts, in each prefill and each tick,
+the (token, expert) pairs its live tokens route to the experts its
+weights hold, summed over the layers (``layers.moe.counting_pairs``):
+the graph's step ends in the picks and that count, so the tick's one
+read brings both, and a prefill reads it with its first token (a
+sampled eager tick reads it once more).  ``prefill`` and ``decode_tick``
+spans carry it as ``expert_pairs``, and the counter
+``moe.expert_pairs``, labelled by module, sums it.  They also carry
+``expert_rows``, the (token, expert) rows the held experts computed: a
+tick's every row through every held expert, a prefill's routed pairs
+alone.  (A prefill over held
+experts reads its MoE layers' segment lengths inside its dispatch:
+``layers.moe.moe_apply_routed``.)
+
 A tick's host phases are tracer scopes (``obs.trace.Tracer.scope``):
 ``s2m3.decode.admit`` around each admission's bookkeeping,
 ``s2m3.prefill.dispatch`` and ``s2m3.prefill.read`` around its prefill,
@@ -69,6 +83,7 @@ import torch
 from repro_torch.common.pytree import tree_leaves
 from repro_torch.core.routing import Request
 from repro_torch.kernels import ops
+from repro_torch.layers.moe import counting_pairs
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
 from repro_torch.serving.kvcache import PagePool, SlotPool, insert_pages
@@ -121,6 +136,13 @@ def pick_tokens(logits, live) -> tuple[dict[int, int], int]:
                 logits[row], seq.rng, temperature=seq.request.temperature))
             reads += 1
     return picks, reads
+
+
+def _total(counts):
+    """The summed pair count of what ``counting_pairs`` collected, 0-d
+    int32 on the device (None where no MoE layer ran)."""
+    return (torch.stack(counts.pairs).sum().to(torch.int32) if counts.pairs
+            else None)
 
 
 class _StepGraph:
@@ -217,7 +239,10 @@ class DecodeStream:
                                                 module=module)
         self._c_replays = self.metrics.counter("decode.graph_replays",
                                                module=module)
+        self._c_pairs = self.metrics.counter("moe.expert_pairs",
+                                             module=module)
         self._graph: _StepGraph | None = None
+        self._step_rows = 0
 
     # legacy counter attributes, now views over the metrics registry
     @property
@@ -344,13 +369,26 @@ class DecodeStream:
                                             torch.float32, self.rt.device)
         with scope("s2m3.prefill.dispatch") as disp:
             batch = self.engine.gen_batch(req.prompt, seq.enc_outputs)
-            logits, one = self.engine.apply_prefill(self.module, batch, one)
+            with counting_pairs() as pairs:
+                logits, one = self.engine.apply_prefill(self.module, batch,
+                                                        one)
             insert_pages(self.cache, one, pages, seq.length)
             seq.rng = rid_generator(seq.rid, logits.device)
         with scope("s2m3.prefill.read") as read:
-            seq.tokens.append(int(select_token(
-                logits[0], seq.rng, temperature=req.temperature)))
-        return disp, read
+            tok = select_token(logits[0], seq.rng,
+                               temperature=req.temperature)
+            n_pairs = _total(pairs)
+            experts = {}
+            if n_pairs is None:
+                seq.tokens.append(int(tok))
+            else:
+                tok, n_pairs = torch.stack([tok.to(torch.int32),
+                                            n_pairs]).tolist()
+                seq.tokens.append(tok)
+                self._c_pairs.inc(n_pairs)
+                experts = {"expert_pairs": n_pairs,
+                           "expert_rows": pairs.rows}
+        return disp, read, experts
 
     def _seq_done(self, seq: _GenSeq) -> bool:
         req = seq.request
@@ -367,7 +405,7 @@ class DecodeStream:
             if seq is None:
                 break
             try:
-                disp, read = self._prefill(seq)
+                disp, read, experts = self._prefill(seq)
             except Exception:
                 # a failed prefill must not strand the admitted row,
                 # its pages, or the worst-case reservation — the leak
@@ -379,7 +417,8 @@ class DecodeStream:
                 seq.timeline.append(self.tracer.record(
                     self.module, "prefill", disp.t0, read.t1, rid=seq.rid,
                     parent=seq.parent, prompt_tokens=len(seq.request.prompt),
-                    prefix_len=seq.length, dispatch_s=disp.dur, syncs=1))
+                    prefix_len=seq.length, dispatch_s=disp.dur, syncs=1,
+                    **experts))
                 self._c_prefills.inc()
                 if self._seq_done(seq):
                     with self._lock:
@@ -402,10 +441,17 @@ class DecodeStream:
 
     def _greedy_step(self, tokens, tables, lengths):
         """The step the graph holds: the paged decode step over every row,
-        then the batch's greedy picks, (rows,) int32."""
-        logits, _ = self.engine.apply_paged_decode(self.module, tokens,
-                                                   self.cache, tables, lengths)
-        return greedy(logits)
+        then the batch's greedy picks, (rows,) int32, and after them the
+        step's routed pairs where the decoder has MoE layers (the rows its
+        held experts compute, fixed by the shapes, kept in
+        ``_step_rows``)."""
+        with counting_pairs() as pairs:
+            logits, _ = self.engine.apply_paged_decode(
+                self.module, tokens, self.cache, tables, lengths)
+        self._step_rows = pairs.rows
+        picks = greedy(logits)
+        n_pairs = _total(pairs)
+        return picks if n_pairs is None else torch.cat([picks, n_pairs[None]])
 
     def _graph_step(self, rt, tokens, tables, lengths):
         """Fill the graph's inputs and replay it; at pointers the graph
@@ -459,27 +505,39 @@ class DecodeStream:
         rt = self.engine.decoder_runtime(self.module)
         graphed = self.graph_engages(rt, live)
         replayed = False
+        n_pairs = None
         with scope("s2m3.decode.dispatch") as disp:
             if graphed:
                 out, replayed = self._graph_step(rt, tokens, tables, lengths)
             else:
-                out, _ = self.engine.apply_paged_decode(
-                    self.module, torch.from_numpy(tokens), self.cache,
-                    torch.from_numpy(tables), torch.from_numpy(lengths))
+                with counting_pairs() as pairs:
+                    out, _ = self.engine.apply_paged_decode(
+                        self.module, torch.from_numpy(tokens), self.cache,
+                        torch.from_numpy(tables), torch.from_numpy(lengths))
         with scope("s2m3.decode.read") as read:
             if graphed:
                 top = out.tolist()
                 picks, reads = {row: top[row] for row, _ in live}, 1
+                if len(top) > len(tokens):
+                    n_pairs = top[-1]
             else:
                 picks, reads = pick_tokens(out, live)
+                if pairs.pairs:
+                    n_pairs = int(_total(pairs))
+                    self._step_rows = pairs.rows
+                    reads += 1
         with scope("s2m3.decode.retire"):
+            extra = {} if n_pairs is None else {
+                "expert_pairs": n_pairs, "expert_rows": self._step_rows}
+            if n_pairs is not None:
+                self._c_pairs.inc(n_pairs)
             for row, seq in live:
                 self.tracer.record(self.module, "decode_tick", disp.t0,
                                    read.t1, rid=seq.rid,
                                    parent=seq.decode_sid, rows=len(live),
                                    pages_live=pages_live,
                                    dispatch_s=disp.dur, syncs=reads,
-                                   graph=int(replayed))
+                                   graph=int(replayed), **extra)
             finished = []
             with self._lock:
                 for row, seq in live:

@@ -575,6 +575,13 @@ class ServeScheduler:
             # construction and head enqueue do their own locking).
             ready: list[tuple[_Stage, dict[str, Any], int]] = []
             for s, o in zip(batch, outs):
+                if len(batch) > 1 and self.engine.registry.models[
+                        s.request.model].head.generative:
+                    # a generative request holds its output until it
+                    # finishes: as a view it would hold its batch's whole
+                    # output (dots.vlm1's merger: 29 MB a request, 235 MB
+                    # a batch of 8) as long as the batch's longest answer
+                    o = o.clone()
                 with self._lock:
                     fl = self.inflight[s.rid]
                     root = fl.root_sid

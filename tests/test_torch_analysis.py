@@ -45,9 +45,12 @@ def test_zoo_kernel_sweep_is_error_free(sweep):
     assert not [d for d in sweep if d.severity == Severity.WARNING]
     summarised = {d.entity for d in sweep if d.code == "kernel/summary"}
     assert summarised == {c.name for c in cases}
-    # MLA launches no kernel: one INFO says so
-    assert any(d.code == "kernel/no-kernel"
-               and d.entity == "deepseek-v3-671b" for d in sweep)
+    # MLA's paged decode launches its own kernel: summarised, at phase
+    # 9's tick and the dots-vlm1 cell's 64 rows
+    for name in ("deepseek-v3-671b/paged-mla-decode",
+                 "deepseek-v3-671b/paged-mla-decode-64rows"):
+        assert any(d.code == "kernel/summary" and d.entity == name
+                   and "paged_mla_decode_kernel" in d.message for d in sweep)
 
 
 def test_every_reference_case_name_is_covered():

@@ -67,10 +67,18 @@ def _tokens(cfg, B, S, seed):
 
 
 def test_configs_match_reference():
+    """Field for field the reference's, and the port's own fields
+    (DeepSeek-V3's serving path, the image prefix's map) at the defaults
+    that keep its behaviour."""
+    from test_torch_mla import PORT_DEFAULTS
+
     for arch in ARCHS:
         for smoke in (False, True):
-            assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
-                dataclasses.asdict(ref_get_config(arch, smoke=smoke))
+            got = dataclasses.asdict(get_config(arch, smoke=smoke))
+            want = dataclasses.asdict(ref_get_config(arch, smoke=smoke))
+            assert {k: got[k] for k in want} == want
+            assert {k: v for k, v in got.items() if k not in want} == \
+                PORT_DEFAULTS
 
 
 def test_specs_param_count_and_stages_match_reference(models):

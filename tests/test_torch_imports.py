@@ -144,8 +144,9 @@ def test_kernel_wrappers_take_plain_version_for_cpu_tensors(monkeypatch):
                                ref.decode_attention_ref(q, k, k, lens),
                                rtol=0, atol=0)
     assert set(ops.LAUNCHES) == {"flash_attention", "decode_attention",
-                                 "paged_decode_attention", "ssd_intra_chunk",
-                                 "slstm_scan", "slstm_scan_s1"}
+                                 "paged_decode_attention", "paged_mla_decode",
+                                 "ssd_intra_chunk", "slstm_scan",
+                                 "slstm_scan_s1"}
     assert not any(ops.LAUNCHES.values())
 
 

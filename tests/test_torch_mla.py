@@ -7,7 +7,9 @@ Tolerances: float32 rtol = atol = 2e-4 (``TOLS`` of
 ``tests/test_kernels.py``: another summation order); greedy tokens
 exact; a decode step against a fresh prefill of the same tokens at 5e-4
 (``tests/test_models_smoke.py`` holds the reference to the same).  MLA
-runs no kernel in either package, so nothing here needs the card."""
+runs no kernel in the reference; the port's paged decode runs
+``paged_mla_decode``, whose plain version runs here, so nothing here
+needs the card."""
 
 import dataclasses
 
@@ -64,8 +66,10 @@ def model():
 @pytest.fixture(scope="module")
 def layer():
     """One smoke MLA layer's weights (the reference's init, bridged) and
-    inputs: x (2, 7, d) at positions 0..6."""
-    cfg = ref_get_config(ARCH, smoke=True)
+    inputs: x (2, 7, d) at positions 0..6; the port's config, which both
+    sides read (its fields are the reference's, and the port's own at
+    the defaults that keep its behaviour)."""
+    cfg = get_config(ARCH, smoke=True)
     from repro.layers.initializers import init_tree
 
     jp = init_tree(jax.random.PRNGKey(3), jmla.mla_specs(cfg))
@@ -76,11 +80,24 @@ def layer():
     return cfg, jp, tp, x, pos
 
 
+#: the port's own config fields (DeepSeek-V3's published router, held
+#: experts, YaRN; the image prefix's map) at the defaults that keep the
+#: reference's behaviour
+PORT_DEFAULTS = dict(moe_router="softmax", n_group=0, topk_group=0,
+                     routed_scaling_factor=1.0, experts_held=0,
+                     experts_offset=0, rope_yarn=None, image_proj=True)
+
+
 def test_configs_match_reference():
+    """Field for field the reference's, and the port's own fields at the
+    defaults that keep its behaviour."""
     for arch in (ARCH, "llama3-405b"):
         for smoke in (False, True):
-            assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
-                dataclasses.asdict(ref_get_config(arch, smoke=smoke))
+            got = dataclasses.asdict(get_config(arch, smoke=smoke))
+            want = dataclasses.asdict(ref_get_config(arch, smoke=smoke))
+            assert {k: got[k] for k in want} == want
+            assert {k: v for k, v in got.items() if k not in want} == \
+                PORT_DEFAULTS
 
 
 def test_mla_project_kv_matches_reference(layer):
@@ -143,7 +160,10 @@ def test_mla_attend_decode_over_partly_valid_cache(layer):
 def test_specs_and_param_tree_match_reference(model):
     """The parameter tree matches the reference's leaf for leaf, the MTP
     subtree included; the stages are the dense MLA stage then the moe
-    stage; the latent cache has no paged layout."""
+    stage; the latent cache pages (the reference's does not): each
+    stage's ckv and kr pools are (layers, n_pages, page_size, width), and
+    the page budget counts kv_lora_rank + qk_rope_dim floats a token and
+    layer."""
     cfg, jb, jp, tb, tp = model
     assert tb.param_count() == jb.param_count()
     init = tb.init(torch.Generator().manual_seed(0), device="cpu")
@@ -152,11 +172,17 @@ def test_specs_and_param_tree_match_reference(model):
     assert list(tp["stages"]) == ["dense", "moe"]
     assert set(tp["mtp"]) == {"proj", "norm_h", "norm_e", "block",
                               "final_norm"}
-    assert tb.paged_decode_step is None and not tb.supports_paged_decode
-    assert jb.supports_paged_decode == tb.supports_paged_decode
+    assert tb.supports_paged_decode and not jb.supports_paged_decode
+    pool = tb.paged_cache_specs(9, 8, torch.float32)
+    n_dense = cfg.first_dense_layers
+    for stage, n in (("dense", n_dense), ("moe", cfg.n_layers - n_dense)):
+        assert {k: ws.shape for k, ws in pool[stage].items()} == {
+            "ckv": (n, 9, 8, cfg.kv_lora_rank),
+            "kr": (n, 9, 8, cfg.qk_rope_dim)}
     cache = tb.cache_specs(1, 1, dtype=torch.float32)
     floats = sum(int(np.prod(ws.shape)) for ws in tree_leaves(cache))
     assert floats == cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+    assert tb.kv_bytes_per_token() == 4 * floats
 
 
 @pytest.mark.parametrize("arch,n_params,n_active", [
@@ -216,18 +242,23 @@ def test_decode_equals_fresh_prefill(model):
 
 
 def test_serve_launchers_give_the_reference_tokens(model):
-    """Three greedy requests through the port's ``serve_arch`` (the solo
-    ``Deployment.submit()`` path: MLA has no paged layout) and through
-    the reference launcher's path for such a model (``lm_scheduler`` →
-    ``engine.generate``): the same tokens."""
+    """Three greedy requests through the port's ``serve_arch``, which
+    serves MLA through the paged scheduler (the latent pools, the
+    absorbed decode's plain version on the CPU), and through the
+    reference launcher's path for such a model (``lm_scheduler`` →
+    ``engine.generate``, solo: the reference does not page MLA): the
+    same tokens."""
     from repro.serving.scheduler import lm_scheduler as ref_lm_scheduler
 
     cfg, jb, jp, tb, tp = model
     reqs = tserve.make_requests(cfg, 3, 6, prompt_lens=[9, 4, 7], seed=4)
     run = tserve.serve_arch(get_config(ARCH, smoke=True), reqs, device="cpu",
                             params=tp)
-    assert run.scheduler is None
-    assert run.decode_steps == sum(len(r.output) - 1 for r in run.results)
+    assert run.scheduler is not None
+    stats = run.scheduler.stats_dict()[cfg.name]
+    assert run.decode_steps == stats["decode_steps"] == 5
+    assert stats["decode_tokens"] == sum(len(r.output) - 1
+                                         for r in run.results)
     assert not any(run.launches.values())
     ref_engine = ref_lm_scheduler(jb, jp).engine
     for req, got in zip(reqs, run.results, strict=True):

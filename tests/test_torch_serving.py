@@ -95,6 +95,22 @@ def test_serve_tokens_equal_reference(served):
         np.testing.assert_array_equal(p.output, np.asarray(r.output))
 
 
+def test_a_generative_request_holds_its_own_encoder_output(both, served):
+    """A generative request keeps its encoder output until it finishes:
+    cut from a batched encoder call as a view, it would keep the whole
+    batch's output alive with it.  The encoder batched these requests,
+    and each output owns just its own bytes."""
+    _, port, _ = both
+    _, port_out = served
+    batches = [s.attrs["batch"] for s in port.scheduler.tracer.trace.spans
+               if s.phase == "encode"]
+    assert max(batches) > 1
+    for r in port_out:
+        out = r.encoder_outputs["vision"]
+        assert out.untyped_storage().nbytes() == \
+            out.numel() * out.element_size()
+
+
 def test_routes_and_stats_schema_match_reference(both, served):
     ref, port, cfg = both
     _, port_out = served
