@@ -1851,17 +1851,34 @@ def _mla_work(q_lat, lens, n_rows, pages_read) -> tuple[int, float]:
     return nbytes, 2.0 * H * live * (2 * r + rope)
 
 
+#: dots-vlm1.ocr's tick: 64 rows in tables of 200 pages of 16
+MLA_OCR_ROWS, MLA_OCR_PAGES = 64, 200
+
+
+def mla_ocr_lengths() -> list[int]:
+    """The lengths of dots-vlm1.ocr's tick: 36 of the 64 rows live (as
+    the cell's traced runs hold on average), 1,100-3,200 keys, spread
+    over the rows; the rest 0."""
+    live = sorted(set(range(0, MLA_OCR_ROWS, 16))
+                  | set(range(1, MLA_OCR_ROWS, 2)))[:36]
+    lens = [0] * MLA_OCR_ROWS
+    for i, row in enumerate(live):
+        lens[row] = 1100 + 60 * i
+    return lens
+
+
 def phase_kernels_mla(dev) -> tuple[list[dict], dict]:
     """MLA's absorbed paged decode (``paged_mla_decode``) against its
-    plain version, float32 (the kernel's only instance): one row at phase
-    9's deepseek-v3-671b tick (4 rows, H = 128, r = 512, rope = 64,
-    tables of 16 pages of 16, lengths across page boundaries: each
-    prompt's length plus half the new tokens, garbage table entries past
-    a row's pages), timed; and, checked besides, rows of length 0 and 1,
-    a page boundary +- 1 and a full table, and dots-vlm1.ocr's 64 rows
-    (28 live of 1,100-2,400 keys in 200 pages).  The library call is SDPA
-    over the row's keys gathered beforehand (ckv || kr as one kv head,
-    ckv as the value)."""
+    plain version, float32 (the kernel's only instance), each timed row
+    with its bound, plain and library columns: phase 9's deepseek-v3-671b
+    tick (4 rows, H = 128, r = 512, rope = 64, tables of 16 pages of 16,
+    lengths across page boundaries: each prompt's length plus half the
+    new tokens, garbage table entries past a row's pages) and
+    dots-vlm1.ocr's (``paged_mla_decode_ocr``: 64 rows, 36 live of
+    1,100-3,200 keys, 200 pages of 16; no path of this script runs it);
+    and, checked besides, rows of length 0 and 1, a page boundary +- 1
+    and a full table.  The library call is SDPA over the row's keys
+    gathered beforehand (ckv || kr as one kv head, ckv as the value)."""
     import torch
     import torch.nn.functional as F
 
@@ -1895,39 +1912,54 @@ def phase_kernels_mla(dev) -> tuple[list[dict], dict]:
                  f"row, lengths {lens}",
                  ops.paged_mla_decode(*args, scale=scale),
                  ref.paged_mla_decode_ref(*args, scale=scale))
-    for what, edge, nm in (
-            ("edges", [0, 1, PAGE - 1, PAGE, PAGE + 1, n_max * PAGE], n_max),
-            ("dots-vlm1.ocr's 64 rows", [1100 + 47 * i if i < 28 else 0
-                                         for i in range(64)], 200)):
-        eargs, _ = case(edge, nm)
-        _check("paged_mla_decode", "float32", what,
-               ops.paged_mla_decode(*eargs, scale=scale),
-               ref.paged_mla_decode_ref(*eargs, scale=scale))
-    q_lat, q_pe, ckv, kr, tables, lens_t = args
-    T_ = n_max * PAGE
-    idx = tables.long().clamp(0, ckv.shape[0] - 1)
-    keys = torch.cat([ckv[idx], kr[idx]], -1).reshape(len(lens), 1, T_,
-                                                      r + rope)
-    vals = ckv[idx].reshape(len(lens), 1, T_, r)
-    mask = (torch.arange(T_, device=dev)[None] < lens_t[:, None])[
-        :, None, None, :]
-    qq = torch.cat([q_lat, q_pe], -1)[:, :, None]
+    eargs, _ = case([0, 1, PAGE - 1, PAGE, PAGE + 1, n_max * PAGE], n_max)
+    _check("paged_mla_decode", "float32", "edges",
+           ops.paged_mla_decode(*eargs, scale=scale),
+           ref.paged_mla_decode_ref(*eargs, scale=scale))
+    ocr_lens = mla_ocr_lengths()
+    ocr_args, ocr_pages = case(ocr_lens, MLA_OCR_PAGES)
+    ocr_err = _check("paged_mla_decode", "float32",
+                     f"dots-vlm1.ocr's tick: {MLA_OCR_ROWS} rows, "
+                     f"{sum(n > 0 for n in ocr_lens)} live of 1,100-3,200 "
+                     f"keys, {MLA_OCR_PAGES} pages a row",
+                     ops.paged_mla_decode(*ocr_args, scale=scale),
+                     ref.paged_mla_decode_ref(*ocr_args, scale=scale))
 
-    def lib():
-        return F.scaled_dot_product_attention(qq, keys, vals, attn_mask=mask,
-                                              scale=scale, enable_gqa=True)
+    def sdpa(args):
+        """SDPA over each row's keys gathered beforehand, the row's heads
+        as the queries of its one key head (GQA's expansion would copy
+        the keys 128 times)."""
+        q_lat, q_pe, ckv, kr, tables, lens_t = args
+        T_ = tables.shape[1] * PAGE
+        idx = tables.long().clamp(0, ckv.shape[0] - 1)
+        keys = torch.cat([ckv[idx], kr[idx]], -1).reshape(len(lens_t), 1,
+                                                          T_, r + rope)
+        vals = ckv[idx].reshape(len(lens_t), 1, T_, r)
+        mask = (torch.arange(T_, device=dev)[None] < lens_t[:, None])[
+            :, None, None, :]
+        qq = torch.cat([q_lat, q_pe], -1)[:, None]
+        return lambda: F.scaled_dot_product_attention(
+            qq, keys, vals, attn_mask=mask, scale=scale)[:, 0]
 
     keys_ = {"paged_mla_decode": (DS_ARCH, "paged_mla_decode",
-                                  (len(lens), n_max, PAGE, H_, r, rope))}
+                                  (len(lens), n_max, PAGE, H_, r, rope)),
+             "paged_mla_decode_ocr": ((DS_ARCH,), "paged_mla_decode",
+                                      (MLA_OCR_ROWS, MLA_OCR_PAGES, PAGE, H_,
+                                       r, rope))}
     # device time: every kernel of a call (the kernel, and its split
     # merge where the row's keys split)
-    row = _row("paged_mla_decode", "csrc/mla_decode.cu",
-               "none (the JAX package runs MLA as plain products)",
-               "", err,
-               lambda: ops.paged_mla_decode(*args, scale=scale),
-               lambda: ref.paged_mla_decode_ref(*args, scale=scale),
-               lib, *_mla_work(q_lat, lens_t, len(lens), pages))
-    return [row], keys_
+    rows = []
+    for name, a, err_, n_pages, iters in (
+            ("paged_mla_decode", args, err, pages, 200),
+            ("paged_mla_decode_ocr", ocr_args, ocr_err, ocr_pages, 50)):
+        rows.append(_row(
+            name, "csrc/mla_decode.cu",
+            "none (the JAX package runs MLA as plain products)", "", err_,
+            lambda a=a: ops.paged_mla_decode(*a, scale=scale),
+            lambda a=a: ref.paged_mla_decode_ref(*a, scale=scale),
+            sdpa(a), *_mla_work(a[0], a[5], len(a[5]), n_pages),
+            iters=iters))
+    return rows, keys_
 
 
 def _tile_work(q, tables, lens, tile, ps_loc, P_loc, K_, D_, isz,

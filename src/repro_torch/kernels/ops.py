@@ -99,10 +99,22 @@ DECODE_MAX_SPLITS = 256
 DECODE_BLOCKS_PER_SM = 2
 
 #: MLA's paged decode kernel: the latent and rotary widths it is built
-#: for (DeepSeek-V3's kv_lora_rank and qk_rope_dim), the heads a block,
+#: for (DeepSeek-V3's kv_lora_rank and qk_rope_dim), the heads a block
+#: (the last block of an H % 32 == 16 holds 16, its upper warps idle),
 #: the fewest keys a split keeps, the blocks an SM holds, its most splits
-MLA_RANK, MLA_ROPE, MLA_HEADS_PER_BLOCK = 512, 64, 16
-MLA_MIN_KEYS, MLA_BLOCKS_PER_SM, MLA_MAX_SPLITS = 64, 2, 64
+MLA_RANK, MLA_ROPE, MLA_HEADS_PER_BLOCK = 512, 64, 32
+MLA_HEAD_MULTIPLE = MLA_HEADS_PER_BLOCK // 2
+MLA_MIN_KEYS, MLA_BLOCKS_PER_SM, MLA_MAX_SPLITS = 64, 1, 64
+#: its threads a block and dynamic shared memory (``csrc/mla_decode.cu``:
+#: the block's queries, a ring of two 32-key tiles, the tile's scores and
+#: probabilities, the rescale factors and final sums, in floats)
+MLA_KEYS_PER_TILE = 32
+MLA_THREADS = 256
+MLA_SMEM = 4 * (MLA_HEADS_PER_BLOCK * (MLA_RANK + MLA_ROPE)
+                + 2 * MLA_KEYS_PER_TILE * (MLA_RANK + MLA_ROPE)
+                + MLA_HEADS_PER_BLOCK * (MLA_KEYS_PER_TILE + 4)
+                + MLA_KEYS_PER_TILE * (MLA_HEADS_PER_BLOCK + 4)
+                + 2 * MLA_HEADS_PER_BLOCK)
 
 #: the sLSTM prefill kernel: the largest cluster (blocks a head; 16 is a
 #: non-portable size that Hopper allows), the 32-row slots of R a lane
@@ -676,20 +688,21 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
 
 def mla_splits(T, B, H, n_sm) -> int:
     """The splits of a row's keys in MLA's paged decode, whose grid is
-    (n_split, H / 16, B): enough blocks to fill ``MLA_BLOCKS_PER_SM`` an
-    SM eight times over (a tick's dead rows' blocks end at once, and
-    more, shorter blocks even out the live rows' waves: 0.96 ms at 8
-    splits against 1.14 at 2 for 28 live rows of ~1,600 keys in 64 on an
-    H100), each split keeping ``MLA_MIN_KEYS`` of a full row's T keys (at
-    most ``MLA_MAX_SPLITS``).  Static shapes only, as
+    (n_split, ceil(H / 32), B): enough blocks to fill
+    ``MLA_BLOCKS_PER_SM`` an SM eight times over (a tick's dead rows'
+    blocks end at once, and more, shorter blocks even out the live rows'
+    waves: at dots-vlm1.ocr's tick on an H100 this rule's 5 splits take
+    0.787 ms, 4 to 10 splits within 2.5 % of that, 2 splits 0.931 and 1
+    split 1.207), each split keeping ``MLA_MIN_KEYS`` of a full row's T
+    keys (at most ``MLA_MAX_SPLITS``).  Static shapes only, as
     ``decode_splits``."""
-    blocks = B * (H // MLA_HEADS_PER_BLOCK)
+    blocks = B * -(-H // MLA_HEADS_PER_BLOCK)
     want = -(-8 * MLA_BLOCKS_PER_SM * n_sm // max(blocks, 1))
     return max(1, min(want, T // MLA_MIN_KEYS, MLA_MAX_SPLITS))
 
 
 def mla_grid(B, H, n_split) -> tuple[int, int, int]:
-    return n_split, H // MLA_HEADS_PER_BLOCK, B
+    return n_split, -(-H // MLA_HEADS_PER_BLOCK), B
 
 
 def _mla_ws_bytes(B, H, r, n_split) -> int:
@@ -705,7 +718,7 @@ def paged_mla_decode(q_lat, q_pe, ckv_pages, kr_pages, block_tables,
     ckv_pages (P, page_size, r), kr_pages (P, page_size, rope),
     block_tables (B, n_max) int32, lengths (B,) int32.  Returns (B,H,r).
     The kernel is float32 at r = ``MLA_RANK``, rope = ``MLA_ROPE`` and H
-    a multiple of ``MLA_HEADS_PER_BLOCK``; its splits come from static
+    a multiple of ``MLA_HEAD_MULTIPLE``; its splits come from static
     shapes, so a CUDA graph can hold the call."""
     name = "paged_mla_decode"
     _no_dtensor(name, (q_lat, q_pe, ckv_pages, kr_pages, block_tables,
@@ -737,11 +750,11 @@ def paged_mla_decode(q_lat, q_pe, ckv_pages, kr_pages, block_tables,
     _contiguous(name, {"q_lat": q_lat, "q_pe": q_pe, "ckv_pages": ckv_pages,
                        "kr_pages": kr_pages, "block_tables": block_tables,
                        "lengths": lengths})
-    if (r, rope) != (MLA_RANK, MLA_ROPE) or H % MLA_HEADS_PER_BLOCK or \
+    if (r, rope) != (MLA_RANK, MLA_ROPE) or H % MLA_HEAD_MULTIPLE or \
             q_lat.dtype != torch.float32:
         raise NoPlanError(
             f"{name}: the kernel takes float32 at r={MLA_RANK}, "
-            f"rope={MLA_ROPE} and H a multiple of {MLA_HEADS_PER_BLOCK}; "
+            f"rope={MLA_ROPE} and H a multiple of {MLA_HEAD_MULTIPLE}; "
             f"got {q_lat.dtype} r={r} rope={rope} H={H}")
     n_max = block_tables.shape[1]
     n_split = mla_splits(n_max * ps, B, H, sm_count(dev))

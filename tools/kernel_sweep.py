@@ -13,6 +13,10 @@
         > build/ab/flash_attention_old.cu
     python3 tools/kernel_sweep.py --parts flash_ab,flash \\
         --old-flash build/ab/flash_attention_old.cu
+    git show <commit>:src/repro_torch/csrc/mla_decode.cu \\
+        > build/ab/mla_decode_old.cu
+    python3 tools/kernel_sweep.py --parts mla \\
+        --old-mla build/ab/mla_decode_old.cu --old-mla-splits 5,4
 
 From the root of a checkout, on a machine with the card and ``nvcc``:
 
@@ -66,6 +70,16 @@ From the root of a checkout, on a machine with the card and ``nvcc``:
    and KW in {1, 2, 4} warps on a row group's keys (8 warps a block at
    most), each held to the plain version and timed at each head dim's
    call (``FLASH_CALLS``), with each instance's registers and spills.
+
+8. MLA (``--parts mla``, ``--old-mla``, ``--old-mla-splits``): an
+   earlier ``mla_decode.cu`` (the package's C interface) at the split
+   counts its own commit's ``ops.mla_splits`` gave against the
+   package's, launched directly in turns (old, new, new, old) at
+   dots-vlm1.ocr's tick (64 rows of which 36 hold 1,100-3,200 keys, 200
+   pages of 16) and chip_smoke's phase-9 tick (4 rows, 16 pages): device
+   time of both kernels, the distance from the plain version, the share
+   of the operations' bound; then the package's kernel over its split
+   count at the ocr tick.
 
 Each ``--old-*`` source is needed only by the part that uses it.
 
@@ -782,6 +796,137 @@ def flash_ab(old_src: Path, dev, alts: dict[str, Path]) -> None:
                sdpa_device_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+#: MLA's paged decode: H, r, rope, the score scale (DeepSeek-V3's), and
+#: the ticks it is timed at: (name, lengths, pages a row)
+MLA_H, MLA_R, MLA_ROPE, MLA_SCALE = 128, 512, 64, (128 + 64) ** -0.5
+
+
+def mla_ticks():
+    """chip_smoke's two timed MLA ticks: dots-vlm1.ocr's
+    (``paged_mla_decode_ocr``) and phase 9's (``paged_mla_decode``)."""
+    import chip_smoke as cs
+
+    phase9 = [n + cs.FAM_NEW // 2
+              for n in cs.prompt_lens(cs.FAM_PROMPTS, cs.FAM_REQS)]
+    return (("ocr", cs.mla_ocr_lengths(), cs.MLA_OCR_PAGES),
+            ("phase9", phase9, cs.FAM_CACHE[cs.L405_ARCH] // cs.PAGE))
+
+
+def mla_inputs(g, dev, lens, n_max):
+    """A pool of len(lens) rows' pages of 16 (page ids shuffled, garbage
+    table entries past a row's pages), the queries, and the pages the
+    live keys lie in."""
+    import torch
+
+    B, ps = len(lens), 16
+    P = B * n_max + 1
+    q_lat = torch.randn(B, MLA_H, MLA_R, generator=g, device=dev)
+    q_pe = torch.randn(B, MLA_H, MLA_ROPE, generator=g, device=dev)
+    ckv = torch.randn(P, ps, MLA_R, generator=g, device=dev)
+    kr = torch.randn(P, ps, MLA_ROPE, generator=g, device=dev)
+    perm = torch.randperm(P - 1, generator=g, device=dev) + 1
+    tables = perm[:B * n_max].reshape(B, n_max).to(torch.int32)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    junk = torch.randint(-50, P + 50, (B, n_max), generator=g, device=dev,
+                         dtype=torch.int32)
+    owned = torch.arange(n_max, device=dev)[None] * ps < lens_t[:, None]
+    tables = torch.where(owned, tables, junk).contiguous()
+    return (q_lat, q_pe, ckv, kr, tables, lens_t), int(owned.sum())
+
+
+def mla_call(lib, args, n_split):
+    """A direct launch of ``lib``'s ``paged_mla_decode_fwd`` at n_split
+    splits into a fresh output; returns (call, output)."""
+    import torch
+
+    q_lat, q_pe, ckv, kr, tables, lens = args
+    B, H, r = q_lat.shape
+    P, ps, rope = kr.shape
+    o = torch.empty_like(q_lat)
+    ws = torch.empty(max(B * H * n_split * (r + 2), 1), device=q_lat.device)
+
+    def call():
+        err = lib.paged_mla_decode_fwd(
+            q_lat.data_ptr(), q_pe.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
+            tables.data_ptr(), lens.data_ptr(), o.data_ptr(), ws.data_ptr(),
+            B, H, r, rope, P, ps, tables.shape[1], n_split, MLA_SCALE,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+    return call, o
+
+
+def mla_ab(old_src: Path, old_splits: list[int], dev) -> None:
+    """The earlier source at the split counts its own commit's
+    ``ops.mla_splits`` gave at each tick (``old_splits``, in
+    ``mla_ticks``' order) against the package's at its own."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+
+    old = build_lib(old_src, "mla_decode_old")
+    for fn, argtypes in build.LIBRARIES["mla_decode"][1].items():
+        getattr(old, fn).argtypes = argtypes
+        getattr(old, fn).restype = ctypes.c_int
+    new = build.load("mla_decode")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(SEED + 34)
+    for (name, lens, n_max), n_old in zip(mla_ticks(), old_splits):
+        libs = {"old": (old, n_old),
+                "new": (new, ops.mla_splits(n_max * 16, len(lens), MLA_H,
+                                            n_sm))}
+        args, pages = mla_inputs(g, dev, lens, n_max)
+        want = ref.paged_mla_decode_ref(*args, scale=MLA_SCALE)
+        b_ms, b_by = cs.bound(*cs._mla_work(args[0], args[5], len(lens),
+                                            pages), "float32")
+        calls, errs, splits = {}, {}, {}
+        for version, (lib, n_split) in libs.items():
+            splits[version] = n_split
+            calls[version], o = mla_call(lib, args, n_split)
+            calls[version]()
+            torch.cuda.synchronize()
+            errs[version] = cs._within(o, want, "float32")
+        dv: dict[str, list] = {v: [] for v in calls}
+        for version in list(calls) + list(calls)[::-1]:
+            dv[version].append(cs.device_ms(calls[version], "", 50))
+        for version in calls:
+            record("mla_ab", tick=name, version=version,
+                   n_split=splits[version], device_ms=min(dv[version]),
+                   device_turns=[round(x, 5) for x in dv[version]],
+                   roofline_pct=100 * b_ms / min(dv[version]),
+                   max_abs_err=errs[version][0],
+                   of_tolerance=errs[version][1])
+        record("mla_ab_bound", tick=name, bound_ms=b_ms, bound_by=b_by,
+               live_keys=int(args[5].sum()))
+
+
+def mla_split_sweep(dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops, ref
+
+    lib = build.load("mla_decode")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(SEED + 35)
+    name, lens, n_max = mla_ticks()[0]
+    args, pages = mla_inputs(g, dev, lens, n_max)
+    want = ref.paged_mla_decode_ref(*args, scale=MLA_SCALE)
+    b_ms, _ = cs.bound(*cs._mla_work(args[0], args[5], len(lens), pages),
+                       "float32")
+    chosen = ops.mla_splits(n_max * 16, len(lens), MLA_H, n_sm)
+    for n_split in (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 24):
+        call, o = mla_call(lib, args, n_split)
+        call()
+        torch.cuda.synchronize()
+        ms = cs.device_ms(call, "", 50)
+        record("mla_splits", tick=name, n_split=n_split,
+               chosen=n_split == chosen, device_ms=ms,
+               roofline_pct=100 * b_ms / ms,
+               max_abs_err=cs._within(o, want, "float32")[0])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-slstm", type=Path,
@@ -797,6 +942,12 @@ def main() -> int:
                     metavar="NAME=PATH",
                     help="a variant flash_attention.cu with the package's "
                          "interface, timed beside it (part flash_ab)")
+    ap.add_argument("--old-mla", type=Path,
+                    help="an earlier mla_decode.cu, timed against the "
+                         "package's in turns (part mla)")
+    ap.add_argument("--old-mla-splits",
+                    help="OCR,PHASE9: the splits the earlier source's own "
+                         "ops.mla_splits gave at the two ticks (part mla)")
     ap.add_argument("--alt-slstm", action="append", default=[],
                     metavar="NAME=PATH",
                     help="a variant slstm_scan.cu with the package's "
@@ -806,12 +957,13 @@ def main() -> int:
                     help="a variant ssd_scan.cu with the package's "
                          "interface, timed beside it (part ssd)")
     ap.add_argument("--parts",
-                    default="ab,prefill,barrier,paged,ssd,flash_ab,flash",
+                    default="ab,prefill,barrier,paged,ssd,flash_ab,flash,mla",
                     help="comma-separated sections to run (default: all)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     for part, src in (("ab", "old_slstm"), ("ssd", "old_ssd"),
-                      ("flash_ab", "old_flash")):
+                      ("flash_ab", "old_flash"), ("mla", "old_mla"),
+                      ("mla", "old_mla_splits")):
         if part in parts and getattr(args, src) is None:
             ap.error(f"part {part} needs --{src.replace('_', '-')}")
     alts = {k: Path(v) for k, v in (a.split("=", 1) for a in args.alt_slstm)}
@@ -848,6 +1000,10 @@ def main() -> int:
         ssd_tile_sweep(dev)
         if ssd_alts:
             ssd_variants(dev, ssd_alts)
+    if "mla" in parts:
+        mla_ab(args.old_mla,
+               [int(n) for n in args.old_mla_splits.split(",")], dev)
+        mla_split_sweep(dev)
     return 0
 
 
